@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-1. Prints the card's name and power limit, builds the three CUDA kernels
-   from src/repro_torch/csrc and prints the build time.
-2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at the shapes falcon3-1b's serving path gives it, and times both
-   (plus a PyTorch library call of the same work as a yardstick).
-3. Slice phase: builds falcon3-1b at full width and depth from a seeded
-   generator (LoRA B factors filled with small seeded values), packs it,
-   and serves 6 prompts x 32 tokens with max_new_tokens=96 through
-   Engine.generate (hot_cap=32, max_len=128, 6 slots). Checks that every
-   kernel launched, no weight was reloaded, each sequence's DR-traffic
-   ledger equals the closed form for S=128 / 32 hot tokens, and the greedy
-   tokens, prefill logits and first-step logits equal those of the same
-   run on the plain versions.
-4. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+1. Prints the card's name and power limit, builds the four CUDA kernel
+   sources from src/repro_torch/csrc (one nvcc each, in parallel) and
+   prints the build time.
+2. Kernel phases: hold each kernel form against its plain PyTorch version
+   on the card at the shapes the serving paths give it, and time both
+   (plus a PyTorch library call of the same work as a yardstick):
+   the act-quant ternary matmul (falcon3-1b's projections, and its expert
+   form at DeepSeek-V3's E = 256, C = 1 / 8), the fused-RoPE GQA decode,
+   the fresh flash prefill (GQA, and its MLA form at q/k (6, s, 128, 192),
+   v (6, s, 128, 128)), and the MLA latent decode (b = 6, h = 128, rows of
+   576, values of 512; f32 and bf16 tiers, masked rows NaN-filled).
+3. falcon3-1b: full width and depth from a seeded generator (LoRA B
+   factors filled with small seeded values), packed, serving 6 prompts x
+   32 tokens with max_new_tokens=96 through Engine.generate (hot_cap=32,
+   max_len=128, 6 slots). Checks that every kernel of its path launched,
+   no weight was reloaded, each sequence's DR-traffic ledger equals the
+   closed form for S=128 / 32 hot tokens, and the greedy tokens, prefill
+   logits and first-step logits equal those of the same run on the plain
+   versions.
+4. deepseek-v3-671b-l5: DeepSeek-V3 at full width, 3 dense + 2 MoE layers
+   (the routed experts drawn and packed one at a time from seed 0), serving
+   6 prompts x (32 + 32) tokens (hot_cap=32, max_len=128, 6 slots: rows
+   33-64 come from the cold tier). Same checks against its plain run: the
+   four kernels of its path launched, greedy tokens equal on 6/6 rows,
+   every row's ledger equal to the closed form for S=64 / 32 hot tokens,
+   no weight reloaded; prints peak device memory and each phase's time.
+5. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero. Run from the
 repository root with no arguments: python3 chip_smoke.py
@@ -326,6 +339,192 @@ def kernel3_phase(torch, gen, theta):
 
 
 # ---------------------------------------------------------------------------
+# kernel 1, expert form: DeepSeek-V3's routed experts in one launch
+# ---------------------------------------------------------------------------
+
+EXPERT_SHAPES = ((7168, 4096), (2048, 7168))  # w_gate‖w_up, w_down (K, N)
+
+
+def kernel1_expert_phase(torch, gen):
+    from repro_torch.kernels import ternary_matmul as tm
+
+    e = 256
+
+    def operands(c, k, n, dtype=torch.float32):
+        x = (torch.randn((e, c, k), generator=gen, device="cuda") * 3).to(dtype)
+        packed = torch.randint(0, 256, (e, k // 4, n), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        col = torch.rand((e, n), generator=gen, device="cuda") + 0.01
+        return x, packed, col
+
+    worst, cases = 0.0, 0
+    for c in (1, 8):
+        for k, n in EXPERT_SHAPES:
+            for dtype in ((torch.float32, torch.bfloat16) if c == 1 else (torch.float32,)):
+                x, p, col = operands(c, k, n, dtype)
+                got = tm.ternary_matmul_expert(x, p, col, k=k)
+                ref = tm.ternary_matmul_expert(x, p, col, k=k, impl="plain")
+                torch.cuda.synchronize()
+                worst = max(worst, max_err(got, ref))
+                cases += 1
+                check(torch.equal(got, ref), f"ternary_matmul_expert not bit-identical: "
+                                             f"E={e} C={c} K={k} N={n} {dtype}")
+    print(f"ternary_matmul_expert: bit-identical to plain on {cases} cases "
+          "(E=256, C=1/8, w_gu and w_down shapes, f32 + bf16 at C=1)")
+
+    # timing: one MoE layer's two expert launches at decode (C = 1, f32)
+    layer = [operands(1, k, n) for k, n in EXPERT_SHAPES]
+
+    def run(fn):
+        return lambda: [fn(x, p, col, k) for (k, _), (x, p, col) in zip(EXPERT_SHAPES, layer)]
+
+    ms, _ = timed("kernel", run(lambda x, p, col, k: tm.ternary_matmul_expert(x, p, col, k=k)),
+                  only="actq_kernel")
+    plain_ms, _ = timed("plain", run(lambda x, p, col, k: tm.ternary_matmul_expert(
+        x, p, col, k=k, impl="plain")), iters=2)
+    dense = [(x.to(torch.bfloat16), torch.randn((e, k, n), generator=gen, device="cuda",
+                                                dtype=torch.bfloat16))
+             for (k, n), (x, _, _) in zip(EXPERT_SHAPES, layer)]
+    library_ms, _ = timed("bf16 torch.bmm", lambda: [torch.bmm(xb, w) for xb, w in dense],
+                          iters=5)
+    del dense
+    torch.cuda.empty_cache()
+    n_bytes = sum(e * (k * 4 + k // 4 * n + n * 4 + n * 4) for k, n in EXPERT_SHAPES)
+    ops = sum(2 * e * k * n for k, n in EXPERT_SHAPES)
+    b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS)
+    print(f"ternary_matmul_expert MoE layer (2 launches, E=256, C=1, pack2, f32 x): kernel "
+          f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bf16 bmm {library_ms:.5f} ms, bound "
+          f"{b_ms:.5f} ms ({n_bytes} B / 3.35 TB/s)")
+    for k, n in EXPERT_SHAPES:  # prefill: C = 8 (6 prompts x 32 tokens, top-8 of 256)
+        x, p, col = operands(8, k, n)
+        t = device_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k), only="actq_kernel")
+        t = time_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k)) if t is None else t
+        nb = e * (8 * k * 4 + k // 4 * n + n * 4 + 8 * n * 4)
+        print(f"ternary_matmul_expert prefill E=256 C=8 K={k} N={n}: kernel {t:.5f} ms, "
+              f"bound {bound_ms(nb, 2 * e * 8 * k * n, INT8_OPS)[0]:.5f} ms")
+    return dict(name="ternary_matmul_actq_expert", route="cuda",
+                source="src/repro_torch/csrc/ternary_matmul_actq.cu",
+                replaces="src/repro/kernels/ternary_matmul.py:381", max_abs_err=worst,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3, MLA form: rope_dims 64 of 192, dv 128, g = h = 128, no emit
+# ---------------------------------------------------------------------------
+
+
+def kernel3_mla_phase(torch, gen, theta):
+    from repro_torch.kernels import flash_prefill as fp
+
+    b, h, dk, dv, rd = 6, 128, 192, 128, 64
+
+    def case(s, dtype):
+        q = torch.randn((b, s, h, dk), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, s, h, dk), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, s, h, dv), generator=gen, device="cuda").to(dtype)
+        return q, k, v
+
+    kw = dict(rope_theta=theta, rope_dims=rd, emit_kv=False, scale=dk ** -0.5)
+    worst = 0.0
+    for s, dtype in ((32, torch.float32), (77, torch.float32), (32, torch.bfloat16)):
+        q, k, v = case(s, dtype)
+        valid = torch.tensor([s, s - 5, 0, s, 1, s], dtype=torch.int32, device="cuda")
+        got = fp.flash_prefill_attention(q, k, v, valid=valid, **kw)
+        ref = fp.flash_prefill_attention(q, k, v, valid=valid, impl="plain", **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, max_err(got, ref))
+        check(torch.equal(got, ref), f"flash_prefill MLA form not bit-identical (s={s}, {dtype})")
+    print("flash_prefill MLA form: bit-identical to plain at s=32/77 (f32) and 32 (bf16)")
+
+    s = 32
+    q, k, v = case(s, torch.float32)
+    ms, _ = timed("kernel", lambda: fp.flash_prefill_attention(q, k, v, **kw),
+                  only="prefill_kernel")
+    plain_ms, _ = timed("plain", lambda: fp.flash_prefill_attention(q, k, v, impl="plain", **kw),
+                        iters=5)
+    qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+    n_bytes = 4 * b * s * h * (2 * dk + 2 * dv) + 4 * b
+    ops = 2 * b * h * (dk + dv) * s * (s + 1) // 2
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"flash_prefill MLA (b=6, s=32, h=128, f32): kernel {ms:.5f} ms, plain {plain_ms:.5f} "
+          f"ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms ({n_bytes} B / 3.35 TB/s)")
+    return dict(name="flash_prefill_mla", route="cuda",
+                source="src/repro_torch/csrc/flash_prefill.cu",
+                replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: MLA absorbed latent decode
+# ---------------------------------------------------------------------------
+
+
+def latent_case(torch, gen, lengths, dtype, b=6, h=128, d=576, hot=32, cold=96):
+    from repro_torch.core import kv_cache as kvc
+
+    cache = kvc.init_cache(b, hot, cold, (d,), v_shape=(0,), device="cuda")
+    cache = cache._replace(hot_k=torch.randn(cache.hot_k.shape, generator=gen, device="cuda"),
+                           cold_k=torch.randn(cache.cold_k.shape, generator=gen, device="cuda"),
+                           lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+    # rows at or past each slot's length hold NaN: neither version may read them
+    hot_valid, cold_valid = kvc.valid_masks(cache)
+    cache = cache._replace(
+        hot_k=torch.where(hot_valid[..., None], cache.hot_k, float("nan")).to(dtype),
+        cold_k=torch.where(cold_valid[..., None], cache.cold_k, float("nan")).to(dtype))
+    q = torch.randn((b, h, d), generator=gen, device="cuda")
+    return q, cache
+
+
+def kernel8_phase(torch, gen):
+    from repro_torch.kernels import flash_decode as fd
+
+    scale, dv = 192 ** -0.5, 512
+    worst, bitwise_bf16 = 0.0, True
+    for dtype in (torch.float32, torch.bfloat16):
+        for lengths in ([0, 1, 17, 31, 32, 20], [33, 64, 80, 100, 127, 128], [0] * 6):
+            q, cache = latent_case(torch, gen, lengths, dtype)
+            got = fd.flash_decode_attention_latent(q, cache, dv, scale)
+            ref = fd.flash_decode_attention_latent(q, cache, dv, scale, impl="plain")
+            torch.cuda.synchronize()
+            check(torch.isfinite(got).all(), "latent decode output not finite (read a masked row?)")
+            zero = torch.tensor(lengths, device="cuda") == 0
+            check(not got[zero].any(), "length-0 slot not zero")
+            if dtype == torch.float32:
+                worst = max(worst, max_err(got, ref))
+                check(torch.equal(got, ref), f"latent decode not bit-identical (f32, {lengths})")
+            else:
+                check(torch.allclose(got, ref, **TOL), f"latent decode off plain (bf16, {lengths})")
+                bitwise_bf16 &= bool(torch.equal(got, ref))
+    print(f"flash_decode_latent: bit-identical to plain in f32 (hot only, hot + cold, length 0); "
+          f"bf16 tiers bit-identical: {bitwise_bf16}")
+
+    length = 80  # the main path's middle state: every slot at length 80
+    q, cache = latent_case(torch, gen, [length] * 6, torch.float32)
+    ms, _ = timed("kernel", lambda: fd.flash_decode_attention_latent(q, cache, dv, scale),
+                  only="latent_kernel")
+    plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention_latent(
+        q, cache, dv, scale, impl="plain"))
+    rows = torch.cat([cache.hot_k, cache.cold_k[:, : length - 32]], 1)  # (b, 80, 576)
+    kh = rows[:, None].expand(6, 128, length, 576).contiguous()
+    vh = rows[:, None, :, :dv].expand(6, 128, length, dv).contiguous()
+    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kh, vh, scale=scale))
+    b, h, d = 6, 128, 576
+    n_bytes = b * h * d * 4 + b * length * d * 4 + 4 * b + b * h * dv * 4
+    ops = 2 * b * h * length * (d + dv)
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"flash_decode_latent (b=6, h=128, length 80, f32): kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms by {b_by} "
+          f"({n_bytes} B, {ops} FLOP)")
+    return dict(name="flash_decode_latent", route="cuda",
+                source="src/repro_torch/csrc/flash_latent.cu",
+                replaces="src/repro/kernels/flash_decode.py:579", max_abs_err=worst,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
 # slice phase: falcon3-1b served end to end
 # ---------------------------------------------------------------------------
 
@@ -405,15 +604,78 @@ def slice_phase(torch, kernels):
     return launches, 6 * 96 / wall
 
 
-def breakdown(torch, eng, prompts):
+def deepseek_phase(torch, kernels):
+    """deepseek-v3-671b-l5 (full width, 3 dense + 2 MoE layers) served end
+    to end and held against its plain run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dr_edram
+    from repro_torch.models import transformer as T
+    from repro_torch.models.pack import pack_params
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("deepseek-v3-671b-l5")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed = pack_params(T.init_params(cfg, seed=0, device="cuda"), cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"deepseek-v3-671b-l5: init + pack {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, init peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (6, 32)).astype(np.int32)
+    kw = dict(hot_cap=32, max_len=128, slots=6)
+    eng = Engine(cfg, packed, **kw)
+    t0 = time.perf_counter()
+    eng.generate(prompts[:, :8], max_new_tokens=2)  # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    print(f"warm-up generate 6 x (8 + 2): {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kern.symbol: kern.launches for kern in kernels}
+    tokens = res.tokens.numpy()
+    print(f"deepseek-v3-671b-l5 generate 6 x (32 + 32): {wall:.3f} s, {6 * 32 / wall:.1f} "
+          f"tokens/s, launches {launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(tokens.shape == (6, 32) and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+          "generated tokens out of range or short")
+    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    check(eng.weight_loads == 0, "weights were reloaded")
+    closed = dr_edram.closed_form_reduction(64, 32)
+    for f in res.finished:
+        check(f.seq_len == 64, f"row {f.rid} seq_len {f.seq_len}")
+        check(abs(f.external_reduction - closed) <= 1e-12,
+              f"row {f.rid} external_reduction {f.external_reduction} != {closed}")
+    print(f"DR ledger: every row external_reduction = {res.finished[0].external_reduction!r} "
+          f"(closed form {closed!r}), weight_loads = {eng.weight_loads}")
+
+    cfg_plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
+    t0 = time.perf_counter()
+    res_p = Engine(cfg_plain, packed, **kw).generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    same = int((res_p.tokens.numpy() == tokens).all(axis=1).sum())
+    print(f"plain run: {time.perf_counter() - t0:.2f} s; greedy tokens equal on {same}/6 rows")
+    check(same == 6, f"greedy tokens differ from the plain run ({same}/6 rows equal)")
+    breakdown(torch, eng, prompts, label="deepseek-v3-671b-l5", new=8)
+    return launches, 6 * 32 / wall
+
+
+def breakdown(torch, eng, prompts, label="falcon3-1b", new=16):
     """Where a generate's time goes: device busy share and the kernels
     that take the most device time, from a torch.profiler trace of one
-    6 x (32 + 16) generate (prefill plus 16 decode steps)."""
+    6 x (32 + new) generate (prefill plus ``new`` decode steps)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=16)
+        eng.generate(prompts, max_new_tokens=new)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = sorted(prof.key_averages(), key=_device_us, reverse=True)
@@ -421,7 +683,7 @@ def breakdown(torch, eng, prompts):
     if busy <= 0:
         print("breakdown: device time not measured (the trace holds none)")
         return
-    print(f"breakdown of one 6 x (32 + 16) generate: wall {wall:.2f} ms, device busy "
+    print(f"breakdown of one {label} 6 x (32 + {new}) generate: wall {wall:.2f} ms, device busy "
           f"{busy:.2f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
     for e in events[:8]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
@@ -430,6 +692,7 @@ def breakdown(torch, eng, prompts):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -462,13 +725,36 @@ def main() -> int:
 
     theta = get_config("falcon3-1b").rope_theta
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [kernel1_phase(torch, gen), kernel2_phase(torch, gen, theta),
-            kernel3_phase(torch, gen, theta)]
-    kernels = [ternary_matmul.KERNEL, flash_decode.KERNEL, flash_prefill.KERNEL]
-    launches, tok_s = slice_phase(torch, kernels)
-    for row, kern in zip(rows, kernels):
+    phases = [("kernel 1", lambda: kernel1_phase(torch, gen)),
+              ("kernel 2", lambda: kernel2_phase(torch, gen, theta)),
+              ("kernel 3", lambda: kernel3_phase(torch, gen, theta)),
+              ("kernel 1 expert form", lambda: kernel1_expert_phase(torch, gen)),
+              ("kernel 3 MLA form", lambda: kernel3_mla_phase(
+                  torch, gen, get_config("deepseek-v3-671b").rope_theta)),
+              ("kernel 8", lambda: kernel8_phase(torch, gen))]
+    rows = []
+    for label, fn in phases:
+        t0 = time.perf_counter()
+        rows.append(fn())
+        print(f"[{label} phase: {time.perf_counter() - t0:.2f} s]")
+    falcon_kernels = [ternary_matmul.KERNEL, flash_decode.KERNEL, flash_prefill.KERNEL]
+    t0 = time.perf_counter()
+    launches, tok_s = slice_phase(torch, falcon_kernels)
+    print(f"[falcon3-1b phase: {time.perf_counter() - t0:.2f} s]")
+    ds_kernels = [ternary_matmul.KERNEL, ternary_matmul.EXPERT_KERNEL, flash_prefill.MLA_KERNEL,
+                  flash_decode.LATENT_KERNEL]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ds_launches, ds_tok_s = deepseek_phase(torch, ds_kernels)
+    print(f"[deepseek-v3-671b-l5 phase: {time.perf_counter() - t0:.2f} s]")
+    for row, kern in zip(rows[:3], falcon_kernels):
         row["launches"] = launches[kern.symbol]
-    print(f"tokens/s {tok_s:.2f} on {smi}")
+    rows[0]["launches_by_path"] = {"falcon3-1b": launches[ternary_matmul.KERNEL.symbol],
+                                   "deepseek-v3-671b-l5": ds_launches[ternary_matmul.KERNEL.symbol]}
+    for row, kern in zip(rows[3:], ds_kernels[1:]):
+        row["launches"] = ds_launches[kern.symbol]
+    print(f"tokens/s falcon3-1b {tok_s:.2f}, deepseek-v3-671b-l5 {ds_tok_s:.2f} on {smi}")
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

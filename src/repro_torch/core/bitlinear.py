@@ -7,6 +7,9 @@ raw activations in, act-quant -> int8 x trit accumulate -> rescale
 one launch of the act-quant-prologue kernel
 (``kernels/ternary_matmul.py``); on CPU tensors, or with
 ``impl="plain"``, the kernel's plain PyTorch version runs.
+``expert_packed_matmul`` is its expert-stacked form: leaves with a
+leading expert dimension (packed (E, K/g, N), scale (E,) or (E, N)) in one
+launch over all experts.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.ternary_matmul import ternary_matmul_actq
+from repro_torch.kernels.ternary_matmul import ternary_matmul_actq, ternary_matmul_expert
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,3 +67,15 @@ def packed_matmul(pw, x: torch.Tensor, act_bits: int = 8,
     col = pw.scale.float().reshape(-1).expand(n).contiguous()
     return ternary_matmul_actq(x, pw.packed, col, k=pw.k, codec=pw.codec,
                                act_bits=act_bits, impl=impl)
+
+
+def expert_packed_matmul(pw, x: torch.Tensor, act_bits: int = 8,
+                         impl: str = "auto") -> torch.Tensor:
+    """(E, C, K) raw float x expert-stacked packed weight -> (E, C, N)
+    float32. A per-expert scalar scale (E,) broadcasts to per-column (E, N);
+    a fused leaf carries (E, N) already."""
+    e, n = pw.packed.shape[0], pw.packed.shape[-1]
+    scale = pw.scale.float()
+    col = (scale[:, None] if scale.ndim == 1 else scale).expand(e, n).contiguous()
+    return ternary_matmul_expert(x, pw.packed, col, k=pw.k, codec=pw.codec,
+                                 act_bits=act_bits, impl=impl)

@@ -5,6 +5,10 @@ tier only (reference: ``repro/core/kv_cache.py``).
   cold_k/cold_v : (batch, cold_cap, g, d)  the rest
   lengths       : (batch,) int32           tokens written, per slot
 
+The MLA latent cache keeps one row (c_kv ‖ k_rope) per token in the
+k-slot, (batch, cap, kv_lora_rank + rope dims), and an empty v-slot
+(batch, cap, 0).
+
 The serving path stacks one cache per layer along a leading axis
 (``layer`` returns a view of one layer). Unlike the reference, whose
 arrays are immutable, the appends here write the tier buffers and
@@ -32,13 +36,15 @@ class TieredKVCache(NamedTuple):
     cold_v: torch.Tensor
     lengths: torch.Tensor  # (batch,) int32
 
+    # the capacity axis follows the stacking and batch axes of ``lengths``
+    # (a row is (g, d) under GQA, one latent vector under MLA)
     @property
     def hot_cap(self) -> int:
-        return self.hot_k.shape[-3]
+        return self.hot_k.shape[self.lengths.ndim]
 
     @property
     def cold_cap(self) -> int:
-        return self.cold_k.shape[-3]
+        return self.cold_k.shape[self.lengths.ndim]
 
     @property
     def capacity(self) -> int:
@@ -46,16 +52,22 @@ class TieredKVCache(NamedTuple):
 
 
 def init_cache(batch: int, hot_cap: int, cold_cap: int, kv_shape: Sequence[int],
-               dtype=torch.float32, device=None, lead: tuple = ()) -> TieredKVCache:
-    """Zeroed cache; ``lead`` prepends stacking dims (one cache per layer)."""
+               dtype=torch.float32, device=None, lead: tuple = (),
+               v_shape: Optional[Sequence[int]] = None) -> TieredKVCache:
+    """Zeroed cache; ``lead`` prepends stacking dims (one cache per layer).
+    ``v_shape`` defaults to ``kv_shape``; ``(0,)`` gives the empty v-slot of
+    the MLA latent cache, whose k-slot row (c_kv ‖ k_rope) serves as both."""
     lead = tuple(lead)
-    shape_hot = lead + (batch, hot_cap) + tuple(kv_shape)
-    shape_cold = lead + (batch, cold_cap) + tuple(kv_shape)
+    v_shape = tuple(kv_shape) if v_shape is None else tuple(v_shape)
+
+    def zeros(cap, shape):
+        return torch.zeros(lead + (batch, cap) + shape, dtype=dtype, device=device)
+
     return TieredKVCache(
-        hot_k=torch.zeros(shape_hot, dtype=dtype, device=device),
-        hot_v=torch.zeros(shape_hot, dtype=dtype, device=device),
-        cold_k=torch.zeros(shape_cold, dtype=dtype, device=device),
-        cold_v=torch.zeros(shape_cold, dtype=dtype, device=device),
+        hot_k=zeros(hot_cap, tuple(kv_shape)),
+        hot_v=zeros(hot_cap, v_shape),
+        cold_k=zeros(cold_cap, tuple(kv_shape)),
+        cold_v=zeros(cold_cap, v_shape),
         lengths=torch.zeros(lead + (batch,), dtype=torch.int32, device=device),
     )
 
@@ -81,7 +93,7 @@ def append_decode(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor
 
     def upd(tier, new, tier_pos, write):
         cap = tier.shape[1]
-        if cap == 0:
+        if tier.numel() == 0:  # zero-capacity tier or the empty latent v-slot
             return
         idx = tier_pos.clamp(0, cap - 1)
         mask = (write & act).reshape((b,) + (1,) * (tier.ndim - 2))
@@ -179,6 +191,22 @@ def tiered_decode_attention(q: torch.Tensor, cache: TieredKVCache,
         tier_partial(q, cache.cold_k, cache.cold_v, cold_valid, scale),
     ])
     return out.to(q.dtype)
+
+
+def tiered_decode_attention_latent(q: torch.Tensor, cache: TieredKVCache,
+                                   value_dim: int, scale: float) -> torch.Tensor:
+    """MLA absorbed-form attention over a tiered latent cache, masked over
+    the full capacity (the reference's XLA path).
+
+    q: (b, h, D); the k-slot rows (b, s, D) hold (c_kv ‖ k_rope) and the
+    v-slot is empty: values are the first ``value_dim`` dims of each row.
+    Returns the per-head latent context (b, h, value_dim) f32."""
+    hot_valid, cold_valid = valid_masks(cache)
+    parts = []
+    for kbuf, valid in ((cache.hot_k, hot_valid), (cache.cold_k, cold_valid)):
+        lat = kbuf[..., :value_dim][:, :, None]  # (b, s, 1, dv): one shared "head"
+        parts.append(tier_partial(q, kbuf[:, :, None], lat, valid, scale))
+    return merge_partials(parts)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """BitNet b1.58 ternary quantization (reference: ``repro/core/ternary.py``).
 
-Weights: ``scale = mean(|W|)``, ``W_q = clip(round(W / scale), -1, 1)``.
+Weights: ``scale = mean(|W|)``, ``W_q = clip(round(W / scale), -1, 1)``;
+``weight_quant_ste`` is the dequantized ``W_q * scale`` that float-kept
+factors (MLA's ``w_uk`` / ``w_uv``) use.
 Activations: per-token absmax to int8 (A8, [-128, 127]) or int4 (A4,
 [-8, 7]) with ``scale = qmax / max(absmax, EPS)``; dequant divides by it.
 
@@ -43,6 +45,15 @@ def weight_quant_absmean(w: torch.Tensor) -> QuantizedWeight:
     scale = torch.clamp(w32.abs().mean(), min=EPS)
     wq = torch.clamp(torch.round(w32 / scale), -1.0, 1.0)
     return QuantizedWeight(wq.to(torch.int8), scale)
+
+
+def weight_quant_ste(w: torch.Tensor) -> torch.Tensor:
+    """Fake-quantized weight: the forward value of the reference's
+    straight-through form ``w + stop_gradient(wq * scale - w)`` (serving
+    needs no gradient)."""
+    q = weight_quant_absmean(w)
+    w32 = w.float()
+    return (w32 + (q.wq.float() * q.scale - w32)).to(w.dtype)
 
 
 def act_quant(x: torch.Tensor, bits: int = 8) -> QuantizedActivation:

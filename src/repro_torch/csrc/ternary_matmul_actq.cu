@@ -6,9 +6,18 @@
 // max(absmax, 1e-5) -> int8 codes rint(x * scale) clipped -> int8 x trit
 // int32 accumulate -> out = float(acc) * (col_scale[n] / scale[m]), f32.
 //
+// The expert form (entry point ternary_matmul_actq_expert; reference
+// kernels/ops.py::ternary_matmul_expert, the same Pallas kernel with a
+// leading expert grid axis) runs E independent products x (E, C, K) x
+// packed (E, K/g, N) with per-expert per-column scales (E, N) in ONE
+// launch: the expert index is the grid's z axis and only offsets the four
+// pointers.
+//
 // What bounds it on this card: at decode (M = 6) the packed weights are
 // the only large operand (K*N/4 bytes under pack2), so it is bound by the
-// bytes it moves; at prefill (M = 192) the int8 operations dominate.
+// bytes it moves; at prefill (M = 192) the int8 operations dominate. The
+// expert form reads every expert's packed weights once per launch (C = 1
+// at decode, 8 at prefill for DeepSeek-V3), so it is bound by bytes.
 //
 // Design:
 //  * The TPU kernel sweeps the absmax once per row tile and carries the
@@ -59,6 +68,12 @@ __global__ void __launch_bounds__(kThreads) actq_kernel(
     const float* __restrict__ col_scale, float* __restrict__ out,
     int M, int K, int KG, int N, float qmax, float qmin) {
   constexpr int GS = group_stride(G);
+  // expert e of a batched launch (gridDim.z = E; 1 for a plain product)
+  const int64_t e = blockIdx.z;
+  x += e * M * K;
+  packed += e * KG * N;
+  col_scale += e * N;
+  out += e * M * N;
   __shared__ int lut_lo[256];  // trits 0..3 of a byte as four int8 lanes
   __shared__ int lut_hi[256];  // pack243: trit 4
   __shared__ float row_scale[kBM];
@@ -157,13 +172,13 @@ __global__ void __launch_bounds__(kThreads) actq_kernel(
 }
 
 template <typename T, int G>
-cudaError_t launch(const void* x, const void* packed, const void* col_scale, void* out,
+cudaError_t launch(const void* x, const void* packed, const void* col_scale, void* out, int E,
                    int M, int K, int KG, int N, float qmax, float qmin, cudaStream_t stream) {
   const size_t smem = codes_bytes(KG, G) + (size_t)kSlices * kBM * kBN * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(actq_kernel<T, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E);
   actq_kernel<T, G><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(col_scale), static_cast<float*>(out), M, K, KG, N, qmax, qmin);
@@ -176,16 +191,34 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int ternary_matmul_actq(const void* x, int x_is_bf16, const void* packed,
-                                   const void* col_scale, void* out, int M, int K, int KG,
-                                   int N, int group, int act_bits, void* stream) {
+namespace {
+
+int dispatch(const void* x, int x_is_bf16, const void* packed, const void* col_scale, void* out,
+             int E, int M, int K, int KG, int N, int group, int act_bits, void* stream) {
   const float qmax = act_bits == 8 ? 127.f : 7.f;
   const float qmin = act_bits == 8 ? -128.f : -8.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (group == 4)
-    return x_is_bf16 ? launch<__nv_bfloat16, 4>(x, packed, col_scale, out, M, K, KG, N, qmax, qmin, s)
-                     : launch<float, 4>(x, packed, col_scale, out, M, K, KG, N, qmax, qmin, s);
-  return x_is_bf16 ? launch<__nv_bfloat16, 5>(x, packed, col_scale, out, M, K, KG, N, qmax, qmin, s)
-                   : launch<float, 5>(x, packed, col_scale, out, M, K, KG, N, qmax, qmin, s);
+    return x_is_bf16
+               ? launch<__nv_bfloat16, 4>(x, packed, col_scale, out, E, M, K, KG, N, qmax, qmin, s)
+               : launch<float, 4>(x, packed, col_scale, out, E, M, K, KG, N, qmax, qmin, s);
+  return x_is_bf16
+             ? launch<__nv_bfloat16, 5>(x, packed, col_scale, out, E, M, K, KG, N, qmax, qmin, s)
+             : launch<float, 5>(x, packed, col_scale, out, E, M, K, KG, N, qmax, qmin, s);
+}
+
+}  // namespace
+
+// Both return cudaGetLastError() after the launch (0 on success).
+extern "C" int ternary_matmul_actq(const void* x, int x_is_bf16, const void* packed,
+                                   const void* col_scale, void* out, int M, int K, int KG,
+                                   int N, int group, int act_bits, void* stream) {
+  return dispatch(x, x_is_bf16, packed, col_scale, out, 1, M, K, KG, N, group, act_bits, stream);
+}
+
+// x (E, C, K), packed (E, KG, N), col_scale (E, N), out (E, C, N).
+extern "C" int ternary_matmul_actq_expert(const void* x, int x_is_bf16, const void* packed,
+                                          const void* col_scale, void* out, int E, int C, int K,
+                                          int KG, int N, int group, int act_bits, void* stream) {
+  return dispatch(x, x_is_bf16, packed, col_scale, out, E, C, K, KG, N, group, act_bits, stream);
 }

@@ -8,9 +8,14 @@ reference's ``PackedLinear`` / ``FusedPackedLinear``. They are carried
 as they are, bytes and scales, never re-packed: the port's absmean can
 differ from the reference's by one ulp, which would flip trits.
 
-The reference stacks the layers along a leading axis of ``blocks``; the
-port keeps one dict per layer, so ``blocks`` is unstacked here. LoRA
-factors, norms, the embedding and the lm_head come across unchanged.
+The reference stacks the layers along a leading axis of each layer
+stack (``blocks``; ``dense_blocks`` and ``moe_blocks`` for the MoE
+family); the port keeps one dict per layer, so the stacks are unstacked
+here. Expert-stacked packed leaves keep their expert dimension (packed
+(E, K/g, N), scale (E,) or per-column (E, N) for a fused w_gu). LoRA
+factors, norms, the embedding, the lm_head and the float dict leaves
+(``router``; MLA's ``w_uk`` / ``w_uv``, as ``{"w"}`` or already
+fake-quantized ``{"fq"}``) come across unchanged.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from repro_torch.core.bitlinear import FusedPackedLinear, PackedLinear
 
 _PACKED_FIELDS = {"packed", "scale", "k", "codec"}
+LAYER_STACKS = ("blocks", "dense_blocks", "moe_blocks")
 
 
 def _is_packed(node) -> bool:
@@ -59,11 +65,19 @@ def _convert(node, device):
     return to_tensor(node, device)
 
 
+def from_reference(node, device="cpu"):
+    """One unstacked subtree of the reference (a layer, a block's
+    attention), as numpy -> the port's leaves on ``device``."""
+    return _convert(node, device)
+
+
 def params_from_reference(tree: dict, device="cpu") -> dict:
     """The reference's (packed or float) parameter tree, as numpy, -> the
     port's tree on ``device``."""
-    out = {k: _convert(v, device) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    n_layers = np.asarray(blocks["attn"]["ln"]).shape[0]
-    out["blocks"] = [_convert(_take(blocks, i), device) for i in range(n_layers)]
+    out = {k: _convert(v, device) for k, v in tree.items() if k not in LAYER_STACKS}
+    for name in LAYER_STACKS:
+        if name in tree:
+            blocks = tree[name]
+            n_layers = np.asarray(blocks["attn"]["ln"]).shape[0]
+            out[name] = [_convert(_take(blocks, i), device) for i in range(n_layers)]
     return out

@@ -12,7 +12,14 @@ PyTorch version (it repeats the kernel's arithmetic — the same 32-key tiles, h
 sums and separately rounded products — so the two agree bit for bit, which
 keeps greedy tokens of the kernel and plain runs equal at full width).
 
-Only this fused GQA form is ported: the reference's ring, paged and fp8
+``flash_decode_attention_latent`` is the MLA absorbed form (reference:
+``_flash_latent`` through ``flash_decode_attention_latent``): q (b, h, D)
+over the POST-append latent cache, whose k-slot rows (c_kv ‖ k_rope) also
+give the values (their first ``value_dim`` dims); CUDA kernel
+``csrc/flash_latent.cu``, plain version ``flash_decode_latent_plain`` in
+the same reproducible arithmetic.
+
+Only these two forms are ported: the reference's ring, paged and fp8
 forms and the unfused ``_flash_gqa`` raise here.
 """
 
@@ -35,6 +42,14 @@ KERNEL = CudaKernel(
 )
 MAX_REP = 8
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+LATENT_KERNEL = CudaKernel(
+    "flash_latent", "flash_decode_latent",
+    [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_void_p],
+)
+# (row width, value width) pairs of the latent kernel's instantiations:
+# DeepSeek-V3 and its smoke config
+LATENT_DIMS = ((576, 512), (24, 16))
 
 
 TILE = 32  # keys per tile of the online softmax, as in the kernels
@@ -185,3 +200,81 @@ def flash_decode_attention(
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
     return _launch(q, cache, k_new, v_new, active, scale, float(rope_theta))
+
+
+# ---------------------------------------------------------------------------
+# MLA absorbed form over the latent cache
+# ---------------------------------------------------------------------------
+
+
+def flash_decode_latent_plain(q, cache: kvc.TieredKVCache, value_dim: int, scale: float):
+    """Plain version, in the kernel's arithmetic: fold the hot tier's and
+    the cold tier's 32-key tiles; every head reads the one latent row
+    stream, values are the rows' first ``value_dim`` dims."""
+    b, h, _ = q.shape
+    qf = q.float()[:, :, None, :]  # (b, h, 1, D)
+    lengths = cache.lengths.long()
+    state = (q.new_full((b, h), NEG_INF, dtype=torch.float32),
+             q.new_zeros((b, h), dtype=torch.float32),
+             q.new_zeros((b, h, value_dim), dtype=torch.float32))
+    tiers = ((cache.hot_k, lengths.clamp(max=cache.hot_cap)),
+             (cache.cold_k, (lengths - cache.hot_cap).clamp(0, cache.cold_cap)))
+    keys = torch.arange(TILE, device=q.device)
+    for buf, n_valid in tiers:
+        for start in range(0, buf.shape[1], TILE):
+            valid = (start + keys)[None] < n_valid[:, None]  # (b, TILE)
+            k_t = tile_of(buf, start).float()  # (b, TILE, D)
+            v_t = torch.where(valid[:, :, None], k_t[..., :value_dim], 0.0)
+            logits = tree_sum(qf * k_t[:, None], -1) * scale  # (b, h, TILE)
+            state = fold_tile(state, logits, valid[:, None, :], v_t[:, None])
+    _, l, acc = state
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _launch_latent(q, cache, value_dim, scale):
+    b, h, d = q.shape
+    if not all(t.is_cuda for t in (q, cache.hot_k, cache.cold_k, cache.lengths)):
+        raise ValueError("flash_decode_attention_latent: all operands must be CUDA tensors")
+    dt = cache.hot_k.dtype
+    if dt not in (torch.float32, torch.bfloat16) or cache.cold_k.dtype != dt:
+        raise TypeError("flash_decode_attention_latent: the latent tiers must share one "
+                        "dtype, f32 or bf16 (fp8 tiers are not ported)")
+    if (d, value_dim) not in LATENT_DIMS:
+        raise ValueError(f"flash_decode_attention_latent: D={d}, value_dim={value_dim} "
+                         f"unsupported (one of {LATENT_DIMS})")
+    for name, t, cap in (("hot", cache.hot_k, cache.hot_cap),
+                         ("cold", cache.cold_k, cache.cold_cap)):
+        if t.shape != (b, cap, d):
+            raise ValueError(f"flash_decode_attention_latent: {name} tier "
+                             f"{tuple(t.shape)} != {(b, cap, d)}")
+    q = q.float().contiguous()
+    hot, cold = cache.hot_k.contiguous(), cache.cold_k.contiguous()
+    lengths = cache.lengths.to(torch.int32).contiguous()
+    out = torch.empty((b, h, value_dim), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    LATENT_KERNEL.launch(
+        int(dt == torch.bfloat16), ptr(q), ptr(hot), ptr(cold), ptr(lengths), ptr(out),
+        b, h, cache.hot_cap, cache.cold_cap, d, value_dim, float(scale), stream_of(q),
+    )
+    return out
+
+
+def flash_decode_attention_latent(
+    q: torch.Tensor,  # (b, h, D) — D = latent + rope dims
+    cache: kvc.TieredKVCache,  # POST-append latent cache, empty v-slot
+    value_dim: int,
+    scale: float,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """MLA absorbed-form attention -> the per-head latent context
+    (b, h, value_dim) f32.
+
+    ``impl="auto"`` launches the CUDA kernel for CUDA tensors and runs the
+    plain version for CPU tensors; ``impl="plain"`` runs the plain version."""
+    if impl == "plain" or (impl == "auto" and not q.is_cuda):
+        return flash_decode_latent_plain(q, cache, value_dim, float(scale))
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}")
+    return _launch_latent(q, cache, value_dim, float(scale))

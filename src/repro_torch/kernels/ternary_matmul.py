@@ -14,6 +14,13 @@ The reference pads M/N/K to its TPU block table; here nothing is padded:
 the kernel masks the ragged M and N edges itself and reads activation
 columns at or past the true K as zero, so a pack243 weight (K padded to
 a multiple of 5 inside the packed bytes) needs no repair bytes.
+
+``ternary_matmul_expert`` (reference: ``kernels/ops.py::
+ternary_matmul_expert``) is the same function over a leading expert
+dimension — x (E, C, K), packed (E, K/g, N), per-column scales (E, N) —
+in ONE launch of the same kernel (expert index on the grid's z axis),
+with its own launch count. Its plain version walks the experts in chunks:
+unpacking all 256 DeepSeek-V3 experts to float64 at once would take 60 GB.
 """
 
 from __future__ import annotations
@@ -32,6 +39,14 @@ KERNEL = CudaKernel(
      ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
+EXPERT_KERNEL = CudaKernel(
+    "ternary_matmul_actq", "ternary_matmul_actq_expert",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+)
+# experts unpacked at once by the plain expert version (float64 trits of
+# 16 DeepSeek-V3 w_gu experts: 16 x 7168 x 4096 x 8 B = 3.8 GB)
+PLAIN_EXPERT_CHUNK = 16
 # largest K/g the kernel's shared-memory tile holds (8 rows of int8 codes
 # at 4 or 8 bytes per packed group, plus the 32 KiB split-K reduction)
 MAX_GROUPS = {"pack2": 5888, "pack243": 2944}
@@ -57,24 +72,45 @@ def ternary_matmul_actq_plain(x: torch.Tensor, packed: torch.Tensor,
     return acc.to(torch.float32) * (col_scale.float() / q.scale)
 
 
+def ternary_matmul_expert_plain(x: torch.Tensor, packed: torch.Tensor,
+                                col_scale: torch.Tensor, k: int, codec: str = "pack2",
+                                act_bits: int = 8) -> torch.Tensor:
+    """Plain version of the expert form: per-row act_quant, then for each
+    chunk of experts an exact float64 batched accumulate and the rescale."""
+    q = act_quant(x, bits=act_bits)  # xq (E, C, K), scale (E, C, 1)
+    e, c, _ = x.shape
+    out = torch.empty((e, c, packed.shape[-1]), dtype=torch.float32, device=x.device)
+    for e0 in range(0, e, PLAIN_EXPERT_CHUNK):
+        e1 = min(e0 + PLAIN_EXPERT_CHUNK, e)
+        trits = packing.unpack(packed[e0:e1].transpose(0, 1), codec, k).transpose(0, 1)
+        acc = torch.bmm(q.xq[e0:e1].to(torch.float64), trits.to(torch.float64))
+        out[e0:e1] = acc.to(torch.int32).to(torch.float32) * (
+            col_scale[e0:e1, None, :].float() / q.scale[e0:e1])
+    return out
+
+
+def _check(x, packed, col_scale, k, codec, scale_shape, name):
+    kg = packed.shape[-2]
+    if not (x.is_cuda and packed.is_cuda and col_scale.is_cuda):
+        raise ValueError(f"{name}: all operands must be CUDA tensors")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: x must be f32 or bf16, got {x.dtype}")
+    if packed.dtype != torch.uint8 or col_scale.dtype != torch.float32:
+        raise TypeError(f"{name}: packed must be uint8, col_scale f32")
+    if kg * packing.group_of(codec) < k or x.shape[-1] != k:
+        raise ValueError(f"{name}: x K {x.shape[-1]} vs packed {tuple(packed.shape)} "
+                         f"for k={k}, {codec}")
+    if tuple(col_scale.shape) != scale_shape:
+        raise ValueError(f"{name}: col_scale {tuple(col_scale.shape)} != {scale_shape}")
+    if kg > MAX_GROUPS[codec]:
+        raise ValueError(f"{name}: K/g = {kg} exceeds {MAX_GROUPS[codec]}")
+
+
 def _launch(x2: torch.Tensor, packed: torch.Tensor, col_scale: torch.Tensor,
             k: int, codec: str, act_bits: int) -> torch.Tensor:
     m, n = x2.shape[0], packed.shape[1]
     kg = packed.shape[0]
-    if not (x2.is_cuda and packed.is_cuda and col_scale.is_cuda):
-        raise ValueError("ternary_matmul_actq: all operands must be CUDA tensors")
-    if x2.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"ternary_matmul_actq: x must be f32 or bf16, got {x2.dtype}")
-    if packed.dtype != torch.uint8 or col_scale.dtype != torch.float32:
-        raise TypeError("ternary_matmul_actq: packed must be uint8, col_scale f32")
-    if kg * packing.group_of(codec) < k or x2.shape[1] != k:
-        raise ValueError(f"ternary_matmul_actq: x K {x2.shape[1]} vs packed "
-                         f"{tuple(packed.shape)} for k={k}, {codec}")
-    if col_scale.shape != (n,):
-        raise ValueError(f"ternary_matmul_actq: col_scale {tuple(col_scale.shape)} != ({n},)")
-    if kg > MAX_GROUPS[codec]:
-        raise ValueError(f"ternary_matmul_actq: K/g = {kg} exceeds {MAX_GROUPS[codec]}")
-    qmax, _ = act_qrange(act_bits)
+    _check(x2, packed, col_scale, k, codec, (n,), "ternary_matmul_actq")
     x2 = x2.contiguous()
     packed = packed.contiguous()
     col_scale = col_scale.contiguous()
@@ -84,6 +120,24 @@ def _launch(x2: torch.Tensor, packed: torch.Tensor, col_scale: torch.Tensor,
     KERNEL.launch(
         ptr(x2), int(x2.dtype == torch.bfloat16), ptr(packed), ptr(col_scale),
         ptr(out), m, k, kg, n, packing.group_of(codec), act_bits, stream_of(x2),
+    )
+    return out
+
+
+def _launch_expert(x: torch.Tensor, packed: torch.Tensor, col_scale: torch.Tensor,
+                   k: int, codec: str, act_bits: int) -> torch.Tensor:
+    e, c, _ = x.shape
+    kg, n = packed.shape[1], packed.shape[2]
+    if packed.shape[0] != e:
+        raise ValueError(f"ternary_matmul_expert: {packed.shape[0]} packed experts, x has {e}")
+    _check(x, packed, col_scale, k, codec, (e, n), "ternary_matmul_expert")
+    x, packed, col_scale = x.contiguous(), packed.contiguous(), col_scale.contiguous()
+    out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    EXPERT_KERNEL.launch(
+        ptr(x), int(x.dtype == torch.bfloat16), ptr(packed), ptr(col_scale), ptr(out),
+        e, c, k, kg, n, packing.group_of(codec), act_bits, stream_of(x),
     )
     return out
 
@@ -105,3 +159,18 @@ def ternary_matmul_actq(x: torch.Tensor, packed: torch.Tensor,
     else:
         raise ValueError(f"unknown impl {impl!r}")
     return out.reshape(lead + (packed.shape[1],))
+
+
+def ternary_matmul_expert(x: torch.Tensor, packed: torch.Tensor, col_scale: torch.Tensor,
+                          *, k: int, codec: str = "pack2", act_bits: int = 8,
+                          impl: str = "auto") -> torch.Tensor:
+    """RAW float (E, C, K) x packed (E, ceil(K/g), N), per-expert per-column
+    ``col_scale`` (E, N) -> float32 (E, C, N), one launch for all experts.
+
+    ``impl`` as in ``ternary_matmul_actq``."""
+    act_qrange(act_bits)
+    if impl == "plain" or (impl == "auto" and not x.is_cuda):
+        return ternary_matmul_expert_plain(x, packed, col_scale, k, codec, act_bits)
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}")
+    return _launch_expert(x, packed, col_scale, k, codec, act_bits)

@@ -1,5 +1,5 @@
-"""GQA attention with the tiered DR KV cache (reference:
-``repro/models/attention.py``, GQA forms only).
+"""GQA and MLA attention with the tiered DR KV cache (reference:
+``repro/models/attention.py``, GQA and MLA serving forms).
 
 Prefill runs the flash-prefill kernel (``kernels/flash_prefill.py``): q
 and k rotate inside it, and it emits the rotated k / v that
@@ -8,6 +8,12 @@ fused-RoPE flash-decode kernel (``kernels/flash_decode.py``) against the
 pre-append cache and then appends the kernel-rotated k in place.
 ``blockwise_attention`` is the plain full-sequence reference the tests
 hold both against.
+
+MLA (DeepSeek-V3) caches the compressed latent (c_kv ‖ k_rope, 576 values
+per token) in the k-slot of a cache with an empty v-slot. Prefill expands
+per-head keys and values from the latent and runs the flash-prefill
+kernel's MLA form; decode runs in absorbed form (w_uk folded into the
+query, w_uv out of the context) over the latent flash-decode kernel.
 """
 
 from __future__ import annotations
@@ -16,10 +22,12 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core import kv_cache as kvc
-from repro_torch.kernels.flash_decode import flash_decode_attention
+from repro_torch.core.ternary import act_quant_ste
+from repro_torch.kernels.flash_decode import (flash_decode_attention,
+                                              flash_decode_attention_latent)
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 from repro_torch.models import qops
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import apply_rope, rms_norm
 
 NEG_INF = kvc.NEG_INF
 DEFAULT_CHUNK = 512
@@ -120,4 +128,141 @@ def attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     )
     kvc.append_decode(cache, k_rot, v[:, 0], active=active)
     y = qops.linear(p["wo"], o.reshape(b, h * hd), cfg, lora_leaf=p.get("lora_o"))
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): compressed-latent attention
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ModelConfig, *, generator, device, dtype=torch.float32) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    p = {
+        "ln": torch.ones((d,), dtype=dtype, device=device),
+        "w_dq": qops.init_linear(d, m.q_lora_rank, **kw),
+        "q_ln": torch.ones((m.q_lora_rank,), dtype=dtype, device=device),
+        "w_uq": qops.init_linear(m.q_lora_rank, h * qk_head, **kw),
+        "w_dkv": qops.init_linear(d, m.kv_cache_dim, **kw),
+        "kv_ln": torch.ones((m.kv_lora_rank,), dtype=dtype, device=device),
+        # factor matrices stay float (fake-quant ternary at use)
+        "w_uk": qops.init_linear(m.kv_lora_rank, h * m.qk_nope_head_dim, **kw),
+        "w_uv": qops.init_linear(m.kv_lora_rank, h * m.v_head_dim, **kw),
+        "wo": qops.init_linear(h * m.v_head_dim, d, **kw),
+    }
+    if cfg.bitnet.lora_rank:
+        from repro_torch.core import lora as lora_lib
+
+        if "v" in cfg.bitnet.lora_targets:
+            p["lora_v"] = lora_lib.init(m.kv_lora_rank, h * m.v_head_dim,
+                                        cfg.bitnet.lora_rank, **kw)
+        if "o" in cfg.bitnet.lora_targets:
+            p["lora_o"] = lora_lib.init(h * m.v_head_dim, d, cfg.bitnet.lora_rank, **kw)
+    return p
+
+
+def _mla_down(p: dict, hidden: torch.Tensor, cfg: ModelConfig):
+    """Both down-projections of the shared hidden -> (dq, dkv): one
+    act-quant + one launch for the pack-time-fused w_dq‖w_dkv."""
+    if "w_dqkv" in p:
+        return qops.fused_linear(p["w_dqkv"], hidden, cfg)
+    return qops.linear(p["w_dq"], hidden, cfg), qops.linear(p["w_dkv"], hidden, cfg)
+
+
+def _mla_queries(p: dict, dq: torch.Tensor, cfg: ModelConfig, positions=None):
+    """dq (b, t, q_rank) -> q_nope (b, t, h, dn), q_rope (b, t, h, dr),
+    q_rope rotated at ``positions`` (batch-broadcastable (1, s) or (b, 1));
+    ``positions=None`` leaves it unrotated (the prefill kernel rotates)."""
+    m, h = cfg.mla, cfg.n_heads
+    cq = rms_norm(dq, p["q_ln"], cfg.norm_eps)
+    q = qops.linear(p["w_uq"], cq, cfg, out_shape=(h, m.qk_nope_head_dim + m.qk_rope_head_dim))
+    q_nope, q_rope = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    if positions is not None:
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope, q
+
+
+def _mla_latent(p: dict, dkv: torch.Tensor, cfg: ModelConfig, positions):
+    """dkv (b, t, dl + dr) -> the normed latent c_kv (b, t, dl), the
+    rotated k_rope (b, t, dr) and the unrotated one."""
+    m = cfg.mla
+    c_kv = rms_norm(dkv[..., : m.kv_lora_rank], p["kv_ln"], cfg.norm_eps)
+    k_rope_raw = dkv[..., m.kv_lora_rank:]
+    k_rope = apply_rope(k_rope_raw[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope, k_rope_raw
+
+
+def mla_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: kvc.TieredKVCache):
+    """Full-prompt MLA prefill + latent cache fill of one layer (in place).
+
+    The per-head keys (k_nope ‖ the shared unrotated k_rope) and values
+    (from ``w_uk`` / ``w_uv`` over the latent) go UNROTATED into the
+    flash-prefill kernel's MLA form, which rotates the trailing rope dims
+    of q and k. The cached row is the latent (c_kv ‖ k_rope), built here
+    with k_rope rotated once per token. x: (b, s, d_model) -> (y, cache)."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    hidden = rms_norm(x, p["ln"], cfg.norm_eps)
+    dq, dkv = _mla_down(p, hidden, cfg)
+    _, _, q = _mla_queries(p, dq, cfg)
+    c_kv, k_rope, k_rope_raw = _mla_latent(
+        p, dkv, cfg, torch.arange(s, device=x.device)[None])
+    k_nope = qops.linear(p["w_uk"], c_kv, cfg, out_shape=(h, m.qk_nope_head_dim))
+    v = qops.linear(p["w_uv"], c_kv, cfg, out_shape=(h, m.v_head_dim),
+                    lora_leaf=p.get("lora_v"))
+    k = torch.cat([k_nope, k_rope_raw[:, :, None, :].expand(b, s, h, m.qk_rope_head_dim)],
+                  dim=-1)
+    o = flash_prefill_attention(q, k, v, rope_theta=cfg.rope_theta,
+                                rope_dims=m.qk_rope_head_dim, emit_kv=False,
+                                impl=cfg.bitnet.impl)  # (b, s, h, dv)
+    y = qops.linear(p["wo"], o.reshape(b, s, h * m.v_head_dim), cfg,
+                    lora_leaf=p.get("lora_o"))
+    lat = torch.cat([c_kv, k_rope], dim=-1)
+    kvc.fill_fresh(cache, lat, lat.new_zeros((b, s, 0)))
+    return y, cache
+
+
+def _fake_quant_latent(buf: torch.Tensor, kv_lora_rank: int, bits: int) -> torch.Tensor:
+    """Cached rows with the latent part fake-quantized per row (the rope
+    dims are never quantized), as the non-absorbed path feeds c_kv through
+    the w_uk / w_uv fake-quant linears."""
+    if buf.shape[1] == 0:
+        return buf
+    ckv = act_quant_ste(buf[..., :kv_lora_rank], bits=bits)
+    return torch.cat([ckv, buf[..., kv_lora_rank:]], dim=-1)
+
+
+def mla_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: kvc.TieredKVCache,
+               active: torch.Tensor | None = None):
+    """Absorbed-form MLA decode over the tiered latent cache: x (b,
+    d_model) -> (y, cache). The new latent row is appended in place
+    (``active`` slots only) BEFORE attention, then the latent flash-decode
+    kernel reads a copy of the cache whose latent parts are
+    fake-quantized; ``w_uk`` folds into the query, ``w_uv`` out of the
+    context."""
+    m, h = cfg.mla, cfg.n_heads
+    b, _ = x.shape
+    hidden = rms_norm(x[:, None, :], p["ln"], cfg.norm_eps)
+    pos = cache.lengths.long()[:, None]  # (b, 1)
+    dq, dkv = _mla_down(p, hidden, cfg)
+    q_nope, q_rope, _ = _mla_queries(p, dq, cfg, pos)  # (b, 1, h, ·)
+    c_kv, k_rope, _ = _mla_latent(p, dkv, cfg, pos)
+    lat_new = torch.cat([c_kv, k_rope], dim=-1)[:, 0]  # (b, dl + dr)
+    kvc.append_decode(cache, lat_new, lat_new.new_zeros((b, 0)), active=active)
+
+    w_uk = p["w_uk"]["fq"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_abs = torch.einsum("bhn,lhn->bhl", q_nope[:, 0], w_uk)  # (b, h, dl)
+    q_full = torch.cat([q_abs, q_rope[:, 0]], dim=-1)  # (b, h, dl + dr)
+    bits = cfg.bitnet.act_bits
+    att = cache._replace(hot_k=_fake_quant_latent(cache.hot_k, m.kv_lora_rank, bits),
+                         cold_k=_fake_quant_latent(cache.cold_k, m.kv_lora_rank, bits))
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    ctx = flash_decode_attention_latent(q_full, att, value_dim=m.kv_lora_rank, scale=scale,
+                                        impl=cfg.bitnet.impl)  # (b, h, dl) f32
+    w_uv = p["w_uv"]["fq"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    o = torch.einsum("bhl,lhv->bhv", ctx, w_uv).reshape(b, h * m.v_head_dim)
+    y = qops.linear(p["wo"], o.to(x.dtype), cfg, lora_leaf=p.get("lora_o"))
     return y, cache

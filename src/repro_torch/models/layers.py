@@ -41,8 +41,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def init_mlp(cfg: ModelConfig, *, generator, device, dtype=torch.float32) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ModelConfig, d_ff: int | None = None, *, generator, device,
+             dtype=torch.float32) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     p = {
         "ln": torch.ones((d,), dtype=dtype, device=device),
         "gate": qops.init_linear(d, f, generator=generator, device=device, dtype=dtype),

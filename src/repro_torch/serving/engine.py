@@ -17,8 +17,12 @@ Per sequence the ledger (prompt phase in closed form plus the per-step
 decode counts) reconciles exactly with
 ``dr_edram.closed_form_reduction(seq_len, hot_cap)``.
 
-Not in this slice: chunked and paged admission, speculation, SDC
-scrubbing, sessions and overload control.
+The same loop serves the dense family (GQA cache) and the MoE family with
+MLA attention (latent cache, one stack per layer kind); MLA serves through
+grouped admission only, as in the reference.
+
+Not ported: chunked and paged admission, speculation, SDC scrubbing,
+sessions and overload control.
 """
 
 from __future__ import annotations
@@ -38,6 +42,14 @@ from repro_torch.models.pack import pack_params, tree_to
 from repro_torch.serving.scheduler import FinishedRequest, Request, SlotScheduler
 
 TRAFFIC_KEYS = kv_cache.TRAFFIC_KEYS
+
+
+def _n_attn_layers(cfg: ModelConfig) -> int:
+    """Layers that hold a KV cache (reference: ``analysis/roofline.py::
+    _n_attn_layers``). Every layer of the ported families (dense, MoE) has
+    attention; the reference's hybrid and attention-free branches have no
+    ported family yet."""
+    return cfg.n_layers
 # `generate` pads rows that stopped early with this sentinel (outside every
 # vocabulary, so a sampled stop token stays distinguishable from padding)
 PAD_TOKEN = -1
@@ -101,8 +113,15 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _kv_token_bytes(self) -> int:
-        """Ledger bytes per token: k and v of every layer at 2 bytes each."""
-        return 2 * self.cfg.n_kv_heads * self.cfg.resolved_head_dim * 2 * self.cfg.n_layers
+        """Ledger bytes per token, at 2 bytes a value, over the attention
+        layers: GQA caches k and v of every kv head; MLA one latent row
+        (kv_lora_rank + rope dims)."""
+        cfg = self.cfg
+        if cfg.attn_type == "mla":
+            per_layer = cfg.mla.kv_cache_dim * 2
+        else:
+            per_layer = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+        return per_layer * _n_attn_layers(cfg)
 
     def _init_state(self, n_slots: int, out_cap: int) -> DecodeState:
         dev = self.device
@@ -157,8 +176,9 @@ class Engine:
         logits, fresh = T.prefill(self.params, self.cfg, toks, hot_cap=self.hot_cap,
                                   max_len=self.max_len)
         idx = torch.as_tensor(slots_idx, dtype=torch.long, device=self.device)
-        for live, new in zip(state.cache["attn"], fresh["attn"]):
-            live[:, idx] = new.to(live.dtype)
+        for name, stack in state.cache.items():
+            for live, new in zip(stack, fresh[name]):
+                live[:, idx] = new.to(live.dtype)
         max_new = torch.as_tensor([r.max_new_tokens for r in group], dtype=torch.int32,
                                   device=self.device)
         state.tok[idx] = self._sample_fn(logits)

@@ -1,9 +1,12 @@
-"""The slice end to end: the port's ``Engine`` on falcon3-1b-smoke against
-the reference's JAX ``Engine``, from weights carried across by
+"""The slices end to end: the port's ``Engine`` on falcon3-1b-smoke (dense,
+GQA) and deepseek-v3-671b-smoke (MoE, MLA latent cache) against the
+reference's JAX ``Engine``, from weights carried across by
 ``repro_torch.interop``.
 
 The reference packs its own init (with random LoRA B factors, which are
-zero at init), and the port receives those packed leaves as they are.
+zero at init), and the port receives those packed leaves as they are;
+MLA's float-kept ``w_uk`` / ``w_uv`` cross as the reference's own
+fake-quantized values.
 Contract: the SAME greedy tokens and the SAME per-request DR-traffic
 ledger (integers), which reconciles with the closed form per sequence;
 prefill and first decode-step logits agree to LOGIT_TOL = 1e-4 (f32
@@ -28,6 +31,7 @@ from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request, SlotScheduler
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+NAMES = ["falcon3-1b", "deepseek-v3-671b"]
 
 
 @pytest.fixture(scope="module")
@@ -38,6 +42,7 @@ def jref():
     from repro import configs as jconfigs
     from repro.core import bitlinear as jbitlinear
     from repro.core import dr_edram as jdr
+    from repro.core import ternary as jternary
     from repro.core import kv_cache as jkvc
     from repro.models import pack as jpack
     from repro.models import transformer as jT
@@ -46,11 +51,13 @@ def jref():
 
     return types.SimpleNamespace(jax=jax, jnp=jnp, configs=jconfigs, bitlinear=jbitlinear,
                                  dr=jdr, kvc=jkvc, pack=jpack, T=jT, engine=jengine,
-                                 sched=jsched)
+                                 sched=jsched, ternary=jternary)
 
 
 def _numpy_tree(jref, tree):
-    """Reference tree -> numpy, packed leaves as plain field dicts."""
+    """Reference tree -> numpy, packed leaves as plain field dicts; MLA's
+    w_uk / w_uv (stacked per layer) as the reference's fake-quantized
+    values ``{"fq"}``, computed layer by layer."""
     if isinstance(tree, (jref.bitlinear.PackedLinear, jref.bitlinear.FusedPackedLinear)):
         out = dict(packed=np.asarray(tree.packed), scale=np.asarray(tree.scale),
                    k=tree.k, codec=tree.codec)
@@ -58,7 +65,10 @@ def _numpy_tree(jref, tree):
             out["splits"] = tree.splits
         return out
     if isinstance(tree, dict):
-        return {k: _numpy_tree(jref, v) for k, v in tree.items()}
+        return {k: ({"fq": np.stack([np.asarray(jref.ternary.weight_quant_ste(w))
+                                     for w in v["w"]])}
+                    if k in ("w_uk", "w_uv") else _numpy_tree(jref, v))
+                for k, v in tree.items()}
     return np.asarray(tree)
 
 
@@ -76,26 +86,37 @@ def _with_lora_b(jref, params, seed):
     return walk(params)
 
 
-def _models(jref, codec, seed=0):
-    jcfg = jref.configs.get_smoke_config("falcon3-1b")
+def _models(jref, codec, seed=0, name="falcon3-1b"):
+    jcfg = jref.configs.get_smoke_config(name)
     jcfg = dataclasses.replace(jcfg, bitnet=dataclasses.replace(jcfg.bitnet, codec=codec))
-    cfg = get_smoke_config("falcon3-1b")
+    cfg = get_smoke_config(name)
     cfg = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, codec=codec))
     params = _with_lora_b(jref, jref.T.init_params(jref.jax.random.PRNGKey(seed), jcfg), seed)
     jpacked = jref.pack.pack_params(params, jcfg)
     return jcfg, jpacked, cfg, interop.params_from_reference(_numpy_tree(jref, jpacked))
 
 
-def test_configs_match_reference(jref):
-    for name in ("falcon3-1b",):
-        for mine, theirs in ((get_config(name), jref.configs.get_config(name)),
-                             (get_smoke_config(name), jref.configs.get_smoke_config(name))):
-            for f in dataclasses.fields(mine):
-                if f.name == "bitnet":
-                    for bf in dataclasses.fields(mine.bitnet):
-                        assert getattr(mine.bitnet, bf.name) == getattr(theirs.bitnet, bf.name), bf
-                else:
-                    assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
+@pytest.mark.parametrize("name", NAMES)
+def test_configs_match_reference(jref, name):
+    """Every field the port keeps equals the reference's, nested MLA / MoE /
+    BitNet fields included; the depth-cut config differs in name and depth
+    only."""
+
+    def same(mine, theirs):
+        for f in dataclasses.fields(mine):
+            a, b = getattr(mine, f.name), getattr(theirs, f.name)
+            if dataclasses.is_dataclass(a):
+                same(a, b)
+            else:
+                assert a == b, f.name
+
+    for mine, theirs in ((get_config(name), jref.configs.get_config(name)),
+                         (get_smoke_config(name), jref.configs.get_smoke_config(name))):
+        same(mine, theirs)
+    l5 = get_config("deepseek-v3-671b-l5")
+    same(dataclasses.replace(l5, name="deepseek-v3-671b", n_layers=61),
+         jref.configs.get_config("deepseek-v3-671b"))
+    assert l5.n_layers == 5 and l5.moe.n_dense_layers == 3
 
 
 def test_init_params_shapes_match_reference(jref):
@@ -117,9 +138,10 @@ def test_init_params_shapes_match_reference(jref):
     assert not lora_b.any()  # B = 0 at init, as in the reference
 
 
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("codec", ["pack2", "pack243"])
-def test_generate_matches_reference_engine(jref, codec):
-    jcfg, jpacked, cfg, tparams = _models(jref, codec, seed=1)
+def test_generate_matches_reference_engine(jref, codec, name):
+    jcfg, jpacked, cfg, tparams = _models(jref, codec, seed=1, name=name)
     prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (3, 8)).astype(np.int32)
     kw = dict(hot_cap=4, max_len=48, slots=3)
     want = jref.engine.Engine(jcfg, jpacked, **kw).generate(jref.jnp.asarray(prompts),
@@ -132,10 +154,11 @@ def test_generate_matches_reference_engine(jref, codec):
         assert f.seq_len == 24 and abs(f.external_reduction - closed) <= 1e-12
 
 
-def test_serve_mixed_lengths_matches_reference(jref):
+@pytest.mark.parametrize("name", NAMES)
+def test_serve_mixed_lengths_matches_reference(jref, name):
     """Grouped admission over fewer slots than requests: mid-decode
     admissions of same-length groups, per-request tokens and ledgers."""
-    jcfg, jpacked, cfg, tparams = _models(jref, "pack2", seed=3)
+    jcfg, jpacked, cfg, tparams = _models(jref, "pack2", seed=3, name=name)
     rng = np.random.default_rng(4)
     specs = [(5, 6), (8, 4), (5, 7), (3, 5), (8, 9)]
     prompts = [rng.integers(0, cfg.vocab_size, (p,)).astype(np.int32) for p, _ in specs]
@@ -153,8 +176,9 @@ def test_serve_mixed_lengths_matches_reference(jref):
         assert abs(g.external_reduction - closed) <= 1e-12
 
 
-def test_prefill_and_first_step_logits_match_reference(jref):
-    jcfg, jpacked, cfg, tparams = _models(jref, "pack2", seed=5)
+@pytest.mark.parametrize("name", NAMES)
+def test_prefill_and_first_step_logits_match_reference(jref, name):
+    jcfg, jpacked, cfg, tparams = _models(jref, "pack2", seed=5, name=name)
     prompts = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 11)).astype(np.int32)
     jl, jcache = jref.T.prefill(jpacked, jcfg, {"tokens": jref.jnp.asarray(prompts)},
                                 hot_cap=4, max_len=24)
@@ -165,7 +189,19 @@ def test_prefill_and_first_step_logits_match_reference(jref):
     jl1, _ = jref.T.decode_step(jpacked, jcfg, jref.jnp.asarray(first), jcache)
     tl1, tcache = T.decode_step(tparams, cfg, torch.from_numpy(first), tcache)
     np.testing.assert_allclose(tl1.numpy(), np.asarray(jl1), **LOGIT_TOL)
-    assert tcache["attn"].lengths.tolist() == [[12] * 3] * cfg.n_layers
+    assert sum(len(c.lengths) for c in tcache.values()) == cfg.n_layers
+    assert all(c.lengths.tolist() == [[12] * 3] * len(c.lengths) for c in tcache.values())
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_kv_token_bytes_match_reference_engine(jref, name):
+    """The ledger's bytes per token: GQA k and v of every layer, or MLA's
+    latent row (kv_lora_rank + rope dims) per layer, at 2 bytes a value."""
+    jcfg, jpacked, cfg, tparams = _models(jref, "pack2", seed=0, name=name)
+    want = jref.engine.Engine(jcfg, jpacked, hot_cap=4, max_len=16)._kv_token_bytes()
+    assert Engine(cfg, tparams, hot_cap=4, max_len=16, device="cpu")._kv_token_bytes() == want
+    if name == "deepseek-v3-671b":
+        assert want == (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * 2 * cfg.n_layers
 
 
 def test_ledger_and_dr_model_match_reference(jref):
@@ -242,17 +278,21 @@ def test_entry_points_need_a_device_or_the_cpu_by_name(monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("codec", ["pack2", "pack243"])
-def test_cuda_engine_matches_plain_run(codec):
+def test_cuda_engine_matches_plain_run(codec, name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from repro_torch.kernels import flash_decode, flash_prefill, ternary_matmul
 
-    cfg = get_smoke_config("falcon3-1b")
+    cfg = get_smoke_config(name)
     cfg = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, codec=codec))
     params = T.init_params(cfg, seed=0, device="cuda")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 8)).astype(np.int32)
-    kernels = (ternary_matmul.KERNEL, flash_decode.KERNEL, flash_prefill.KERNEL)
+    kernels = ((ternary_matmul.KERNEL, flash_decode.KERNEL, flash_prefill.KERNEL)
+               if cfg.attn_type == "full" else
+               (ternary_matmul.KERNEL, ternary_matmul.EXPERT_KERNEL, flash_prefill.MLA_KERNEL,
+                flash_decode.LATENT_KERNEL))
     before = [k.launches for k in kernels]
     got = Engine(cfg, params, hot_cap=4, max_len=48, slots=3).generate(prompts, max_new_tokens=16)
     assert all(k.launches > n for k, n in zip(kernels, before))

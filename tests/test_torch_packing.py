@@ -109,11 +109,11 @@ def test_act_quant_rejects_other_widths():
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("shape", [(64, 48), (257, 130)])
 def test_pack_weight_within_two_ulps(jref, codec, shape):
-    """``_pack_weight`` from the same float weight: scale within two f32
+    """``pack_weight`` from the same float weight: scale within two f32
     ulps of the reference's; trits differ only at the rounding boundary."""
     w = np.random.default_rng(shape[0]).standard_normal(shape).astype(np.float32)
     ref = jref.pack._pack_weight(jref.jnp.asarray(w), codec)
-    got = tpack._pack_weight(torch.from_numpy(w), codec)
+    got = tpack.pack_weight(torch.from_numpy(w), codec)
     s_ref, s_got = float(ref.scale), float(got.scale)
     assert abs(s_ref - s_got) <= 2 * np.spacing(np.float32(s_ref))
     t_ref = np.asarray((jref.packing.unpack2 if codec == "pack2"
