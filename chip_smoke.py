@@ -4,14 +4,19 @@
 1. Prints the card's name and power limit, builds the four CUDA kernel
    sources from src/repro_torch/csrc (one nvcc each, in parallel) and
    prints the build time.
-2. Kernel phases: hold each kernel form against its plain PyTorch version
-   on the card at the shapes the serving paths give it, and time both
-   (plus a PyTorch library call of the same work as a yardstick):
-   the act-quant ternary matmul (falcon3-1b's projections, and its expert
-   form at DeepSeek-V3's E = 256, C = 1 / 8), the fused-RoPE GQA decode,
-   the fresh flash prefill (GQA, and its MLA form at q/k (6, s, 128, 192),
-   v (6, s, 128, 128)), and the MLA latent decode (b = 6, h = 128, rows of
-   576, values of 512; f32 and bf16 tiers, masked rows NaN-filled).
+2. Kernel phases: hold each of the ten kernel forms against its plain
+   PyTorch version on the card at the shapes the serving paths give it,
+   and time both (plus a PyTorch library call of the same work as a
+   yardstick): the act-quant ternary matmul (falcon3-1b's projections, and
+   its expert form at DeepSeek-V3's E = 256, C = 1 / 8), the fused-RoPE GQA
+   decode, the fresh flash prefill (GQA, and its MLA form at q/k
+   (6, s, 128, 192), v (6, s, 128, 128)), the MLA latent decode (b = 6,
+   h = 128, rows of 576, values of 512; f32 and bf16 tiers, masked rows
+   NaN-filled), the known-scale ternary matmul (also equal to the
+   act-quant kernel on the same x) and its expert form, the int32
+   ternary matmul (also equal to ref.ternary_matmul_ref, quickstart's
+   shape included) and the post-append GQA decode (f32 and bf16, length 0,
+   kernel_bench's case, and within 1e-5 of the fused decode).
 3. falcon3-1b: full width and depth from a seeded generator (LoRA B
    factors filled with small seeded values), packed, serving 6 prompts x
    32 tokens with max_new_tokens=96 through Engine.generate (hot_cap=32,
@@ -19,15 +24,22 @@
    no weight was reloaded, each sequence's DR-traffic ledger equals the
    closed form for S=128 / 32 hot tokens, and the greedy tokens, prefill
    logits and first-step logits equal those of the same run on the plain
-   versions.
+   versions. Then the entry-point path: ternary_matmul on every layer's
+   projections and flash_decode_attention(q, cache) on every layer's
+   post-append cache, each against its oracle. Then the same requests
+   under fuse_act_quant=False (the carried-scale path): tokens equal on
+   6/6 rows, ledger, no act-quant kernel launch, one known-scale launch
+   per projection.
 4. deepseek-v3-671b-l5: DeepSeek-V3 at full width, 3 dense + 2 MoE layers
    (the routed experts drawn and packed one at a time from seed 0), serving
    6 prompts x (32 + 32) tokens (hot_cap=32, max_len=128, 6 slots: rows
    33-64 come from the cold tier). Same checks against its plain run: the
    four kernels of its path launched, greedy tokens equal on 6/6 rows,
    every row's ledger equal to the closed form for S=64 / 32 hot tokens,
-   no weight reloaded; prints peak device memory and each phase's time.
-5. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+   no weight reloaded; then its carried-scale run with the same checks;
+   prints peak device memory and each phase's time.
+5. Prints {"kernels": [...]} (each form's launches on its own path and on
+   every path that counted it) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero. Run from the
 repository root with no arguments: python3 chip_smoke.py
@@ -119,20 +131,51 @@ def max_err(a, b):
 # ---------------------------------------------------------------------------
 
 DECODE_SHAPES = ((2048, 4096), (2048, 2048), (2048, 16384), (8192, 2048))  # wqkv wo wgu down
+# deepseek-v3-671b-l5's 2-D packed projections (K, N): w_dq‖w_dkv, w_uq, wo,
+# the dense layers' gate‖up and down, the shared expert's gate‖up and down
+DEEPSEEK_SHAPES = ((7168, 2112), (1536, 24576), (16384, 7168), (7168, 36864), (18432, 7168),
+                   (7168, 4096), (2048, 7168))
+
+
+def projection_operands(torch, gen, m, k, n, codec="pack2", dtype=None, copies=1):
+    """Raw x (m, k), ``copies`` packed copies of one random trit matrix
+    (k, n) and a per-column scale (n,)."""
+    from repro_torch.core import packing
+
+    trits = torch.randint(-1, 2, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    packed = [packing.pack(trits, codec)]
+    for _ in range(copies - 1):
+        packed.append(packed[0].clone())
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 3).to(dtype or torch.float32)
+    col = torch.rand((n,), generator=gen, device="cuda") + 0.01
+    return x, packed, col
+
+
+def layer_runner(layer, fn, copies=8):
+    """A callable that runs ``fn(x, packed, col, k)`` over one decode
+    layer's four projections, cycling over ``copies`` packed copies that
+    together exceed the 50 MB L2, as the 18 layers of a real step do."""
+    it = {"i": 0}
+
+    def go():
+        i = it["i"] = (it["i"] + 1) % copies
+        for (k, n), (x, ps, col) in zip(DECODE_SHAPES, layer):
+            fn(x, ps[i], col, k)
+    return go
+
+
+def dense_layer_matmul(torch, layer):
+    """bf16 ``torch.matmul`` over one decode layer's projections, on the
+    unpacked trits of its packed weights: the library yardstick."""
+    from repro_torch.core import packing
+
+    dense = [(x.to(torch.bfloat16), packing.unpack(ps[0], "pack2", k).to(torch.bfloat16))
+             for (k, _), (x, ps, _) in zip(DECODE_SHAPES, layer)]
+    return lambda: [torch.matmul(xb, w) for xb, w in dense]
 
 
 def kernel1_phase(torch, gen):
-    from repro_torch.core import packing
     from repro_torch.kernels import ternary_matmul as tm
-
-    def operands(m, k, n, codec, dtype, copies=1):
-        trits = torch.randint(-1, 2, (k, n), generator=gen, device="cuda", dtype=torch.int8)
-        packed = [packing.pack(trits, codec)]
-        for _ in range(copies - 1):
-            packed.append(packed[0].clone())
-        x = (torch.randn((m, k), generator=gen, device="cuda") * 3).to(dtype)
-        col = torch.rand((n,), generator=gen, device="cuda") + 0.01
-        return x, packed, col
 
     worst = 0.0
     for codec in ("pack2", "pack243"):
@@ -140,7 +183,7 @@ def kernel1_phase(torch, gen):
             for m in (6, 192):
                 for k, n in DECODE_SHAPES:
                     for bits in ((8, 4) if (m, k, n) == (6, 2048, 4096) else (8,)):
-                        x, (p,), col = operands(m, k, n, codec, dtype)
+                        x, (p,), col = projection_operands(torch, gen, m, k, n, codec, dtype)
                         got = tm.ternary_matmul_actq(x, p, col, k=k, codec=codec, act_bits=bits)
                         ref = tm.ternary_matmul_actq_plain(x, p, col, k, codec, bits)
                         torch.cuda.synchronize()
@@ -154,31 +197,12 @@ def kernel1_phase(torch, gen):
     # timing: one decode layer's four projections (M = 6, f32, pack2); the
     # packed weights cycle over copies that exceed the 50 MB L2, as the 18
     # layers of a real step do
-    layer = [operands(6, k, n, "pack2", torch.float32, copies=8) for k, n in DECODE_SHAPES]
-    it = {"i": 0}
-
-    def run(fn):
-        def go():
-            i = it["i"] = (it["i"] + 1) % 8
-            for (k, n), (x, ps, col) in zip(DECODE_SHAPES, layer):
-                fn(x, ps[i], col, k)
-        return go
-
-    ms, _ = timed("kernel", run(lambda x, p, col, k: tm.ternary_matmul_actq(x, p, col, k=k)),
-                  only="actq_kernel")
-    plain_ms, _ = timed("plain", run(lambda x, p, col, k: tm.ternary_matmul_actq_plain(
-        x, p, col, k)), iters=5)
-    dense = [((x.to(torch.bfloat16)), [torch.randn((k, n), generator=gen, device="cuda",
-                                                  dtype=torch.bfloat16) for _ in range(2)])
-             for (k, n), (x, _, _) in zip(DECODE_SHAPES, layer)]
-    lib_it = {"i": 0}
-
-    def lib():
-        i = lib_it["i"] = 1 - lib_it["i"]
-        for xb, ws in dense:
-            torch.matmul(xb, ws[i])
-
-    library_ms, _ = timed("bf16 torch.matmul", lib)
+    layer = [projection_operands(torch, gen, 6, k, n, copies=8) for k, n in DECODE_SHAPES]
+    ms, _ = timed("kernel", layer_runner(layer, lambda x, p, col, k: tm.ternary_matmul_actq(
+        x, p, col, k=k)), only="ternary_kernel")
+    plain_ms, _ = timed("plain", layer_runner(layer, lambda x, p, col, k: (
+        tm.ternary_matmul_actq_plain(x, p, col, k))), iters=5)
+    library_ms, _ = timed("bf16 torch.matmul", dense_layer_matmul(torch, layer))
     n_bytes = sum(6 * k * 4 + (k // 4) * n + n * 4 + 6 * n * 4 for k, n in DECODE_SHAPES)
     ops = sum(2 * 6 * k * n for k, n in DECODE_SHAPES)
     b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS)
@@ -187,13 +211,13 @@ def kernel1_phase(torch, gen):
           f"({n_bytes} B / 3.35 TB/s)")
     # prefill shapes for PERF.md: M = 192 (6 prompts x 32 tokens)
     for k, n in DECODE_SHAPES:
-        x, (p,), col = operands(192, k, n, "pack2", torch.float32)
-        t = device_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k), only="actq_kernel")
+        x, (p,), col = projection_operands(torch, gen, 192, k, n)
+        t = device_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k), only="ternary_kernel")
         t = time_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k)) if t is None else t
         print(f"ternary_matmul_actq prefill M=192 K={k} N={n}: kernel {t:.5f} ms, "
               f"bound {bound_ms(192 * k * 4 + k // 4 * n + n * 4 + 192 * n * 4, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
     return dict(name="ternary_matmul_actq", route="cuda",
-                source="src/repro_torch/csrc/ternary_matmul_actq.cu",
+                source="src/repro_torch/csrc/ternary_matmul.cu",
                 replaces="src/repro/kernels/ternary_matmul.py:381", max_abs_err=worst,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
@@ -345,23 +369,40 @@ def kernel3_phase(torch, gen, theta):
 EXPERT_SHAPES = ((7168, 4096), (2048, 7168))  # w_gate‖w_up, w_down (K, N)
 
 
+def expert_layer_bmm(torch, gen, xs):
+    """Time bf16 ``torch.bmm`` over one MoE layer's two expert projections
+    (x of each in ``xs``, random bf16 weights of the expert shapes), the
+    library yardstick, and free the 22 GB of weights."""
+    dense = [(x.to(torch.bfloat16), torch.randn((x.shape[0], k, n), generator=gen,
+                                                device="cuda", dtype=torch.bfloat16))
+             for (k, n), x in zip(EXPERT_SHAPES, xs)]
+    ms, _ = timed("bf16 torch.bmm", lambda: [torch.bmm(xb, w) for xb, w in dense], iters=5)
+    del dense
+    torch.cuda.empty_cache()
+    return ms
+
+
+def expert_operands(torch, gen, c, k, n, dtype=None, e=256):
+    """Raw x (e, c, k) whose last slot is empty (zeros: no token took it) in
+    every 7th expert, random packed pack2 bytes (e, k/4, n) and column
+    scales (e, n)."""
+    x = (torch.randn((e, c, k), generator=gen, device="cuda") * 3).to(dtype or torch.float32)
+    x[::7, -1] = 0.0
+    packed = torch.randint(0, 256, (e, k // 4, n), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    col = torch.rand((e, n), generator=gen, device="cuda") + 0.01
+    return x, packed, col
+
+
 def kernel1_expert_phase(torch, gen):
     from repro_torch.kernels import ternary_matmul as tm
 
     e = 256
-
-    def operands(c, k, n, dtype=torch.float32):
-        x = (torch.randn((e, c, k), generator=gen, device="cuda") * 3).to(dtype)
-        packed = torch.randint(0, 256, (e, k // 4, n), generator=gen, device="cuda",
-                               dtype=torch.uint8)
-        col = torch.rand((e, n), generator=gen, device="cuda") + 0.01
-        return x, packed, col
-
     worst, cases = 0.0, 0
     for c in (1, 8):
         for k, n in EXPERT_SHAPES:
             for dtype in ((torch.float32, torch.bfloat16) if c == 1 else (torch.float32,)):
-                x, p, col = operands(c, k, n, dtype)
+                x, p, col = expert_operands(torch, gen, c, k, n, dtype)
                 got = tm.ternary_matmul_expert(x, p, col, k=k)
                 ref = tm.ternary_matmul_expert(x, p, col, k=k, impl="plain")
                 torch.cuda.synchronize()
@@ -369,26 +410,21 @@ def kernel1_expert_phase(torch, gen):
                 cases += 1
                 check(torch.equal(got, ref), f"ternary_matmul_expert not bit-identical: "
                                              f"E={e} C={c} K={k} N={n} {dtype}")
+                check(not got[::7, -1].any(), "an empty expert slot is not exactly zero")
     print(f"ternary_matmul_expert: bit-identical to plain on {cases} cases "
-          "(E=256, C=1/8, w_gu and w_down shapes, f32 + bf16 at C=1)")
+          "(E=256, C=1/8, w_gu and w_down shapes, f32 + bf16 at C=1); empty slots exactly zero")
 
     # timing: one MoE layer's two expert launches at decode (C = 1, f32)
-    layer = [operands(1, k, n) for k, n in EXPERT_SHAPES]
+    layer = [expert_operands(torch, gen, 1, k, n) for k, n in EXPERT_SHAPES]
 
     def run(fn):
         return lambda: [fn(x, p, col, k) for (k, _), (x, p, col) in zip(EXPERT_SHAPES, layer)]
 
     ms, _ = timed("kernel", run(lambda x, p, col, k: tm.ternary_matmul_expert(x, p, col, k=k)),
-                  only="actq_kernel")
+                  only="ternary_kernel")
     plain_ms, _ = timed("plain", run(lambda x, p, col, k: tm.ternary_matmul_expert(
         x, p, col, k=k, impl="plain")), iters=2)
-    dense = [(x.to(torch.bfloat16), torch.randn((e, k, n), generator=gen, device="cuda",
-                                                dtype=torch.bfloat16))
-             for (k, n), (x, _, _) in zip(EXPERT_SHAPES, layer)]
-    library_ms, _ = timed("bf16 torch.bmm", lambda: [torch.bmm(xb, w) for xb, w in dense],
-                          iters=5)
-    del dense
-    torch.cuda.empty_cache()
+    library_ms = expert_layer_bmm(torch, gen, [x for x, _, _ in layer])
     n_bytes = sum(e * (k * 4 + k // 4 * n + n * 4 + n * 4) for k, n in EXPERT_SHAPES)
     ops = sum(2 * e * k * n for k, n in EXPERT_SHAPES)
     b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS)
@@ -396,14 +432,14 @@ def kernel1_expert_phase(torch, gen):
           f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bf16 bmm {library_ms:.5f} ms, bound "
           f"{b_ms:.5f} ms ({n_bytes} B / 3.35 TB/s)")
     for k, n in EXPERT_SHAPES:  # prefill: C = 8 (6 prompts x 32 tokens, top-8 of 256)
-        x, p, col = operands(8, k, n)
-        t = device_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k), only="actq_kernel")
+        x, p, col = expert_operands(torch, gen, 8, k, n)
+        t = device_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k), only="ternary_kernel")
         t = time_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k)) if t is None else t
         nb = e * (8 * k * 4 + k // 4 * n + n * 4 + 8 * n * 4)
         print(f"ternary_matmul_expert prefill E=256 C=8 K={k} N={n}: kernel {t:.5f} ms, "
               f"bound {bound_ms(nb, 2 * e * 8 * k * n, INT8_OPS)[0]:.5f} ms")
     return dict(name="ternary_matmul_actq_expert", route="cuda",
-                source="src/repro_torch/csrc/ternary_matmul_actq.cu",
+                source="src/repro_torch/csrc/ternary_matmul.cu",
                 replaces="src/repro/kernels/ternary_matmul.py:381", max_abs_err=worst,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
@@ -525,15 +561,411 @@ def kernel8_phase(torch, gen):
 
 
 # ---------------------------------------------------------------------------
+# kernel 4: known-scale ternary matmul (the carried-scale path)
+# ---------------------------------------------------------------------------
+
+
+def kernel4_phase(torch, gen):
+    from repro_torch.core.ternary import act_quant
+    from repro_torch.kernels import ternary_matmul as tm
+
+    worst, cases = 0.0, 0
+    # falcon3-1b's shapes in both codecs, then deepseek-v3-671b-l5's (pack2,
+    # the codec it serves with; K = 18432 fills the largest shared-memory tile)
+    grid = [(codec, k, n) for codec in ("pack2", "pack243") for k, n in DECODE_SHAPES]
+    grid += [("pack2", k, n) for k, n in DEEPSEEK_SHAPES]
+    for codec, k, n in grid:
+        for m in (6, 192):
+            x, (p,), col = projection_operands(torch, gen, m, k, n, codec)
+            q = act_quant(x)
+            got = tm.ternary_matmul_fused(q.xq, p, q.scale, col, k=k, codec=codec)
+            ref = tm.ternary_matmul_fused_plain(q.xq, p, q.scale, col, k, codec)
+            prologue = tm.ternary_matmul_actq(x, p, col, k=k, codec=codec)
+            torch.cuda.synchronize()
+            worst = max(worst, max_err(got, ref))
+            cases += 1
+            check(torch.equal(got, ref), f"ternary_matmul_known not bit-identical to plain: "
+                                         f"{codec} M={m} K={k} N={n}")
+            check(torch.equal(got, prologue), f"ternary_matmul_known != the act-quant "
+                                              f"kernel on the same x: {codec} M={m} K={k}")
+    print(f"ternary_matmul_known: bit-identical to plain and to ternary_matmul_actq on {cases} "
+          "cases (M=6/192; falcon3-1b's 4 projections in pack2/pack243, deepseek-v3-671b-l5's "
+          "7 in pack2)")
+
+    layer = [projection_operands(torch, gen, 6, k, n, copies=8) for k, n in DECODE_SHAPES]
+    layer = [(act_quant(x), ps, col) for x, ps, col in layer]
+    ms, _ = timed("kernel", layer_runner(layer, lambda q, p, col, k: tm.ternary_matmul_fused(
+        q.xq, p, q.scale, col, k=k)), only="ternary_kernel")
+    plain_ms, _ = timed("plain", layer_runner(layer, lambda q, p, col, k: (
+        tm.ternary_matmul_fused_plain(q.xq, p, q.scale, col, k))), iters=5)
+    library_ms, _ = timed("bf16 torch.matmul", dense_layer_matmul(
+        torch, [(q.xq, ps, col) for q, ps, col in layer]))
+    n_bytes = sum(6 * k + k // 4 * n + n * 4 + 6 * 4 + 6 * n * 4 for k, n in DECODE_SHAPES)
+    ops = sum(2 * 6 * k * n for k, n in DECODE_SHAPES)
+    b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS)
+    print(f"ternary_matmul_known decode layer (4 launches, M=6, pack2): kernel {ms:.5f} ms, "
+          f"plain {plain_ms:.5f} ms, bf16 matmul {library_ms:.5f} ms, bound {b_ms:.6f} ms "
+          f"({n_bytes} B / 3.35 TB/s)")
+    for k, n in DECODE_SHAPES:  # prefill: M = 192 (6 prompts x 32 tokens)
+        x, (p,), col = projection_operands(torch, gen, 192, k, n)
+        q = act_quant(x)
+        t = device_ms(lambda: tm.ternary_matmul_fused(q.xq, p, q.scale, col, k=k),
+                      only="ternary_kernel")
+        t = time_ms(lambda: tm.ternary_matmul_fused(q.xq, p, q.scale, col, k=k)) if t is None else t
+        nb = 192 * k + k // 4 * n + n * 4 + 192 * 4 + 192 * n * 4
+        print(f"ternary_matmul_known prefill M=192 K={k} N={n}: kernel {t:.5f} ms, "
+              f"bound {bound_ms(nb, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
+    return dict(name="ternary_matmul_known", route="cuda",
+                source="src/repro_torch/csrc/ternary_matmul.cu",
+                replaces="src/repro/kernels/ternary_matmul.py:185", max_abs_err=worst,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: int8 x packed -> int32 (the ternary_matmul entry point)
+# ---------------------------------------------------------------------------
+
+
+def kernel5_phase(torch, gen):
+    from repro_torch.core import packing
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ternary_matmul as tm
+
+    def codes(m, k):
+        return torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+
+    worst, cases = 0.0, 0
+    for codec in ("pack2", "pack243"):
+        for m, k, n in [(8, 256, 64)] + [(m, k, n) for m in (6, 192) for k, n in DECODE_SHAPES]:
+            xq = codes(m, k)
+            p = packing.pack(torch.randint(-1, 2, (k, n), generator=gen, device="cuda",
+                                           dtype=torch.int8), codec)
+            got = tm.ternary_matmul(xq, p, k=k, codec=codec)
+            plain = tm.ternary_acc_plain(xq, p, k, codec)
+            oracle = ref.ternary_matmul_ref(xq, p, k, codec)
+            torch.cuda.synchronize()
+            worst = max(worst, max_err(got, plain))
+            cases += 1
+            check(got.dtype == torch.int32 and torch.equal(got, plain),
+                  f"ternary_matmul_int32 not bit-identical to plain: {codec} M={m} K={k} N={n}")
+            check(torch.equal(got, oracle), f"ternary_matmul_int32 != ref.ternary_matmul_ref: "
+                                            f"{codec} M={m} K={k} N={n}")
+    print(f"ternary_matmul_int32: bit-identical to plain and to ref.ternary_matmul_ref on "
+          f"{cases} cases (pack2/pack243, quickstart's (8, 256) x (256, 64), falcon3-1b's 4 "
+          "projections at M=6/192)")
+
+    layer = [projection_operands(torch, gen, 6, k, n, copies=8) for k, n in DECODE_SHAPES]
+    layer = [(codes(6, k), ps, col) for (k, _), (_, ps, col) in zip(DECODE_SHAPES, layer)]
+    ms, _ = timed("kernel", layer_runner(layer, lambda xq, p, col, k: tm.ternary_matmul(
+        xq, p, k=k)), only="ternary_kernel")
+    plain_ms, _ = timed("plain", layer_runner(layer, lambda xq, p, col, k: tm.ternary_acc_plain(
+        xq, p, k, "pack2")), iters=5)
+    library_ms, _ = timed("bf16 torch.matmul", dense_layer_matmul(torch, layer))
+    n_bytes = sum(6 * k + k // 4 * n + 6 * n * 4 for k, n in DECODE_SHAPES)
+    ops = sum(2 * 6 * k * n for k, n in DECODE_SHAPES)
+    b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS)
+    print(f"ternary_matmul_int32 decode layer (4 launches, M=6, pack2): kernel {ms:.5f} ms, "
+          f"plain {plain_ms:.5f} ms, bf16 matmul {library_ms:.5f} ms, bound {b_ms:.6f} ms "
+          f"({n_bytes} B / 3.35 TB/s)")
+    for k, n in DECODE_SHAPES:  # prefill: M = 192, with torch._int_mm as a second yardstick
+        xq = codes(192, k)
+        p = packing.pack(torch.randint(-1, 2, (k, n), generator=gen, device="cuda",
+                                       dtype=torch.int8), "pack2")
+        t = device_ms(lambda: tm.ternary_matmul(xq, p, k=k), only="ternary_kernel")
+        t = time_ms(lambda: tm.ternary_matmul(xq, p, k=k)) if t is None else t
+        trits = packing.unpack(p, "pack2", k).contiguous()
+        try:
+            int_mm = f"{time_ms(lambda: torch._int_mm(xq, trits)):.5f} ms"
+        except RuntimeError as err:  # a yardstick only: report, do not fail
+            int_mm = f"not measured ({str(err).splitlines()[0][:80]})"
+        nb = 192 * k + k // 4 * n + 192 * n * 4
+        print(f"ternary_matmul_int32 prefill M=192 K={k} N={n}: kernel {t:.5f} ms, "
+              f"torch._int_mm {int_mm}, bound "
+              f"{bound_ms(nb, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
+    return dict(name="ternary_matmul_int32", route="cuda",
+                source="src/repro_torch/csrc/ternary_matmul.cu",
+                replaces="src/repro/kernels/ternary_matmul.py:113", max_abs_err=worst,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: known-scale expert matmul (MoE experts on the carried-scale path)
+# ---------------------------------------------------------------------------
+
+
+def kernel7_phase(torch, gen):
+    from repro_torch.core.ternary import act_quant
+    from repro_torch.kernels import ternary_matmul as tm
+
+    e = 256
+
+    def operands(c, k, n):
+        x, packed, col = expert_operands(torch, gen, c, k, n)
+        return x, act_quant(x), packed, col
+
+    worst, cases = 0.0, 0
+    for c in (1, 8):
+        for k, n in EXPERT_SHAPES:
+            x, q, p, col = operands(c, k, n)
+            got = tm.ternary_matmul_expert_fused(q.xq, p, q.scale, col, k=k)
+            ref = tm.ternary_matmul_expert_fused(q.xq, p, q.scale, col, k=k, impl="plain")
+            prologue = tm.ternary_matmul_expert(x, p, col, k=k)
+            torch.cuda.synchronize()
+            worst = max(worst, max_err(got, ref))
+            cases += 1
+            check(torch.equal(got, ref), f"ternary_matmul_known_expert not bit-identical: "
+                                         f"E={e} C={c} K={k} N={n}")
+            check(torch.equal(got, prologue), f"ternary_matmul_known_expert != the act-quant "
+                                              f"expert kernel: C={c} K={k}")
+            check(not got[::7, -1].any(), "an empty expert slot is not exactly zero")
+    print(f"ternary_matmul_known_expert: bit-identical to plain and to ternary_matmul_expert on "
+          f"{cases} cases (E=256, C=1/8, w_gu and w_down shapes); empty slots exactly zero")
+
+    layer = [operands(1, k, n)[1:] for k, n in EXPERT_SHAPES]
+
+    def run(fn):
+        return lambda: [fn(q, p, col, k) for (k, _), (q, p, col) in zip(EXPERT_SHAPES, layer)]
+
+    ms, _ = timed("kernel", run(lambda q, p, col, k: tm.ternary_matmul_expert_fused(
+        q.xq, p, q.scale, col, k=k)), only="ternary_kernel")
+    plain_ms, _ = timed("plain", run(lambda q, p, col, k: tm.ternary_matmul_expert_fused(
+        q.xq, p, q.scale, col, k=k, impl="plain")), iters=2)
+    library_ms = expert_layer_bmm(torch, gen, [q.xq for q, _, _ in layer])
+    n_bytes = sum(e * (k + k // 4 * n + n * 4 + 4 + n * 4) for k, n in EXPERT_SHAPES)
+    ops = sum(2 * e * k * n for k, n in EXPERT_SHAPES)
+    b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS)
+    print(f"ternary_matmul_known_expert MoE layer (2 launches, E=256, C=1, pack2): kernel "
+          f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bf16 bmm {library_ms:.5f} ms, bound "
+          f"{b_ms:.6f} ms ({n_bytes} B / 3.35 TB/s)")
+    for k, n in EXPERT_SHAPES:  # prefill: C = 8
+        _, q, p, col = operands(8, k, n)
+        t = device_ms(lambda: tm.ternary_matmul_expert_fused(q.xq, p, q.scale, col, k=k),
+                      only="ternary_kernel")
+        t = time_ms(lambda: tm.ternary_matmul_expert_fused(q.xq, p, q.scale, col, k=k)) \
+            if t is None else t
+        nb = e * (8 * k + k // 4 * n + n * 4 + 8 * 4 + 8 * n * 4)
+        print(f"ternary_matmul_known_expert prefill E=256 C=8 K={k} N={n}: kernel {t:.5f} ms, "
+              f"bound {bound_ms(nb, 2 * e * 8 * k * n, INT8_OPS)[0]:.5f} ms")
+    return dict(name="ternary_matmul_known_expert", route="cuda",
+                source="src/repro_torch/csrc/ternary_matmul.cu",
+                replaces="src/repro/kernels/ternary_matmul.py:263", max_abs_err=worst,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: GQA decode over the post-append cache
+# ---------------------------------------------------------------------------
+
+
+def kernel6_phase(torch, gen, theta):
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.layers import apply_rope
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for lengths in ([0, 1, 31, 32, 33, 128], [0] * 6):
+            q, cache, _, _ = decode_case(torch, gen, lengths, dtype)  # NaN past each length
+            got = fd.flash_decode_attention(q, cache)
+            ref = fd.flash_decode_attention(q, cache, impl="plain")
+            torch.cuda.synchronize()
+            worst = max(worst, max_err(got, ref))
+            check(torch.isfinite(got).all(), "post-append decode output not finite")
+            check(not got[0].any(), "length-0 slot not zero")
+            check(torch.equal(got, ref), f"post-append decode not bit-identical ({dtype}, "
+                                         f"{lengths}): {max_err(got, ref)}")
+    # kernel_bench's case: b = 4, g = 4, rep 4, d = 128, bf16, capacity 512, length 32
+    q, cache, _, _ = decode_case(torch, gen, [32] * 4, torch.bfloat16, b=4, h=16, g=4, d=128,
+                                 hot=32, cold=480)
+    got = fd.flash_decode_attention(q, cache)
+    check(torch.equal(got, fd.flash_decode_attention(q, cache, impl="plain")),
+          "post-append decode not bit-identical at kernel_bench's case")
+    # against kernel 2: its pre-append cache plus the pending token, appended
+    lengths = [0, 1, 31, 32, 33, 100]
+    q, cache, k_new, v_new = decode_case(torch, gen, lengths, torch.float32)
+    o2, k_rot = fd.flash_decode_attention(q, cache, k_new=k_new, v_new=v_new, rope_theta=theta)
+    post = kvc.append_decode(kvc.TieredKVCache(*(t.clone() for t in cache)), k_rot, v_new)
+    q_rot = apply_rope(q[:, None], cache.lengths.long()[:, None], theta)[:, 0]
+    o6 = fd.flash_decode_attention(q_rot, post)
+    torch.cuda.synchronize()
+    err2 = max_err(o6, o2)
+    check(torch.allclose(o6, o2, **TOL), f"post-append decode off the fused kernel: {err2}")
+    print(f"flash_decode_gqa: bit-identical to plain (f32 + bf16, lengths 0-128 with NaN past "
+          f"each, all-zero lengths, kernel_bench's b=4 d=128 cap 512 bf16 case); against "
+          f"flash_decode_gqa_fused on the pre-append cache max |diff| {err2} (tolerance {TOL})")
+
+    length = 80  # the main path's middle state: every slot at length 80 after the append
+    q, cache, _, _ = decode_case(torch, gen, [length] * 6, torch.float32)
+    ms, _ = timed("kernel", lambda: fd.flash_decode_attention(q, cache), only="decode_kernel")
+    plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention(q, cache, impl="plain"))
+    kk = torch.cat([cache.hot_k, cache.cold_k[:, : length - 32]], 1)
+    vv = torch.cat([cache.hot_v, cache.cold_v[:, : length - 32]], 1)
+    kh = kk.permute(0, 2, 1, 3).repeat_interleave(2, dim=1).contiguous()
+    vh = vv.permute(0, 2, 1, 3).repeat_interleave(2, dim=1).contiguous()
+    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kh, vh))
+    b, h, g, d = 6, 8, 4, 256
+    n_bytes = b * h * d * 4 + b * length * g * d * 4 * 2 + 4 * b + b * h * d * 4
+    ops = 4 * b * h * length * d
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"flash_decode_gqa (b=6, length 80, f32): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+          f"SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms ({n_bytes} B / 3.35 TB/s)")
+    return dict(name="flash_decode_gqa", route="cuda",
+                source="src/repro_torch/csrc/flash_decode.cu",
+                replaces="src/repro/kernels/flash_decode.py:402", max_abs_err=worst,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
 # slice phase: falcon3-1b served end to end
 # ---------------------------------------------------------------------------
 
 
-def slice_phase(torch, kernels):
+def counted(kernels, fn):
+    """Run ``fn`` with every kernel's count set to 0 just before it; return
+    its result and the counts read just after."""
+    import torch
+
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {kern.symbol: kern.launches for kern in kernels}, time.perf_counter() - t0
+
+
+def packed_leaves(tree):
+    """Every packed projection leaf of a parameter tree."""
+    if hasattr(tree, "packed"):
+        yield tree
+    elif isinstance(tree, (dict, list, tuple)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from packed_leaves(v)
+
+
+def check_served(res, cfg, eng, seq_len, label):
+    """Tokens in range, every row's ledger at the closed form, no weight
+    reloaded."""
+    from repro_torch.core import dr_edram
+
+    tokens = res.tokens.numpy()
+    check(tokens.shape == (6, seq_len - 32) and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+          f"{label}: generated tokens out of range or short")
+    check(eng.weight_loads == 0, f"{label}: weights were reloaded")
+    closed = dr_edram.closed_form_reduction(seq_len, 32)
+    for f in res.finished:
+        check(f.seq_len == seq_len, f"{label}: row {f.rid} seq_len {f.seq_len}")
+        check(abs(f.external_reduction - closed) <= 1e-12,
+              f"{label}: row {f.rid} external_reduction {f.external_reduction} != {closed}")
+    print(f"{label} DR ledger: every row external_reduction = "
+          f"{res.finished[0].external_reduction!r} (closed form {closed!r}), "
+          f"weight_loads = {eng.weight_loads}")
+
+
+def carried_scale_run(torch, cfg, packed, prompts, kw, new, kernels, fused, want):
+    """The same requests served under ``fuse_act_quant=False`` (the
+    reference's second packed path): a separate act-quant, then the
+    known-scale kernels. Checks greedy tokens equal to ``want`` (the fused
+    kernel run's, itself equal to the plain run's) on 6/6 rows, the
+    ledger, ``weight_loads == 0``, no launch of an act-quant prologue
+    kernel and one known-scale launch for every prologue launch of the
+    fused run. ``fused`` is (engine, wall, launches) of the fused run; its
+    engine serves once more after two carried-scale generates, so the two
+    paths are timed in the order fused, carried, carried, fused."""
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.serving.engine import Engine
+
+    label = f"{cfg.name} carried-scale"
+    ccfg = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, fuse_act_quant=False))
+    eng = Engine(ccfg, packed, **kw)
+    eng.generate(prompts[:, :8], max_new_tokens=2)  # warm-up
+    res, launches, wall = counted(kernels, lambda: eng.generate(prompts, max_new_tokens=new))
+    tok_s = 6 * new / wall
+    print(f"{label} generate 6 x (32 + {new}): {wall:.3f} s, {tok_s:.1f} tokens/s, "
+          f"launches {launches}")
+    check_served(res, ccfg, eng, 32 + new, label)
+    same = int((res.tokens.numpy() == want).all(axis=1).sum())
+    check(same == 6, f"{label}: greedy tokens differ from the fused and plain runs "
+                     f"({same}/6 rows equal)")
+    for prologue, known in ((tm.KERNEL, tm.KNOWN_KERNEL),
+                            (tm.EXPERT_KERNEL, tm.KNOWN_EXPERT_KERNEL)):
+        n_fused, n_known = fused[2].get(prologue.symbol, 0), launches.get(known.symbol, 0)
+        check(launches.get(prologue.symbol, 0) == 0, f"{label}: {prologue.symbol} launched")
+        check(n_known == n_fused, f"{label}: {n_known} {known.symbol} launches, the fused run "
+                                  f"made {n_fused} {prologue.symbol} launches")
+    check(all(n > 0 for sym, n in launches.items()
+              if sym not in (tm.KERNEL.symbol, tm.EXPERT_KERNEL.symbol)),
+          f"{label}: a kernel of the path never launched: {launches}")
+    print(f"{label}: greedy tokens equal to the fused and plain runs (6/6 rows); "
+          f"{cfg.name} act-quant kernel launches 0")
+    walls = {"fused": [fused[1]], "carried": [wall]}
+    for which, e in (("carried", eng), ("fused", fused[0])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        walls[which].append(time.perf_counter() - t0)
+    print(f"{cfg.name} generate walls in the order fused, carried, carried, fused: "
+          f"fused {walls['fused']} s, carried {walls['carried']} s; mean tokens/s fused "
+          f"{6 * new * 2 / sum(walls['fused']):.2f}, carried "
+          f"{6 * new * 2 / sum(walls['carried']):.2f}")
+    breakdown(torch, eng, prompts, label=label, new=16 if cfg.moe is None else 8)
+    return launches, tok_s
+
+
+def entry_point_path(torch, gen, packed, cache):
+    """The two entry points no serving step calls, driven as a user calls
+    them, on the served model's own state: ``ternary_matmul`` on
+    quickstart's (8, 256) x (256, 64) (its step 5) and on every layer's
+    four packed projections at decode width, each against
+    ``ref.ternary_matmul_ref``; ``flash_decode_attention(q, cache)`` over
+    every layer's post-append cache after prefill and one decode step,
+    each against its plain version. Returns the launch counts."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.core import packing
+    from repro_torch.core.ternary import act_quant
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ternary_matmul as tm
+
+    def run():
+        xq = torch.randint(-128, 128, (8, 256), generator=gen, device="cuda", dtype=torch.int8)
+        pk = packing.pack(torch.randint(-1, 2, (256, 64), generator=gen, device="cuda",
+                                        dtype=torch.int8), "pack2")
+        pairs = [(tm.ternary_matmul(xq, pk, k=256), ref.ternary_matmul_ref(xq, pk, 256, "pack2"))]
+        for blk in packed["blocks"]:
+            for leaf in (blk["attn"]["wqkv"], blk["attn"]["wo"], blk["mlp"]["wgu"],
+                         blk["mlp"]["down"]):
+                q = act_quant(torch.randn((6, leaf.k), generator=gen, device="cuda"))
+                pairs.append((tm.ternary_matmul(q.xq, leaf.packed, k=leaf.k, codec=leaf.codec),
+                              ref.ternary_matmul_ref(q.xq, leaf.packed, leaf.k, leaf.codec)))
+        stack = cache["attn"]
+        for i in range(stack.lengths.shape[0]):
+            layer = kvc.layer(stack, i)
+            q = torch.randn((6, 8, 256), generator=gen, device="cuda")
+            pairs.append((fd.flash_decode_attention(q, layer),
+                          fd.flash_decode_attention(q, layer, impl="plain")))
+        return pairs
+
+    pairs, launches, wall = counted([tm.INT32_KERNEL, fd.GQA_KERNEL], run)
+    for got, want in pairs:
+        check(torch.equal(got, want), f"entry-point path: kernel != oracle ({max_err(got, want)})")
+    check(all(n > 0 for n in launches.values()), f"an entry point never launched: {launches}")
+    print(f"entry-point path (falcon3-1b state): {len(pairs)} results equal to their oracles "
+          f"(int32 exact, decode bit-identical to plain) in {wall:.2f} s, launches {launches}")
+    return launches
+
+
+def slice_phase(torch, gen):
+    """falcon3-1b served end to end: the fused kernel run, its plain run,
+    the entry-point path and the carried-scale run."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import dr_edram
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ternary_matmul as tm
     from repro_torch.models import transformer as T
     from repro_torch.models.pack import pack_params
     from repro_torch.serving.engine import Engine
@@ -541,10 +973,10 @@ def slice_phase(torch, kernels):
     cfg = get_config("falcon3-1b")
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    lgen = torch.Generator(device="cuda").manual_seed(1)
     for blk in params["blocks"]:
         for leaf in (blk["attn"]["lora_v"], blk["attn"]["lora_o"], blk["mlp"]["lora_down"]):
-            leaf["b"].normal_(0.0, 0.02, generator=gen)  # zero at init: exercise the adapters
+            leaf["b"].normal_(0.0, 0.02, generator=lgen)  # zero at init: exercise the adapters
     packed = pack_params(params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -553,31 +985,16 @@ def slice_phase(torch, kernels):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (6, 32)).astype(np.int32)
     kw = dict(hot_cap=32, max_len=128, slots=6)
+    kernels = [tm.KERNEL, fd.KERNEL, fp.KERNEL]
 
     eng = Engine(cfg, packed, **kw)
     eng.generate(prompts[:, :8], max_new_tokens=4)  # warm-up (cuBLAS, allocator)
-    for kern in kernels:
-        kern.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = eng.generate(prompts, max_new_tokens=96)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    res, launches, wall = counted(kernels, lambda: eng.generate(prompts, max_new_tokens=96))
     tokens = res.tokens.numpy()
     print(f"falcon3-1b generate 6 x (32 + 96): {wall:.3f} s, {6 * 96 / wall:.1f} tokens/s, "
           f"launches {launches}")
-    check(tokens.shape == (6, 96) and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
-          "generated tokens out of range or short")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
-    check(eng.weight_loads == 0, "weights were reloaded")
-    closed = dr_edram.closed_form_reduction(128, 32)
-    for f in res.finished:
-        check(f.seq_len == 128, f"row {f.rid} seq_len {f.seq_len}")
-        check(abs(f.external_reduction - closed) <= 1e-12,
-              f"row {f.rid} external_reduction {f.external_reduction} != {closed}")
-    print(f"DR ledger: every row external_reduction = {res.finished[0].external_reduction!r} "
-          f"(closed form {closed!r}), weight_loads = {eng.weight_loads}")
+    check_served(res, cfg, eng, 128, "falcon3-1b")
 
     cfg_plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
     t0 = time.perf_counter()
@@ -599,18 +1016,29 @@ def slice_phase(torch, kernels):
     check(torch.allclose(s1, s1_p, **LOGIT_TOL), f"first-step logits off: {max_err(s1, s1_p)}")
     print(f"greedy tokens equal to the plain run (6/6 rows); prefill logits max |diff| "
           f"{max_err(lg, lg_p)}, first-step {max_err(s1, s1_p)} (tolerance {LOGIT_TOL})")
+    with torch.inference_mode():
+        entry = entry_point_path(torch, gen, packed, cache)
+    del cache, cache_p
+    carried, carried_tok_s = carried_scale_run(
+        torch, cfg, packed, prompts, kw, 96, [tm.KERNEL, tm.KNOWN_KERNEL, fd.KERNEL, fp.KERNEL],
+        (eng, wall, launches), tokens)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     breakdown(torch, eng, prompts)
-    return launches, 6 * 96 / wall
+    return {"falcon3-1b": launches, "falcon3-1b entry points": entry,
+            "falcon3-1b carried-scale": carried}, {"falcon3-1b": 6 * 96 / wall,
+                                                   "falcon3-1b carried-scale": carried_tok_s}
 
 
-def deepseek_phase(torch, kernels):
+def deepseek_phase(torch):
     """deepseek-v3-671b-l5 (full width, 3 dense + 2 MoE layers) served end
-    to end and held against its plain run."""
+    to end, held against its plain run, then served again under
+    ``fuse_act_quant=False``."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import dr_edram
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ternary_matmul as tm
     from repro_torch.models import transformer as T
     from repro_torch.models.pack import pack_params
     from repro_torch.serving.engine import Engine
@@ -624,37 +1052,28 @@ def deepseek_phase(torch, kernels):
     print(f"deepseek-v3-671b-l5: init + pack {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, init peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    shapes = {leaf.packed.dim(): set() for leaf in packed_leaves(packed)}
+    for leaf in packed_leaves(packed):
+        shapes[leaf.packed.dim()].add((leaf.k, leaf.packed.shape[-1]))
+    check(shapes == {2: set(DEEPSEEK_SHAPES), 3: set(EXPERT_SHAPES)},
+          f"deepseek-v3-671b-l5's packed shapes {shapes} are not the ones the kernel 4 and "
+          "kernel 7 phases check")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (6, 32)).astype(np.int32)
     kw = dict(hot_cap=32, max_len=128, slots=6)
+    kernels = [tm.KERNEL, tm.EXPERT_KERNEL, fp.MLA_KERNEL, fd.LATENT_KERNEL]
     eng = Engine(cfg, packed, **kw)
     t0 = time.perf_counter()
     eng.generate(prompts[:, :8], max_new_tokens=2)  # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
     print(f"warm-up generate 6 x (8 + 2): {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    for kern in kernels:
-        kern.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = eng.generate(prompts, max_new_tokens=32)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    res, launches, wall = counted(kernels, lambda: eng.generate(prompts, max_new_tokens=32))
     tokens = res.tokens.numpy()
     print(f"deepseek-v3-671b-l5 generate 6 x (32 + 32): {wall:.3f} s, {6 * 32 / wall:.1f} "
           f"tokens/s, launches {launches}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(tokens.shape == (6, 32) and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
-          "generated tokens out of range or short")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
-    check(eng.weight_loads == 0, "weights were reloaded")
-    closed = dr_edram.closed_form_reduction(64, 32)
-    for f in res.finished:
-        check(f.seq_len == 64, f"row {f.rid} seq_len {f.seq_len}")
-        check(abs(f.external_reduction - closed) <= 1e-12,
-              f"row {f.rid} external_reduction {f.external_reduction} != {closed}")
-    print(f"DR ledger: every row external_reduction = {res.finished[0].external_reduction!r} "
-          f"(closed form {closed!r}), weight_loads = {eng.weight_loads}")
+    check_served(res, cfg, eng, 64, "deepseek-v3-671b-l5")
 
     cfg_plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
     t0 = time.perf_counter()
@@ -663,8 +1082,14 @@ def deepseek_phase(torch, kernels):
     same = int((res_p.tokens.numpy() == tokens).all(axis=1).sum())
     print(f"plain run: {time.perf_counter() - t0:.2f} s; greedy tokens equal on {same}/6 rows")
     check(same == 6, f"greedy tokens differ from the plain run ({same}/6 rows equal)")
+    carried, carried_tok_s = carried_scale_run(
+        torch, cfg, packed, prompts, kw, 32,
+        [tm.KERNEL, tm.EXPERT_KERNEL, tm.KNOWN_KERNEL, tm.KNOWN_EXPERT_KERNEL, fp.MLA_KERNEL,
+         fd.LATENT_KERNEL], (eng, wall, launches), tokens)
     breakdown(torch, eng, prompts, label="deepseek-v3-671b-l5", new=8)
-    return launches, 6 * 32 / wall
+    name = cfg.name
+    return ({name: launches, f"{name} carried-scale": carried},
+            {name: 6 * 32 / wall, f"{name} carried-scale": carried_tok_s})
 
 
 def breakdown(torch, eng, prompts, label="falcon3-1b", new=16):
@@ -725,35 +1150,45 @@ def main() -> int:
 
     theta = get_config("falcon3-1b").rope_theta
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phases = [("kernel 1", lambda: kernel1_phase(torch, gen)),
-              ("kernel 2", lambda: kernel2_phase(torch, gen, theta)),
-              ("kernel 3", lambda: kernel3_phase(torch, gen, theta)),
-              ("kernel 1 expert form", lambda: kernel1_expert_phase(torch, gen)),
+    tm, fd, fp = ternary_matmul, flash_decode, flash_prefill
+    # (label, phase, its kernel, the path whose run gives its launches)
+    phases = [("kernel 1", lambda: kernel1_phase(torch, gen), tm.KERNEL, "falcon3-1b"),
+              ("kernel 2", lambda: kernel2_phase(torch, gen, theta), fd.KERNEL, "falcon3-1b"),
+              ("kernel 3", lambda: kernel3_phase(torch, gen, theta), fp.KERNEL, "falcon3-1b"),
+              ("kernel 1 expert form", lambda: kernel1_expert_phase(torch, gen),
+               tm.EXPERT_KERNEL, "deepseek-v3-671b-l5"),
               ("kernel 3 MLA form", lambda: kernel3_mla_phase(
-                  torch, gen, get_config("deepseek-v3-671b").rope_theta)),
-              ("kernel 8", lambda: kernel8_phase(torch, gen))]
+                  torch, gen, get_config("deepseek-v3-671b").rope_theta), fp.MLA_KERNEL,
+               "deepseek-v3-671b-l5"),
+              ("kernel 8", lambda: kernel8_phase(torch, gen), fd.LATENT_KERNEL,
+               "deepseek-v3-671b-l5"),
+              ("kernel 4", lambda: kernel4_phase(torch, gen), tm.KNOWN_KERNEL,
+               "falcon3-1b carried-scale"),
+              ("kernel 5", lambda: kernel5_phase(torch, gen), tm.INT32_KERNEL,
+               "falcon3-1b entry points"),
+              ("kernel 6", lambda: kernel6_phase(torch, gen, theta), fd.GQA_KERNEL,
+               "falcon3-1b entry points"),
+              ("kernel 7", lambda: kernel7_phase(torch, gen), tm.KNOWN_EXPERT_KERNEL,
+               "deepseek-v3-671b-l5 carried-scale")]
     rows = []
-    for label, fn in phases:
+    for label, fn, _, _ in phases:
         t0 = time.perf_counter()
         rows.append(fn())
         print(f"[{label} phase: {time.perf_counter() - t0:.2f} s]")
-    falcon_kernels = [ternary_matmul.KERNEL, flash_decode.KERNEL, flash_prefill.KERNEL]
     t0 = time.perf_counter()
-    launches, tok_s = slice_phase(torch, falcon_kernels)
+    paths, tok_s = slice_phase(torch, gen)
     print(f"[falcon3-1b phase: {time.perf_counter() - t0:.2f} s]")
-    ds_kernels = [ternary_matmul.KERNEL, ternary_matmul.EXPERT_KERNEL, flash_prefill.MLA_KERNEL,
-                  flash_decode.LATENT_KERNEL]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ds_launches, ds_tok_s = deepseek_phase(torch, ds_kernels)
+    ds_paths, ds_tok_s = deepseek_phase(torch)
     print(f"[deepseek-v3-671b-l5 phase: {time.perf_counter() - t0:.2f} s]")
-    for row, kern in zip(rows[:3], falcon_kernels):
-        row["launches"] = launches[kern.symbol]
-    rows[0]["launches_by_path"] = {"falcon3-1b": launches[ternary_matmul.KERNEL.symbol],
-                                   "deepseek-v3-671b-l5": ds_launches[ternary_matmul.KERNEL.symbol]}
-    for row, kern in zip(rows[3:], ds_kernels[1:]):
-        row["launches"] = ds_launches[kern.symbol]
-    print(f"tokens/s falcon3-1b {tok_s:.2f}, deepseek-v3-671b-l5 {ds_tok_s:.2f} on {smi}")
+    paths.update(ds_paths)
+    tok_s.update(ds_tok_s)
+    for row, (_, _, kern, main_path) in zip(rows, phases):
+        row["launches"] = paths[main_path][kern.symbol]
+        row["launches_by_path"] = {p: d[kern.symbol] for p, d in paths.items()
+                                   if kern.symbol in d}
+    print("tokens/s " + ", ".join(f"{p} {t:.2f}" for p, t in tok_s.items()) + f" on {smi}")
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,10 +6,12 @@ an obvious counterpart. Plain tensor code is PyTorch; every Pallas TPU
 kernel on the ported path is a CUDA C++ kernel for Hopper (``csrc/``),
 built with ``nvcc`` on first use and bound through ``ctypes``.
 
-This slice covers the dense packed-ternary serving path of falcon3-1b:
-ternary projections, fused-RoPE flash decode and flash prefill over the
-contiguous hot/cold tiered KV cache, and the continuous-batching
-``serving.engine.Engine``. Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
-version.
+The port covers packed-ternary serving of the dense family (falcon3-1b:
+GQA, LoRA) and the MoE family with MLA attention (deepseek-v3-671b) over
+the contiguous hot/cold tiered KV cache through the continuous-batching
+``serving.engine.Engine``, on both packed paths (act-quant in the matmul
+kernel's prologue, or carried as int8 codes and row scales:
+``BitNetConfig.fuse_act_quant``). Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``, where every kernel wrapper runs its plain
+PyTorch version.
 """

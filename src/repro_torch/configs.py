@@ -50,6 +50,10 @@ class BitNetConfig:
     act_bits: int = 8  # 8 = b1.58, 4 = a4.8
     codec: str = "pack2"  # "pack2" (2 b/trit) | "pack243" (1.6 b/trit)
     impl: str = "auto"  # "auto" | "plain"
+    # True: the int8 act-quant runs in the packed matmul kernel's prologue;
+    # False: a separate act-quant, then the known-scale kernel (the
+    # carried-scale path; same numerics)
+    fuse_act_quant: bool = True
     lora_rank: int = 0  # 0 disables adapters
     lora_targets: Tuple[str, ...] = ("v", "o", "down")
     lora_bits: int = 6

@@ -5,6 +5,8 @@ Weights: ``scale = mean(|W|)``, ``W_q = clip(round(W / scale), -1, 1)``;
 factors (MLA's ``w_uk`` / ``w_uv``) use.
 Activations: per-token absmax to int8 (A8, [-128, 127]) or int4 (A4,
 [-8, 7]) with ``scale = qmax / max(absmax, EPS)``; dequant divides by it.
+``ternary_mac_reference`` is the TriMLA add / subtract / skip semantics of
+the integer product, the ground truth of the kernels' int32 accumulator.
 
 ``torch.round`` rounds half to even like ``jnp.round``, so on identical
 f32 inputs the codes and scales here are bit-identical to the reference.
@@ -76,3 +78,28 @@ def act_quant_ste(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     x32 = x.float()
     xdq = act_dequant(act_quant(x, bits=bits))
     return (x32 + (xdq - x32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Reference integer matmul semantics (TriMLA truth table).
+#
+#   weight  mode      contribution
+#   ------  --------  ------------
+#     0     skip      0
+#    +1     add       +activation
+#    -1     subtract  -activation
+# ---------------------------------------------------------------------------
+
+
+def ternary_mac_reference(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int32 accumulation of int8 activations against {-1, 0, +1} trits.
+
+    xq: (..., K) int8; wq: (K, N) int8 trits -> (..., N) int32, as the sum
+    of the activations where the trit is +1 minus the sum where it is -1.
+    The two masked sums run in float64, which is exact (every partial sum
+    is an integer below 2**53) and works on the card, where integer
+    ``matmul`` does not."""
+    x = xq.to(torch.float64)
+    pos = x @ (wq == 1).to(torch.float64)
+    neg = x @ (wq == -1).to(torch.float64)
+    return (pos - neg).to(torch.int32)

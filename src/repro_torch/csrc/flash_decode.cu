@@ -1,11 +1,19 @@
-// Fused-RoPE GQA flash decode over the tiered KV cache, for Hopper (sm_90a).
+// GQA flash decode over the tiered KV cache, for Hopper (sm_90a): the
+// fused-RoPE form and the post-append form, one kernel template.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_decode.py::_flash_gqa_fused
-// (body _kernel_gqa_fused), reached through flash_decode_attention(k_new=...,
-// rope_theta=...): one new token per slot attends over the hot tier, then
-// the cold tier, then (for active slots) its own pending (k, v), with an
-// online softmax in f32. q and the pending k arrive unrotated and rotate at
-// position lengths[b]; the rotated k is returned for the caller's append.
+// Replaces two TPU kernels of src/repro/kernels/flash_decode.py:
+//  * _flash_gqa_fused (body _kernel_gqa_fused), entry point
+//    flash_decode_gqa_fused, reached through flash_decode_attention(k_new=...,
+//    rope_theta=...): one new token per slot attends over the hot tier, then
+//    the cold tier, then (for active slots) its own pending (k, v), with an
+//    online softmax in f32. q and the pending k arrive unrotated and rotate
+//    at position lengths[b]; the rotated k is returned for the caller's
+//    append. The cache is the pre-append state.
+//  * _flash_gqa (body _kernel_gqa), entry point flash_decode_gqa, reached
+//    through flash_decode_attention(q, cache) with no k_new: q is already
+//    rotated and the cache already holds the new token (the post-append
+//    state), so there is no RoPE prologue and no pending token. A length-0
+//    slot gives zeros (acc / max(l, 1e-30) with acc = l = 0).
 //
 // What bounds it on this card: the bytes of the valid KV rows (one read of
 // each), far below the operation peak at one query token per slot.
@@ -19,6 +27,9 @@
 //    inactive slot writes zeros.
 //  * GQA: the rep query heads of the group share every key tile. A warp
 //    takes one key at a time; its lanes split the head dimension.
+//  * The two forms are one template (FUSED): the post-append form drops the
+//    RoPE prologue and the pending-token step at compile time, so the tier
+//    loop, the one the plain versions share too, exists once.
 //  * Reproducible arithmetic. At full width a one-ulp difference in the
 //    attention output flips int8 activation codes downstream and, within a
 //    few tokens, greedy choices. So every sum here has one fixed order that
@@ -92,7 +103,7 @@ struct DecodeArgs {
   const T* hot_v;
   const T* cold_k;  // (B, CC, G, D)
   const T* cold_v;
-  const T* k_new;   // (B, G, D)
+  const T* k_new;   // (B, G, D); fused form only, like active, cos, sin, k_rot
   const T* v_new;
   const int* lengths;  // (B,)
   const int* active;   // (B,)
@@ -104,7 +115,7 @@ struct DecodeArgs {
   float scale;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool FUSED>
 __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs<T> a) {
   constexpr int TL = D >= 32 ? D / 32 : 1;  // head elements per lane
   constexpr int half = D / 2;
@@ -118,19 +129,23 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs<T> a) {
   const int G = a.G, rep = a.rep;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, d = threadIdx.x;
   const int length = a.lengths[b];
-  const bool active = a.active[b] != 0;
-  const float* cos_row = a.cos + (int64_t)b * half;
-  const float* sin_row = a.sin + (int64_t)b * half;
 
-  // ---- prologue: rotate the rep query heads and the pending k ----
-  for (int r = 0; r < rep; ++r) {
-    const T* qrow = a.q + ((int64_t)b * G * rep + g * rep + r) * D;
-    if (d < D) raw_s[d] = to_f32(qrow[d]);
+  // ---- prologue: the rep query heads (rotated in the fused form) and,
+  // fused, the pending k ----
+  if constexpr (!FUSED) {
+    for (int r = 0; r < rep; ++r)
+      if (d < D) q_s[r][d] = to_f32(a.q[((int64_t)b * G * rep + g * rep + r) * D + d]);
     __syncthreads();
-    if (d < D) q_s[r][d] = rope_at(raw_s, d, half, cos_row, sin_row);
-    __syncthreads();
-  }
-  {
+  } else {
+    const float* cos_row = a.cos + (int64_t)b * half;
+    const float* sin_row = a.sin + (int64_t)b * half;
+    for (int r = 0; r < rep; ++r) {
+      const T* qrow = a.q + ((int64_t)b * G * rep + g * rep + r) * D;
+      if (d < D) raw_s[d] = to_f32(qrow[d]);
+      __syncthreads();
+      if (d < D) q_s[r][d] = rope_at(raw_s, d, half, cos_row, sin_row);
+      __syncthreads();
+    }
     const T* krow = a.k_new + ((int64_t)b * G + g) * D;
     if (d < D) raw_s[d] = to_f32(krow[d]);
     __syncthreads();
@@ -220,8 +235,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs<T> a) {
     }
   }
 
-  // ---- the pending token joins as the last element for active slots ----
-  if (active) {
+  // ---- fused form: the pending token joins as the last element for
+  // active slots ----
+  if (FUSED && a.active[b] != 0) {
     if (warp == 0) {
       for (int r = 0; r < rep; ++r) {
         float x[TL];
@@ -254,15 +270,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs<T> a) {
       store(a.out + ((int64_t)b * G * rep + g * rep + r) * D + d, acc[r] / fmaxf(l[r], 1e-30f));
 }
 
-template <typename T>
+template <typename T, bool FUSED>
 cudaError_t launch(const DecodeArgs<T>& a, int B, int D, cudaStream_t stream) {
   const dim3 grid(a.G, B);
   switch (D) {
-    case 16: decode_kernel<T, 16><<<grid, kThreads, 0, stream>>>(a); break;
-    case 32: decode_kernel<T, 32><<<grid, kThreads, 0, stream>>>(a); break;
-    case 64: decode_kernel<T, 64><<<grid, kThreads, 0, stream>>>(a); break;
-    case 128: decode_kernel<T, 128><<<grid, kThreads, 0, stream>>>(a); break;
-    case 256: decode_kernel<T, 256><<<grid, kThreads, 0, stream>>>(a); break;
+    case 16: decode_kernel<T, 16, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
+    case 32: decode_kernel<T, 32, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
+    case 64: decode_kernel<T, 64, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
+    case 128: decode_kernel<T, 128, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
+    case 256: decode_kernel<T, 256, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -287,12 +303,33 @@ extern "C" int flash_decode_gqa_fused(
                     (const T*)cold_v, (const T*)k_new, (const T*)v_new, (const int*)lengths,
                     (const int*)active, (const float*)cos, (const float*)sin, (T*)out,
                     (T*)k_rot, G, rep, HC, CC, scale};
-    return launch(a, B, D, s);
+    return launch<T, true>(a, B, D, s);
   }
   using T = float;
   DecodeArgs<T> a{(const T*)q, (const T*)hot_k, (const T*)hot_v, (const T*)cold_k,
                   (const T*)cold_v, (const T*)k_new, (const T*)v_new, (const int*)lengths,
                   (const int*)active, (const float*)cos, (const float*)sin, (T*)out,
                   (T*)k_rot, G, rep, HC, CC, scale};
-  return launch(a, B, D, s);
+  return launch<T, true>(a, B, D, s);
+}
+
+// Post-append form: q already rotated, no pending token. Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int flash_decode_gqa(int is_bf16, const void* q, const void* hot_k,
+                                const void* hot_v, const void* cold_k, const void* cold_v,
+                                const void* lengths, void* out, int B, int G, int rep, int D,
+                                int HC, int CC, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    DecodeArgs<T> a{(const T*)q, (const T*)hot_k, (const T*)hot_v, (const T*)cold_k,
+                    (const T*)cold_v, nullptr, nullptr, (const int*)lengths, nullptr, nullptr,
+                    nullptr, (T*)out, nullptr, G, rep, HC, CC, scale};
+    return launch<T, false>(a, B, D, s);
+  }
+  using T = float;
+  DecodeArgs<T> a{(const T*)q, (const T*)hot_k, (const T*)hot_v, (const T*)cold_k,
+                  (const T*)cold_v, nullptr, nullptr, (const int*)lengths, nullptr, nullptr,
+                  nullptr, (T*)out, nullptr, G, rep, HC, CC, scale};
+  return launch<T, false>(a, B, D, s);
 }

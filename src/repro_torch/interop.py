@@ -1,10 +1,11 @@
 """Carry weights from the reference package into the port.
 
-The input is the reference's parameter tree with every array already
-turned into numpy (the caller does that; this module sees numpy only).
-Packed projection leaves arrive as plain dicts ``{"packed", "scale",
-"k", "codec"}`` plus ``"splits"`` for a fused leaf — the fields of the
-reference's ``PackedLinear`` / ``FusedPackedLinear``. They are carried
+The input is the reference's parameter tree, its arrays as numpy or
+anything ``np.asarray`` takes (this module imports no other array
+library). Packed projection leaves arrive as plain dicts ``{"packed",
+"scale", "k", "codec"}`` plus ``"splits"`` for a fused leaf, or as the
+reference's ``PackedLinear`` / ``FusedPackedLinear`` objects, which
+carry those fields as attributes. They are carried
 as they are, bytes and scales, never re-packed: the port's absmean can
 differ from the reference's by one ulp, which would flip trits.
 
@@ -25,12 +26,19 @@ import torch
 
 from repro_torch.core.bitlinear import FusedPackedLinear, PackedLinear
 
-_PACKED_FIELDS = {"packed", "scale", "k", "codec"}
+_PACKED_FIELDS = ("packed", "scale", "k", "codec")
 LAYER_STACKS = ("blocks", "dense_blocks", "moe_blocks")
 
 
-def _is_packed(node) -> bool:
-    return isinstance(node, dict) and _PACKED_FIELDS <= set(node)
+def _packed_fields(node):
+    """A packed leaf's fields as a dict (``splits`` too for a fused leaf),
+    given as the dict or as the reference's leaf object; None for any
+    other node."""
+    if isinstance(node, dict):
+        return node if set(_PACKED_FIELDS) <= set(node) else None
+    if all(hasattr(node, f) for f in _PACKED_FIELDS):
+        return {f: getattr(node, f) for f in (*_PACKED_FIELDS, "splits") if hasattr(node, f)}
+    return None
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -43,23 +51,25 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
 
 def _take(node, i: int):
     """Layer ``i`` of a stacked subtree (every array's leading axis)."""
-    if _is_packed(node):
-        return {**node, "packed": node["packed"][i], "scale": node["scale"][i]}
+    fields = _packed_fields(node)
+    if fields is not None:
+        return {**fields, "packed": fields["packed"][i], "scale": fields["scale"][i]}
     if isinstance(node, dict):
         return {k: _take(v, i) for k, v in node.items()}
     return np.asarray(node)[i]
 
 
 def _convert(node, device):
-    if _is_packed(node):
-        packed = to_tensor(node["packed"], device)
-        scale = to_tensor(node["scale"], device).float()
-        if node.get("splits") is not None:
-            return FusedPackedLinear(packed=packed, scale=scale, k=int(node["k"]),
-                                     codec=str(node["codec"]),
-                                     splits=tuple(int(s) for s in node["splits"]))
-        return PackedLinear(packed=packed, scale=scale, k=int(node["k"]),
-                            codec=str(node["codec"]))
+    fields = _packed_fields(node)
+    if fields is not None:
+        packed = to_tensor(fields["packed"], device)
+        scale = to_tensor(fields["scale"], device).float()
+        if fields.get("splits") is not None:
+            return FusedPackedLinear(packed=packed, scale=scale, k=int(fields["k"]),
+                                     codec=str(fields["codec"]),
+                                     splits=tuple(int(s) for s in fields["splits"]))
+        return PackedLinear(packed=packed, scale=scale, k=int(fields["k"]),
+                            codec=str(fields["codec"]))
     if isinstance(node, dict):
         return {k: _convert(v, device) for k, v in node.items()}
     return to_tensor(node, device)

@@ -28,7 +28,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("ternary_matmul_actq", "flash_decode", "flash_prefill", "flash_latent")
+KERNEL_SOURCES = ("ternary_matmul", "flash_decode", "flash_prefill", "flash_latent")
 
 
 def nvcc_path() -> str:

@@ -1,16 +1,23 @@
-"""Fused-RoPE GQA flash decode over the tiered KV cache (reference:
-``repro/kernels/flash_decode.py::_flash_gqa_fused`` through
-``flash_decode_attention(k_new=..., rope_theta=...)``).
+"""GQA flash decode over the tiered KV cache (reference:
+``repro/kernels/flash_decode.py``), in two forms on one CUDA source,
+``csrc/flash_decode.cu``:
 
-q (b, h, d) and the pending token's k (b, g, d) arrive UNROTATED; both
-rotate at position ``cache.lengths[b]``. Each slot attends over its hot
-tier, then its cold tier, then — when ``active`` — the pending (k, v) as
-the last element. The cache is the PRE-append state; the call returns
-``(o, k_rot)`` and the caller appends. The CUDA kernel is
-``csrc/flash_decode.cu``; ``flash_decode_fused_plain`` is the plain
-PyTorch version (it repeats the kernel's arithmetic — the same 32-key tiles, halving-tree
-sums and separately rounded products — so the two agree bit for bit, which
-keeps greedy tokens of the kernel and plain runs equal at full width).
+- fused RoPE (``_flash_gqa_fused`` through ``flash_decode_attention(
+  k_new=..., rope_theta=...)``): q (b, h, d) and the pending token's k
+  (b, g, d) arrive UNROTATED; both rotate at position ``cache.lengths[b]``.
+  Each slot attends over its hot tier, then its cold tier, then — when
+  ``active`` — the pending (k, v) as the last element. The cache is the
+  PRE-append state; the call returns ``(o, k_rot)`` and the caller
+  appends. Plain version ``flash_decode_fused_plain``.
+- post-append (``_flash_gqa`` through ``flash_decode_attention(q,
+  cache)``): q is already rotated and the cache already holds the new
+  token; returns ``o`` alone, zeros for a length-0 slot. Plain version
+  ``flash_decode_plain``.
+
+The plain versions repeat the kernel's arithmetic — the same 32-key
+tiles, halving-tree sums and separately rounded products — so the two agree
+bit for bit, which keeps greedy tokens of the kernel and plain runs equal
+at full width. Both fold the tiers through one loop, ``fold_tiers``.
 
 ``flash_decode_attention_latent`` is the MLA absorbed form (reference:
 ``_flash_latent`` through ``flash_decode_attention_latent``): q (b, h, D)
@@ -19,8 +26,8 @@ give the values (their first ``value_dim`` dims); CUDA kernel
 ``csrc/flash_latent.cu``, plain version ``flash_decode_latent_plain`` in
 the same reproducible arithmetic.
 
-Only these two forms are ported: the reference's ring, paged and fp8
-forms and the unfused ``_flash_gqa`` raise here.
+The reference's ring, paged and fp8 forms are not ported: their caches do
+not exist here, and fp8 tiers raise.
 """
 
 from __future__ import annotations
@@ -38,6 +45,11 @@ from repro_torch.models.layers import apply_rope, rope_cos_sin
 KERNEL = CudaKernel(
     "flash_decode", "flash_decode_gqa_fused",
     [ctypes.c_int] + [ctypes.c_void_p] * 13
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+)
+GQA_KERNEL = CudaKernel(
+    "flash_decode", "flash_decode_gqa",
+    [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
 )
 MAX_REP = 8
@@ -98,25 +110,17 @@ def fold_tile(state, logits, valid, v):
     return m_new, l, acc
 
 
-def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
-                             active, scale: float, theta: float):
-    """Plain version, in the kernel's arithmetic: rotate q and k_new at
-    ``lengths`` (in f32), then fold the hot tier's and the cold tier's
-    32-key tiles and, for active slots, the pending token."""
-    b, h, d = q.shape
-    g = k_new.shape[1]
-    rep = h // g
-    pos = cache.lengths.long()[:, None]  # (b, 1)
-    q_rot = apply_rope(q.float()[:, None], pos, theta)[:, 0]
-    k_rot = apply_rope(k_new.float()[:, None], pos, theta)[:, 0]  # (b, g, d) f32
-    qg = q_rot.reshape(b, g, rep, 1, d)
+def fold_tiers(qg: torch.Tensor, cache: kvc.TieredKVCache, scale: float):
+    """Online-softmax state after the hot tier's and then the cold tier's
+    32-key tiles, valid rows only. qg: (b, g, rep, 1, d) f32 (rotated)
+    queries; returns (m, l, acc) of shapes (b, g, rep) and (b, g, rep, d)."""
+    b, g, rep, _, d = qg.shape
     lengths = cache.lengths.long()
-    state = (q.new_full((b, g, rep), NEG_INF, dtype=torch.float32),
-             q.new_zeros((b, g, rep), dtype=torch.float32),
-             q.new_zeros((b, g, rep, d), dtype=torch.float32))
+    state = (qg.new_full((b, g, rep), NEG_INF), qg.new_zeros((b, g, rep)),
+             qg.new_zeros((b, g, rep, d)))
     tiers = ((cache.hot_k, cache.hot_v, lengths.clamp(max=cache.hot_cap)),
              (cache.cold_k, cache.cold_v, (lengths - cache.hot_cap).clamp(0, cache.cold_cap)))
-    keys = torch.arange(TILE, device=q.device)
+    keys = torch.arange(TILE, device=qg.device)
     for kt, vt, n_valid in tiers:
         for start in range(0, kt.shape[1], TILE):
             valid = (start + keys)[None] < n_valid[:, None]  # (b, TILE)
@@ -125,20 +129,49 @@ def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
             logits = tree_sum(qg * k_t, -1) * scale  # (b, g, rep, T)
             state = fold_tile(state, logits, valid[:, None, None, :],
                               v_t.permute(0, 2, 1, 3)[:, :, None])
+    return state
+
+
+def _finish(state):
+    _, l, acc = state
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def flash_decode_plain(q, cache: kvc.TieredKVCache, scale: float):
+    """Plain post-append version, in the kernel's arithmetic: fold the
+    tiers (which already hold the new token) for the rotated q."""
+    b, h, d = q.shape
+    g = cache.hot_k.shape[2]
+    qg = q.float().reshape(b, g, h // g, 1, d)
+    return _finish(fold_tiers(qg, cache, scale)).reshape(b, h, d).to(q.dtype)
+
+
+def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
+                             active, scale: float, theta: float):
+    """Plain fused version, in the kernel's arithmetic: rotate q and k_new
+    at ``lengths`` (in f32), fold the tiers and, for active slots, the
+    pending token."""
+    b, h, d = q.shape
+    g = k_new.shape[1]
+    pos = cache.lengths.long()[:, None]  # (b, 1)
+    q_rot = apply_rope(q.float()[:, None], pos, theta)[:, 0]
+    k_rot = apply_rope(k_new.float()[:, None], pos, theta)[:, 0]  # (b, g, d) f32
+    qg = q_rot.reshape(b, g, h // g, 1, d)
+    state = fold_tiers(qg, cache, scale)
     act = (torch.ones(b, dtype=torch.bool, device=q.device) if active is None
            else active.bool())
     logit = tree_sum(qg[:, :, :, 0] * k_rot[:, :, None], -1) * scale  # (b, g, rep)
     v_p = torch.where(act[:, None, None], v_new.float(), 0.0)[:, :, None, None]
-    _, l, acc = fold_tile(state, logit[..., None], act[:, None, None, None], v_p)
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, h, d).to(q.dtype), k_rot.to(k_new.dtype)
+    state = fold_tile(state, logit[..., None], act[:, None, None, None], v_p)
+    return _finish(state).reshape(b, h, d).to(q.dtype), k_rot.to(k_new.dtype)
 
 
-def _launch(q, cache, k_new, v_new, active, scale, theta):
+def _check_gqa(q, cache, extra=()):
+    """Operands the GQA kernel takes; raises on anything else."""
     b, h, d = q.shape
-    g = k_new.shape[1]
+    g = cache.hot_k.shape[2]
     rep = h // g
-    tensors = (q, cache.hot_k, cache.hot_v, cache.cold_k, cache.cold_v, k_new, v_new)
+    tensors = (q, cache.hot_k, cache.hot_v, cache.cold_k, cache.cold_v) + tuple(extra)
     if not all(t.is_cuda for t in tensors + (cache.lengths,)):
         raise ValueError("flash_decode_attention: all operands must be CUDA tensors")
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
@@ -153,15 +186,21 @@ def _launch(q, cache, k_new, v_new, active, scale, theta):
         if t.shape != (b, cap, g, d):
             raise ValueError(f"flash_decode_attention: {name} tier {tuple(t.shape)} "
                              f"!= {(b, cap, g, d)}")
-    if v_new.shape != (b, g, d) or cache.hot_v.shape != cache.hot_k.shape or (
-            cache.cold_v.shape != cache.cold_k.shape):
+    if cache.hot_v.shape != cache.hot_k.shape or cache.cold_v.shape != cache.cold_k.shape:
         raise ValueError("flash_decode_attention: v shapes must match k shapes")
-    lengths = cache.lengths.to(torch.int32).contiguous()
+    return tuple(t.contiguous() for t in tensors), cache.lengths.to(torch.int32).contiguous()
+
+
+def _launch(q, cache, k_new, v_new, active, scale, theta):
+    b, h, d = q.shape
+    g = cache.hot_k.shape[2]
+    if k_new.shape != (b, g, d) or v_new.shape != (b, g, d):
+        raise ValueError(f"flash_decode_attention: k/v_new must be {(b, g, d)}")
+    tensors, lengths = _check_gqa(q, cache, (k_new, v_new))
     act = (torch.ones(b, dtype=torch.int32, device=q.device) if active is None
            else active.to(torch.int32).contiguous())
     cos, sin = rope_cos_sin(lengths.long()[:, None], d, theta)  # (b, 1, d/2)
     cos, sin = cos[:, 0].contiguous(), sin[:, 0].contiguous()
-    tensors = tuple(t.contiguous() for t in tensors)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     k_rot = torch.empty((b, g, d), dtype=k_new.dtype, device=q.device)
     if b == 0:
@@ -169,14 +208,28 @@ def _launch(q, cache, k_new, v_new, active, scale, theta):
     KERNEL.launch(
         int(q.dtype == torch.bfloat16), *(ptr(t) for t in tensors), ptr(lengths),
         ptr(act), ptr(cos), ptr(sin), ptr(out), ptr(k_rot),
-        b, g, rep, d, cache.hot_cap, cache.cold_cap, float(scale), stream_of(q),
+        b, g, h // g, d, cache.hot_cap, cache.cold_cap, float(scale), stream_of(q),
     )
     return out, k_rot
 
 
+def _launch_gqa(q, cache, scale):
+    b, h, d = q.shape
+    g = cache.hot_k.shape[2]
+    tensors, lengths = _check_gqa(q, cache)
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    if out.numel():
+        GQA_KERNEL.launch(
+            int(q.dtype == torch.bfloat16), *(ptr(t) for t in tensors), ptr(lengths),
+            ptr(out), b, g, h // g, d, cache.hot_cap, cache.cold_cap, float(scale),
+            stream_of(q),
+        )
+    return out
+
+
 def flash_decode_attention(
-    q: torch.Tensor,  # (b, h, d) — UNROTATED
-    cache: kvc.TieredKVCache,  # PRE-append state
+    q: torch.Tensor,  # (b, h, d) — UNROTATED with k_new, rotated without
+    cache: kvc.TieredKVCache,  # PRE-append state with k_new, POST-append without
     scale: Optional[float] = None,
     *,
     k_new: Optional[torch.Tensor] = None,  # (b, g, d) — UNROTATED pending token
@@ -185,20 +238,27 @@ def flash_decode_attention(
     rope_theta: Optional[float] = None,
     impl: str = "auto",
 ):
-    """Fused-RoPE one-token GQA attention -> ``(o (b, h, d), k_rot (b, g, d))``.
+    """One-token GQA attention over the tiered cache.
 
+    With ``k_new``: the fused-RoPE form -> ``(o (b, h, d), k_rot (b, g,
+    d))``. Without: the post-append form -> ``o (b, h, d)``.
     ``impl="auto"`` launches the CUDA kernel for CUDA tensors and runs the
     plain version for CPU tensors; ``impl="plain"`` runs the plain version."""
-    if k_new is None or v_new is None or rope_theta is None:
-        raise NotImplementedError(
-            "only the fused-RoPE form (k_new, v_new, rope_theta) is ported; "
-            "use kv_cache.tiered_decode_attention on a post-append cache")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    plain = impl == "plain" or not q.is_cuda
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    if impl == "plain" or (impl == "auto" and not q.is_cuda):
+    if k_new is None:
+        if v_new is not None or active is not None or rope_theta is not None:
+            raise ValueError("flash_decode_attention: v_new, active and rope_theta belong "
+                             "to the fused form, which needs k_new")
+        return flash_decode_plain(q, cache, scale) if plain else _launch_gqa(q, cache, scale)
+    if v_new is None or rope_theta is None:
+        raise ValueError("flash_decode_attention: the fused form needs k_new, v_new "
+                         "and rope_theta")
+    if plain:
         return flash_decode_fused_plain(q, cache, k_new, v_new, active, scale,
                                         float(rope_theta))
-    if impl != "auto":
-        raise ValueError(f"unknown impl {impl!r}")
     return _launch(q, cache, k_new, v_new, active, scale, float(rope_theta))
 
 

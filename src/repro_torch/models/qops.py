@@ -10,8 +10,10 @@ weight_quant_ste(w)``; the port stores ``weight_quant_ste(w)`` once, at
 pack time). ``fused_linear`` serves a same-input projection group with one
 act-quant and one kernel launch, then applies each segment's LoRA adapter
 after the split; ``expert_linear`` / ``expert_fused_linear`` run
-expert-stacked packed leaves in one launch over all experts. The
-reference's QAT mode is not part of this port.
+expert-stacked packed leaves in one launch over all experts. Every packed
+call passes ``cfg.bitnet.fuse_act_quant``: the act-quant-prologue kernel,
+or a separate act-quant and the known-scale kernel. The reference's QAT
+mode is not part of this port.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ def linear(leaf, x: torch.Tensor, cfg: ModelConfig,
     if isinstance(leaf, PACKED_TYPES):
         x2, lead = _flatten_x(x, leaf.k)
         y = bitlinear.packed_matmul(leaf, x2, act_bits=cfg.bitnet.act_bits,
-                                    impl=cfg.bitnet.impl).to(x.dtype)
+                                    impl=cfg.bitnet.impl,
+                                    fuse_actq=cfg.bitnet.fuse_act_quant).to(x.dtype)
         n = leaf.packed.shape[-1]
     elif "fq" in leaf:
         w = leaf["fq"]
@@ -80,7 +83,8 @@ def fused_linear(leaf, x: torch.Tensor, cfg: ModelConfig,
     ``lora_leaves``: {segment index: lora leaf}."""
     x2, lead = _flatten_x(x, leaf.k)
     y = bitlinear.packed_matmul(leaf, x2, act_bits=cfg.bitnet.act_bits,
-                                impl=cfg.bitnet.impl).to(x.dtype)
+                                impl=cfg.bitnet.impl,
+                                fuse_actq=cfg.bitnet.fuse_act_quant).to(x.dtype)
     parts = []
     off = 0
     for i, w in enumerate(leaf.splits):
@@ -98,7 +102,8 @@ def expert_linear(leaf, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Per-expert packed linear: x (E, C, K) @ W (E, K, N) -> (E, C, N),
     one launch over all experts."""
     return bitlinear.expert_packed_matmul(leaf, x, act_bits=cfg.bitnet.act_bits,
-                                          impl=cfg.bitnet.impl).to(x.dtype)
+                                          impl=cfg.bitnet.impl,
+                                          fuse_actq=cfg.bitnet.fuse_act_quant).to(x.dtype)
 
 
 def expert_fused_linear(leaf, x: torch.Tensor, cfg: ModelConfig) -> tuple:

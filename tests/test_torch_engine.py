@@ -86,11 +86,13 @@ def _with_lora_b(jref, params, seed):
     return walk(params)
 
 
-def _models(jref, codec, seed=0, name="falcon3-1b"):
+def _models(jref, codec, seed=0, name="falcon3-1b", fuse_act_quant=True):
     jcfg = jref.configs.get_smoke_config(name)
-    jcfg = dataclasses.replace(jcfg, bitnet=dataclasses.replace(jcfg.bitnet, codec=codec))
+    jcfg = dataclasses.replace(jcfg, bitnet=dataclasses.replace(
+        jcfg.bitnet, codec=codec, fuse_act_quant=fuse_act_quant))
     cfg = get_smoke_config(name)
-    cfg = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, codec=codec))
+    cfg = dataclasses.replace(cfg, bitnet=dataclasses.replace(
+        cfg.bitnet, codec=codec, fuse_act_quant=fuse_act_quant))
     params = _with_lora_b(jref, jref.T.init_params(jref.jax.random.PRNGKey(seed), jcfg), seed)
     jpacked = jref.pack.pack_params(params, jcfg)
     return jcfg, jpacked, cfg, interop.params_from_reference(_numpy_tree(jref, jpacked))
@@ -152,6 +154,31 @@ def test_generate_matches_reference_engine(jref, codec, name):
     closed = dr_edram.closed_form_reduction(8 + 16, 4)
     for f in got.finished:
         assert f.seq_len == 24 and abs(f.external_reduction - closed) <= 1e-12
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("codec", ["pack2", "pack243"])
+def test_carried_scale_generate_matches_reference_engine(jref, codec, name):
+    """``fuse_act_quant=False``: every packed projection quantizes in a
+    separate op and runs the known-scale kernel's plain version. Same
+    greedy tokens and traffic as the reference engine under the same flag,
+    ledgers at the closed form, and the same tokens as the prologue run."""
+    jcfg, jpacked, cfg, tparams = _models(jref, codec, seed=1, name=name, fuse_act_quant=False)
+    assert not cfg.bitnet.fuse_act_quant
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (3, 8)).astype(np.int32)
+    kw = dict(hot_cap=4, max_len=48, slots=3)
+    want = jref.engine.Engine(jcfg, jpacked, **kw).generate(jref.jnp.asarray(prompts),
+                                                            max_new_tokens=16)
+    got = Engine(cfg, tparams, device="cpu", **kw).generate(prompts, max_new_tokens=16)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    assert got.traffic == want.traffic
+    closed = dr_edram.closed_form_reduction(8 + 16, 4)
+    for f in got.finished:
+        assert f.seq_len == 24 and abs(f.external_reduction - closed) <= 1e-12
+    cfg_fused = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet,
+                                                                    fuse_act_quant=True))
+    fused = Engine(cfg_fused, tparams, device="cpu", **kw).generate(prompts, max_new_tokens=16)
+    assert torch.equal(got.tokens, fused.tokens) and got.traffic == fused.traffic
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -299,4 +326,30 @@ def test_cuda_engine_matches_plain_run(codec, name):
     plain_cfg = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
     want = Engine(plain_cfg, params, hot_cap=4, max_len=48, slots=3).generate(
         prompts, max_new_tokens=16)
+    assert torch.equal(got.tokens, want.tokens) and got.traffic == want.traffic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_carried_scale_engine_matches_prologue_run(name):
+    """On the card, ``fuse_act_quant=False`` runs the known-scale kernels
+    (and never the act-quant prologue ones) and emits the prologue run's
+    tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import ternary_matmul as tm
+
+    cfg = get_smoke_config(name)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 8)).astype(np.int32)
+    kw = dict(hot_cap=4, max_len=48, slots=3)
+    want = Engine(cfg, params, **kw).generate(prompts, max_new_tokens=16)
+    carried = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet,
+                                                                  fuse_act_quant=False))
+    kernels = (tm.KERNEL, tm.EXPERT_KERNEL, tm.KNOWN_KERNEL, tm.KNOWN_EXPERT_KERNEL)
+    before = [k.launches for k in kernels]
+    got = Engine(carried, params, **kw).generate(prompts, max_new_tokens=16)
+    delta = [k.launches - n for k, n in zip(kernels, before)]
+    assert delta[:2] == [0, 0] and delta[2] > 0
+    assert (delta[3] > 0) == (cfg.family == "moe")
     assert torch.equal(got.tokens, want.tokens) and got.traffic == want.traffic

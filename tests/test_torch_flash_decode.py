@@ -1,7 +1,9 @@
-"""Port parity for fused-RoPE flash decode and the contiguous tiered KV
-cache (repro_torch.kernels.flash_decode, core.kv_cache) against the
-reference's ``_flash_gqa_fused`` Pallas kernel (interpret mode) and its
-XLA path (rotate -> append -> tiered attention).
+"""Port parity for GQA flash decode — the fused-RoPE form and the
+post-append form — and the contiguous tiered KV cache
+(repro_torch.kernels.flash_decode, core.kv_cache) against the reference's
+``_flash_gqa_fused`` and ``_flash_gqa`` Pallas kernels (interpret mode)
+and their XLA paths (rotate -> append -> tiered attention, and the tiered
+attention alone).
 
 Cache writes are copies, so appends must match bit for bit. The attention
 output is f32 arithmetic in another order (tiles and halving trees here,
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.core import kv_cache as kvc
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.models.layers import apply_rope
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 THETA = 1_000_042.0
@@ -148,9 +151,69 @@ def test_tree_sum_is_the_halving_order():
 
 
 def test_only_the_fused_form_is_ported():
+    """Since the post-append form is ported too, what stays refused is a
+    half-given fused form: k_new without v_new or rope_theta, or the fused
+    form's arguments without k_new."""
     cache, _ = _build([1], 2, 2)
-    with pytest.raises(NotImplementedError):
-        fd.flash_decode_attention(torch.zeros(1, 4, 16), cache)
+    q, kn = torch.zeros(1, 4, 16), torch.zeros(1, 2, 16)
+    assert fd.flash_decode_attention(q, cache).shape == (1, 4, 16)
+    for kw in (dict(k_new=kn), dict(k_new=kn, v_new=kn), dict(k_new=kn, rope_theta=THETA),
+               dict(v_new=kn), dict(rope_theta=THETA)):
+        with pytest.raises(ValueError):
+            fd.flash_decode_attention(q, cache, **kw)
+    with pytest.raises(ValueError):
+        fd.flash_decode_attention(q, cache, impl="pallas")
+
+
+@pytest.mark.parametrize("lens,hot,cold", [
+    ([1, 4, 2, 3], 4, 12),  # hot tier only
+    ([0, 3, 9, 16], 4, 12),  # length-0 slot, hot edge, cold rows, full
+    ([5, 40, 70, 33], 8, 64),  # several cold tiles
+])
+def test_post_append_decode_matches_pallas_and_xla(jref, lens, hot, cold):
+    b, h, g, d = len(lens), 4, 2, 16
+    _, jcache = _build(lens, hot, cold, g, d, jref=jref)
+    q = np.random.default_rng(sum(lens) + 7).standard_normal((b, h, d)).astype(np.float32)
+    want_p = np.asarray(jref.fd.flash_decode_attention(jref.jnp.asarray(q), jcache,
+                                                       impl="pallas", interpret=True))
+    want_x = np.asarray(jref.fd.flash_decode_attention(jref.jnp.asarray(q), jcache, impl="xla"))
+    got = fd.flash_decode_attention(torch.from_numpy(q), _tiered(jcache))
+    assert got.shape == (b, h, d) and got.dtype == torch.float32
+    for want in (want_p, want_x):
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not got[i].any()  # length-0 slot: exact zeros
+
+
+def test_post_append_plain_skips_rows_past_length():
+    lens = [0, 5, 20]
+    cache, _ = _build(lens, 4, 28)
+    hot_valid, cold_valid = kvc.valid_masks(cache)
+    poisoned = kvc.TieredKVCache(
+        *(torch.where(m[:, :, None, None], t, float("nan"))
+          for t, m in ((cache.hot_k, hot_valid), (cache.hot_v, hot_valid),
+                       (cache.cold_k, cold_valid), (cache.cold_v, cold_valid))),
+        cache.lengths)
+    q = torch.from_numpy(np.random.default_rng(8).standard_normal((3, 4, 16)).astype(np.float32))
+    clean = fd.flash_decode_attention(q, cache)
+    dirty = fd.flash_decode_attention(q, poisoned)
+    assert torch.equal(clean, dirty) and not dirty[0].any()
+
+
+def test_fused_form_is_post_append_form_after_the_append():
+    """The fused form over the pre-append cache and the post-append form
+    over the cache after the append see the same keys; they fold the new
+    token in another order, so they agree to TOL, not bit for bit."""
+    lens = [0, 3, 31, 40]
+    cache, _ = _build(lens, 8, 56, seed=9)
+    rng = np.random.default_rng(10)
+    q, kn, vn = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for s in ((4, 4, 16), (4, 2, 16), (4, 2, 16)))
+    o, k_rot = fd.flash_decode_attention(q, cache, k_new=kn, v_new=vn, rope_theta=THETA)
+    q_rot = apply_rope(q[:, None], cache.lengths.long()[:, None], THETA)[:, 0]
+    kvc.append_decode(cache, k_rot, vn)
+    np.testing.assert_allclose(fd.flash_decode_attention(q_rot, cache).numpy(), o.numpy(), **TOL)
 
 
 @pytest.mark.cuda
@@ -172,3 +235,21 @@ def test_cuda_kernel_bit_identical_to_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert fd.KERNEL.launches == before + 1
     assert torch.equal(k_rot, k_rot_p) and torch.equal(o, o_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_post_append_kernel_bit_identical_to_plain(cuda, dtype):
+    lens = [0, 1, 31, 32, 33, 128]
+    b, h, g, d = 6, 8, 4, 256
+    cache, _ = _build(lens, 32, 96, g, d, seed=5)
+    dt = getattr(torch, dtype)
+    cache = kvc.TieredKVCache(*(t.to(cuda, dt) for t in cache[:4]), cache.lengths.to(cuda))
+    q = torch.from_numpy(np.random.default_rng(6).standard_normal((b, h, d)).astype(
+        np.float32)).to(cuda, dt)
+    before = fd.GQA_KERNEL.launches
+    o = fd.flash_decode_attention(q, cache)
+    o_p = fd.flash_decode_attention(q, cache, impl="plain")
+    torch.cuda.synchronize()
+    assert fd.GQA_KERNEL.launches == before + 1
+    assert torch.equal(o, o_p) and not o[0].any()

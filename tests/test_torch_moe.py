@@ -1,9 +1,11 @@
 """Port parity for the MoE layer (repro_torch.models.moe) and the expert
-form of the act-quant ternary matmul (kernels.ternary_matmul.
-ternary_matmul_expert, core.bitlinear.expert_packed_matmul) against the
-reference: ``ops.ternary_matmul_expert`` (Pallas kernel in interpret mode,
-and its XLA path), ``moe._route_tokens`` / ``apply_moe`` on the
-deepseek-v3-671b smoke shapes.
+forms of the ternary matmul — act-quant prologue and known scale
+(kernels.ternary_matmul.ternary_matmul_expert / _expert_fused,
+core.bitlinear.expert_packed_matmul) — against the reference:
+``ops.ternary_matmul_expert`` and ``ops.ternary_matmul_expert_fused``
+(Pallas kernels in interpret mode, and their XLA paths),
+``moe._route_tokens`` / ``apply_moe`` on the deepseek-v3-671b smoke
+shapes, with and without ``fuse_act_quant``.
 
 Integer stages and the combine are BIT-IDENTICAL: the expert matmul
 (act-quant, int32 accumulate, one f32 epilogue in the same order), the
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch import configs, interop
 from repro_torch.core import bitlinear, packing
+from repro_torch.core.ternary import act_quant
 from repro_torch.kernels import ternary_matmul as tm
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
@@ -44,12 +47,13 @@ def jref():
 
     from repro import configs as jconfigs
     from repro.core import bitlinear as jbitlinear
+    from repro.core import ternary as jternary
     from repro.kernels import ops as jops
     from repro.models import moe as jmoe
     from repro.models import pack as jpack
 
     return types.SimpleNamespace(jax=jax, jnp=jnp, configs=jconfigs, bitlinear=jbitlinear,
-                                 ops=jops, moe=jmoe, pack=jpack)
+                                 ops=jops, moe=jmoe, pack=jpack, ternary=jternary)
 
 
 @pytest.fixture
@@ -103,14 +107,59 @@ def test_expert_packed_matmul_leaves_bit_identical(jref, codec):
     jfused = jref.pack.fuse_packed(jleaves)
     x = rng.standard_normal((e, 3, k)).astype(np.float32)
     for jl in jleaves + [jfused]:
-        leaf = interop.from_reference(dict(
-            packed=np.asarray(jl.packed), scale=np.asarray(jl.scale), k=jl.k, codec=jl.codec,
-            **({"splits": jl.splits} if hasattr(jl, "splits") else {})))
+        leaf = interop.from_reference(jl)
         want = np.asarray(jref.bitlinear.expert_packed_matmul(jl, jref.jnp.asarray(x),
                                                               impl="pallas"))
         got = bitlinear.expert_packed_matmul(leaf, torch.from_numpy(x))
         np.testing.assert_array_equal(got.numpy(), want)
     assert tuple(jfused.scale.shape) == (e, 48)
+
+
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("c", [1, 5, 16])
+def test_expert_known_scale_bit_identical_to_pallas_and_xla(jref, codec, c):
+    """Kernel 7's plain version: the caller's codes and row scales (an
+    empty slot of zero codes included), the reference's carried-scale
+    expert kernel (interpret) and its XLA path, and the prologue route on
+    the raw x all give the same bits."""
+    e, k, n = 4, 96, 72
+    x, packed, col = _expert_case(c * 13 + 5, e, c, k, n, codec)
+    x[1, -1] = 0.0  # a capacity slot no token took
+    q = jref.ternary.act_quant(jref.jnp.asarray(x))
+    xq, xs = np.array(q.xq), np.array(q.scale)
+    got = tm.ternary_matmul_expert_fused(*(torch.from_numpy(a) for a in (xq, packed, xs, col)),
+                                         k=k, codec=codec)
+    assert got.shape == (e, c, n) and not got[1, -1].any()
+    jargs = [jref.jnp.asarray(a) for a in (xq, packed, xs, col)]
+    for impl in ("pallas", "xla"):
+        want = np.asarray(jref.ops.ternary_matmul_expert_fused(*jargs, k=k, codec=codec,
+                                                               impl=impl))
+        np.testing.assert_array_equal(got.numpy(), want)
+    prologue = tm.ternary_matmul_expert(*(torch.from_numpy(a) for a in (x, packed, col)),
+                                        k=k, codec=codec)
+    assert torch.equal(got, prologue)
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_expert_packed_matmul_routes_bit_identical(jref, codec):
+    """Both expert leaf kinds: a QuantizedActivation input,
+    ``fuse_actq=False`` and the prologue route agree bit for bit, and equal
+    the reference's carried-scale route (Pallas, interpret)."""
+    rng = np.random.default_rng(19)
+    e, k = 3, 64
+    ws = [rng.standard_normal((e, k, 32)).astype(np.float32) for _ in range(2)]
+    jleaves = [jref.pack._pack_weight(jref.jnp.asarray(w), codec) for w in ws]
+    x = rng.standard_normal((e, 4, k)).astype(np.float32)
+    tx = torch.from_numpy(x)
+    for jl in jleaves[:1] + [jref.pack.fuse_packed(jleaves)]:
+        leaf = interop.from_reference(jl)
+        want = np.asarray(jref.bitlinear.expert_packed_matmul(
+            jl, jref.jnp.asarray(x), impl="pallas", fuse_actq=False))
+        fused = bitlinear.expert_packed_matmul(leaf, tx)
+        for got in (bitlinear.expert_packed_matmul(leaf, tx, fuse_actq=False),
+                    bitlinear.expert_packed_matmul(leaf, act_quant(tx))):
+            assert torch.equal(got, fused)
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_capacity_matches_reference(jref):
@@ -184,16 +233,7 @@ def _moe_params(jref, seed, top_k=None, codec="pack2"):
                          bitnet=dataclasses.replace(cfg.bitnet, codec=codec))
     jp = jref.moe.init_moe(jref.jax.random.PRNGKey(seed), jcfg)
     jpacked = jref.pack.pack_params({"moe": jp}, jcfg)["moe"]
-
-    def np_tree(t):
-        if isinstance(t, (jref.bitlinear.PackedLinear, jref.bitlinear.FusedPackedLinear)):
-            return dict(packed=np.asarray(t.packed), scale=np.asarray(t.scale), k=t.k,
-                        codec=t.codec, **({"splits": t.splits} if hasattr(t, "splits") else {}))
-        if isinstance(t, dict):
-            return {k: np_tree(v) for k, v in t.items()}
-        return np.asarray(t)
-
-    return jcfg, cfg, jpacked, interop.from_reference(np_tree(jpacked))
+    return jcfg, cfg, jpacked, interop.from_reference(jpacked)
 
 
 @pytest.mark.parametrize("top_k", [2, 4])
@@ -268,3 +308,27 @@ def test_cuda_expert_kernel_bit_identical_to_plain(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert tm.EXPERT_KERNEL.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("shape", [(4, 3, 130, 70), (256, 1, 7168, 4096), (256, 8, 2048, 7168)])
+def test_cuda_expert_known_scale_kernel_bit_identical_to_plain(cuda, codec, shape):
+    """Kernel 7 against its plain version and against kernel 1's expert
+    form on the raw x; a slot of zero activations comes out exactly zero."""
+    e, c, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(e + c + 1)
+    x = torch.randn((e, c, k), generator=g, device=cuda) * 2
+    x[0, -1] = 0.0
+    trits = torch.randint(-1, 2, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    packed = packing.pack(trits, codec)[None].repeat(e, 1, 1)
+    col = torch.rand((e, n), generator=g, device=cuda) + 0.01
+    q = act_quant(x)
+    before = tm.KNOWN_EXPERT_KERNEL.launches
+    got = tm.ternary_matmul_expert_fused(q.xq, packed, q.scale, col, k=k, codec=codec)
+    torch.cuda.synchronize()
+    assert tm.KNOWN_EXPERT_KERNEL.launches == before + 1
+    assert torch.equal(got, tm.ternary_matmul_expert_fused(q.xq, packed, q.scale, col, k=k,
+                                                           codec=codec, impl="plain"))
+    assert torch.equal(got, tm.ternary_matmul_expert(x, packed, col, k=k, codec=codec))
+    assert not got[0, -1].any()
