@@ -7,13 +7,17 @@
 2. Kernel phases: hold each of the ten kernel forms against its plain
    PyTorch version on the card at the shapes the serving paths give it,
    and time both (plus a PyTorch library call of the same work as a
-   yardstick): the act-quant ternary matmul (falcon3-1b's projections, and
-   its expert form at DeepSeek-V3's E = 256, C = 1 / 8), the fused-RoPE GQA
+   yardstick: bf16 matmul / bmm at decode, torch._int_mm at M = 192, bf16
+   bmm at C = 8): the act-quant ternary matmul (falcon3-1b's projections,
+   and its expert form at DeepSeek-V3's E = 256, C = 1 / 8), the fused-RoPE GQA
    decode, the fresh flash prefill (GQA, and its MLA form at q/k
    (6, s, 128, 192), v (6, s, 128, 128)), the MLA latent decode (b = 6,
    h = 128, rows of 576, values of 512; f32 and bf16 tiers, masked rows
    NaN-filled), the known-scale ternary matmul (also equal to the
-   act-quant kernel on the same x) and its expert form, the int32
+   act-quant kernel on the same x, and the int32 kernel equal to its plain
+   version on the same codes, at falcon3-1b's and deepseek-v3-671b-l5's
+   projections in pack2 and pack243 and qwen3-32b's down projection,
+   K = 25600, in pack2) and its expert form, the int32
    ternary matmul (also equal to ref.ternary_matmul_ref, quickstart's
    shape included) and the post-append GQA decode (f32 and bf16, length 0,
    kernel_bench's case, and within 1e-5 of the fused decode).
@@ -37,7 +41,10 @@
    four kernels of its path launched, greedy tokens equal on 6/6 rows,
    every row's ledger equal to the closed form for S=64 / 32 hot tokens,
    no weight reloaded; then its carried-scale run with the same checks;
-   prints peak device memory and each phase's time.
+   then the same model packed in pack243 (wo K = 16384, dense down
+   K = 18432), served with the same checks and the pack2 run's tokens on
+   6/6 rows; prints peak device memory, each phase's time and, for each
+   model, the ternary kernels' device time per traced generate.
 5. Prints {"kernels": [...]} (each form's launches on its own path and on
    every path that counted it) and, last, {"ok": true, "device": {...}}.
 
@@ -62,6 +69,7 @@ F32_FLOPS = 67e12
 TOL = dict(rtol=1e-5, atol=1e-5)  # f32 attention vs its plain version
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)  # bf16 tiers: one bf16 ulp of the output
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)  # whole-model logits, kernel vs plain run
+TERNARY = "ternary_"  # in the names of the ternary matmul's kernels (profiler keys)
 
 
 def check(cond, msg):
@@ -135,6 +143,9 @@ DECODE_SHAPES = ((2048, 4096), (2048, 2048), (2048, 16384), (8192, 2048))  # wqk
 # the dense layers' gate‖up and down, the shared expert's gate‖up and down
 DEEPSEEK_SHAPES = ((7168, 2112), (1536, 24576), (16384, 7168), (7168, 36864), (18432, 7168),
                    (7168, 4096), (2048, 7168))
+# qwen3-32b's down projection (K, N): K/4 = 6400 groups in pack2, past the
+# 5888 that the first kernel's shared-memory tile held
+QWEN_DOWN = (25600, 5120)
 
 
 def projection_operands(torch, gen, m, k, n, codec="pack2", dtype=None, copies=1):
@@ -164,6 +175,24 @@ def layer_runner(layer, fn, copies=8):
     return go
 
 
+def int_mm_ms(torch, xq, p, k, codec="pack2"):
+    """torch._int_mm of int8 codes (M, K) by the unpacked trits (int32 out,
+    no rescale): the library yardstick of the M = 192 shapes. None when
+    the call is refused (a yardstick only: reported, never a failure)."""
+    from repro_torch.core import packing
+
+    trits = packing.unpack(p, codec, k).contiguous()
+    try:
+        return time_ms(lambda: torch._int_mm(xq, trits))
+    except RuntimeError as err:
+        print(f"  torch._int_mm not measured ({str(err).splitlines()[0][:80]})")
+        return None
+
+
+def fmt(ms):
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
 def dense_layer_matmul(torch, layer):
     """bf16 ``torch.matmul`` over one decode layer's projections, on the
     unpacked trits of its packed weights: the library yardstick."""
@@ -175,6 +204,7 @@ def dense_layer_matmul(torch, layer):
 
 
 def kernel1_phase(torch, gen):
+    from repro_torch.core.ternary import act_quant
     from repro_torch.kernels import ternary_matmul as tm
 
     worst = 0.0
@@ -199,7 +229,7 @@ def kernel1_phase(torch, gen):
     # layers of a real step do
     layer = [projection_operands(torch, gen, 6, k, n, copies=8) for k, n in DECODE_SHAPES]
     ms, _ = timed("kernel", layer_runner(layer, lambda x, p, col, k: tm.ternary_matmul_actq(
-        x, p, col, k=k)), only="ternary_kernel")
+        x, p, col, k=k)), only=TERNARY)
     plain_ms, _ = timed("plain", layer_runner(layer, lambda x, p, col, k: (
         tm.ternary_matmul_actq_plain(x, p, col, k))), iters=5)
     library_ms, _ = timed("bf16 torch.matmul", dense_layer_matmul(torch, layer))
@@ -212,10 +242,12 @@ def kernel1_phase(torch, gen):
     # prefill shapes for PERF.md: M = 192 (6 prompts x 32 tokens)
     for k, n in DECODE_SHAPES:
         x, (p,), col = projection_operands(torch, gen, 192, k, n)
-        t = device_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k), only="ternary_kernel")
+        t = device_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k), only=TERNARY)
         t = time_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k)) if t is None else t
-        print(f"ternary_matmul_actq prefill M=192 K={k} N={n}: kernel {t:.5f} ms, "
-              f"bound {bound_ms(192 * k * 4 + k // 4 * n + n * 4 + 192 * n * 4, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
+        nb = 192 * k * 4 + k // 4 * n + n * 4 + 192 * n * 4
+        print(f"ternary_matmul_actq prefill M=192 K={k} N={n}: kernel {t:.5f} ms, torch._int_mm "
+              f"{fmt(int_mm_ms(torch, act_quant(x).xq, p, k))}, bound "
+              f"{bound_ms(nb, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
     return dict(name="ternary_matmul_actq", route="cuda",
                 source="src/repro_torch/csrc/ternary_matmul.cu",
                 replaces="src/repro/kernels/ternary_matmul.py:381", max_abs_err=worst,
@@ -369,17 +401,23 @@ def kernel3_phase(torch, gen, theta):
 EXPERT_SHAPES = ((7168, 4096), (2048, 7168))  # w_gate‖w_up, w_down (K, N)
 
 
-def expert_layer_bmm(torch, gen, xs):
-    """Time bf16 ``torch.bmm`` over one MoE layer's two expert projections
-    (x of each in ``xs``, random bf16 weights of the expert shapes), the
-    library yardstick, and free the 22 GB of weights."""
-    dense = [(x.to(torch.bfloat16), torch.randn((x.shape[0], k, n), generator=gen,
-                                                device="cuda", dtype=torch.bfloat16))
-             for (k, n), x in zip(EXPERT_SHAPES, xs)]
-    ms, _ = timed("bf16 torch.bmm", lambda: [torch.bmm(xb, w) for xb, w in dense], iters=5)
-    del dense
+def expert_bmm_ms(torch, gen, xs_by_c):
+    """bf16 ``torch.bmm`` over one MoE layer's two expert projections on
+    random bf16 weights of the expert shapes, the library yardstick. For
+    each C of ``xs_by_c`` (C -> the x of w_gu and of w_down): (the layer's
+    time, [each projection's time]). Frees the 22 GB of weights."""
+    ws = [torch.randn((256, k, n), generator=gen, device="cuda", dtype=torch.bfloat16)
+          for k, n in EXPERT_SHAPES]
+    out = {}
+    for c, xs in xs_by_c.items():
+        xb = [x.to(torch.bfloat16) for x in xs]
+        layer, _ = timed(f"bf16 torch.bmm C={c}", lambda: [torch.bmm(a, w) for a, w in zip(xb, ws)],
+                         iters=5)
+        out[c] = (layer, [time_ms(lambda a=a, w=w: torch.bmm(a, w), iters=5)
+                          for a, w in zip(xb, ws)])
+    del ws
     torch.cuda.empty_cache()
-    return ms
+    return out
 
 
 def expert_operands(torch, gen, c, k, n, dtype=None, e=256):
@@ -414,30 +452,33 @@ def kernel1_expert_phase(torch, gen):
     print(f"ternary_matmul_expert: bit-identical to plain on {cases} cases "
           "(E=256, C=1/8, w_gu and w_down shapes, f32 + bf16 at C=1); empty slots exactly zero")
 
-    # timing: one MoE layer's two expert launches at decode (C = 1, f32)
+    # timing: one MoE layer's two expert launches at decode (C = 1, f32),
+    # and each launch at prefill (C = 8: 6 prompts x 32 tokens, top-8 of 256)
     layer = [expert_operands(torch, gen, 1, k, n) for k, n in EXPERT_SHAPES]
+    prefill = [expert_operands(torch, gen, 8, k, n) for k, n in EXPERT_SHAPES]
 
     def run(fn):
         return lambda: [fn(x, p, col, k) for (k, _), (x, p, col) in zip(EXPERT_SHAPES, layer)]
 
     ms, _ = timed("kernel", run(lambda x, p, col, k: tm.ternary_matmul_expert(x, p, col, k=k)),
-                  only="ternary_kernel")
+                  only=TERNARY)
     plain_ms, _ = timed("plain", run(lambda x, p, col, k: tm.ternary_matmul_expert(
         x, p, col, k=k, impl="plain")), iters=2)
-    library_ms = expert_layer_bmm(torch, gen, [x for x, _, _ in layer])
+    bmm = expert_bmm_ms(torch, gen, {1: [x for x, _, _ in layer], 8: [x for x, _, _ in prefill]})
+    library_ms = bmm[1][0]
     n_bytes = sum(e * (k * 4 + k // 4 * n + n * 4 + n * 4) for k, n in EXPERT_SHAPES)
     ops = sum(2 * e * k * n for k, n in EXPERT_SHAPES)
     b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS)
     print(f"ternary_matmul_expert MoE layer (2 launches, E=256, C=1, pack2, f32 x): kernel "
           f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bf16 bmm {library_ms:.5f} ms, bound "
           f"{b_ms:.5f} ms ({n_bytes} B / 3.35 TB/s)")
-    for k, n in EXPERT_SHAPES:  # prefill: C = 8 (6 prompts x 32 tokens, top-8 of 256)
-        x, p, col = expert_operands(torch, gen, 8, k, n)
-        t = device_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k), only="ternary_kernel")
+    for (k, n), (x, p, col), bmm_ms in zip(EXPERT_SHAPES, prefill, bmm[8][1]):
+        t = device_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k), only=TERNARY)
         t = time_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k)) if t is None else t
         nb = e * (8 * k * 4 + k // 4 * n + n * 4 + 8 * n * 4)
         print(f"ternary_matmul_expert prefill E=256 C=8 K={k} N={n}: kernel {t:.5f} ms, "
-              f"bound {bound_ms(nb, 2 * e * 8 * k * n, INT8_OPS)[0]:.5f} ms")
+              f"bf16 bmm {bmm_ms:.5f} ms, bound "
+              f"{bound_ms(nb, 2 * e * 8 * k * n, INT8_OPS)[0]:.5f} ms")
     return dict(name="ternary_matmul_actq_expert", route="cuda",
                 source="src/repro_torch/csrc/ternary_matmul.cu",
                 replaces="src/repro/kernels/ternary_matmul.py:381", max_abs_err=worst,
@@ -570,10 +611,14 @@ def kernel4_phase(torch, gen):
     from repro_torch.kernels import ternary_matmul as tm
 
     worst, cases = 0.0, 0
-    # falcon3-1b's shapes in both codecs, then deepseek-v3-671b-l5's (pack2,
-    # the codec it serves with; K = 18432 fills the largest shared-memory tile)
-    grid = [(codec, k, n) for codec in ("pack2", "pack243") for k, n in DECODE_SHAPES]
-    grid += [("pack2", k, n) for k, n in DEEPSEEK_SHAPES]
+    # falcon3-1b's and deepseek-v3-671b-l5's shapes in both codecs (deepseek's
+    # wo, K = 16384, and dense down, K = 18432, were past the first kernel's
+    # pack243 cap), and qwen3-32b's down projection in pack2 (K = 25600, past
+    # its pack2 cap). Each case also holds the act-quant kernel (the same x)
+    # and the int32 kernel (the same codes) against it.
+    grid = [(codec, k, n) for codec in ("pack2", "pack243")
+            for k, n in DECODE_SHAPES + DEEPSEEK_SHAPES]
+    grid += [("pack2",) + QWEN_DOWN]
     for codec, k, n in grid:
         for m in (6, 192):
             x, (p,), col = projection_operands(torch, gen, m, k, n, codec)
@@ -581,6 +626,8 @@ def kernel4_phase(torch, gen):
             got = tm.ternary_matmul_fused(q.xq, p, q.scale, col, k=k, codec=codec)
             ref = tm.ternary_matmul_fused_plain(q.xq, p, q.scale, col, k, codec)
             prologue = tm.ternary_matmul_actq(x, p, col, k=k, codec=codec)
+            acc = tm.ternary_matmul(q.xq, p, k=k, codec=codec)
+            acc_ref = tm.ternary_acc_plain(q.xq, p, k, codec)
             torch.cuda.synchronize()
             worst = max(worst, max_err(got, ref))
             cases += 1
@@ -588,14 +635,17 @@ def kernel4_phase(torch, gen):
                                          f"{codec} M={m} K={k} N={n}")
             check(torch.equal(got, prologue), f"ternary_matmul_known != the act-quant "
                                               f"kernel on the same x: {codec} M={m} K={k}")
-    print(f"ternary_matmul_known: bit-identical to plain and to ternary_matmul_actq on {cases} "
-          "cases (M=6/192; falcon3-1b's 4 projections in pack2/pack243, deepseek-v3-671b-l5's "
-          "7 in pack2)")
+            check(torch.equal(acc, acc_ref), f"ternary_matmul_int32 not bit-identical to "
+                                             f"plain: {codec} M={m} K={k} N={n}")
+            del x, p, col, q, got, ref, prologue, acc, acc_ref
+    print(f"ternary_matmul_known (and ternary_matmul_actq, ternary_matmul_int32): bit-identical "
+          f"to plain on {cases} cases (M=6/192; falcon3-1b's 4 and deepseek-v3-671b-l5's 7 "
+          f"projections in pack2/pack243, qwen3-32b's down {QWEN_DOWN} in pack2)")
 
     layer = [projection_operands(torch, gen, 6, k, n, copies=8) for k, n in DECODE_SHAPES]
     layer = [(act_quant(x), ps, col) for x, ps, col in layer]
     ms, _ = timed("kernel", layer_runner(layer, lambda q, p, col, k: tm.ternary_matmul_fused(
-        q.xq, p, q.scale, col, k=k)), only="ternary_kernel")
+        q.xq, p, q.scale, col, k=k)), only=TERNARY)
     plain_ms, _ = timed("plain", layer_runner(layer, lambda q, p, col, k: (
         tm.ternary_matmul_fused_plain(q.xq, p, q.scale, col, k))), iters=5)
     library_ms, _ = timed("bf16 torch.matmul", dense_layer_matmul(
@@ -610,11 +660,12 @@ def kernel4_phase(torch, gen):
         x, (p,), col = projection_operands(torch, gen, 192, k, n)
         q = act_quant(x)
         t = device_ms(lambda: tm.ternary_matmul_fused(q.xq, p, q.scale, col, k=k),
-                      only="ternary_kernel")
+                      only=TERNARY)
         t = time_ms(lambda: tm.ternary_matmul_fused(q.xq, p, q.scale, col, k=k)) if t is None else t
         nb = 192 * k + k // 4 * n + n * 4 + 192 * 4 + 192 * n * 4
-        print(f"ternary_matmul_known prefill M=192 K={k} N={n}: kernel {t:.5f} ms, "
-              f"bound {bound_ms(nb, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
+        print(f"ternary_matmul_known prefill M=192 K={k} N={n}: kernel {t:.5f} ms, torch._int_mm "
+              f"{fmt(int_mm_ms(torch, q.xq, p, k))}, bound "
+              f"{bound_ms(nb, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
     return dict(name="ternary_matmul_known", route="cuda",
                 source="src/repro_torch/csrc/ternary_matmul.cu",
                 replaces="src/repro/kernels/ternary_matmul.py:185", max_abs_err=worst,
@@ -657,7 +708,7 @@ def kernel5_phase(torch, gen):
     layer = [projection_operands(torch, gen, 6, k, n, copies=8) for k, n in DECODE_SHAPES]
     layer = [(codes(6, k), ps, col) for (k, _), (_, ps, col) in zip(DECODE_SHAPES, layer)]
     ms, _ = timed("kernel", layer_runner(layer, lambda xq, p, col, k: tm.ternary_matmul(
-        xq, p, k=k)), only="ternary_kernel")
+        xq, p, k=k)), only=TERNARY)
     plain_ms, _ = timed("plain", layer_runner(layer, lambda xq, p, col, k: tm.ternary_acc_plain(
         xq, p, k, "pack2")), iters=5)
     library_ms, _ = timed("bf16 torch.matmul", dense_layer_matmul(torch, layer))
@@ -671,16 +722,11 @@ def kernel5_phase(torch, gen):
         xq = codes(192, k)
         p = packing.pack(torch.randint(-1, 2, (k, n), generator=gen, device="cuda",
                                        dtype=torch.int8), "pack2")
-        t = device_ms(lambda: tm.ternary_matmul(xq, p, k=k), only="ternary_kernel")
+        t = device_ms(lambda: tm.ternary_matmul(xq, p, k=k), only=TERNARY)
         t = time_ms(lambda: tm.ternary_matmul(xq, p, k=k)) if t is None else t
-        trits = packing.unpack(p, "pack2", k).contiguous()
-        try:
-            int_mm = f"{time_ms(lambda: torch._int_mm(xq, trits)):.5f} ms"
-        except RuntimeError as err:  # a yardstick only: report, do not fail
-            int_mm = f"not measured ({str(err).splitlines()[0][:80]})"
         nb = 192 * k + k // 4 * n + 192 * n * 4
         print(f"ternary_matmul_int32 prefill M=192 K={k} N={n}: kernel {t:.5f} ms, "
-              f"torch._int_mm {int_mm}, bound "
+              f"torch._int_mm {fmt(int_mm_ms(torch, xq, p, k))}, bound "
               f"{bound_ms(nb, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
     return dict(name="ternary_matmul_int32", route="cuda",
                 source="src/repro_torch/csrc/ternary_matmul.cu",
@@ -722,30 +768,33 @@ def kernel7_phase(torch, gen):
           f"{cases} cases (E=256, C=1/8, w_gu and w_down shapes); empty slots exactly zero")
 
     layer = [operands(1, k, n)[1:] for k, n in EXPERT_SHAPES]
+    prefill = [operands(8, k, n)[1:] for k, n in EXPERT_SHAPES]
 
     def run(fn):
         return lambda: [fn(q, p, col, k) for (k, _), (q, p, col) in zip(EXPERT_SHAPES, layer)]
 
     ms, _ = timed("kernel", run(lambda q, p, col, k: tm.ternary_matmul_expert_fused(
-        q.xq, p, q.scale, col, k=k)), only="ternary_kernel")
+        q.xq, p, q.scale, col, k=k)), only=TERNARY)
     plain_ms, _ = timed("plain", run(lambda q, p, col, k: tm.ternary_matmul_expert_fused(
         q.xq, p, q.scale, col, k=k, impl="plain")), iters=2)
-    library_ms = expert_layer_bmm(torch, gen, [q.xq for q, _, _ in layer])
+    bmm = expert_bmm_ms(torch, gen, {1: [q.xq for q, _, _ in layer],
+                                     8: [q.xq for q, _, _ in prefill]})
+    library_ms = bmm[1][0]
     n_bytes = sum(e * (k + k // 4 * n + n * 4 + 4 + n * 4) for k, n in EXPERT_SHAPES)
     ops = sum(2 * e * k * n for k, n in EXPERT_SHAPES)
     b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS)
     print(f"ternary_matmul_known_expert MoE layer (2 launches, E=256, C=1, pack2): kernel "
           f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bf16 bmm {library_ms:.5f} ms, bound "
           f"{b_ms:.6f} ms ({n_bytes} B / 3.35 TB/s)")
-    for k, n in EXPERT_SHAPES:  # prefill: C = 8
-        _, q, p, col = operands(8, k, n)
+    for (k, n), (q, p, col), bmm_ms in zip(EXPERT_SHAPES, prefill, bmm[8][1]):  # C = 8
         t = device_ms(lambda: tm.ternary_matmul_expert_fused(q.xq, p, q.scale, col, k=k),
-                      only="ternary_kernel")
+                      only=TERNARY)
         t = time_ms(lambda: tm.ternary_matmul_expert_fused(q.xq, p, q.scale, col, k=k)) \
             if t is None else t
         nb = e * (8 * k + k // 4 * n + n * 4 + 8 * 4 + 8 * n * 4)
         print(f"ternary_matmul_known_expert prefill E=256 C=8 K={k} N={n}: kernel {t:.5f} ms, "
-              f"bound {bound_ms(nb, 2 * e * 8 * k * n, INT8_OPS)[0]:.5f} ms")
+              f"bf16 bmm {bmm_ms:.5f} ms, bound "
+              f"{bound_ms(nb, 2 * e * 8 * k * n, INT8_OPS)[0]:.5f} ms")
     return dict(name="ternary_matmul_known_expert", route="cuda",
                 source="src/repro_torch/csrc/ternary_matmul.cu",
                 replaces="src/repro/kernels/ternary_matmul.py:263", max_abs_err=worst,
@@ -1023,7 +1072,7 @@ def slice_phase(torch, gen):
         torch, cfg, packed, prompts, kw, 96, [tm.KERNEL, tm.KNOWN_KERNEL, fd.KERNEL, fp.KERNEL],
         (eng, wall, launches), tokens)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    breakdown(torch, eng, prompts)
+    breakdown(torch, eng, prompts, before="57.693 ms in 1224 launches on an H100")
     return {"falcon3-1b": launches, "falcon3-1b entry points": entry,
             "falcon3-1b carried-scale": carried}, {"falcon3-1b": 6 * 96 / wall,
                                                    "falcon3-1b carried-scale": carried_tok_s}
@@ -1086,16 +1135,59 @@ def deepseek_phase(torch):
         torch, cfg, packed, prompts, kw, 32,
         [tm.KERNEL, tm.EXPERT_KERNEL, tm.KNOWN_KERNEL, tm.KNOWN_EXPERT_KERNEL, fp.MLA_KERNEL,
          fd.LATENT_KERNEL], (eng, wall, launches), tokens)
-    breakdown(torch, eng, prompts, label="deepseek-v3-671b-l5", new=8)
+    breakdown(torch, eng, prompts, label="deepseek-v3-671b-l5", new=8,
+              before="181.988 ms in 261 launches on an H100")
     name = cfg.name
-    return ({name: launches, f"{name} carried-scale": carried},
-            {name: 6 * 32 / wall, f"{name} carried-scale": carried_tok_s})
+    del eng, packed
+    torch.cuda.empty_cache()
+    pack243, pack243_tok_s = pack243_run(torch, cfg, prompts, kw, kernels, tokens)
+    return ({name: launches, f"{name} carried-scale": carried, f"{name} pack243": pack243},
+            {name: 6 * 32 / wall, f"{name} carried-scale": carried_tok_s,
+             f"{name} pack243": pack243_tok_s})
 
 
-def breakdown(torch, eng, prompts, label="falcon3-1b", new=16):
-    """Where a generate's time goes: device busy share and the kernels
-    that take the most device time, from a torch.profiler trace of one
-    6 x (32 + new) generate (prefill plus ``new`` decode steps)."""
+def pack243_run(torch, cfg, prompts, kw, kernels, want):
+    """deepseek-v3-671b-l5 packed in pack243 from the same seed (the same
+    trits and scales, 5 to a byte) and served again: its wo (K = 16384) and
+    dense down (K = 18432) are past the first kernel's pack243 cap. Greedy
+    tokens equal to the pack2 kernel run's (``want``) on 6/6 rows, ledgers
+    at the closed form, no weight reloaded, every kernel of the path
+    launched."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.pack import pack_params
+    from repro_torch.serving.engine import Engine
+
+    label = f"{cfg.name} pack243"
+    cfg = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, codec="pack243"))
+    t0 = time.perf_counter()
+    packed = pack_params(T.init_params(cfg, seed=0, device="cuda"), cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    codecs = {leaf.codec for leaf in packed_leaves(packed)}
+    check(codecs == {"pack243"}, f"{label}: packed leaves in {codecs}")
+    print(f"{label}: init + pack {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    eng = Engine(cfg, packed, **kw)
+    eng.generate(prompts[:, :8], max_new_tokens=2)  # warm-up
+    res, launches, wall = counted(kernels, lambda: eng.generate(prompts, max_new_tokens=32))
+    print(f"{label} generate 6 x (32 + 32): {wall:.3f} s, {6 * 32 / wall:.1f} tokens/s, "
+          f"launches {launches}")
+    check(all(n > 0 for n in launches.values()), f"{label}: a kernel never launched: {launches}")
+    check_served(res, cfg, eng, 64, label)
+    same = int((res.tokens.numpy() == want).all(axis=1).sum())
+    check(same == 6, f"{label}: greedy tokens differ from the pack2 run ({same}/6 rows equal)")
+    print(f"{label}: greedy tokens equal to the pack2 kernel run (6/6 rows)")
+    del eng, packed
+    torch.cuda.empty_cache()
+    return launches, 6 * 32 / wall
+
+
+def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None):
+    """Where a generate's time goes: device busy share, the kernels that
+    take the most device time and the ternary matmul kernels' sum (beside
+    ``before``, an earlier run's figure, when given), from a torch.profiler
+    trace of one 6 x (32 + new) generate (prefill plus ``new`` decode
+    steps)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1112,6 +1204,10 @@ def breakdown(torch, eng, prompts, label="falcon3-1b", new=16):
           f"{busy:.2f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
     for e in events[:8]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
+    tern = [e for e in events if TERNARY in e.key]
+    print(f"  ternary matmul kernels: {sum(_device_us(e) for e in tern) / 1e3:.3f} ms device time "
+          f"in {sum(e.count for e in tern)} launches per generate"
+          + (f" (the first ternary kernel: {before})" if before else ""))
 
 
 def main() -> int:

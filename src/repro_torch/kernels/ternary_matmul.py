@@ -52,9 +52,6 @@ INT32_KERNEL = CudaKernel("ternary_matmul", "ternary_matmul_int32", [_P] * 3 + [
 # experts unpacked at once by the plain expert versions (float64 trits of
 # 16 DeepSeek-V3 w_gu experts: 16 x 7168 x 4096 x 8 B = 3.8 GB)
 PLAIN_EXPERT_CHUNK = 16
-# largest K/g the kernel's shared-memory tile holds (8 rows of int8 codes
-# at 4 or 8 bytes per packed group, plus the 32 KiB split-K reduction)
-MAX_GROUPS = {"pack2": 5888, "pack243": 2944}
 FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -142,8 +139,6 @@ def _check(name, x, packed, k, codec, x_dtypes, col_scale=None, col_shape=None,
             raise TypeError(f"{name}: {what} must be f32, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {what} {tuple(t.shape)} != {shape}")
-    if kg > MAX_GROUPS[codec]:
-        raise ValueError(f"{name}: K/g = {kg} exceeds {MAX_GROUPS[codec]}")
 
 
 def _launch_actq(x2, packed, col_scale, k, codec, act_bits):

@@ -31,6 +31,9 @@ from repro_torch.kernels import ternary_matmul as tm
 from repro_torch.models import qops
 
 CODECS = ["pack2", "pack243"]
+# deepseek-v3-671b's 2-D packed projections (K, N), as chip_smoke.py serves them
+DEEPSEEK_SHAPES = [(7168, 2112), (1536, 24576), (16384, 7168), (7168, 36864), (18432, 7168),
+                   (7168, 4096), (2048, 7168)]
 
 
 @pytest.fixture(scope="module")
@@ -317,12 +320,18 @@ def test_cuda_kernel_bit_identical_to_plain(cuda, codec, dtype, shape):
 @pytest.mark.parametrize("codec, shape", [
     (codec, shape) for codec in CODECS
     for shape in [(1, 8, 4), (7, 130, 70), (6, 2048, 4096), (192, 8192, 2048)]]
-    + [("pack2", (6, 18432, 7168)), ("pack2", (192, 18432, 7168))])
+    + [("pack2", (6, 18432, 7168)), ("pack2", (192, 18432, 7168))]
+    + [("pack243", (6, k, n)) for k, n in DEEPSEEK_SHAPES]
+    + [("pack243", (192, 16384, 7168)), ("pack243", (192, 18432, 7168))]
+    + [("pack2", (6, 25600, 5120)), ("pack2", (192, 25600, 5120))])
 def test_cuda_known_scale_and_int32_kernels_bit_identical(cuda, codec, shape):
     """Kernel 4 against its plain version and against kernel 1 on the raw
     x; kernel 5 against its plain version and the TriMLA oracle. K = 18432
-    is deepseek-v3-671b's dense down projection, the largest shared-memory
-    tile the serving path gives the kernels."""
+    is deepseek-v3-671b's dense down projection; deepseek-v3-671b's
+    projections in pack243 (wo K = 16384 and down K = 18432 past the first
+    kernel's pack243 cap of 2944 groups) and qwen3-32b's down projection in
+    pack2 (K = 25600, past its 5888-group cap) hold that K-chunked staging
+    takes any K."""
     m, k, n = shape
     x, packed, col = _case(m + n + 1, m, k, n, codec)
     tx, tp, tc = (torch.from_numpy(a).to(cuda) for a in (x, packed, col))
