@@ -98,6 +98,12 @@ def flash_prefill_fresh_plain(q, k_new, v_new, valid, scale: float, theta: float
     return o, k_cast, v_cast
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied when its data does not start on a 16-byte boundary
+    (the GQA kernel loads and stores 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(q, k_new, v_new, valid, scale, theta):
     b, s, h, d = q.shape
     g = k_new.shape[2]
@@ -112,7 +118,7 @@ def _launch(q, k_new, v_new, valid, scale, theta):
                          f"(rep <= {MAX_REP}, d in {HEAD_DIMS})")
     if k_new.shape != (b, s, g, d) or v_new.shape != (b, s, g, d) or valid.shape != (b,):
         raise ValueError("flash_prefill_attention: k/v must be (b, s, g, d), valid (b,)")
-    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    q, k_new, v_new = (_aligned(t.contiguous()) for t in (q, k_new, v_new))
     valid = valid.to(torch.int32).contiguous()
     cos, sin = rope_cos_sin(torch.arange(s, device=q.device), d, theta)  # (s, d/2)
     cos, sin = cos.contiguous(), sin.contiguous()

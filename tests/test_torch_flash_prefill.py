@@ -6,8 +6,10 @@ Pallas kernel (interpret mode, ``cache=None``) and its XLA path.
 The emitted v is a copy and must match bit for bit; the attention output
 and the rotated k are f32 arithmetic in another order (and cos / sin
 differ by an ulp between the frameworks), held to TOL = 2e-5. The CUDA
-kernel runs only on a card: the ``cuda``-marked test holds it against the
-plain version there, bit for bit, and skips here.
+kernels run only on a card: the ``cuda``-marked tests hold the GQA kernel
+against the plain version there, bit for bit, over the rep / d / s /
+valid layouts its 16-row blocks meet, check that the MLA form keeps its
+own entry point, and skip here.
 """
 
 import types
@@ -71,6 +73,29 @@ def test_fresh_prefill_matches_pallas_and_xla(jref, s, valid):
         np.testing.assert_array_equal(v_c.numpy(), np.asarray(want_v))
 
 
+@pytest.mark.parametrize("s", [1, 33])
+@pytest.mark.parametrize("rep", [1, 4, 7])
+def test_fresh_prefill_matches_pallas_and_xla_across_group_sizes(jref, s, rep):
+    """The GQA kernel's block tiling spreads rows over (token, grouped
+    head): the rep / d spread of the served models (gemma-7b rep 1,
+    qwen3-8b rep 4, deepseek-coder-33b rep 7) at a small size."""
+    b, g, d = 3, 2, 32
+    valid = [s, max(s - 5, 1), 0]
+    q, k, v = _qkv(100 * rep + s, b, s, g * rep, g, d)
+    jv = jref.jnp.asarray(np.asarray(valid, np.int32))
+    jq, jk, jvv = (jref.jnp.asarray(a) for a in (q, k, v))
+    outs = [jref.fp.flash_prefill_attention(jq, jk, jvv, None, jv, rope_theta=THETA,
+                                            emit_kv=True, impl=impl, interpret=True)
+            for impl in ("pallas", "xla")]
+    o, k_c, v_c = fp.flash_prefill_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        valid=torch.tensor(valid, dtype=torch.int32), rope_theta=THETA)
+    for want_o, want_k, want_v in outs:
+        np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **TOL)
+        np.testing.assert_allclose(k_c.numpy(), np.asarray(want_k), **TOL)
+        np.testing.assert_array_equal(v_c.numpy(), np.asarray(want_v))
+
+
 def test_blockwise_attention_matches_reference(jref):
     rng = np.random.default_rng(2)
     q = rng.standard_normal((2, 2, 2, 19, 16)).astype(np.float32)
@@ -119,9 +144,32 @@ def test_only_the_fresh_form_is_ported():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 128])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 4, 7, 8])
+def test_cuda_kernel_bit_identical_to_plain(cuda, rep, d, s, dtype):
+    """Every layout the kernel's 8-row blocks meet: rep 1 / 2 / 4 / 7 / 8
+    (gemma-7b, falcon3-1b, qwen3-8b, deepseek-coder-33b, rep > block rows),
+    ragged and empty slots; o, k_cast and v_cast equal bit for bit."""
+    b, g = 4, 2
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt)
+               for a in _qkv(1000 * rep + s, b, s, g * rep, g, d))
+    valid = torch.tensor([0, 1, max(s - 5, 0), s], dtype=torch.int32, device=cuda)
+    before = fp.KERNEL.launches
+    got = fp.flash_prefill_attention(q, k, v, valid=valid, rope_theta=THETA)
+    torch.cuda.synchronize()
+    assert fp.KERNEL.launches == before + 1
+    want = fp.flash_prefill_attention(q, k, v, valid=valid, rope_theta=THETA, impl="plain")
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("s,dtype", [(32, "float32"), (77, "float32"), (128, "float32"),
                                      (32, "bfloat16")])
-def test_cuda_kernel_bit_identical_to_plain(cuda, s, dtype):
+def test_cuda_kernel_bit_identical_to_plain_falcon_shape(cuda, s, dtype):
     b, h, g, d = 6, 8, 4, 256
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in _qkv(s, b, s, h, g, d))
@@ -133,3 +181,21 @@ def test_cuda_kernel_bit_identical_to_plain(cuda, s, dtype):
     assert fp.KERNEL.launches == before + 1
     for a, b_ in zip(got, want):
         assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mla_form_keeps_its_kernel(cuda, dtype):
+    """The MLA form (dk 192 of which 64 rotate, dv 128) still launches its
+    own entry point, bit-identical to plain, and never the GQA one."""
+    b, s, h, dk, dv = 2, 33, 4, 192, 128
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda, getattr(torch, dtype)) for shape in ((b, s, h, dk), (b, s, h, dk), (b, s, h, dv)))
+    valid = torch.tensor([s, 7], dtype=torch.int32, device=cuda)
+    kw = dict(valid=valid, rope_theta=THETA, rope_dims=64, emit_kv=False, scale=dk ** -0.5)
+    gqa, mla = fp.KERNEL.launches, fp.MLA_KERNEL.launches
+    got = fp.flash_prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fp.KERNEL.launches, fp.MLA_KERNEL.launches) == (gqa, mla + 1)
+    assert torch.equal(got, fp.flash_prefill_attention(q, k, v, impl="plain", **kw))
