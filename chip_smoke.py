@@ -12,7 +12,8 @@
    and its expert form at DeepSeek-V3's E = 256, C = 1 / 8), the fused-RoPE GQA
    decode, the fresh flash prefill (GQA at falcon3-1b's heads: o, k_cast
    and v_cast bit-identical, timed with SDPA and its bound at s = 32 and
-   128; and its MLA form at q/k (6, s, 128, 192), v (6, s, 128, 128)),
+   128; and its MLA form at q/k (6, s, 128, 192), v (6, s, 128, 128):
+   bit-identical at s = 1 to 128, timed likewise),
    the MLA latent decode (b = 6,
    h = 128, rows of 576, values of 512; f32 and bf16 tiers, masked rows
    NaN-filled), the known-scale ternary matmul (also equal to the
@@ -42,7 +43,8 @@
    33-64 come from the cold tier). Same checks against its plain run: the
    four kernels of its path launched, greedy tokens equal on 6/6 rows,
    every row's ledger equal to the closed form for S=64 / 32 hot tokens,
-   no weight reloaded; then its carried-scale run with the same checks;
+   no weight reloaded, one MLA prefill launch per layer per admission;
+   then its carried-scale run with the same checks;
    then the same model packed in pack243 (wo K = 16384, dense down
    K = 18432), served with the same checks and the pack2 run's tokens on
    6/6 rows; prints peak device memory, each phase's time and, for each
@@ -503,34 +505,44 @@ def kernel3_mla_phase(torch, gen, theta):
 
     kw = dict(rope_theta=theta, rope_dims=rd, emit_kv=False, scale=dk ** -0.5)
     worst = 0.0
-    for s, dtype in ((32, torch.float32), (77, torch.float32), (32, torch.bfloat16)):
+    checked = ((1, torch.float32), (32, torch.float32), (33, torch.float32), (77, torch.float32),
+               (128, torch.float32), (32, torch.bfloat16), (128, torch.bfloat16))
+    for s, dtype in checked:
         q, k, v = case(s, dtype)
-        valid = torch.tensor([s, s - 5, 0, s, 1, s], dtype=torch.int32, device="cuda")
+        valid = torch.tensor([s, max(s - 5, 0), 0, s, 1, s], dtype=torch.int32, device="cuda")
         got = fp.flash_prefill_attention(q, k, v, valid=valid, **kw)
         ref = fp.flash_prefill_attention(q, k, v, valid=valid, impl="plain", **kw)
         torch.cuda.synchronize()
         worst = max(worst, max_err(got, ref))
-        check(torch.equal(got, ref), f"flash_prefill MLA form not bit-identical (s={s}, {dtype})")
-    print("flash_prefill MLA form: bit-identical to plain at s=32/77 (f32) and 32 (bf16)")
+        check(torch.equal(got, ref), f"flash_prefill MLA form not bit-identical (s={s}, {dtype}): "
+                                     f"{max_err(got, ref)}")
+    print("flash_prefill MLA form: bit-identical to plain at s=1/32/33/77/128 (f32) and 32/128 "
+          "(bf16), valid (s, s-5, 0, s, 1, s)")
 
-    s = 32
-    q, k, v = case(s, torch.float32)
-    ms, _ = timed("kernel", lambda: fp.flash_prefill_attention(q, k, v, **kw),
-                  only="prefill_kernel")
-    plain_ms, _ = timed("plain", lambda: fp.flash_prefill_attention(q, k, v, impl="plain", **kw),
-                        iters=5)
-    qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
-    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True))
-    n_bytes = 4 * b * s * h * (2 * dk + 2 * dv) + 4 * b
-    ops = 2 * b * h * (dk + dv) * s * (s + 1) // 2
-    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
-    print(f"flash_prefill MLA (b=6, s=32, h=128, f32): kernel {ms:.5f} ms, plain {plain_ms:.5f} "
-          f"ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms ({n_bytes} B / 3.35 TB/s)")
+    out = {}
+    for s in (32, 128):
+        q, k, v = case(s, torch.float32)
+        ms, _ = timed(f"kernel s={s}", lambda: fp.flash_prefill_attention(q, k, v, **kw),
+                      only="prefill_kernel")
+        plain_ms, _ = timed(f"plain s={s}", lambda: fp.flash_prefill_attention(
+            q, k, v, impl="plain", **kw), iters=5 if s > 32 else 10)
+        qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+        library_ms, _ = timed(f"SDPA s={s}", lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True))
+        n_bytes = 4 * b * s * h * (2 * dk + 2 * dv) + 4 * b
+        ops = 2 * b * h * (dk + dv) * s * (s + 1) // 2
+        b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+        print(f"flash_prefill MLA (b=6, s={s}, h=128, f32): kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms "
+              f"({n_bytes} B / 3.35 TB/s; {b_by})")
+        out[s] = (ms, plain_ms, library_ms, b_ms, b_by)
+    ms, plain_ms, library_ms, b_ms, b_by = out[32]
     return dict(name="flash_prefill_mla", route="cuda",
                 source="src/repro_torch/csrc/flash_prefill.cu",
                 replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                s128={"ms": out[128][0], "plain_ms": out[128][1], "library_ms": out[128][2],
+                      "bound_ms": out[128][3]})
 
 
 # ---------------------------------------------------------------------------
@@ -1135,6 +1147,14 @@ def deepseek_phase(torch):
     same = int((res_p.tokens.numpy() == tokens).all(axis=1).sum())
     print(f"plain run: {time.perf_counter() - t0:.2f} s; greedy tokens equal on {same}/6 rows")
     check(same == 6, f"greedy tokens differ from the plain run ({same}/6 rows equal)")
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        _, admit, _ = counted([fp.KERNEL, fp.MLA_KERNEL],
+                              lambda: T.prefill(packed, cfg, toks, hot_cap=32, max_len=128))
+    print(f"flash_prefill_mla launches per deepseek-v3-671b-l5 admission (T.prefill of 6 x 32): "
+          f"{admit[fp.MLA_KERNEL.symbol]}, GQA form {admit[fp.KERNEL.symbol]}")
+    check(admit == {fp.KERNEL.symbol: 0, fp.MLA_KERNEL.symbol: cfg.n_layers},
+          f"MLA prefill launches per admission: {admit}")
     carried, carried_tok_s = carried_scale_run(
         torch, cfg, packed, prompts, kw, 32,
         [tm.KERNEL, tm.EXPERT_KERNEL, tm.KNOWN_KERNEL, tm.KNOWN_EXPERT_KERNEL, fp.MLA_KERNEL,

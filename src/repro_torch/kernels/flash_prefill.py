@@ -12,10 +12,12 @@ tiles, halving-tree sums, separately rounded products), so the two agree
 bit for bit.
 
 The MLA form (``rope_dims`` < the key width, ``emit_kv=False``; the
-reference's call in ``models/attention.py::mla_prefill``) runs the same
-kernel through its own entry point and launch count: g = h (rep 1), keys
+reference's call in ``models/attention.py::mla_prefill``) has its own
+entry point, launch count and kernel (``mla_prefill_kernel``, the same
+block body as the GQA form's ``gqa_prefill_kernel``): g = h (rep 1), keys
 of width dk whose trailing ``rope_dims`` rotate, values of another width
-dv, and only ``o`` (b, s, h, dv) returned.
+dv, and only ``o`` (b, s, h, dv) returned. The plain version serves both
+forms.
 
 Only the fresh form is ported: continuation over a live cache (chunked
 prefill), SWA windows and rings and the paged cold tier raise here.
@@ -45,8 +47,9 @@ MLA_KERNEL = CudaKernel(
 )
 MAX_REP = 32
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
-# (key width, value width) pairs of the MLA form: DeepSeek-V3 and its smoke config
-MLA_DIMS = ((192, 128), (24, 16))
+# (key width, value width, rotated dims) of the MLA form's instantiations:
+# DeepSeek-V3 and its smoke config
+MLA_DIMS = ((192, 128, 64), (24, 16, 8))
 
 
 def rope_trailing(x: torch.Tensor, positions: torch.Tensor, rope_dims: int,
@@ -100,7 +103,7 @@ def flash_prefill_fresh_plain(q, k_new, v_new, valid, scale: float, theta: float
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, copied when its data does not start on a 16-byte boundary
-    (the GQA kernel loads and stores 16 bytes at a time)."""
+    (the kernels load and store 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -143,13 +146,14 @@ def _launch_mla(q, k_new, v_new, valid, scale, theta, rope_dims):
     if q.dtype not in (torch.float32, torch.bfloat16) or k_new.dtype != q.dtype or (
             v_new.dtype != q.dtype):
         raise TypeError("flash_prefill_attention: q, k, v must share one dtype, f32 or bf16")
-    if (d, dv) not in MLA_DIMS or k_new.shape != (b, s, h, d) or v_new.shape != (b, s, h, dv):
+    if ((d, dv, rope_dims) not in MLA_DIMS or k_new.shape != (b, s, h, d)
+            or v_new.shape != (b, s, h, dv)):
         raise ValueError(f"flash_prefill_attention (MLA form): q {tuple(q.shape)}, k "
-                         f"{tuple(k_new.shape)}, v {tuple(v_new.shape)} unsupported "
-                         f"(g = h, (dk, dv) in {MLA_DIMS})")
-    if valid.shape != (b,) or rope_dims % 2 or not 0 < rope_dims <= d:
-        raise ValueError("flash_prefill_attention: valid must be (b,), rope_dims even <= dk")
-    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+                         f"{tuple(k_new.shape)}, v {tuple(v_new.shape)}, rope_dims {rope_dims} "
+                         f"unsupported (g = h, (dk, dv, rope_dims) in {MLA_DIMS})")
+    if valid.shape != (b,):
+        raise ValueError("flash_prefill_attention: valid must be (b,)")
+    q, k_new, v_new = (_aligned(t.contiguous()) for t in (q, k_new, v_new))
     valid = valid.to(torch.int32).contiguous()
     cos, sin = rope_cos_sin(torch.arange(s, device=q.device), rope_dims, theta)
     cos, sin = cos.contiguous(), sin.contiguous()

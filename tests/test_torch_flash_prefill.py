@@ -8,8 +8,10 @@ and the rotated k are f32 arithmetic in another order (and cos / sin
 differ by an ulp between the frameworks), held to TOL = 2e-5. The CUDA
 kernels run only on a card: the ``cuda``-marked tests hold the GQA kernel
 against the plain version there, bit for bit, over the rep / d / s /
-valid layouts its 16-row blocks meet, check that the MLA form keeps its
-own entry point, and skip here.
+valid layouts its 16-row blocks meet, check that the MLA form has its own
+entry point, and skip here. What the kernels' bit-identity rests on is
+checked here too: a model of their dot-product order over a head width
+zero-padded to a power of two equals the plain version's ``tree_sum``.
 """
 
 import types
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.core import kv_cache as kvc
 from repro_torch.kernels import flash_prefill as fp
+from repro_torch.kernels.flash_decode import tree_sum
 from repro_torch.models import attention as tattn
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -143,13 +146,76 @@ def test_only_the_fresh_form_is_ported():
         fp.flash_prefill_attention(q, k, v, emit_kv=False)
 
 
+def _bit_reverse(x, bits):
+    return int(format(x, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _trailing_ones(x):
+    return len(bin(x)) - len(bin(x).rstrip("1"))
+
+
+def _dot_rows_order(prod):
+    """The kernels' dot product (``dot_rows`` in csrc/flash_prefill.cu) of
+    each row of f32 products (rows, d), in their order: the width padded to
+    a power of two dp, the dims split by residue p mod 4, each residue's
+    dp / 4 steps taken in bit-reversed order in groups of 16 on binary-
+    counter stacks, the groups pushed on a second stack, and
+    ((T0 + T2) + (T1 + T3)) at the end. A step past d is padding: its
+    products are the constant +0.0, never read."""
+    d = prod.shape[1]
+    n = (1 << (d - 1).bit_length()) // 4
+    ni = min(n, 16)
+    ng = n // ni
+    lbi, lbo = ni.bit_length() - 1, ng.bit_length() - 1
+    zero = np.zeros(prod.shape[0], np.float32)
+    ost = [[None] * (lbo + 1) for _ in range(4)]
+    for grp in range(ng):
+        base = 4 * _bit_reverse(grp, lbo)
+        st = [[None] * (lbi + 1) for _ in range(4)]
+        for c in range(ni):
+            off, t = 4 * ng * _bit_reverse(c, lbi), _trailing_ones(c)
+            for p in range(4):
+                x = zero if off >= d else prod[:, base + off + p]
+                for lvl in range(t):
+                    x = st[p][lvl] + x
+                st[p][t] = x
+        t = _trailing_ones(grp)
+        for p in range(4):
+            x = st[p][lbi]
+            for lvl in range(t):
+                x = ost[p][lvl] + x
+            ost[p][t] = x
+    return (ost[0][lbo] + ost[2][lbo]) + (ost[1][lbo] + ost[3][lbo])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("d", [24, 128, 192, 256])
+def test_padded_dot_order_equals_tree_sum(d, seed):
+    """The order the prefill kernels sum a dot product in, with the padded
+    dims as constant +0.0, equals the plain version's zero-padded halving
+    tree bit for bit: on random rows, on rows of every sign of zero (where
+    -0 + +0 = +0 shows), and on rows of mixed magnitudes."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((256, d)).astype(np.float32)
+    k = rng.standard_normal((256, d)).astype(np.float32)
+    q[1] = 0.0  # products -0 or +0 by the sign of k
+    k[2] = -np.abs(k[2])
+    q[2] = 0.0  # every product -0
+    q[3:64] *= np.exp2(rng.integers(-30, 30, (61, d))).astype(np.float32)
+    prod = q * k  # the kernels' products, each rounded to f32
+    got = _dot_rows_order(prod)
+    want = tree_sum(torch.from_numpy(prod), -1).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s", [1, 31, 32, 33, 128])
 @pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("rep", [1, 2, 4, 7, 8])
 def test_cuda_kernel_bit_identical_to_plain(cuda, rep, d, s, dtype):
-    """Every layout the kernel's 8-row blocks meet: rep 1 / 2 / 4 / 7 / 8
+    """Every layout the kernel's 16-row blocks meet: rep 1 / 2 / 4 / 7 / 8
     (gemma-7b, falcon3-1b, qwen3-8b, deepseek-coder-33b, rep > block rows),
     ragged and empty slots; o, k_cast and v_cast equal bit for bit."""
     b, g = 4, 2
@@ -185,9 +251,9 @@ def test_cuda_kernel_bit_identical_to_plain_falcon_shape(cuda, s, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_mla_form_keeps_its_kernel(cuda, dtype):
-    """The MLA form (dk 192 of which 64 rotate, dv 128) still launches its
-    own entry point, bit-identical to plain, and never the GQA one."""
+def test_cuda_mla_form_has_its_own_entry_point(cuda, dtype):
+    """The MLA form (dk 192 of which 64 rotate, dv 128) launches its own
+    entry point, bit-identical to plain, and never the GQA one."""
     b, s, h, dk, dv = 2, 33, 4, 192, 128
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(

@@ -357,17 +357,24 @@ def test_cuda_latent_kernel_bit_identical_to_plain(cuda, dtype, d, dv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,dtype", [(32, "float32"), (77, "float32"), (32, "bfloat16")])
-@pytest.mark.parametrize("h,dk,dv,rd", [(3, 24, 16, 8), (128, 192, 128, 64)])
-def test_cuda_mla_prefill_bit_identical_to_plain(cuda, s, dtype, h, dk, dv, rd):
-    b = 6
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 16, 31, 32, 33, 77, 128])
+@pytest.mark.parametrize("h", [1, 3, 128])
+@pytest.mark.parametrize("dk,dv,rd", [(24, 16, 8), (192, 128, 64)])
+def test_cuda_mla_prefill_bit_identical_to_plain(cuda, dk, dv, rd, h, s, dtype):
+    """The MLA kernel's 16-row blocks over one (head, slot) at both dim
+    sets (the smoke config's and DeepSeek-V3's), a head count below, at and
+    above the grid's width, one q block, part of one, and several, with
+    empty, one-token, ragged and full slots in one batch: one launch of
+    the MLA entry point, none of the GQA one, equal to plain bit for bit."""
+    b = 4
     dt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in _mla_qkv(s, b, s, h, dk, dv))
-    valid = torch.tensor([s, s - 5, 0, s, 1, s], dtype=torch.int32, device=cuda)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in _mla_qkv(s + h, b, s, h, dk, dv))
+    valid = torch.tensor([0, 1, max(s - 5, 0), s], dtype=torch.int32, device=cuda)
     kw = dict(valid=valid, rope_theta=THETA, rope_dims=rd, emit_kv=False)
-    before = fp.MLA_KERNEL.launches
+    gqa, mla = fp.KERNEL.launches, fp.MLA_KERNEL.launches
     got = fp.flash_prefill_attention(q, k, v, **kw)
-    want = fp.flash_prefill_attention(q, k, v, impl="plain", **kw)
     torch.cuda.synchronize()
-    assert fp.MLA_KERNEL.launches == before + 1
+    assert (fp.KERNEL.launches, fp.MLA_KERNEL.launches) == (gqa, mla + 1)
+    want = fp.flash_prefill_attention(q, k, v, impl="plain", **kw)
     assert torch.equal(got, want)
