@@ -15,8 +15,9 @@
    128; and its MLA form at q/k (6, s, 128, 192), v (6, s, 128, 128):
    bit-identical at s = 1 to 128, timed likewise),
    the MLA latent decode (b = 6,
-   h = 128, rows of 576, values of 512; f32 and bf16 tiers, masked rows
-   NaN-filled), the known-scale ternary matmul (also equal to the
+   h = 128, rows of 576, values of 512; f32 and bf16 tiers bit-identical,
+   masked rows NaN-filled; timed with SDPA and its bound at lengths 80 and
+   128), the known-scale ternary matmul (also equal to the
    act-quant kernel on the same x, and the int32 kernel equal to its plain
    version on the same codes, at falcon3-1b's and deepseek-v3-671b-l5's
    projections in pack2 and pack243 and qwen3-32b's down projection,
@@ -43,12 +44,14 @@
    33-64 come from the cold tier). Same checks against its plain run: the
    four kernels of its path launched, greedy tokens equal on 6/6 rows,
    every row's ledger equal to the closed form for S=64 / 32 hot tokens,
-   no weight reloaded, one MLA prefill launch per layer per admission;
+   no weight reloaded, one MLA prefill launch per layer per admission and
+   one latent decode launch per layer per decode step;
    then its carried-scale run with the same checks;
    then the same model packed in pack243 (wo K = 16384, dense down
    K = 18432), served with the same checks and the pack2 run's tokens on
    6/6 rows; prints peak device memory, each phase's time and, for each
-   model, the ternary kernels' device time per traced generate.
+   model, the ternary, prefill and latent kernels' device time per traced
+   generate.
 5. Prints {"kernels": [...]} (each form's launches on its own path and on
    every path that counted it) and, last, {"ok": true, "device": {...}}.
 
@@ -96,22 +99,54 @@ def time_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters=20, only=None):
-    """Device time per call from a torch.profiler trace: the summed
-    durations of the kernels ``fn`` launches (only those whose name
-    contains ``only``, when given). None when the trace holds no device
-    time; the callers then keep the CUDA-event time."""
+def trace_events(fn, warm=None):
+    """torch.profiler averages of the CUDA kernels that ``fn()`` launches,
+    traced in the active step of a schedule whose warm-up step runs
+    ``warm()``: collection is then running when ``fn`` starts (a trace
+    started right before ``fn`` lost its first kernel records on the
+    H100's machine, every time, late in a long run)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    out = {}
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: out.setdefault("events", p.key_averages())) as prof:
+        if warm is not None:
+            warm()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return list(out.get("events", []))
+
+
+def profiled_kernels(fn, iters=20, only=None, attempts=3):
+    """The kernels ``fn`` launches (only those whose name contains
+    ``only``, when given), as torch.profiler's averages over ``iters``
+    calls. A trace counts only when every kernel in it ran a whole
+    multiple of ``iters`` times (traces were seen to lose records: none,
+    or 17 of 20 launches); after ``attempts`` incomplete traces, None."""
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages() if only is None or only in e.key)
-    return total / iters / 1e3 if total > 0 else None
+
+    for _ in range(attempts):
+        events = [e for e in trace_events(calls, warm=fn)
+                  if _device_us(e) > 0 and (only is None or only in e.key)]
+        if events and all(e.count % iters == 0 for e in events):
+            return events
+    return None
+
+
+def device_ms(fn, iters=20, only=None):
+    """Device time per call from a complete torch.profiler trace (see
+    ``profiled_kernels``); None without one, and the callers then keep the
+    CUDA-event time."""
+    events = profiled_kernels(fn, iters, only)
+    return None if events is None else sum(_device_us(e) for e in events) / iters / 1e3
 
 
 def _device_us(event):
@@ -566,11 +601,11 @@ def latent_case(torch, gen, lengths, dtype, b=6, h=128, d=576, hot=32, cold=96):
     return q, cache
 
 
-def kernel8_phase(torch, gen):
+def kernel8_phase(torch, gen, smi):
     from repro_torch.kernels import flash_decode as fd
 
     scale, dv = 192 ** -0.5, 512
-    worst, bitwise_bf16 = 0.0, True
+    worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for lengths in ([0, 1, 17, 31, 32, 20], [33, 64, 80, 100, 127, 128], [0] * 6):
             q, cache = latent_case(torch, gen, lengths, dtype)
@@ -580,37 +615,40 @@ def kernel8_phase(torch, gen):
             check(torch.isfinite(got).all(), "latent decode output not finite (read a masked row?)")
             zero = torch.tensor(lengths, device="cuda") == 0
             check(not got[zero].any(), "length-0 slot not zero")
-            if dtype == torch.float32:
-                worst = max(worst, max_err(got, ref))
-                check(torch.equal(got, ref), f"latent decode not bit-identical (f32, {lengths})")
-            else:
-                check(torch.allclose(got, ref, **TOL), f"latent decode off plain (bf16, {lengths})")
-                bitwise_bf16 &= bool(torch.equal(got, ref))
-    print(f"flash_decode_latent: bit-identical to plain in f32 (hot only, hot + cold, length 0); "
-          f"bf16 tiers bit-identical: {bitwise_bf16}")
+            worst = max(worst, max_err(got, ref))
+            check(torch.equal(got, ref),
+                  f"latent decode not bit-identical ({str(dtype)[6:]}, {lengths})")
+    print("flash_decode_latent: bit-identical to plain in f32 and bf16 (hot only, hot + cold, "
+          "length 0)")
 
-    length = 80  # the main path's middle state: every slot at length 80
-    q, cache = latent_case(torch, gen, [length] * 6, torch.float32)
-    ms, _ = timed("kernel", lambda: fd.flash_decode_attention_latent(q, cache, dv, scale),
-                  only="latent_kernel")
-    plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention_latent(
-        q, cache, dv, scale, impl="plain"))
-    rows = torch.cat([cache.hot_k, cache.cold_k[:, : length - 32]], 1)  # (b, 80, 576)
-    kh = rows[:, None].expand(6, 128, length, 576).contiguous()
-    vh = rows[:, None, :, :dv].expand(6, 128, length, dv).contiguous()
-    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], kh, vh, scale=scale))
     b, h, d = 6, 128, 576
-    n_bytes = b * h * d * 4 + b * length * d * 4 + 4 * b + b * h * dv * 4
-    ops = 2 * b * h * length * (d + dv)
-    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
-    print(f"flash_decode_latent (b=6, h=128, length 80, f32): kernel {ms:.5f} ms, plain "
-          f"{plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms by {b_by} "
-          f"({n_bytes} B, {ops} FLOP)")
+    out = {}
+    for length in (80, 128):  # the main path's middle state, and max_len
+        q, cache = latent_case(torch, gen, [length] * b, torch.float32)
+        print(f"flash_decode_latent at b=6, h=128, length {length}, f32:")
+        ms, _ = timed("kernel", lambda: fd.flash_decode_attention_latent(q, cache, dv, scale),
+                      only="latent_kernel")
+        plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention_latent(
+            q, cache, dv, scale, impl="plain"))
+        rows = torch.cat([cache.hot_k, cache.cold_k[:, : length - 32]], 1)  # (b, length, 576)
+        kh = rows[:, None].expand(b, h, length, d).contiguous()
+        vh = rows[:, None, :, :dv].expand(b, h, length, dv).contiguous()
+        library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kh, vh, scale=scale))
+        n_bytes = b * h * d * 4 + b * length * d * 4 + 4 * b + b * h * dv * 4
+        ops = 2 * b * h * length * (d + dv)
+        b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+        print(f"flash_decode_latent (b=6, h=128, length {length}, f32): kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms by {b_by} "
+              f"({n_bytes} B, {ops} FLOP) on {smi}")
+        out[length] = (ms, plain_ms, library_ms, b_ms, b_by)
+    ms, plain_ms, library_ms, b_ms, b_by = out[80]
     return dict(name="flash_decode_latent", route="cuda",
                 source="src/repro_torch/csrc/flash_latent.cu",
                 replaces="src/repro/kernels/flash_decode.py:579", max_abs_err=worst,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                len128={"ms": out[128][0], "plain_ms": out[128][1], "library_ms": out[128][2],
+                        "bound_ms": out[128][3]})
 
 
 # ---------------------------------------------------------------------------
@@ -1139,6 +1177,10 @@ def deepseek_phase(torch):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     check_served(res, cfg, eng, 64, "deepseek-v3-671b-l5")
+    latent = launches[fd.LATENT_KERNEL.symbol]
+    print(f"flash_decode_latent launches per deepseek-v3-671b-l5 decode step: {latent / 32:g} "
+          f"({latent} over 32 steps)")
+    check(latent == cfg.n_layers * 32, f"latent launches {latent} != {cfg.n_layers} per step")
 
     cfg_plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
     t0 = time.perf_counter()
@@ -1161,6 +1203,7 @@ def deepseek_phase(torch):
          fd.LATENT_KERNEL], (eng, wall, launches), tokens)
     breakdown(torch, eng, prompts, label="deepseek-v3-671b-l5", new=8,
               before="181.988 ms in 261 launches on an H100")
+    latent_glue_per_step(torch, cfg, kw)
     name = cfg.name
     del eng, packed
     torch.cuda.empty_cache()
@@ -1168,6 +1211,34 @@ def deepseek_phase(torch):
     return ({name: launches, f"{name} carried-scale": carried, f"{name} pack243": pack243},
             {name: 6 * 32 / wall, f"{name} carried-scale": carried_tok_s,
              f"{name} pack243": pack243_tok_s})
+
+
+def latent_glue_per_step(torch, cfg, kw):
+    """Device time and launches per decode step of the glue that
+    fake-quantizes the latent cache copy before each latent decode launch
+    (``models/attention.py`` ``_fake_quant_latent`` on the hot and the cold
+    tier, once per layer), profiled alone at the serving cache's shapes."""
+    from repro_torch.models import attention as attn
+
+    m, bits, iters = cfg.mla, cfg.bitnet.act_bits, 10
+    width = m.kv_lora_rank + m.qk_rope_head_dim
+    tiers = [torch.randn((kw["slots"], cap, width), device="cuda")
+             for cap in (kw["hot_cap"], kw["max_len"] - kw["hot_cap"])]
+
+    def step():
+        for _ in range(cfg.n_layers):
+            for t in tiers:
+                attn._fake_quant_latent(t, m.kv_lora_rank, bits)
+
+    events = profiled_kernels(step, iters)
+    if events is None:
+        print("latent fake-quant glue: device time not measured (no complete trace)")
+        return
+    ms = sum(_device_us(e) for e in events) / iters / 1e3
+    launches = sum(e.count for e in events) // iters
+    print(f"latent fake-quant glue per deepseek-v3-671b-l5 decode step ({cfg.n_layers} layers, "
+          f"tiers {kw['hot_cap']} + {kw['max_len'] - kw['hot_cap']} rows): {ms:.4f} ms device "
+          f"time in {launches} launches")
 
 
 def pack243_run(torch, cfg, prompts, kw, kernels, want):
@@ -1212,14 +1283,16 @@ def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None):
     ``before``, an earlier run's figure, when given), from a torch.profiler
     trace of one 6 x (32 + new) generate (prefill plus ``new`` decode
     steps)."""
-    from torch.profiler import ProfilerActivity, profile
+    timing = {}
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def run():
         t0 = time.perf_counter()
         eng.generate(prompts, max_new_tokens=new)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = sorted(prof.key_averages(), key=_device_us, reverse=True)
+        timing["wall"] = (time.perf_counter() - t0) * 1e3
+
+    events = sorted(trace_events(run), key=_device_us, reverse=True)
+    wall = timing["wall"]
     busy = sum(_device_us(e) for e in events) / 1e3
     if busy <= 0:
         print("breakdown: device time not measured (the trace holds none)")
@@ -1232,10 +1305,13 @@ def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None):
     print(f"  ternary matmul kernels: {sum(_device_us(e) for e in tern) / 1e3:.3f} ms device time "
           f"in {sum(e.count for e in tern)} launches per generate"
           + (f" (the first ternary kernel: {before})" if before else ""))
-    pre = [e for e in events if "prefill_kernel" in e.key]
-    pre_ms = sum(_device_us(e) for e in pre) / 1e3
-    print(f"  flash prefill kernels: {pre_ms:.3f} ms device time in {sum(e.count for e in pre)} "
-          f"launches per generate ({100 * pre_ms / busy:.2f} % of device busy)")
+    for label, key in (("flash prefill kernels", "prefill_kernel"),
+                       ("latent decode kernel", "latent_kernel")):
+        sel = [e for e in events if key in e.key]
+        if sel:
+            sel_ms = sum(_device_us(e) for e in sel) / 1e3
+            print(f"  {label}: {sel_ms:.3f} ms device time in {sum(e.count for e in sel)} "
+                  f"launches per generate ({100 * sel_ms / busy:.2f} % of device busy)")
 
 
 def main() -> int:
@@ -1284,7 +1360,7 @@ def main() -> int:
               ("kernel 3 MLA form", lambda: kernel3_mla_phase(
                   torch, gen, get_config("deepseek-v3-671b").rope_theta), fp.MLA_KERNEL,
                "deepseek-v3-671b-l5"),
-              ("kernel 8", lambda: kernel8_phase(torch, gen), fd.LATENT_KERNEL,
+              ("kernel 8", lambda: kernel8_phase(torch, gen, smi), fd.LATENT_KERNEL,
                "deepseek-v3-671b-l5"),
               ("kernel 4", lambda: kernel4_phase(torch, gen), tm.KNOWN_KERNEL,
                "falcon3-1b carried-scale"),

@@ -27,6 +27,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core.ternary import act_quant
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels.flash_decode import NEG_INF, tree_sum
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, qops
@@ -170,6 +171,127 @@ def test_latent_plain_never_reads_masked_rows():
                               cold_k=torch.where(cold_valid[..., None], cache.cold_k,
                                                  float("nan")))
     assert torch.equal(fd.flash_decode_attention_latent(q, poisoned, 16, 0.2), want)
+
+
+def _poisoned_latent_cache(lens, hot, cold, d, seed, dtype=torch.float32, device="cpu"):
+    """A latent cache of random rows at the given lengths whose masked rows
+    (at or past each slot's length) hold NaN: no reader may touch them."""
+    rng = np.random.default_rng(seed)
+    cache = kvc.init_cache(len(lens), hot, cold, (d,), v_shape=(0,))
+    cache = cache._replace(
+        hot_k=torch.from_numpy(rng.standard_normal(cache.hot_k.shape).astype(np.float32)),
+        cold_k=torch.from_numpy(rng.standard_normal(cache.cold_k.shape).astype(np.float32)),
+        lengths=torch.tensor(lens, dtype=torch.int32))
+    hot_valid, cold_valid = kvc.valid_masks(cache)
+    return cache._replace(
+        hot_k=torch.where(hot_valid[..., None], cache.hot_k, float("nan")).to(device, dtype),
+        cold_k=torch.where(cold_valid[..., None], cache.cold_k, float("nan")).to(device, dtype),
+        lengths=cache.lengths.to(device))
+
+
+def _latent_dot_order(prod):
+    """The latent kernel's dot product (``dot_sum`` in csrc/flash_latent.cu)
+    of each row of f32 products (rows, d), every lane's result (rows, 32).
+    Lane L holds dims L + 32 t, t < tl = ceil(d / 32) (+0.0 past d). Of the
+    first in-lane level of the width zero-padded to 32 * pow2(tl) only the
+    real steps t + h -> t are taken, then the lane halves t < h, then the
+    xor butterfly sums across lanes."""
+    rows, d = prod.shape
+    tl = -(-d // 32)
+    x = torch.zeros(rows, tl * 32)
+    x[:, :d] = prod
+    x = x.reshape(rows, tl, 32)  # [row, t, lane]
+    h = (1 << (tl - 1).bit_length()) // 2
+    if h:
+        x = torch.cat([x[:, : tl - h] + x[:, h:], x[:, tl - h: h]], 1)
+        while x.shape[1] > 1:
+            x = x[:, : x.shape[1] // 2] + x[:, x.shape[1] // 2:]
+    s = x[:, 0]
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, lanes ^ o]
+    return s
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("d", [576, 24])
+def test_latent_unpadded_dot_order_equals_tree_sum(d, seed):
+    """The latent kernel's dot order, which leaves out the padded width's
+    +0.0 steps, equals the plain version's zero-padded ``tree_sum`` on
+    random rows, rows of mixed magnitudes and rows mostly of signed zeros,
+    except in the sign of a zero sum: -0.0 + +0.0 is +0.0, so at d = 576 an
+    all-(-0.0) row sums to -0.0 here and to +0.0 there. At d = 24 the two
+    orders are the same."""
+    rng = np.random.default_rng(seed)
+    prod = rng.standard_normal((3000, d)).astype(np.float32)
+    prod[1000:2000] *= np.exp2(rng.integers(-40, 40, (1000, d))).astype(np.float32)
+    zeros = rng.random((1000, d)) < 0.9
+    prod[2000:][zeros] = np.where(rng.random(zeros.sum()) < 0.5, -0.0, 0.0)
+    prod[2000] = -0.0
+    lanes = _latent_dot_order(torch.from_numpy(prod))
+    want = tree_sum(torch.from_numpy(prod), -1)
+    got = lanes[:, 0]
+    assert torch.equal(lanes, got[:, None].expand(-1, 32).contiguous())  # every lane, same sum
+    assert torch.equal(got, want)  # equal values; -0.0 == +0.0
+    differ = got.view(torch.int32) != want.view(torch.int32)
+    assert (got[differ] == 0).all()  # a differing bit pattern is a zero's sign
+    if d == 24:  # the padding sits in lanes 24-31 of the butterfly, as in tree_sum
+        assert not differ.any()
+    else:
+        assert differ[2000] and got[2000].view(torch.int32) == np.float32(-0.0).view(np.int32)
+
+
+def _latent_schedule_model(q, cache, dv, scale, chunk):
+    """The latent kernel's schedule (csrc/flash_latent.cu, one tile per
+    chunk) in torch, per slot: the valid rows' 32-key tiles, hot tier then
+    cold tier; per chunk of ``chunk`` tiles every logit first
+    (``_latent_dot_order``, valid rows only), then per tile m_new, alpha, p
+    and l for every head, then P.V with 32-value halving trees
+    (``tile_dot``'s order)."""
+    b, h, _ = q.shape
+    out = torch.zeros(b, h, dv)
+    for s, n_valid in enumerate(cache.lengths.tolist()):
+        n_hot = min(n_valid, cache.hot_cap)
+        n_cold = min(max(n_valid - cache.hot_cap, 0), cache.cold_cap)
+        tiles = ([cache.hot_k[s, i: min(i + 32, n_hot)] for i in range(0, n_hot, 32)]
+                 + [cache.cold_k[s, i: min(i + 32, n_cold)] for i in range(0, n_cold, 32)])
+        m, l, acc = torch.full((h,), NEG_INF), torch.zeros(h), torch.zeros(h, dv)
+        for c0 in range(0, len(tiles), chunk):
+            part = [rows.float() for rows in tiles[c0: c0 + chunk]]
+            logits = [_latent_dot_order((q[s, :, None] * rows[None]).flatten(0, 1))[:, 0]
+                      .reshape(h, -1) * scale for rows in part]
+            for rows, lg in zip(part, logits):
+                n = rows.shape[0]
+                m_new = torch.maximum(m, lg.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p, v = torch.zeros(h, 32), torch.zeros(32, dv)
+                p[:, :n], v[:n] = torch.exp(lg - m_new[:, None]), rows[:, :dv]
+                l = l * alpha + tree_sum(p, -1)
+                acc = acc * alpha[:, None] + tree_sum(p[:, :, None] * v, -2)
+                m = m_new
+        out[s] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("lens,hot,cold", [
+    ([0, 1, 31, 32, 33, 80, 128], 32, 96),  # empty, ragged, tile edges, full
+    ([0, 47, 48, 49, 100, 128], 48, 80),  # a partial hot tile before the cold tiles
+    ([500, 0, 129, 257], 32, 480),  # several chunks
+])
+@pytest.mark.parametrize("d,dv", [(576, 512), (24, 16)])
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_latent_schedule_model_bit_identical_to_plain(chunk, d, dv, lens, hot, cold):
+    """The logits of a chunk first (one tile, as the kernel runs, or four:
+    all of a 128-row cache), then the per-tile fold, in the kernel's
+    unpadded dot order, gives ``flash_decode_latent_plain``'s output bit
+    for bit, with the masked rows NaN-filled."""
+    cache = _poisoned_latent_cache(lens, hot, cold, d, seed=len(lens) + d)
+    q = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (len(lens), 3, d)).astype(np.float32))
+    q[0, 1] = -0.0
+    got = _latent_schedule_model(q, cache, dv, 192 ** -0.5, chunk)
+    want = fd.flash_decode_latent_plain(q, cache, dv, 192 ** -0.5)
+    assert torch.isfinite(want).all() and torch.equal(got, want)
 
 
 def _mla_qkv(seed, b, s, h, dk, dv):
@@ -331,29 +453,29 @@ def test_fake_quantized_factors_match_reference(jref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [1, 3, 5, 128])
+@pytest.mark.parametrize("lens,hot,cold", [
+    ([0, 1, 31, 32, 33, 64, 80, 127, 128], 32, 96),  # serving's tiers
+    ([0, 1, 31, 32, 33, 64, 80, 127, 128], 48, 80),  # a partial hot tile first
+    ([500, 0, 1, 33, 128, 129, 257], 32, 480),  # past one chunk of logits
+])
 @pytest.mark.parametrize("d,dv", [(24, 16), (576, 512)])
-def test_cuda_latent_kernel_bit_identical_to_plain(cuda, dtype, d, dv):
-    lens = [0, 1, 31, 32, 33, 128]
-    hot, cold, h = 32, 96, 128 if d == 576 else 4
-    g = torch.Generator(device=cuda).manual_seed(0)
-    dt = getattr(torch, dtype)
-    cache = kvc.init_cache(6, hot, cold, (d,), dtype=dt, device=cuda, v_shape=(0,))
-    cache = cache._replace(
-        hot_k=torch.randn(cache.hot_k.shape, generator=g, device=cuda).to(dt),
-        cold_k=torch.randn(cache.cold_k.shape, generator=g, device=cuda).to(dt),
-        lengths=torch.tensor(lens, dtype=torch.int32, device=cuda))
-    hot_valid, cold_valid = kvc.valid_masks(cache)
-    cache = cache._replace(  # masked rows hold NaN: neither version may read them
-        hot_k=torch.where(hot_valid[..., None], cache.hot_k, float("nan")).to(dt),
-        cold_k=torch.where(cold_valid[..., None], cache.cold_k, float("nan")).to(dt))
-    q = torch.randn((6, h, d), generator=g, device=cuda)
+def test_cuda_latent_kernel_bit_identical_to_plain(cuda, d, dv, lens, hot, cold, h, dtype):
+    """Ragged, empty and full slots over both tiers, head counts below, at
+    and off the block's head group, a q row of -0.0, masked rows of NaN:
+    one launch, equal to the plain version bit for bit."""
+    cache = _poisoned_latent_cache(lens, hot, cold, d, seed=h + d, dtype=getattr(torch, dtype),
+                                   device=cuda)
+    q = torch.from_numpy(np.random.default_rng(h).standard_normal(
+        (len(lens), h, d)).astype(np.float32)).to(cuda)
+    q[2, h // 2] = -0.0
     before = fd.LATENT_KERNEL.launches
     got = fd.flash_decode_attention_latent(q, cache, dv, 192 ** -0.5)
-    want = fd.flash_decode_attention_latent(q, cache, dv, 192 ** -0.5, impl="plain")
     torch.cuda.synchronize()
     assert fd.LATENT_KERNEL.launches == before + 1
+    want = fd.flash_decode_attention_latent(q, cache, dv, 192 ** -0.5, impl="plain")
     assert torch.isfinite(got).all() and torch.equal(got, want)
-    assert not got[0].any()
+    assert not got[torch.tensor(lens) == 0].any()
 
 
 @pytest.mark.cuda
