@@ -10,7 +10,9 @@
    yardstick: bf16 matmul / bmm at decode, torch._int_mm at M = 192, bf16
    bmm at C = 8): the act-quant ternary matmul (falcon3-1b's projections,
    and its expert form at DeepSeek-V3's E = 256, C = 1 / 8), the fused-RoPE GQA
-   decode, the fresh flash prefill (GQA at falcon3-1b's heads: o, k_cast
+   decode (o and k_rot bit-identical in f32 and bf16, masked rows
+   NaN-filled; timed with SDPA and its bound at lengths 80 and 127), the
+   fresh flash prefill (GQA at falcon3-1b's heads: o, k_cast
    and v_cast bit-identical, timed with SDPA and its bound at s = 32 and
    128; and its MLA form at q/k (6, s, 128, 192), v (6, s, 128, 128):
    bit-identical at s = 1 to 128, timed likewise),
@@ -24,7 +26,8 @@
    K = 25600, in pack2) and its expert form, the int32
    ternary matmul (also equal to ref.ternary_matmul_ref, quickstart's
    shape included) and the post-append GQA decode (f32 and bf16, length 0,
-   kernel_bench's case, and within 1e-5 of the fused decode).
+   kernel_bench's case, and within 1e-5 of the fused decode; timed at
+   lengths 80 and 128).
 3. falcon3-1b: full width and depth from a seeded generator (LoRA B
    factors filled with small seeded values), packed, serving 6 prompts x
    32 tokens with max_new_tokens=96 through Engine.generate (hot_cap=32,
@@ -32,8 +35,10 @@
    no weight was reloaded, each sequence's DR-traffic ledger equals the
    closed form for S=128 / 32 hot tokens, and the greedy tokens, prefill
    logits and first-step logits equal those of the same run on the plain
-   versions; prints the GQA prefill's launches per admission. Then the entry-point path: ternary_matmul on every layer's
-   projections and flash_decode_attention(q, cache) on every layer's
+   versions, and one GQA decode launch per layer per decode step; prints
+   the GQA prefill's launches per admission and the fused decode
+   wrapper's own glue (casts, RoPE table, copies) per decode step. Then
+   the entry-point path: ternary_matmul on every layer's projections and flash_decode_attention(q, cache) on every layer's
    post-append cache, each against its oracle. Then the same requests
    under fuse_act_quant=False (the carried-scale path): tokens equal on
    6/6 rows, ledger, no act-quant kernel launch, one known-scale launch
@@ -73,8 +78,7 @@ from pathlib import Path
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 F32_FLOPS = 67e12
-TOL = dict(rtol=1e-5, atol=1e-5)  # f32 attention vs its plain version
-TOL_BF16 = dict(rtol=2e-2, atol=2e-2)  # bf16 tiers: one bf16 ulp of the output
+TOL = dict(rtol=1e-5, atol=1e-5)  # f32 post-append decode vs the fused form's other order
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)  # whole-model logits, kernel vs plain run
 TERNARY = "ternary_"  # in the names of the ternary matmul's kernels (profiler keys)
 
@@ -322,13 +326,51 @@ def decode_case(torch, gen, lengths, dtype, b=6, h=8, g=4, d=256, hot=32, cold=9
     return q, cache, k_new, v_new
 
 
-def kernel2_phase(torch, gen, theta):
+GQA_DECODE = "gqa_decode_kernel"  # the GQA decode kernel's name (profiler key)
+
+
+def decode_timing(torch, gen, theta, length, fused, smi):
+    """Kernel, plain, SDPA and bound of one GQA decode form at falcon3-1b's
+    shape (b 6, h 8, g 4, d 256, f32), every slot at ``length`` (the
+    cache's valid rows; the fused form adds the pending token)."""
     from repro_torch.kernels import flash_decode as fd
 
-    worst, bitwise = 0.0, True
+    b, h, g, d = 6, 8, 4, 256
+    q, cache, k_new, v_new = decode_case(torch, gen, [length] * b, torch.float32)
+    kw = dict(k_new=k_new, v_new=v_new, active=torch.ones(b, dtype=torch.bool, device="cuda"),
+              rope_theta=theta) if fused else {}
+    name = "flash_decode_gqa_fused" if fused else "flash_decode_gqa"
+    print(f"{name} at length {length}:")
+    ms, _ = timed("kernel", lambda: fd.flash_decode_attention(q, cache, **kw), only=GQA_DECODE)
+    plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention(q, cache, impl="plain", **kw))
+    # SDPA over the valid rows (and the pending token), k / v expanded to the h heads
+    pend_k, pend_v = ([k_new[:, None]], [v_new[:, None]]) if fused else ([], [])
+    kk = torch.cat([cache.hot_k, cache.cold_k[:, : length - 32]] + pend_k, 1)
+    vv = torch.cat([cache.hot_v, cache.cold_v[:, : length - 32]] + pend_v, 1)
+    kh = kk.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    vh = vv.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kh, vh))
+    # q, the valid rows, lengths and the output; fused also k_new, v_new,
+    # active, the cos / sin tables and k_rot
+    n_bytes = b * h * d * 4 + b * length * g * d * 4 * 2 + 4 * b + b * h * d * 4
+    if fused:
+        n_bytes += 2 * b * g * d * 4 + 4 * b + b * d * 4 + b * g * d * 4
+    ops = 4 * b * h * (length + int(fused)) * d
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"{name} (b=6, length {length}, f32): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+          f"SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms by {b_by} ({n_bytes} B, {ops} FLOP) "
+          f"on {smi}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def kernel2_phase(torch, gen, theta, smi):
+    from repro_torch.kernels import flash_decode as fd
+
+    worst = 0.0
     lengths = [0, 1, 31, 32, 33, 127]
     active = torch.tensor([False, True, True, True, True, True], device="cuda")
-    for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, TOL_BF16)):
+    for dtype in (torch.float32, torch.bfloat16):
         q, cache, k_new, v_new = decode_case(torch, gen, lengths, dtype)
         o, k_rot = fd.flash_decode_attention(q, cache, k_new=k_new, v_new=v_new, active=active,
                                              rope_theta=theta)
@@ -338,39 +380,18 @@ def kernel2_phase(torch, gen, theta):
         check(torch.isfinite(o).all(), "flash_decode output not finite (read a masked row?)")
         check(torch.equal(k_rot, k_rot_p), f"flash_decode k_rot not bit-identical ({dtype})")
         check(torch.equal(o[0], torch.zeros_like(o[0])), "length-0 inactive slot not zero")
-        check(torch.allclose(o.float(), o_p.float(), **tol),
-              f"flash_decode output off its plain version ({dtype}): {max_err(o, o_p)}")
-        worst = max(worst, max_err(o, o_p)) if dtype == torch.float32 else worst
-        bitwise &= bool(torch.equal(o, o_p))
-    print(f"flash_decode: within tolerance of plain (f32 {TOL}, bf16 {TOL_BF16}); "
-          f"k_rot bit-identical; bit-identical output: {bitwise}")
-
-    # timing at the main path's middle state: every slot at length 80, active
-    length = 80
-    q, cache, k_new, v_new = decode_case(torch, gen, [length] * 6, torch.float32)
-    act = torch.ones(6, dtype=torch.bool, device="cuda")
-    ms, _ = timed("kernel", lambda: fd.flash_decode_attention(
-        q, cache, k_new=k_new, v_new=v_new, active=act, rope_theta=theta), only="decode_kernel")
-    plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention(
-        q, cache, k_new=k_new, v_new=v_new, active=act, rope_theta=theta, impl="plain"))
-    kk = torch.cat([cache.hot_k, cache.cold_k[:, : length - 32], k_new[:, None]], 1)
-    vv = torch.cat([cache.hot_v, cache.cold_v[:, : length - 32], v_new[:, None]], 1)
-    kh = kk.permute(0, 2, 1, 3).repeat_interleave(2, dim=1).contiguous()
-    vh = vv.permute(0, 2, 1, 3).repeat_interleave(2, dim=1).contiguous()
-    qh = q[:, :, None]
-    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh))
-    b, h, g, d = 6, 8, 4, 256
-    n_bytes = (b * h * d * 4 + b * length * g * d * 4 * 2 + 2 * b * g * d * 4 + 8 * b
-               + b * d * 4 + b * h * d * 4 + b * g * d * 4)
-    ops = 4 * b * h * (length + 1) * d
-    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
-    print(f"flash_decode (b=6, length 80, f32): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-          f"SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms ({n_bytes} B / 3.35 TB/s)")
+        worst = max(worst, max_err(o, o_p))
+        check(torch.equal(o, o_p),
+              f"flash_decode output not bit-identical to plain ({dtype}): {max_err(o, o_p)}")
+    print("flash_decode_gqa_fused: o and k_rot bit-identical to plain in f32 and bf16 "
+          f"(lengths {lengths}, NaN past each, slot 0 inactive)")
+    # the main path's middle state (every slot at length 80, active) and its
+    # longest pre-append length
+    t80, t127 = (decode_timing(torch, gen, theta, n, True, smi) for n in (80, 127))
     return dict(name="flash_decode_gqa_fused", route="cuda",
                 source="src/repro_torch/csrc/flash_decode.cu",
                 replaces="src/repro/kernels/flash_decode.py:481", max_abs_err=worst,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                **t80, len127=t127)
 
 
 # ---------------------------------------------------------------------------
@@ -856,7 +877,7 @@ def kernel7_phase(torch, gen):
 # ---------------------------------------------------------------------------
 
 
-def kernel6_phase(torch, gen, theta):
+def kernel6_phase(torch, gen, theta, smi):
     from repro_torch.core import kv_cache as kvc
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models.layers import apply_rope
@@ -893,26 +914,13 @@ def kernel6_phase(torch, gen, theta):
           f"each, all-zero lengths, kernel_bench's b=4 d=128 cap 512 bf16 case); against "
           f"flash_decode_gqa_fused on the pre-append cache max |diff| {err2} (tolerance {TOL})")
 
-    length = 80  # the main path's middle state: every slot at length 80 after the append
-    q, cache, _, _ = decode_case(torch, gen, [length] * 6, torch.float32)
-    ms, _ = timed("kernel", lambda: fd.flash_decode_attention(q, cache), only="decode_kernel")
-    plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention(q, cache, impl="plain"))
-    kk = torch.cat([cache.hot_k, cache.cold_k[:, : length - 32]], 1)
-    vv = torch.cat([cache.hot_v, cache.cold_v[:, : length - 32]], 1)
-    kh = kk.permute(0, 2, 1, 3).repeat_interleave(2, dim=1).contiguous()
-    vh = vv.permute(0, 2, 1, 3).repeat_interleave(2, dim=1).contiguous()
-    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], kh, vh))
-    b, h, g, d = 6, 8, 4, 256
-    n_bytes = b * h * d * 4 + b * length * g * d * 4 * 2 + 4 * b + b * h * d * 4
-    ops = 4 * b * h * length * d
-    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
-    print(f"flash_decode_gqa (b=6, length 80, f32): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-          f"SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms ({n_bytes} B / 3.35 TB/s)")
+    # the main path's middle state (every slot at length 80 after the
+    # append) and a full cache
+    t80, t128 = (decode_timing(torch, gen, theta, n, False, smi) for n in (80, 128))
     return dict(name="flash_decode_gqa", route="cuda",
                 source="src/repro_torch/csrc/flash_decode.cu",
                 replaces="src/repro/kernels/flash_decode.py:402", max_abs_err=worst,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                **t80, len128=t128)
 
 
 # ---------------------------------------------------------------------------
@@ -1094,6 +1102,10 @@ def slice_phase(torch, gen):
           f"launches {launches}")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     check_served(res, cfg, eng, 128, "falcon3-1b")
+    gqa = launches[fd.KERNEL.symbol]
+    print(f"flash_decode_gqa_fused launches per falcon3-1b decode step: {gqa / 96:g} "
+          f"({gqa} over 96 steps)")
+    check(gqa == cfg.n_layers * 96, f"GQA decode launches {gqa} != {cfg.n_layers} per step")
 
     cfg_plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
     t0 = time.perf_counter()
@@ -1125,8 +1137,11 @@ def slice_phase(torch, gen):
     carried, carried_tok_s = carried_scale_run(
         torch, cfg, packed, prompts, kw, 96, [tm.KERNEL, tm.KNOWN_KERNEL, fd.KERNEL, fp.KERNEL],
         (eng, wall, launches), tokens)
+    check(carried[fd.KERNEL.symbol] == gqa,
+          f"carried-scale run: {carried[fd.KERNEL.symbol]} GQA decode launches, fused run {gqa}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     breakdown(torch, eng, prompts, before="57.693 ms in 1224 launches on an H100")
+    decode_glue_per_step(torch, cfg, kw, cfg.rope_theta)
     return {"falcon3-1b": launches, "falcon3-1b entry points": entry,
             "falcon3-1b carried-scale": carried}, {"falcon3-1b": 6 * 96 / wall,
                                                    "falcon3-1b carried-scale": carried_tok_s}
@@ -1211,6 +1226,44 @@ def deepseek_phase(torch):
     return ({name: launches, f"{name} carried-scale": carried, f"{name} pack243": pack243},
             {name: 6 * 32 / wall, f"{name} carried-scale": carried_tok_s,
              f"{name} pack243": pack243_tok_s})
+
+
+def decode_glue_per_step(torch, cfg, kw, theta):
+    """Device time and launches per falcon3-1b decode step of the fused
+    GQA decode wrapper's own work around its kernel (kernels/flash_decode.py
+    ``_launch``: the int32 casts, the rope_cos_sin table, contiguous copies
+    of q and k_new), beside the kernel's, profiled alone: one call per
+    layer on operands laid out as the serving step gives them (q and k_new
+    views into the fused qkv projection's output, v_new the v adapter's own
+    tensor, a bool active mask), every slot at length 80."""
+    from repro_torch.kernels import flash_decode as fd
+
+    b, h, g, d, iters = kw["slots"], cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, 10
+    q, cache, _, _ = decode_case(torch, torch.Generator(device="cuda").manual_seed(2), [80] * b,
+                                 torch.float32, b=b, h=h, g=g, d=d, hot=kw["hot_cap"],
+                                 cold=kw["max_len"] - kw["hot_cap"])
+    y = torch.randn((b, (h + 2 * g) * d), device="cuda")
+    qv = y[:, : h * d].reshape(b, 1, h, d)[:, 0]
+    kv = y[:, h * d: (h + g) * d].reshape(b, 1, g, d)[:, 0]
+    vv = (y[:, (h + g) * d:] + 1.0).reshape(b, 1, g, d)[:, 0]
+    act = torch.ones(b, dtype=torch.bool, device="cuda")
+
+    def step():
+        for _ in range(cfg.n_layers):
+            fd.flash_decode_attention(qv, cache, k_new=kv, v_new=vv, active=act, rope_theta=theta)
+
+    events = profiled_kernels(step, iters)
+    if events is None:
+        print("GQA decode glue: device time not measured (no complete trace)")
+        return
+    glue = [e for e in events if GQA_DECODE not in e.key]
+    kern = [e for e in events if GQA_DECODE in e.key]
+    per = {name: (sum(_device_us(e) for e in sel) / iters / 1e3,
+                  sum(e.count for e in sel) // iters) for name, sel in (("glue", glue),
+                                                                         ("kernel", kern))}
+    print(f"decode_glue_per_step (falcon3-1b, {cfg.n_layers} layers, b {b}, length 80): fused "
+          f"decode wrapper glue {per['glue'][0]:.4f} ms device time in {per['glue'][1]} launches; "
+          f"its kernel {per['kernel'][0]:.4f} ms in {per['kernel'][1]} launches")
 
 
 def latent_glue_per_step(torch, cfg, kw):
@@ -1305,7 +1358,8 @@ def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None):
     print(f"  ternary matmul kernels: {sum(_device_us(e) for e in tern) / 1e3:.3f} ms device time "
           f"in {sum(e.count for e in tern)} launches per generate"
           + (f" (the first ternary kernel: {before})" if before else ""))
-    for label, key in (("flash prefill kernels", "prefill_kernel"),
+    for label, key in (("GQA decode kernel", GQA_DECODE),
+                       ("flash prefill kernels", "prefill_kernel"),
                        ("latent decode kernel", "latent_kernel")):
         sel = [e for e in events if key in e.key]
         if sel:
@@ -1353,7 +1407,7 @@ def main() -> int:
     tm, fd, fp = ternary_matmul, flash_decode, flash_prefill
     # (label, phase, its kernel, the path whose run gives its launches)
     phases = [("kernel 1", lambda: kernel1_phase(torch, gen), tm.KERNEL, "falcon3-1b"),
-              ("kernel 2", lambda: kernel2_phase(torch, gen, theta), fd.KERNEL, "falcon3-1b"),
+              ("kernel 2", lambda: kernel2_phase(torch, gen, theta, smi), fd.KERNEL, "falcon3-1b"),
               ("kernel 3", lambda: kernel3_phase(torch, gen, theta), fp.KERNEL, "falcon3-1b"),
               ("kernel 1 expert form", lambda: kernel1_expert_phase(torch, gen),
                tm.EXPERT_KERNEL, "deepseek-v3-671b-l5"),
@@ -1366,7 +1420,7 @@ def main() -> int:
                "falcon3-1b carried-scale"),
               ("kernel 5", lambda: kernel5_phase(torch, gen), tm.INT32_KERNEL,
                "falcon3-1b entry points"),
-              ("kernel 6", lambda: kernel6_phase(torch, gen, theta), fd.GQA_KERNEL,
+              ("kernel 6", lambda: kernel6_phase(torch, gen, theta, smi), fd.GQA_KERNEL,
                "falcon3-1b entry points"),
               ("kernel 7", lambda: kernel7_phase(torch, gen), tm.KNOWN_EXPERT_KERNEL,
                "deepseek-v3-671b-l5 carried-scale")]

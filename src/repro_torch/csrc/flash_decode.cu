@@ -15,18 +15,54 @@
 //    state), so there is no RoPE prologue and no pending token. A length-0
 //    slot gives zeros (acc / max(l, 1e-30) with acc = l = 0).
 //
-// What bounds it on this card: the bytes of the valid KV rows (one read of
-// each), far below the operation peak at one query token per slot.
+// What bounds it on this card: the bytes of the valid KV rows, one read of
+// each. At falcon3-1b's shape (b 6, h 8, g 4, d 256, f32) the fused form
+// moves 4.1 MB at length 80 (1.2 us at 3.35 TB/s) and 6.3 MB at length 127
+// (1.9 us); its 4 b h (n + 1) d operations take under a third of that at
+// the f32 rate. At one query token per slot each block's chain of
+// dependent phases (load, dot products, softmax, fold, each ended by a
+// barrier) sets the time, so the design shortens that chain, keeps every
+// row load of a chunk in flight at once, and reads each key row once.
 //
 // Design:
 //  * The TPU grid (batch, kv_group, s_blocks) carries the softmax state
-//    across its sequential S axis. Here one block owns one (slot, kv group)
-//    and loops over 32-key tiles of the valid prefix only: the loop bound
-//    is the slot's length, so no row at or past the valid length is read
-//    (the 0 * NaN hazard of a masked row cannot arise) and a length-0
-//    inactive slot writes zeros.
-//  * GQA: the rep query heads of the group share every key tile. A warp
-//    takes one key at a time; its lanes split the head dimension.
+//    across its sequential S axis. Here one block owns one (value-dim
+//    slice of DVS = 64, kv group, slot), grid (D / DVS, G, B), and the D /
+//    DVS slice blocks of a (slot, group) form one thread-block cluster: at
+//    falcon3-1b's shape 24 clusters of 4 blocks, 96 blocks in one wave.
+//  * The block walks the 32-key tiles of the slot's valid rows (the hot
+//    tier's, then the cold tier's) in chunks of kChunk = 4 tiles; no row at
+//    or past the slot's length is read, so a masked row may hold anything,
+//    and a length-0 inactive slot writes zeros. A chunk's key rows and
+//    values are loaded into registers before they are needed: the first
+//    chunk's as soon as the length is known (the queries, the pending k and
+//    v and the RoPE table load before it), the next one's after a fold.
+//    Per chunk:
+//    (1) logits: the cluster's warps split the chunk's keys (key j of each
+//    tile to warp j mod CW of the cluster), so each key row is read once
+//    per (slot, group); lane L holds dims L + 32 t of the row and of q.
+//    The dot product is the halving tree over t inside the lane, then the
+//    xor butterfly across lanes, whose levels run together for all of a
+//    warp's keys. Each logit is written into every block of the cluster
+//    (distributed shared memory), and a cluster barrier follows;
+//    (2) softmax: one warp per head, lane j on key j of every tile of the
+//    chunk at once: the tile maxima (fmaxf butterflies) and the sums of p
+//    run in parallel, and only m and l chain from tile to tile: m_new,
+//    alpha = exp(m - m_new), p_j = exp(logit_j - m_new) and l, each once;
+//    p (stored in the P.V threads' order) and alpha go to shared memory.
+//    Every block of a cluster computes them from the same logits, so the
+//    slices agree bit for bit;
+//    (3) P.V: a thread owns one value dim of the slice and the keys j = c
+//    (mod SPLIT) of each tile, SPLIT = 256 / DVS; it folds acc = acc *
+//    alpha + tile_dot(p, v) for every head: the halving tree over its 32 /
+//    SPLIT keys unrolled level by level, then an xor butterfly over the
+//    SPLIT threads of the dim, which together are the halving tree over
+//    the tile's 32 keys.
+//  * Fused form: q and k_new rotate in registers in the prologue. For d >=
+//    64 the RoPE partner of dim L + 32 t is L + 32 (t + TL / 2), in the
+//    same lane; for d 16 and 32 it is lane L ^ (d / 2), one shuffle. The
+//    pending token's logits are computed there too, and it joins after the
+//    last chunk as a one-key tile; slice 0 writes k_rot.
 //  * The two forms are one template (FUSED): the post-append form drops the
 //    RoPE prologue and the pending-token step at compile time, so the tier
 //    loop, the one the plain versions share too, exists once.
@@ -40,60 +76,159 @@
 //    __fadd_rn: no FMA contraction). Kernel and plain version then agree
 //    bit for bit. RoPE uses cos and sin tables from the wrapper, computed
 //    with the plain version's own expression.
+//  * No array leaves the registers: every tree is unrolled level by level
+//    with compile-time indices (halve, tile_dot), and __launch_bounds__
+//    asks for one block per SM, so ptxas may use up to 255 registers
+//    (without that minimum it held some forms to 128 and spilled).
+//  * Measured on the H100 at falcon3-1b's shape (PERF.md): blocks that
+//    each computed every logit of their (slot, group) were held by those
+//    logits; sharing them across the cluster gained most. 256 threads with
+//    64-dim slices and 128 threads with 32-dim slices (clusters of 8) were
+//    fastest, the first slightly; chunks of 2 tiles were slower at length
+//    80 and up; issuing every load of a chunk before its first use and
+//    running the butterflies of a warp's dot products together gained the
+//    rest.
 //  * Ring, paged and fp8 layouts are not handled here (the wrapper raises).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;   // keys per tile
+constexpr int kChunk = 4;   // tiles whose logits are computed before their fold
 constexpr int kMaxRep = 8;  // query heads per kv group
+constexpr int kHeadsPerWarp = (kMaxRep + kWarps - 1) / kWarps;  // in the softmax step
 constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
 constexpr unsigned kFull = 0xffffffffu;
+
+// Value dims per block: the grid is (D / slice_dims(D), G, B), and the
+// D / slice_dims(D) slice blocks of a (slot, group) form one cluster.
+__host__ __device__ constexpr int slice_dims(int d) { return d < 64 ? d : 64; }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// Rotate element i of a head row: x1 = x[i], x2 = x[i + half] for i < half.
-__device__ __forceinline__ float rope_at(const float* row, int i, int half,
-                                         const float* cos_row, const float* sin_row) {
-  if (i < half) {
-    const float x1 = row[i], x2 = row[i + half];
-    return __fsub_rn(__fmul_rn(x1, cos_row[i]), __fmul_rn(x2, sin_row[i]));
+// x[j] += x[j + H] for j < H, then H / 2, ..., 1: a halving tree with each
+// level a loop of constant bound, so every index is a compile-time
+// constant and x stays in registers.
+template <int H, int N>
+__device__ __forceinline__ void halve(float (&x)[N]) {
+  if constexpr (H > 0) {
+#pragma unroll
+    for (int j = 0; j < H; ++j) x[j] = __fadd_rn(x[j], x[j + H]);
+    halve<H / 2>(x);
   }
-  const int j = i - half;
-  const float x1 = row[j], x2 = row[i];
-  return __fadd_rn(__fmul_rn(x2, cos_row[j]), __fmul_rn(x1, sin_row[j]));
 }
 
-// Halving-tree sum of the values x[i], i = lane + 32 * t, held TL per lane:
-// first over t inside the lane, then across lanes with a butterfly. Lane 0's
-// result is the halving tree over i (element i + n/2 added to element i).
-template <int TL>
-__device__ __forceinline__ float warp_tree(float (&x)[TL]) {
-#pragma unroll
-  for (int h = TL / 2; h > 0; h /= 2)
-#pragma unroll
-    for (int t = 0; t < h; ++t) x[t] = __fadd_rn(x[t], x[t + h]);
-  float s = x[0];
+__device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
   return s;
 }
 
-// Halving-tree sum of 32 values.
-__device__ __forceinline__ float tree32(float (&x)[kTile]) {
+// The maximum over the warp of each s[i], the butterflies level by level.
+template <int N>
+__device__ __forceinline__ void warp_maxes(float (&s)[N]) {
 #pragma unroll
-  for (int h = kTile / 2; h > 0; h /= 2)
+  for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
-    for (int j = 0; j < h; ++j) x[j] = __fadd_rn(x[j], x[j + h]);
-  return x[0];
+    for (int i = 0; i < N; ++i) s[i] = fmaxf(s[i], __shfl_xor_sync(kFull, s[i], o));
+}
+
+// warp_sum of each s[i], the butterflies of all N sums level by level.
+template <int N>
+__device__ __forceinline__ void warp_sums(float (&s)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = __fadd_rn(s[i], __shfl_xor_sync(kFull, s[i], o));
+}
+
+// The dot product whose products x[t] (dim lane + 32 t) the lanes hold: the
+// halving tree over t inside the lane, then the xor butterfly across lanes,
+// which together are the halving tree over the dims. Every lane returns
+// the sum.
+template <int TL>
+__device__ __forceinline__ float dot_sum(float (&x)[TL]) {
+  halve<TL / 2>(x);
+  return warp_sum(x[0]);
+}
+
+// The halving tree over a tile's 32 products p_j * v_j, of which this
+// thread holds the keys j = c + SPLIT u (c = lane % SPLIT): p holds this
+// thread's KPT = 32 / SPLIT probabilities in order of u (16-byte aligned),
+// v the values. The tree's levels that pair j with j + 16, ..., j + SPLIT
+// stay inside the thread (u with u + KPT / 2, ...; the first is taken as
+// the products are formed); the rest pair the SPLIT threads of the dim by
+// an xor butterfly. Every thread of the dim returns the sum.
+template <int SPLIT>
+__device__ __forceinline__ float tile_dot(const float* p, const float (&v)[kTile / SPLIT]) {
+  constexpr int KPT = kTile / SPLIT, H = KPT / 2;
+  float x[H];
+  if constexpr (H % 4 == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int j4 = 0; j4 < H / 4; ++j4) {
+      const float4 lo = p4[j4], hi = p4[j4 + H / 4];
+      const int j = 4 * j4;
+      x[j] = __fadd_rn(__fmul_rn(lo.x, v[j]), __fmul_rn(hi.x, v[j + H]));
+      x[j + 1] = __fadd_rn(__fmul_rn(lo.y, v[j + 1]), __fmul_rn(hi.y, v[j + 1 + H]));
+      x[j + 2] = __fadd_rn(__fmul_rn(lo.z, v[j + 2]), __fmul_rn(hi.z, v[j + 2 + H]));
+      x[j + 3] = __fadd_rn(__fmul_rn(lo.w, v[j + 3]), __fmul_rn(hi.w, v[j + 3 + H]));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < H; ++j) x[j] = __fadd_rn(__fmul_rn(p[j], v[j]), __fmul_rn(p[j + H], v[j + H]));
+  }
+  halve<H / 2>(x);
+  float s = x[0];
+#pragma unroll
+  for (int o = SPLIT / 2; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
+  return s;
+}
+
+// This lane's entries of a RoPE table row (D / 2 values, the low dim of
+// each pair): dims lane + 32 t for t < TL / 2 when D >= 64, else dim
+// lane mod D / 2 (lanes below D).
+template <int D, int TL>
+__device__ __forceinline__ void load_table(const float* row, int lane, float (&out)[(TL + 1) / 2]) {
+  if constexpr (TL >= 2) {
+#pragma unroll
+    for (int t = 0; t < TL / 2; ++t) out[t] = row[lane + 32 * t];
+  } else {
+    out[0] = lane < D ? row[lane & (D / 2 - 1)] : 0.f;
+  }
+}
+
+// RoPE of the head row whose dims lane + 32 t this lane holds in x, in
+// apply_rope's expression: for i < D / 2, x1 = x[i], x2 = x[i + D / 2];
+// out[i] = x1 cos - x2 sin, out[i + D / 2] = x2 cos + x1 sin. c and s are
+// this lane's table entries (load_table).
+template <int D, int TL>
+__device__ __forceinline__ void rope(float (&x)[TL], const float (&c)[(TL + 1) / 2],
+                                     const float (&s)[(TL + 1) / 2], int lane) {
+  if constexpr (TL >= 2) {  // the partner of t is t + TL / 2, in this lane
+#pragma unroll
+    for (int t = 0; t < TL / 2; ++t) {
+      const float x1 = x[t], x2 = x[t + TL / 2];
+      x[t] = __fsub_rn(__fmul_rn(x1, c[t]), __fmul_rn(x2, s[t]));
+      x[t + TL / 2] = __fadd_rn(__fmul_rn(x2, c[t]), __fmul_rn(x1, s[t]));
+    }
+  } else {  // d 16 or 32: the partner of lane L is lane L ^ (D / 2)
+    const float other = __shfl_xor_sync(kFull, x[0], D / 2);
+    if (lane < D)
+      x[0] = lane < D / 2 ? __fsub_rn(__fmul_rn(x[0], c[0]), __fmul_rn(other, s[0]))
+                          : __fadd_rn(__fmul_rn(x[0], c[0]), __fmul_rn(other, s[0]));
+  }
 }
 
 template <typename T>
@@ -116,172 +251,301 @@ struct DecodeArgs {
 };
 
 template <typename T, int D, bool FUSED>
-__global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs<T> a) {
-  constexpr int TL = D >= 32 ? D / 32 : 1;  // head elements per lane
-  constexpr int half = D / 2;
-  __shared__ float q_s[kMaxRep][D];
-  __shared__ float kr_s[D];
-  __shared__ float raw_s[D];
-  __shared__ float logit_s[kMaxRep][kTile];
-  __shared__ float p_s[kMaxRep][kTile];
+__global__ void __launch_bounds__(kThreads, 1) gqa_decode_kernel(DecodeArgs<T> a) {
+  constexpr int TL = D >= 32 ? D / 32 : 1;  // head dims per lane
+  constexpr int DVS = slice_dims(D);        // value dims per block
+  constexpr int S = D / DVS;                // slice blocks of a cluster
+  constexpr int SPLIT = kThreads / DVS;  // P.V threads per value dim
+  constexpr int KPT = kTile / SPLIT;     // a tile's keys per P.V thread
+  constexpr int CW = S * kWarps;      // warps of a cluster, which share a chunk's logits
+  constexpr int KPW = kChunk * kTile / CW;  // a chunk's key slots per warp
+  constexpr int kSpan = kTile / CW;         // a warp's key slots in one tile
+  static_assert(kThreads % DVS == 0 && SPLIT <= 16, "a dim's P.V threads share a warp, 2+ keys each");
+  static_assert(kTile % CW == 0, "a warp's key slots s, s + CW, ... stay in one tile");
+  __shared__ float q_s[kMaxRep][D];  // the rotated queries
+  // a chunk's logits, then p; two buffers, since the cluster's warps write
+  // the next chunk's logits while this block may still fold the last one
+  __shared__ __align__(16) float p_s[2][kMaxRep][kChunk * kTile];
+  __shared__ float alpha_s[kMaxRep][kChunk];
+  __shared__ float l_s[kMaxRep];
+  __shared__ float pend_s[2][kMaxRep];  // the pending token's p and alpha
 
-  const int g = blockIdx.x, b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slice = blockIdx.x, g = blockIdx.y, b = blockIdx.z;  // slice = cluster rank
   const int G = a.G, rep = a.rep;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, d = threadIdx.x;
-  const int length = a.lengths[b];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = slice * kWarps + warp;               // this warp in its cluster
+  const int part = threadIdx.x % SPLIT;               // P.V keys j = part (mod SPLIT)
+  const int dv = slice * DVS + threadIdx.x / SPLIT;   // P.V value dim
+  const int gd = G * D;  // a tier's row stride, in elements
 
-  // ---- prologue: the rep query heads (rotated in the fused form) and,
-  // fused, the pending k ----
-  if constexpr (!FUSED) {
-    for (int r = 0; r < rep; ++r)
-      if (d < D) q_s[r][d] = to_f32(a.q[((int64_t)b * G * rep + g * rep + r) * D + d]);
-    __syncthreads();
-  } else {
-    const float* cos_row = a.cos + (int64_t)b * half;
-    const float* sin_row = a.sin + (int64_t)b * half;
-    for (int r = 0; r < rep; ++r) {
-      const T* qrow = a.q + ((int64_t)b * G * rep + g * rep + r) * D;
-      if (d < D) raw_s[d] = to_f32(qrow[d]);
-      __syncthreads();
-      if (d < D) q_s[r][d] = rope_at(raw_s, d, half, cos_row, sin_row);
-      __syncthreads();
-    }
-    const T* krow = a.k_new + ((int64_t)b * G + g) * D;
-    if (d < D) raw_s[d] = to_f32(krow[d]);
-    __syncthreads();
-    if (d < D) {
-      const float v = rope_at(raw_s, d, half, cos_row, sin_row);
-      kr_s[d] = v;
-      store(a.k_rot + ((int64_t)b * G + g) * D + d, v);
-    }
-    __syncthreads();
-  }
-
-  // online-softmax state, replicated in every thread; acc is dimension d
-  float m[kMaxRep], l[kMaxRep], acc[kMaxRep];
+  // ---- the loads that need nothing but the block's place go first: the
+  // query heads r = warp + kWarps h (the heads whose softmax this warp
+  // runs) and, fused, the pending k and v and the RoPE table ----
+  float qx[kHeadsPerWarp][TL];
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-    acc[r] = 0.f;
+  for (int h = 0; h < kHeadsPerWarp; ++h) {
+    const int r = warp + kWarps * h;
+    const T* qrow = a.q + ((int64_t)b * G * rep + g * rep + r) * D;
+#pragma unroll
+    for (int t = 0; t < TL; ++t) {
+      const int i = lane + 32 * t;
+      qx[h][t] = r < rep && i < D ? to_f32(qrow[i]) : 0.f;
+    }
+  }
+  const bool active = FUSED && a.active[b] != 0;
+  float kr[TL], vn, cos_l[(TL + 1) / 2], sin_l[(TL + 1) / 2];
+  if constexpr (FUSED) {
+    load_table<D, TL>(a.cos + (int64_t)b * (D / 2), lane, cos_l);
+    load_table<D, TL>(a.sin + (int64_t)b * (D / 2), lane, sin_l);
+    const T* krow = a.k_new + ((int64_t)b * G + g) * D;
+#pragma unroll
+    for (int t = 0; t < TL; ++t) {
+      const int i = lane + 32 * t;
+      kr[t] = i < D ? to_f32(krow[i]) : 0.f;
+    }
+    vn = to_f32(a.v_new[((int64_t)b * G + g) * D + dv]);
   }
 
-  // ---- stream the hot tier, then the cold tier, over valid rows only ----
+  const int length = a.lengths[b];
   const int n_hot = min(length, a.HC);
   const int n_cold = min(max(length - a.HC, 0), a.CC);
-  for (int tier = 0; tier < 2; ++tier) {
-    const T* kt = tier == 0 ? a.hot_k : a.cold_k;
-    const T* vt = tier == 0 ? a.hot_v : a.cold_v;
-    const int cap = tier == 0 ? a.HC : a.CC;
-    const int n_valid = tier == 0 ? n_hot : n_cold;
-    for (int start = 0; start < n_valid; start += kTile) {
-      const int n = min(kTile, n_valid - start);
-      auto row = [&](const T* base, int j) {
-        return base + (((int64_t)b * cap + start + j) * G + g) * D;
-      };
-      for (int j = warp; j < n; j += kWarps) {
-        const T* krow = row(kt, j);
-        float kx[TL];
+  const int t_hot = (n_hot + kTile - 1) / kTile;
+  const int n_tiles = t_hot + (n_cold + kTile - 1) / kTile;
+
+  // A chunk in registers: its tiles' valid keys (0 past the last tile),
+  // this warp's key rows for the logits (slot gw + CW i of the chunk: tile
+  // i / kSpan) and this thread's values for the fold.
+  int n[kChunk];
+  float kx[KPW][TL];
+  float v[kChunk][KPT];
+  auto fetch = [&](int c0) {
+    const T* kt[kChunk];
+    const T* vt[kChunk];
 #pragma unroll
-        for (int t = 0; t < TL; ++t) {
-          const int i = lane + 32 * t;
-          kx[t] = i < D ? to_f32(krow[i]) : 0.f;
-        }
+    for (int k = 0; k < kChunk; ++k) {
+      const int tk = c0 + k;
+      const bool hot = tk < t_hot;
+      const int start = (hot ? tk : tk - t_hot) * kTile;
+      n[k] = tk < n_tiles ? min(kTile, (hot ? n_hot : n_cold) - start) : 0;
+      const int64_t row0 = ((int64_t)b * (hot ? a.HC : a.CC) + start) * gd + (int64_t)g * D;
+      kt[k] = (hot ? a.hot_k : a.cold_k) + row0;
+      vt[k] = (hot ? a.hot_v : a.cold_v) + row0 + part * gd + dv;
+    }
 #pragma unroll
-        for (int r = 0; r < kMaxRep; ++r) {
-          if (r >= rep) break;
-          float x[TL];
+    for (int i = 0; i < KPW; ++i) {
+      const int k = i / kSpan, j = gw + CW * (i % kSpan);
+      const T* row = kt[k] + j * gd;
 #pragma unroll
-          for (int t = 0; t < TL; ++t) {
-            const int i = lane + 32 * t;
-            x[t] = i < D ? __fmul_rn(q_s[r][i], kx[t]) : 0.f;
-          }
-          const float s = warp_tree<TL>(x);
-          if (lane == 0) logit_s[r][j] = __fmul_rn(s, a.scale);
-        }
+      for (int t = 0; t < TL; ++t) {
+        const int idx = lane + 32 * t;
+        kx[i][t] = j < n[k] && idx < D ? to_f32(row[idx]) : 0.f;
       }
-      __syncthreads();
-      float m_new[kMaxRep], alpha[kMaxRep];
+    }
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) {
-        if (r >= rep) break;
-        float mt = kNegInf;
-        for (int j = 0; j < n; ++j) mt = fmaxf(mt, logit_s[r][j]);
-        m_new[r] = fmaxf(m[r], mt);
-        alpha[r] = expf(m[r] - m_new[r]);
+    for (int k = 0; k < kChunk; ++k)
+#pragma unroll
+      for (int u = 0; u < KPT; ++u)
+        v[k][u] = part + SPLIT * u < n[k] ? to_f32(vt[k][SPLIT * u * gd]) : 0.f;
+  };
+  fetch(0);  // the first chunk's rows load while the queries rotate
+
+  // ---- prologue: rotate the heads (fused), store them; fused: every warp
+  // also rotates the pending k, so the pending logits of its heads come
+  // here, and slice 0's warp 0 writes k_rot ----
+  float lg_pend[kHeadsPerWarp];
+  if constexpr (FUSED) {
+    rope<D>(kr, cos_l, sin_l, lane);
+    if (slice == 0 && warp == 0)
+#pragma unroll
+      for (int t = 0; t < TL; ++t) {
+        const int i = lane + 32 * t;
+        if (i < D) store(a.k_rot + ((int64_t)b * G + g) * D + i, kr[t]);
       }
-      for (int e = threadIdx.x; e < rep * kTile; e += kThreads) {
-        const int r = e / kTile, j = e % kTile;
-        p_s[r][j] = j < n ? expf(logit_s[r][j] - m_new[r]) : 0.f;
-      }
-      __syncthreads();
-      float vv[kTile];
+  }
 #pragma unroll
-      for (int j = 0; j < kTile; ++j) vv[j] = (d < D && j < n) ? to_f32(row(vt, j)[d]) : 0.f;
+  for (int h = 0; h < kHeadsPerWarp; ++h) {
+    const int r = warp + kWarps * h;
+    if (r >= rep) break;
+    if constexpr (FUSED) rope<D>(qx[h], cos_l, sin_l, lane);
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) {
-        if (r >= rep) break;
-        float ps[kTile], pv[kTile];
+    for (int t = 0; t < TL; ++t) {
+      const int i = lane + 32 * t;
+      if (i < D) q_s[r][i] = qx[h][t];
+    }
+    if constexpr (FUSED) {
+      float pr[TL];
 #pragma unroll
-        for (int j = 0; j < kTile; ++j) {
-          ps[j] = p_s[r][j];
-          pv[j] = __fmul_rn(ps[j], vv[j]);
-        }
-        l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), tree32(ps));
-        acc[r] = __fadd_rn(__fmul_rn(acc[r], alpha[r]), tree32(pv));
-        m[r] = m_new[r];
-      }
-      __syncthreads();
+      for (int t = 0; t < TL; ++t) pr[t] = __fmul_rn(qx[h][t], kr[t]);
+      lg_pend[h] = __fmul_rn(dot_sum<TL>(pr), a.scale);
     }
   }
 
-  // ---- fused form: the pending token joins as the last element for
-  // active slots ----
-  if (FUSED && a.active[b] != 0) {
-    if (warp == 0) {
-      for (int r = 0; r < rep; ++r) {
-        float x[TL];
+  // online-softmax state: m and l of head warp + kWarps h in the lanes of
+  // warp `warp`; acc of every head for this thread's value dims
+  float m[kHeadsPerWarp], l[kHeadsPerWarp];
 #pragma unroll
-        for (int t = 0; t < TL; ++t) {
-          const int i = lane + 32 * t;
-          x[t] = i < D ? __fmul_rn(q_s[r][i], kr_s[i]) : 0.f;
-        }
-        const float s = warp_tree<TL>(x);
-        if (lane == 0) logit_s[r][0] = __fmul_rn(s, a.scale);
-      }
-    }
-    __syncthreads();
-    const float vn = d < D ? to_f32(a.v_new[((int64_t)b * G + g) * D + d]) : 0.f;
+  for (int h = 0; h < kHeadsPerWarp; ++h) {
+    m[h] = kNegInf;
+    l[h] = 0.f;
+  }
+  float acc[kMaxRep];
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r) acc[r] = 0.f;
+  __syncthreads();
+
+  for (int c0 = 0, buf = 0; c0 < n_tiles; c0 += kChunk, buf ^= 1) {
+    float* lg_s = &p_s[buf][0][0];
+    // (1) logits: the cluster's warps share the chunk's key slots (slot s,
+    // tile s / 32, key s % 32, to warp s % CW of the cluster); each logit
+    // goes into every block of the cluster
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r) {
       if (r >= rep) break;
-      const float lg = logit_s[r][0];
-      const float mn = fmaxf(m[r], lg);
-      const float alpha = expf(m[r] - mn);
-      const float p = expf(lg - mn);
-      l[r] = __fadd_rn(__fmul_rn(l[r], alpha), p);
-      acc[r] = __fadd_rn(__fmul_rn(acc[r], alpha), __fmul_rn(p, vn));
-      m[r] = mn;
+      float q[TL];
+#pragma unroll
+      for (int t = 0; t < TL; ++t) {
+        const int idx = lane + 32 * t;
+        q[t] = idx < D ? q_s[r][idx] : 0.f;
+      }
+      float dot[KPW];
+#pragma unroll
+      for (int i = 0; i < KPW; ++i) {
+        float x[TL];
+#pragma unroll
+        for (int t = 0; t < TL; ++t) x[t] = __fmul_rn(q[t], kx[i][t]);
+        halve<TL / 2>(x);
+        dot[i] = x[0];
+      }
+      warp_sums(dot);
+#pragma unroll
+      for (int i = 0; i < KPW; ++i) {
+        const int k = i / kSpan, j = gw + CW * (i % kSpan);
+        if (j >= n[k]) continue;
+        const float logit = __fmul_rn(dot[i], a.scale);
+        float* dst = lg_s + r * (kChunk * kTile) + k * kTile + j;
+        if constexpr (S == 1) {
+          if (lane == 0) *dst = logit;
+        } else if (lane < S) {
+          *cluster.map_shared_rank(dst, lane) = logit;
+        }
+      }
     }
+    if constexpr (S == 1) __syncthreads(); else cluster.sync();
+    // (2) softmax: a warp per head, lane j on key j of every tile at once;
+    // the tile maxima and sums are independent, only m and l chain. p is
+    // stored where the P.V threads read it: key j = c + SPLIT u at
+    // c * KPT + u
+#pragma unroll
+    for (int h = 0; h < kHeadsPerWarp; ++h) {
+      const int r = warp + kWarps * h;
+      if (r >= rep) break;
+      float* lg = lg_s + r * (kChunk * kTile);
+      float x[kChunk], p[kChunk], alpha[kChunk], tmax[kChunk];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) tmax[k] = x[k] = lane < n[k] ? lg[k * kTile + lane] : kNegInf;
+      warp_maxes(tmax);
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        p[k] = 0.f;
+        if (n[k] == 0) continue;
+        const float m_new = fmaxf(m[h], tmax[k]);
+        alpha[k] = expf(m[h] - m_new);
+        if (lane < n[k]) p[k] = expf(x[k] - m_new);
+        m[h] = m_new;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        if (n[k] == 0) break;
+        lg[k * kTile + (lane % SPLIT) * KPT + lane / SPLIT] = p[k];
+        if (lane == 0) alpha_s[r][k] = alpha[k];
+      }
+      warp_sums(p);
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        if (n[k] == 0) break;
+        l[h] = __fadd_rn(__fmul_rn(l[h], alpha[k]), p[k]);
+      }
+    }
+    __syncthreads();
+    // (3) P.V: this thread's value dims and keys, every head
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (n[k] == 0) break;
+#pragma unroll
+      for (int r = 0; r < kMaxRep; ++r) {
+        if (r >= rep) break;
+        acc[r] = __fadd_rn(__fmul_rn(acc[r], alpha_s[r][k]),
+                           tile_dot<SPLIT>(lg_s + r * (kChunk * kTile) + k * kTile + part * KPT,
+                                           v[k]));
+      }
+    }
+    // the next chunk's logits go to the other buffer, and its barrier
+    // after them keeps this fold's reads of alpha_s before any rewrite
+    if (c0 + kChunk < n_tiles) fetch(c0 + kChunk);
   }
 
-  if (d < D)
-    for (int r = 0; r < rep; ++r)
-      store(a.out + ((int64_t)b * G * rep + g * rep + r) * D + d, acc[r] / fmaxf(l[r], 1e-30f));
+  // ---- fused form, active slots: the pending token joins as a last
+  // one-key tile ----
+#pragma unroll
+  for (int h = 0; h < kHeadsPerWarp; ++h) {
+    const int r = warp + kWarps * h;
+    if (r >= rep) break;
+    if (active) {
+      const float m_new = fmaxf(m[h], lg_pend[h]);
+      const float alpha = expf(m[h] - m_new);
+      const float p = expf(lg_pend[h] - m_new);
+      l[h] = __fadd_rn(__fmul_rn(l[h], alpha), p);
+      if (lane == 0) {
+        pend_s[0][r] = p;
+        pend_s[1][r] = alpha;
+      }
+    }
+    if (lane == 0) l_s[r] = l[h];
+  }
+  __syncthreads();
+  if (part == 0) {
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      if (r >= rep) break;
+      T* orow = a.out + ((int64_t)b * G * rep + g * rep + r) * D;
+      float o = acc[r];
+      if (active) o = __fadd_rn(__fmul_rn(o, pend_s[1][r]), __fmul_rn(pend_s[0][r], vn));
+      store(orow + dv, o / fmaxf(l_s[r], 1e-30f));
+    }
+  }
+}
+
+template <typename T, int D, bool FUSED>
+cudaError_t launch_d(const DecodeArgs<T>& a, int B, cudaStream_t stream) {
+  constexpr int S = D / slice_dims(D);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, a.G, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gqa_decode_kernel<T, D, FUSED>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, bool FUSED>
 cudaError_t launch(const DecodeArgs<T>& a, int B, int D, cudaStream_t stream) {
-  const dim3 grid(a.G, B);
   switch (D) {
-    case 16: decode_kernel<T, 16, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
-    case 32: decode_kernel<T, 32, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
-    case 64: decode_kernel<T, 64, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
-    case 128: decode_kernel<T, 128, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
-    case 256: decode_kernel<T, 256, FUSED><<<grid, kThreads, 0, stream>>>(a); break;
+    case 16: return launch_d<T, 16, FUSED>(a, B, stream);
+    case 32: return launch_d<T, 32, FUSED>(a, B, stream);
+    case 64: return launch_d<T, 64, FUSED>(a, B, stream);
+    case 128: return launch_d<T, 128, FUSED>(a, B, stream);
+    case 256: return launch_d<T, 256, FUSED>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -11,7 +11,8 @@ the reference's blocks there) and RoPE's cos / sin differ by an ulp
 between the frameworks, so outputs and the rotated k are held to
 TOL = 2e-5 (the reference's own flash-decode tolerance). The CUDA kernel
 runs only on a card: ``cuda``-marked tests hold it against the plain
-version there, bit for bit, and skip here.
+version there, bit for bit, and skip here; on the CPU a torch model of
+the kernel's schedule is held against the plain version bit for bit.
 """
 
 import types
@@ -21,8 +22,9 @@ import pytest
 import torch
 
 from repro_torch.core import kv_cache as kvc
+from repro_torch.core.kv_cache import NEG_INF
 from repro_torch.kernels import flash_decode as fd
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rope_cos_sin
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 THETA = 1_000_042.0
@@ -84,13 +86,14 @@ def test_append_decode_bit_identical(jref, lens, hot, cold):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("lens,hot,cold,active", [
-    ([0, 1, 4, 5, 15], 4, 12, [False, True, True, True, True]),
-    ([3, 9, 40, 70], 8, 64, [True, False, True, True]),
-    ([2, 33, 34, 60], 32, 96, [True, True, True, True]),
+@pytest.mark.parametrize("lens,hot,cold,active,h,g,d", [
+    ([0, 1, 4, 5, 15], 4, 12, [False, True, True, True, True], 4, 2, 16),
+    ([3, 9, 40, 70], 8, 64, [True, False, True, True], 4, 2, 16),
+    ([2, 33, 34, 60], 32, 96, [True, True, True, True], 4, 2, 16),
+    ([0, 33, 80, 31], 32, 96, [False, True, True, True], 8, 4, 256),  # falcon3-1b's heads
 ])
-def test_fused_decode_matches_pallas_and_xla(jref, lens, hot, cold, active):
-    b, h, g, d = len(lens), 4, 2, 16
+def test_fused_decode_matches_pallas_and_xla(jref, lens, hot, cold, active, h, g, d):
+    b = len(lens)
     _, jcache = _build(lens, hot, cold, g, d, jref=jref)
     rng = np.random.default_rng(sum(lens))
     q = rng.standard_normal((b, h, d)).astype(np.float32)
@@ -165,13 +168,14 @@ def test_only_the_fused_form_is_ported():
         fd.flash_decode_attention(q, cache, impl="pallas")
 
 
-@pytest.mark.parametrize("lens,hot,cold", [
-    ([1, 4, 2, 3], 4, 12),  # hot tier only
-    ([0, 3, 9, 16], 4, 12),  # length-0 slot, hot edge, cold rows, full
-    ([5, 40, 70, 33], 8, 64),  # several cold tiles
+@pytest.mark.parametrize("lens,hot,cold,h,g,d", [
+    ([1, 4, 2, 3], 4, 12, 4, 2, 16),  # hot tier only
+    ([0, 3, 9, 16], 4, 12, 4, 2, 16),  # length-0 slot, hot edge, cold rows, full
+    ([5, 40, 70, 33], 8, 64, 4, 2, 16),  # several cold tiles
+    ([0, 33, 81, 128], 32, 96, 8, 4, 256),  # falcon3-1b's heads, up to a full cache
 ])
-def test_post_append_decode_matches_pallas_and_xla(jref, lens, hot, cold):
-    b, h, g, d = len(lens), 4, 2, 16
+def test_post_append_decode_matches_pallas_and_xla(jref, lens, hot, cold, h, g, d):
+    b = len(lens)
     _, jcache = _build(lens, hot, cold, g, d, jref=jref)
     q = np.random.default_rng(sum(lens) + 7).standard_normal((b, h, d)).astype(np.float32)
     want_p = np.asarray(jref.fd.flash_decode_attention(jref.jnp.asarray(q), jcache,
@@ -216,40 +220,209 @@ def test_fused_form_is_post_append_form_after_the_append():
     np.testing.assert_allclose(fd.flash_decode_attention(q_rot, cache).numpy(), o.numpy(), **TOL)
 
 
+# ---------------------------------------------------------------------------
+# The CUDA kernel's schedule (csrc/flash_decode.cu), modelled in torch
+# ---------------------------------------------------------------------------
+
+KERNEL_THREADS = 256  # kThreads
+KERNEL_CHUNK = 4  # kChunk: tiles whose logits come before their fold
+
+
+def _slice_dims(d):
+    """Value dims per block (slice_dims)."""
+    return min(d, 64)
+
+
+def _lane_dot(prod):
+    """The kernel's dot product over the last dim: lane L holds dims L +
+    32 t (zero past d), sums them as a halving tree over t, and the xor
+    butterfly across lanes, which lane 0 sees as the halving tree over the
+    lanes, sums the lanes."""
+    d = prod.shape[-1]
+    if d < 32:
+        prod = torch.cat([prod, prod.new_zeros(prod.shape[:-1] + (32 - d,))], -1)
+    lanes = prod.reshape(prod.shape[:-1] + (max(d // 32, 1), 32))  # [t, L] = dim L + 32 t
+    return fd.tree_sum(fd.tree_sum(lanes, -2), -1)
+
+
+def _lane_rope(x, cos, sin):
+    """The kernel's RoPE in registers, by lane: dim i = L + 32 t pairs with
+    L + 32 (t + TL / 2) in the same lane for d >= 64, and with lane L ^ (d /
+    2) for d 16 and 32; the pair's low dim indexes the table."""
+    d = x.shape[-1]
+    tl, half = max(d // 32, 1), d // 2
+    i = torch.arange(d)
+    lane, t = i % 32, i // 32
+    partner = lane + 32 * ((t + tl // 2) % tl) if tl >= 2 else lane ^ half
+    j = torch.where(i < half, i, partner)
+    xc, ps = x * cos[..., j], x[..., partner] * sin[..., j]
+    return torch.where(i < half, xc - ps, xc + ps)
+
+
+def _decode_schedule_model(q, cache, scale, k_new=None, v_new=None, active=None, theta=None):
+    """The kernel's schedule, block by block: for each (value-dim slice,
+    kv group, slot) the rotated rows (``_lane_rope``), then per chunk of
+    KERNEL_CHUNK tiles of the valid rows (hot tier, then cold tier) every
+    logit in the lane dot order, then per tile and head m_new, alpha, p and
+    l, then P.V: the thread of value dim dv and part c holds keys j = c +
+    SPLIT u, sums their products as a halving tree over u, and the SPLIT
+    parts by an xor butterfly. The pending token (fused form, active slots)
+    comes last as a one-key tile. Returns o, or (o, k_rot) with k_new."""
+    b, h, d = q.shape
+    g = cache.hot_k.shape[2]
+    rep, dvs = h // g, _slice_dims(d)
+    split = max(KERNEL_THREADS // dvs, 1)
+    out = torch.zeros(b, h, d)
+    k_rot = torch.zeros(b, g, d)
+    for s, length in enumerate(cache.lengths.tolist()):
+        n_hot = min(length, cache.hot_cap)
+        n_cold = min(max(length - cache.hot_cap, 0), cache.cold_cap)
+        tiles = ([(cache.hot_k[s, i: min(i + 32, n_hot)], cache.hot_v[s, i: min(i + 32, n_hot)])
+                  for i in range(0, n_hot, 32)]
+                 + [(cache.cold_k[s, i: min(i + 32, n_cold)],
+                     cache.cold_v[s, i: min(i + 32, n_cold)]) for i in range(0, n_cold, 32)])
+        for gi in range(g):
+            heads = slice(gi * rep, (gi + 1) * rep)
+            qg = q[s, heads].float()
+            if k_new is not None:
+                cos, sin = rope_cos_sin(cache.lengths[s:s + 1].long(), d, theta)
+                qg = _lane_rope(qg, cos, sin)
+                k_rot[s, gi] = _lane_rope(k_new[s, gi].float()[None], cos, sin)[0]
+            for d0 in range(0, d, dvs):
+                dims = slice(d0, d0 + dvs)
+                m, l, acc = torch.full((rep,), NEG_INF), torch.zeros(rep), torch.zeros(rep, dvs)
+                for c0 in range(0, len(tiles), KERNEL_CHUNK):
+                    chunk = tiles[c0: c0 + KERNEL_CHUNK]
+                    logits = [_lane_dot(qg[:, None] * kt[:, gi].float()[None]) * scale
+                              for kt, _ in chunk]
+                    for (_, vt), lg in zip(chunk, logits):
+                        n = vt.shape[0]
+                        m_new = torch.maximum(m, lg.amax(-1))
+                        alpha = torch.exp(m - m_new)
+                        p, v = torch.zeros(rep, 32), torch.zeros(32, dvs)
+                        p[:, :n], v[:n] = torch.exp(lg - m_new[:, None]), vt[:, gi, dims].float()
+                        l = l * alpha + fd.tree_sum(p, -1)
+                        parts = (p[:, :, None] * v[None]).reshape(rep, 32 // split, split, dvs)
+                        acc = acc * alpha[:, None] + fd.tree_sum(fd.tree_sum(parts, 1), 1)
+                        m = m_new
+                if k_new is not None and (active is None or bool(active[s])):
+                    lg = _lane_dot(qg * k_rot[s, gi][None]) * scale
+                    m_new = torch.maximum(m, lg)
+                    alpha, p = torch.exp(m - m_new), torch.exp(lg - m_new)
+                    l = l * alpha + p
+                    acc = acc * alpha[:, None] + p[:, None] * v_new[s, gi, dims].float()[None]
+                out[s, heads, dims] = acc / torch.clamp(l, min=1e-30)[:, None]
+    if k_new is None:
+        return out.to(q.dtype)
+    return out.to(q.dtype), k_rot.to(k_new.dtype)
+
+
+def _poisoned_cache(lens, hot, cold, g, d, seed, dtype=torch.float32, device="cpu"):
+    """Random tiers with NaN in every row at or past a slot's length."""
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    tiers = [torch.from_numpy(rng.standard_normal((b, cap, g, d)).astype(np.float32))
+             for cap in (hot, hot, cold, cold)]
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    hot_valid, cold_valid = kvc.valid_masks(kvc.TieredKVCache(*tiers, lengths))
+    tiers = [torch.where(m[:, :, None, None], t, float("nan"))
+             for t, m in zip(tiers, (hot_valid, hot_valid, cold_valid, cold_valid))]
+    return kvc.TieredKVCache(*(t.to(device, dtype) for t in tiers), lengths.to(device))
+
+
+def _decode_inputs(b, rep, g, d, seed, dtype=torch.float32, device="cpu"):
+    """q (a row of -0.0 in slot 1), k_new, v_new, and active with slot 0
+    and every fourth slot from 3 inactive."""
+    rng = np.random.default_rng(seed)
+    q, kn, vn = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for s in ((b, g * rep, d), (b, g, d), (b, g, d)))
+    q[1 % b, 0] = -0.0
+    active = torch.tensor([i % 4 != 3 and i != 0 for i in range(b)])
+    return tuple(t.to(device, dtype) for t in (q, kn, vn)) + (active.to(device),)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lane_local_rope_equals_apply_rope(d, seed):
+    """The in-lane rotation (partner t + TL / 2 for d >= 64, a shuffle by d
+    / 2 below) with rope_cos_sin's table gives apply_rope's bits."""
+    rng = np.random.default_rng(seed + d)
+    x = torch.from_numpy(rng.standard_normal((64, 5, d)).astype(np.float32))
+    x[0] = -0.0
+    pos = torch.from_numpy(rng.integers(0, 5000, 64))
+    cos, sin = rope_cos_sin(pos[:, None], d, THETA)  # (64, 1, d / 2)
+    want = apply_rope(x[:, None], pos[:, None], THETA)[:, 0]
+    got = _lane_rope(x, cos, sin)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("form", ["fused", "post_append"])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [16, 32, 64, 256])
+def test_gqa_decode_schedule_model_bit_identical_to_plain(d, rep, form):
+    """The kernel's schedule (value-dim slices, logits of a chunk first in
+    the lane dot order, per-head max / alpha / p, the P.V tile tree split
+    over SPLIT threads, the pending token last) gives the unchanged plain
+    version's output bit for bit: slots at lengths 0, 1, 31, 32, 33, the
+    hot / cold edge (a partial hot tile before the cold tiles) and 127, NaN
+    past each length, inactive slots and a q row of -0.0."""
+    lens, g = [0, 1, 31, 32, 33, 40, 41, 127], 2
+    cache = _poisoned_cache(lens, 40, 88, g, d, seed=d + rep)
+    q, kn, vn, act = _decode_inputs(len(lens), rep, g, d, seed=d * rep)
+    scale = d ** -0.5
+    if form == "fused":
+        got, k_got = _decode_schedule_model(q, cache, scale, kn, vn, act, THETA)
+        want, k_want = fd.flash_decode_fused_plain(q, cache, kn, vn, act, scale, THETA)
+        assert torch.equal(k_got.view(torch.int32), k_want.view(torch.int32))
+    else:
+        got = _decode_schedule_model(q, cache, scale)
+        want = fd.flash_decode_plain(q, cache, scale)
+        assert not want[0].any()
+    assert torch.isfinite(want).all() and torch.equal(got, want)
+
+
+def _card_case(d, rep, tiers, dtype, seed, device):
+    hot, cold, lens = {"hot32-cold96": (32, 96, list(range(129))),
+                       "hot32-cold480": (32, 480, [500, 0, 1, 257, 33, 480, 31])}[tiers]
+    g = 3
+    cache = _poisoned_cache(lens, hot, cold, g, d, seed, getattr(torch, dtype), device)
+    return (cache,) + _decode_inputs(len(lens), rep, g, d, seed + 1, getattr(torch, dtype), device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_bit_identical_to_plain(cuda, dtype):
-    lens = [0, 1, 31, 32, 33, 127]
-    b, h, g, d = 6, 8, 4, 256
-    cache, _ = _build(lens, 32, 96, g, d, seed=3)
-    dt = getattr(torch, dtype)
-    cache = kvc.TieredKVCache(*(t.to(cuda, dt) for t in cache[:4]), cache.lengths.to(cuda))
-    rng = np.random.default_rng(4)
-    q, kn, vn = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dt)
-                 for s in ((b, h, d), (b, g, d), (b, g, d)))
-    act = torch.tensor([False, True, True, True, True, True], device=cuda)
+@pytest.mark.parametrize("tiers", ["hot32-cold96", "hot32-cold480"])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
+def test_cuda_kernel_bit_identical_to_plain(cuda, d, rep, tiers, dtype):
+    """Fused form: o and k_rot torch.equal to the plain version and one
+    launch, at every head dim and rep, every length 0-128 (hot 32 / cold
+    96) or up to 500 (hot 32 / cold 480), NaN past each length, inactive
+    slots and a q row of -0.0."""
+    cache, q, kn, vn, act = _card_case(d, rep, tiers, dtype, d + rep, cuda)
     kw = dict(k_new=kn, v_new=vn, active=act, rope_theta=THETA)
     before = fd.KERNEL.launches
     o, k_rot = fd.flash_decode_attention(q, cache, **kw)
-    o_p, k_rot_p = fd.flash_decode_attention(q, cache, impl="plain", **kw)
     torch.cuda.synchronize()
     assert fd.KERNEL.launches == before + 1
+    o_p, k_rot_p = fd.flash_decode_attention(q, cache, impl="plain", **kw)
     assert torch.equal(k_rot, k_rot_p) and torch.equal(o, o_p)
+    assert torch.isfinite(o).all() and not o[cache.lengths.eq(0) & ~act].any()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_post_append_kernel_bit_identical_to_plain(cuda, dtype):
-    lens = [0, 1, 31, 32, 33, 128]
-    b, h, g, d = 6, 8, 4, 256
-    cache, _ = _build(lens, 32, 96, g, d, seed=5)
-    dt = getattr(torch, dtype)
-    cache = kvc.TieredKVCache(*(t.to(cuda, dt) for t in cache[:4]), cache.lengths.to(cuda))
-    q = torch.from_numpy(np.random.default_rng(6).standard_normal((b, h, d)).astype(
-        np.float32)).to(cuda, dt)
+@pytest.mark.parametrize("tiers", ["hot32-cold96", "hot32-cold480"])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", fd.HEAD_DIMS)
+def test_cuda_post_append_kernel_bit_identical_to_plain(cuda, d, rep, tiers, dtype):
+    """Post-append form: torch.equal to the plain version and one launch,
+    over the same grid; length-0 slots give zeros."""
+    cache, q, _, _, _ = _card_case(d, rep, tiers, dtype, 2 * d + rep, cuda)
     before = fd.GQA_KERNEL.launches
     o = fd.flash_decode_attention(q, cache)
-    o_p = fd.flash_decode_attention(q, cache, impl="plain")
     torch.cuda.synchronize()
     assert fd.GQA_KERNEL.launches == before + 1
-    assert torch.equal(o, o_p) and not o[0].any()
+    o_p = fd.flash_decode_attention(q, cache, impl="plain")
+    assert torch.equal(o, o_p)
+    assert torch.isfinite(o).all() and not o[cache.lengths.eq(0)].any()
