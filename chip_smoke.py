@@ -4,7 +4,7 @@
 1. Prints the card's name and power limit, builds the four CUDA kernel
    sources from src/repro_torch/csrc (one nvcc each, in parallel) and
    prints the build time.
-2. Kernel phases: hold each of the ten kernel forms against its plain
+2. Kernel phases: hold each of the eleven kernel forms against its plain
    PyTorch version on the card at the shapes the serving paths give it,
    and time both (plus a PyTorch library call of the same work as a
    yardstick: bf16 matmul / bmm at decode, torch._int_mm at M = 192, bf16
@@ -14,8 +14,14 @@
    NaN-filled; timed with SDPA and its bound at lengths 80 and 127), the
    fresh flash prefill (GQA at falcon3-1b's heads: o, k_cast
    and v_cast bit-identical, timed with SDPA and its bound at s = 32 and
-   128; and its MLA form at q/k (6, s, 128, 192), v (6, s, 128, 128):
-   bit-identical at s = 1 to 128, timed likewise),
+   128; its chunked form over a hot 32 / cold 96 cache: o, k_cast and
+   v_cast bit-identical on 48 cases (rep 1/2/4/8 x d 128/256 x C 16/32/48
+   x f32/bf16, offsets 0-96, valid 0 / 1 / C-5 / C, NaN past each length)
+   and 16 at falcon3-1b's wave shape (h 8, g 4, d 256, C 32, 6 or 4 slots
+   at offsets 0 / 32 / 64 / 96) and at the timed case; three f32 chunks over a hot-32 cache equal to one fresh launch over
+   s = 96, timed with SDPA over the materialised keys and its bound at
+   C = 32, offset 96; and its MLA form at q/k (6, s, 128, 192), v (6, s,
+   128, 128): bit-identical at s = 1 to 128, timed likewise),
    the MLA latent decode (b = 6,
    h = 128, rows of 576, values of 512; f32 and bf16 tiers bit-identical,
    masked rows NaN-filled; timed with SDPA and its bound at lengths 80 and
@@ -42,11 +48,19 @@
    post-append cache, each against its oracle. Then the same requests
    under fuse_act_quant=False (the carried-scale path): tokens equal on
    6/6 rows, ledger, no act-quant kernel launch, one known-scale launch
-   per projection.
+   per projection. Then chunked admission (prefill_chunk=32): generate
+   6 x (96 + 32), tokens equal to the plain chunked run on 6/6 rows and
+   compared with grouped admission (reported), 18 chunk launches per wave
+   and no fresh launch; serve six requests of prompt lengths 5 / 31 / 32 /
+   33 / 77 / 100 through 4 slots, each request's tokens equal to the plain
+   chunked run's and its ledger at its closed form; a traced breakdown of
+   the chunked generate.
 4. deepseek-v3-671b-l5: DeepSeek-V3 at full width, 3 dense + 2 MoE layers
    (the routed experts drawn and packed one at a time from seed 0), serving
    6 prompts x (32 + 32) tokens (hot_cap=32, max_len=128, 6 slots: rows
-   33-64 come from the cold tier). Same checks against its plain run: the
+   33-64 come from the cold tier), on an engine built with
+   prefill_chunk=32 that keeps grouped admission (MLA cannot chunk, as in
+   the reference). Same checks against its plain run: the
    four kernels of its path launched, greedy tokens equal on 6/6 rows,
    every row's ledger equal to the closed form for S=64 / 32 hot tokens,
    no weight reloaded, one MLA prefill launch per layer per admission and
@@ -450,6 +464,145 @@ def kernel3_phase(torch, gen, theta):
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 s128={"ms": out[128][0], "plain_ms": out[128][1], "library_ms": out[128][2],
                       "bound_ms": out[128][3]})
+
+
+# ---------------------------------------------------------------------------
+# kernel 3, chunked form: a prompt chunk over the live tiered cache
+# ---------------------------------------------------------------------------
+
+CHUNK_OFFSETS = [0, 5, 31, 32, 33, 64, 96]
+
+
+def chunk_case(torch, gen, c, dtype, lengths, b=None, h=8, g=4, d=256, hot=32, cold=96):
+    """q / k / v (b, c, ·, d) and a hot / cold cache at ``lengths`` whose
+    rows at or past each slot's length hold NaN."""
+    from repro_torch.core import kv_cache as kvc
+
+    b = b or len(lengths)
+    cache = kvc.init_cache(b, hot, cold, (g, d), device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    hot_ok, cold_ok = kvc.valid_masks(cache._replace(lengths=lens))
+    tiers = [torch.where(ok[:, :, None, None],
+                         torch.randn(t.shape, generator=gen, device="cuda"), float("nan")).to(dtype)
+             for t, ok in zip(cache[:4], (hot_ok, hot_ok, cold_ok, cold_ok))]
+    cache = kvc.TieredKVCache(*tiers, lens)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((b, c, h, d), (b, c, g, d), (b, c, g, d)))
+    return q, k, v, cache
+
+
+def chunk_matches_plain(torch, fp, q, k, v, cache, valid, theta, case):
+    """One ``flash_prefill_chunk`` launch (and no fresh one) whose o,
+    k_cast and v_cast equal the plain version's bit for bit; returns the
+    max |diff| of o."""
+    before = (fp.KERNEL.launches, fp.CHUNK_KERNEL.launches)
+    got = fp.flash_prefill_attention(q, k, v, cache, valid, rope_theta=theta)
+    torch.cuda.synchronize()
+    check((fp.KERNEL.launches, fp.CHUNK_KERNEL.launches) == (before[0], before[1] + 1),
+          f"flash_prefill_chunk: not one chunk launch ({case})")
+    ref = fp.flash_prefill_attention(q, k, v, cache, valid, rope_theta=theta, impl="plain")
+    for name, a, b_ in zip(("o", "k_cast", "v_cast"), got, ref):
+        check(torch.equal(a, b_), f"flash_prefill_chunk {name} not bit-identical to plain "
+                                  f"({case}): {max_err(a, b_)}")
+    return max_err(got[0], ref[0])
+
+
+def kernel3_chunk_phase(torch, gen, theta, smi):
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_prefill as fp
+
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (128, 256):
+            for rep in (1, 2, 4, 8):
+                for c in (16, 32, 48):
+                    q, k, v, cache = chunk_case(torch, gen, c, dtype, CHUNK_OFFSETS, h=2 * rep,
+                                                g=2, d=d)
+                    valid = torch.tensor([0, 1, c - 5, c, c, 1, c - 5], dtype=torch.int32,
+                                         device="cuda")
+                    worst = max(worst, chunk_matches_plain(
+                        torch, fp, q, k, v, cache, valid, theta,
+                        f"rep {rep}, d {d}, C {c}, {dtype}"))
+                    n += 1
+    print(f"flash_prefill_chunk: o (every row), k_cast and v_cast bit-identical to plain on {n} "
+          f"cases (rep 1/2/4/8 x d 128/256 x C 16/32/48 x f32/bf16; hot 32 / cold 96, offsets "
+          f"{CHUNK_OFFSETS}, valid 0 / 1 / C-5 / C, NaN past each length), one launch each")
+
+    # falcon3-1b's chunk waves: h 8, g 4, d 256, C 32, 6 slots (generate)
+    # or 4 (serve), each slot at a wave boundary with every valid count
+    c, n = 32, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (6, 4):
+            for shift in range(4):
+                offs = [(32 * (i + shift)) % 128 for i in range(b)]
+                valid = torch.tensor([(0, 1, c - 5, c)[i % 4] for i in range(b)],
+                                     dtype=torch.int32, device="cuda")
+                q, k, v, cache = chunk_case(torch, gen, c, dtype, offs)
+                chunk_matches_plain(torch, fp, q, k, v, cache, valid, theta,
+                                    f"falcon shape, b {b}, offsets {offs}, {dtype}")
+                n += 1
+    print(f"flash_prefill_chunk at falcon3-1b's wave shape (h 8, g 4, d 256, C 32, b 6 / 4, "
+          f"offsets 0 / 32 / 64 / 96, valid 0 / 1 / C-5 / C, f32 / bf16): {n} cases "
+          f"bit-identical to plain, one launch each")
+
+    # aligned identity: falcon3-1b's shape in f32, three chunks of 32 over a
+    # hot-32 cache against one fresh launch over the whole 96-token prompt
+    b, h, g, d = 6, 8, 4, 256
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for shape in ((b, 96, h, d), (b, 96, g, d), (b, 96, g, d)))
+    fresh, _, _ = fp.flash_prefill_attention(q, k, v, rope_theta=theta)
+    cache = kvc.init_cache(b, 32, 96, (g, d), device="cuda")
+    full = torch.full((b,), 32, dtype=torch.int32, device="cuda")
+    outs = []
+    for c0 in range(0, 96, 32):
+        o, k_c, v_c = fp.flash_prefill_attention(q[:, c0:c0 + 32], k[:, c0:c0 + 32],
+                                                 v[:, c0:c0 + 32], cache, full, rope_theta=theta)
+        kvc.append(cache, k_c, v_c, valid=full)
+        outs.append(o)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.cat(outs, 1), fresh),
+          f"aligned chunks != the fresh launch: {max_err(torch.cat(outs, 1), fresh)}")
+    print("flash_prefill_chunk aligned identity (b 6, h 8, g 4, d 256, f32): three chunk "
+          "launches over a hot-32 cache equal one fresh launch over s = 96 bit for bit")
+
+    # one falcon3-1b chunk wave late in a 128-token admission: C 32 at offset 96
+    c, off = 32, 96
+    q, k, v, cache = chunk_case(torch, gen, c, torch.float32, [off] * b)
+    full = torch.full((b,), c, dtype=torch.int32, device="cuda")
+    worst = max(worst, chunk_matches_plain(torch, fp, q, k, v, cache, full, theta,
+                                           f"timing case, C {c}, offset {off}"))
+    print(f"flash_prefill_chunk at C {c}, offset {off}: bit-identical to plain")
+    ms, _ = timed("kernel", lambda: fp.flash_prefill_attention(q, k, v, cache, rope_theta=theta),
+                  only="chunk_kernel")
+    plain_ms, _ = timed("plain", lambda: fp.flash_prefill_attention(
+        q, k, v, cache, rope_theta=theta, impl="plain"), iters=5)
+    # SDPA over the materialised [prefix ‖ chunk] keys (rotated) with an
+    # explicit causal mask, k / v expanded to the h heads
+    from repro_torch.models.layers import apply_rope
+
+    pos = off + torch.arange(c, device="cuda")[None].expand(b, -1)
+    qh = apply_rope(q, pos, theta).permute(0, 2, 1, 3).contiguous()
+    kk = torch.cat([cache.hot_k, cache.cold_k[:, : off - 32], apply_rope(k, pos, theta)], 1)
+    vv = torch.cat([cache.hot_v, cache.cold_v[:, : off - 32], v], 1)
+    kh = kk.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    vh = vv.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    mask = (off + torch.arange(c, device="cuda"))[:, None] >= torch.arange(off + c, device="cuda")
+    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask))
+    # q, the chunk's k / v, the cached rows, the lengths, valid, o and the
+    # emitted k / v, as the fresh form's bound counts them (the cos / sin
+    # tables are the wrapper's glue, not the attention's input); two FLOP
+    # per product and per add of q.k and p.v over the keys each row sees
+    n_bytes = 4 * (2 * b * c * h * d + 4 * b * c * g * d + 2 * b * off * g * d) + 8 * b
+    ops = 4 * b * h * d * (c * off + c * (c + 1) // 2)
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"flash_prefill_chunk (b=6, C={c}, offset {off}, h=8, g=4, d=256, f32): kernel "
+          f"{ms:.5f} ms, plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms "
+          f"by {b_by} ({n_bytes} B, {ops} FLOP) on {smi}")
+    return dict(name="flash_prefill_chunk", route="cuda",
+                source="src/repro_torch/csrc/flash_prefill.cu",
+                replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -951,13 +1104,14 @@ def packed_leaves(tree):
             yield from packed_leaves(v)
 
 
-def check_served(res, cfg, eng, seq_len, label):
+def check_served(res, cfg, eng, seq_len, label, prompt_len=32):
     """Tokens in range, every row's ledger at the closed form, no weight
     reloaded."""
     from repro_torch.core import dr_edram
 
     tokens = res.tokens.numpy()
-    check(tokens.shape == (6, seq_len - 32) and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+    check(tokens.shape == (6, seq_len - prompt_len)
+          and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
           f"{label}: generated tokens out of range or short")
     check(eng.weight_loads == 0, f"{label}: weights were reloaded")
     closed = dr_edram.closed_form_reduction(seq_len, 32)
@@ -1064,9 +1218,104 @@ def entry_point_path(torch, gen, packed, cache):
     return launches
 
 
+def counting_waves(eng):
+    """Count the engine's chunk waves (one ``_chunk_step`` call each)."""
+    waves = []
+    step = eng._chunk_step
+
+    def counted_step(*args):
+        waves.append(1)
+        return step(*args)
+
+    eng._chunk_step = counted_step
+    return waves
+
+
+def chunked_phase(torch, cfg, packed, kernels):
+    """falcon3-1b admitted by chunk waves of 32 (``prefill_chunk=32``, hot 32,
+    max_len 128): (a) ``generate`` 6 x (96 + 32), against the plain chunked
+    run (6/6 rows) and beside grouped admission of the same prompts
+    (reported); (b) ``serve`` six requests of prompt lengths 5 / 31 / 32 /
+    33 / 77 / 100 through 4 slots, 24 new tokens each, ``sync_every`` 8
+    (slot reuse at another length, offsets into the cold tier, partial and
+    idle chunks), against the plain chunked run. Ledgers at the closed
+    form, ``weight_loads == 0``, 18 chunk launches per wave and no fresh
+    launch. Returns the launches of (a) and of (b)."""
+    import numpy as np
+
+    from repro_torch.core import dr_edram
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+
+    kw = dict(hot_cap=32, max_len=128, slots=6, prefill_chunk=32)
+    cfg_plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (6, 96)).astype(np.int32)
+    label = "falcon3-1b chunked"
+    eng = Engine(cfg, packed, **kw)
+    waves = counting_waves(eng)
+    res, launches, wall = counted(kernels, lambda: eng.generate(prompts, max_new_tokens=32))
+    print(f"{label} generate 6 x (96 + 32): {wall:.3f} s, {6 * 32 / wall:.1f} tokens/s, "
+          f"{len(waves)} chunk waves, launches {launches}")
+    check(len(waves) == 3, f"{label}: {len(waves)} chunk waves for 96-token prompts, not 3")
+    check(launches[fp.CHUNK_KERNEL.symbol] == cfg.n_layers * 3 and launches[fp.KERNEL.symbol] == 0,
+          f"{label}: not {cfg.n_layers} x 3 chunk launches and no fresh launch: {launches}")
+    check(all(n > 0 for sym, n in launches.items() if sym != fp.KERNEL.symbol),
+          f"{label}: a kernel of the path never launched: {launches}")
+    check_served(res, cfg, eng, 128, label, prompt_len=96)
+    check(eng.chunk_shapes == {(6, 32)}, f"{label}: chunk wave shapes {eng.chunk_shapes}")
+    t0 = time.perf_counter()
+    res_p = Engine(cfg_plain, packed, **kw).generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    tokens = res.tokens.numpy()
+    same = int((res_p.tokens.numpy() == tokens).all(axis=1).sum())
+    print(f"{label} plain run: {time.perf_counter() - t0:.2f} s; greedy tokens equal on "
+          f"{same}/6 rows")
+    check(same == 6, f"{label}: greedy tokens differ from the plain chunked run ({same}/6 rows)")
+    grouped = Engine(cfg, packed, **{**kw, "prefill_chunk": 0}).generate(
+        prompts, max_new_tokens=32).tokens.numpy()
+    rows = (grouped == tokens).all(axis=1)
+    first = [int(np.argmax(g != t)) if not ok else None
+             for g, t, ok in zip(grouped, tokens, rows)]
+    print(f"{label} against grouped admission of the same prompts: {int(rows.sum())}/6 rows "
+          f"equal; first differing step per row {first}")
+    breakdown(torch, eng, prompts, label=label, new=8)
+
+    label_b = "falcon3-1b chunked serve"
+    lens = (5, 31, 32, 33, 77, 100)
+    rng = np.random.default_rng(6)
+    reqs = [(i, rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32))
+            for i, n in enumerate(lens)]
+    skw = dict(slots=4, sync_every=8)
+    eng_b = Engine(cfg, packed, **{**kw, "slots": 4})
+    waves_b = counting_waves(eng_b)
+    fin, launches_b, wall = counted(kernels, lambda: eng_b.serve(
+        [Request(i, t, 24) for i, t in reqs], **skw))
+    n_chunk = launches_b[fp.CHUNK_KERNEL.symbol]
+    print(f"{label_b} (prompts {lens}, 24 new each, 4 slots, sync_every 8): {wall:.3f} s, "
+          f"{len(waves_b)} chunk waves, launches {launches_b}; chunk launches per wave "
+          f"{n_chunk / max(len(waves_b), 1):g}")
+    check(n_chunk == cfg.n_layers * len(waves_b) and launches_b[fp.KERNEL.symbol] == 0,
+          f"{label_b}: not {cfg.n_layers} chunk launches per wave: {launches_b}")
+    fin_p = Engine(cfg_plain, packed, **{**kw, "slots": 4}).serve(
+        [Request(i, t, 24) for i, t in reqs], **skw)
+    want = {f.rid: f for f in fin_p}
+    check(eng_b.weight_loads == 0, f"{label_b}: weights were reloaded")
+    for f in fin:
+        check(np.array_equal(f.tokens, want[f.rid].tokens),
+              f"{label_b}: request {f.rid} tokens differ from the plain chunked run")
+        closed = dr_edram.closed_form_reduction(f.seq_len, 32)
+        check(f.seq_len == lens[f.rid] + 24 and abs(f.external_reduction - closed) <= 1e-12,
+              f"{label_b}: request {f.rid} seq_len {f.seq_len}, reduction "
+              f"{f.external_reduction} != {closed}")
+    print(f"{label_b}: tokens equal to the plain chunked run (6/6 requests); every ledger at "
+          f"its closed form; weight_loads = 0")
+    return launches, launches_b
+
+
 def slice_phase(torch, gen):
     """falcon3-1b served end to end: the fused kernel run, its plain run,
-    the entry-point path and the carried-scale run."""
+    the entry-point path, the carried-scale run and the chunked runs."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1139,12 +1388,15 @@ def slice_phase(torch, gen):
         (eng, wall, launches), tokens)
     check(carried[fd.KERNEL.symbol] == gqa,
           f"carried-scale run: {carried[fd.KERNEL.symbol]} GQA decode launches, fused run {gqa}")
+    chunked, chunked_serve = chunked_phase(torch, cfg, packed,
+                                           [tm.KERNEL, fd.KERNEL, fp.KERNEL, fp.CHUNK_KERNEL])
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     breakdown(torch, eng, prompts, before="57.693 ms in 1224 launches on an H100")
     decode_glue_per_step(torch, cfg, kw, cfg.rope_theta)
     return {"falcon3-1b": launches, "falcon3-1b entry points": entry,
-            "falcon3-1b carried-scale": carried}, {"falcon3-1b": 6 * 96 / wall,
-                                                   "falcon3-1b carried-scale": carried_tok_s}
+            "falcon3-1b carried-scale": carried, "falcon3-1b chunked": chunked,
+            "falcon3-1b chunked serve": chunked_serve}, {"falcon3-1b": 6 * 96 / wall,
+                                                         "falcon3-1b carried-scale": carried_tok_s}
 
 
 def deepseek_phase(torch):
@@ -1179,7 +1431,10 @@ def deepseek_phase(torch):
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (6, 32)).astype(np.int32)
     kw = dict(hot_cap=32, max_len=128, slots=6)
     kernels = [tm.KERNEL, tm.EXPERT_KERNEL, fp.MLA_KERNEL, fd.LATENT_KERNEL]
-    eng = Engine(cfg, packed, **kw)
+    # MLA cannot chunk (as in the reference): with prefill_chunk set the
+    # engine keeps grouped admission
+    eng = Engine(cfg, packed, **kw, prefill_chunk=32)
+    check(eng._chunked_capable() is False, "deepseek-v3-671b-l5 reports chunked admission")
     t0 = time.perf_counter()
     eng.generate(prompts[:, :8], max_new_tokens=2)  # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
@@ -1192,6 +1447,9 @@ def deepseek_phase(torch):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     check_served(res, cfg, eng, 64, "deepseek-v3-671b-l5")
+    check(eng.chunk_shapes == set(), f"deepseek-v3-671b-l5 chunk waves ran: {eng.chunk_shapes}")
+    print("deepseek-v3-671b-l5 with prefill_chunk=32: _chunked_capable() is False; served by "
+          "grouped admission (no chunk wave)")
     latent = launches[fd.LATENT_KERNEL.symbol]
     print(f"flash_decode_latent launches per deepseek-v3-671b-l5 decode step: {latent / 32:g} "
           f"({latent} over 32 steps)")
@@ -1334,8 +1592,8 @@ def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None):
     """Where a generate's time goes: device busy share, the kernels that
     take the most device time and the ternary matmul kernels' sum (beside
     ``before``, an earlier run's figure, when given), from a torch.profiler
-    trace of one 6 x (32 + new) generate (prefill plus ``new`` decode
-    steps)."""
+    trace of one 6 x (prompt + new) generate (admission plus ``new``
+    decode steps)."""
     timing = {}
 
     def run():
@@ -1350,7 +1608,8 @@ def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None):
     if busy <= 0:
         print("breakdown: device time not measured (the trace holds none)")
         return
-    print(f"breakdown of one {label} 6 x (32 + {new}) generate: wall {wall:.2f} ms, device busy "
+    print(f"breakdown of one {label} 6 x ({prompts.shape[1]} + {new}) generate: wall {wall:.2f} "
+          f"ms, device busy "
           f"{busy:.2f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
     for e in events[:8]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
@@ -1360,6 +1619,7 @@ def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None):
           + (f" (the first ternary kernel: {before})" if before else ""))
     for label, key in (("GQA decode kernel", GQA_DECODE),
                        ("flash prefill kernels", "prefill_kernel"),
+                       ("chunked prefill kernel", "chunk_kernel"),
                        ("latent decode kernel", "latent_kernel")):
         sel = [e for e in events if key in e.key]
         if sel:
@@ -1409,6 +1669,8 @@ def main() -> int:
     phases = [("kernel 1", lambda: kernel1_phase(torch, gen), tm.KERNEL, "falcon3-1b"),
               ("kernel 2", lambda: kernel2_phase(torch, gen, theta, smi), fd.KERNEL, "falcon3-1b"),
               ("kernel 3", lambda: kernel3_phase(torch, gen, theta), fp.KERNEL, "falcon3-1b"),
+              ("kernel 3 chunked form", lambda: kernel3_chunk_phase(torch, gen, theta, smi),
+               fp.CHUNK_KERNEL, "falcon3-1b chunked"),
               ("kernel 1 expert form", lambda: kernel1_expert_phase(torch, gen),
                tm.EXPERT_KERNEL, "deepseek-v3-671b-l5"),
               ("kernel 3 MLA form", lambda: kernel3_mla_phase(

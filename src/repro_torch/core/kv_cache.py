@@ -107,6 +107,53 @@ def append_decode(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor
     return cache
 
 
+def _write_rows(tier: torch.Tensor, new: torch.Tensor, tier_pos: torch.Tensor,
+                write: torch.Tensor) -> None:
+    """Row ``tier_pos[b, t]`` of slot b takes ``new[b, t]`` where ``write``,
+    in place. Consecutive positions of a slot are distinct modulo the
+    capacity, so each write goes in groups of at most ``cap`` rows to the
+    indices ``tier_pos % cap``; the rows not written take back their own
+    values, and no two entries of a group share a row."""
+    b, cap = tier.shape[:2]
+    if tier.numel() == 0:  # zero-capacity tier or the empty latent v-slot
+        return
+    rows = torch.arange(b, device=tier.device)[:, None]
+    for s0 in range(0, new.shape[1], cap):
+        idx = tier_pos[:, s0:s0 + cap] % cap
+        mask = write[:, s0:s0 + cap].reshape(idx.shape + (1,) * (tier.ndim - 2))
+        tier[rows, idx] = torch.where(mask, new[:, s0:s0 + cap].to(tier.dtype), tier[rows, idx])
+
+
+def append(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+           valid: Optional[torch.Tensor] = None, ring: bool = False) -> TieredKVCache:
+    """Append up to ``t`` tokens (batch, t, ...) per slot at its own
+    length, in place (reference: ``kv_cache.append``).
+
+    ``valid`` (batch,) caps the real rows per slot: slot b writes its first
+    ``valid[b]`` rows, at positions ``lengths[b] + i``, to the hot tier
+    below ``hot_cap`` and to the cold tier at ``pos - hot_cap`` above it;
+    then ``lengths`` grows by ``valid``. A slot with ``valid = 0`` keeps its
+    rows and length. Positions past the capacity are not written (the
+    engine never makes them). The ring layout of the sliding-window
+    archs is not ported."""
+    if ring:
+        raise NotImplementedError("the ring cold tier (SWA archs) is not ported")
+    t = k_new.shape[1]
+    start = cache.lengths.long()
+    t_idx = torch.arange(t, device=start.device)
+    pos = start[:, None] + t_idx[None]  # (b, t)
+    n_new = (torch.full_like(start, t) if valid is None else valid.long())
+    write = t_idx[None] < n_new[:, None]
+    in_hot = write & (pos < cache.hot_cap)
+    in_cold = write & (pos >= cache.hot_cap) & (pos < cache.capacity)
+    for tier, new in ((cache.hot_k, k_new), (cache.hot_v, v_new)):
+        _write_rows(tier, new, pos, in_hot)
+    for tier, new in ((cache.cold_k, k_new), (cache.cold_v, v_new)):
+        _write_rows(tier, new, pos - cache.hot_cap, in_cold)
+    cache.lengths.add_(n_new.to(cache.lengths.dtype))
+    return cache
+
+
 def fill_fresh(cache: TieredKVCache, k_new: torch.Tensor,
                v_new: torch.Tensor) -> TieredKVCache:
     """Place an aligned full prompt (batch, s, g, d) — already rotated and
@@ -207,6 +254,59 @@ def tiered_decode_attention_latent(q: torch.Tensor, cache: TieredKVCache,
         lat = kbuf[..., :value_dim][:, :, None]  # (b, s, 1, dv): one shared "head"
         parts.append(tier_partial(q, kbuf[:, :, None], lat, valid, scale))
     return merge_partials(parts)
+
+
+def tiered_chunk_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                           cache: Optional[TieredKVCache],
+                           valid: Optional[torch.Tensor] = None,
+                           scale: float | None = None) -> torch.Tensor:
+    """Causal chunk attention over [tiered cache prefix ‖ own chunk], in
+    f32 (reference: ``kv_cache.tiered_chunk_attention``, no window).
+
+    q (b, C, h, dk), k_new (b, C, g, dk), RoPE already applied; v_new (b,
+    C, g, dv). Chunk row t of slot b sits at position ``lengths[b] + t``
+    and attends to the slot's cached tokens (both tiers) and to the chunk
+    rows 0..t that are among its first ``valid[b]``. Per-tier partials
+    merge as in the decode read; the tiers are never concatenated."""
+    b, c, h, dk = q.shape
+    g, dv = k_new.shape[2], v_new.shape[-1]
+    rep = h // g
+    scale = scale if scale is not None else dk ** -0.5
+    dev = q.device
+    offset = (cache.lengths.long() if cache is not None
+              else torch.zeros((b,), dtype=torch.long, device=dev))
+    n_new = (valid.long() if valid is not None
+             else torch.full((b,), c, dtype=torch.long, device=dev))
+    q_pos = offset[:, None] + torch.arange(c, device=dev)[None]  # (b, C)
+    qg = q.reshape(b, c, g, rep, dk).permute(0, 2, 3, 1, 4).float()  # (b, g, rep, C, dk)
+
+    def partial(kbuf, vbuf, kpos, kvalid):
+        # kbuf (b, S, g, dk), vbuf (b, S, g, dv), kpos / kvalid (b, S)
+        if kbuf.shape[1] == 0:
+            return (q.new_zeros((b, g, rep, c, dv), dtype=torch.float32),
+                    q.new_zeros((b, g, rep, c), dtype=torch.float32),
+                    q.new_full((b, g, rep, c), NEG_INF, dtype=torch.float32))
+        vf = torch.where(kvalid[:, :, None, None], vbuf.float(), 0.0)
+        logits = torch.einsum("bgrcd,bsgd->bgrcs", qg, kbuf.float()) * scale
+        mask = (kvalid[:, None, :] & (q_pos[:, :, None] >= kpos[:, None, :]))[:, None, None]
+        logits = torch.where(mask, logits, NEG_INF)
+        m = logits.amax(dim=-1)
+        p = torch.exp(logits - m[..., None]) * mask
+        return torch.einsum("bgrcs,bsgd->bgrcd", p, vf), p.sum(dim=-1), m
+
+    parts = []
+    if cache is not None and cache.hot_cap:
+        hpos = torch.arange(cache.hot_cap, device=dev)[None].expand(b, -1)
+        parts.append(partial(cache.hot_k, cache.hot_v, hpos,
+                             hpos < offset.clamp(max=cache.hot_cap)[:, None]))
+    if cache is not None and cache.cold_cap:
+        j = torch.arange(cache.cold_cap, device=dev)[None].expand(b, -1)
+        n_cold = (offset - cache.hot_cap).clamp(0, cache.cold_cap)
+        parts.append(partial(cache.cold_k, cache.cold_v, cache.hot_cap + j, j < n_cold[:, None]))
+    parts.append(partial(k_new, v_new, q_pos,
+                         torch.arange(c, device=dev)[None] < n_new[:, None]))
+    out = merge_partials(parts)  # (b, g, rep, C, dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, c, h, dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

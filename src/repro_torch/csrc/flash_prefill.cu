@@ -1,14 +1,26 @@
-// Causal flash prefill of a fresh prompt, for Hopper (sm_90a): the GQA
-// form and the MLA form, two kernels over one block body.
+// Causal flash prefill for Hopper (sm_90a): the GQA form, fresh or over a
+// live tiered cache, and the MLA form; three kernels over one block body.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_prefill.py::_flash_prefill
-// (body _kernel_prefill) in its fresh form (cache=None): causal attention
-// over the prompt with RoPE applied in the prologue at positions 0..s-1 and
-// key blocks above the diagonal skipped.
-//  * GQA form (entry point flash_prefill_fresh, gqa_prefill_kernel;
-//    reference call flash_prefill_attention(emit_kv=True)): the whole head
-//    rotates, and the rotated k and the v are emitted in the tier dtype with
-//    rows at or past the slot's valid count zeroed.
+// (body _kernel_prefill): causal attention over a prompt or a prompt chunk
+// with RoPE applied in the prologue and key blocks above the diagonal
+// skipped.
+//  * GQA fresh form (entry point flash_prefill_fresh, gqa_prefill_kernel;
+//    reference call flash_prefill_attention(cache=None, emit_kv=True)):
+//    positions 0..s-1; the whole head rotates, and the rotated k and the v
+//    are emitted in the tier dtype with rows at or past the slot's valid
+//    count zeroed.
+//  * GQA chunked form (entry point flash_prefill_chunk, gqa_chunk_kernel;
+//    reference call flash_prefill_attention(cache, valid, emit_kv=True),
+//    the chunked-prefill admission of serving/engine.py): chunk row t of
+//    slot b sits at position lengths[b] + t (lengths read on the device),
+//    and every row first folds the slot's hot tier's, then its cold tier's
+//    32-key tiles (rows already rotated, never rotated again), then the
+//    chunk's own keys as the fresh form does; emits as the fresh form.
+//    Tiles holding no cached or valid key of the slot are skipped, as the
+//    reference's pl.when does, so with hot_cap 32 and chunks of a multiple
+//    of 32 every tile lines up with the fresh form's, and a prompt streamed
+//    in f32 chunks gives the fresh form's output bit for bit.
 //  * MLA form (entry point flash_prefill_mla, mla_prefill_kernel; reference
 //    call flash_prefill_attention(rope_dims=qk_rope_head_dim, emit_kv=False)
 //    in models/attention.py::mla_prefill): g = h (rep 1), keys of
@@ -33,7 +45,7 @@
 // otherwise change greedy tokens downstream. RoPE uses cos and sin tables
 // from the wrapper, computed with the plain version's own expression.
 //
-// Design (one body, prefill_body, for both forms):
+// Design (one body, prefill_body, for every form):
 //  * Rows are the group's (token, grouped head) pairs, token-major; a block
 //    of 8 warps owns kRows = 16 consecutive rows of one (kv group, slot):
 //    16 / rep tokens, or part of one token's heads when rep > 16 (any rep up
@@ -76,6 +88,14 @@
 //  * GQA only: each block emits the rotated k and the v of the tokens whose
 //    first grouped head is among its rows, copied from the staged tile;
 //    rows past the valid count are zeroed.
+//  * Chunked form only: a tier tile is staged by cp.async like a chunk
+//    tile, one at a time (the first while q rotates): f32 rows land in the
+//    staged-key rows as they are, bf16 rows are widened; values past the
+//    slot's cached count are zeroed. Offsets are per slot, so the RoPE
+//    tables are per slot too, (B, S, D / 2), built by the wrapper with the
+//    plain version's expression at lengths[b] + t. A block of a slot with
+//    valid = 0 (an idle or decoding slot riding along a chunk wave) folds
+//    its tiers and emits zeros, like the plain version.
 //  * Measured on an H100 (PERF.md): 8-row blocks of 4 warps spilled at
 //    d 256 (two output dims a thread), and a halving tree written as a
 //    nested loop kept the 32-value P.V arrays in local memory; P.V then
@@ -276,6 +296,18 @@ struct PrefillArgs {
   float scale;
 };
 
+// The live cache of the chunked GQA form: tiers (B, cap, G, D) holding
+// rotated keys and values in T, and each slot's cached token count.
+template <typename T>
+struct TierArgs {
+  const T* hot_k = nullptr;
+  const T* hot_v = nullptr;
+  const T* cold_k = nullptr;
+  const T* cold_v = nullptr;
+  const int* lengths = nullptr;  // (B,): the slot's offset
+  int hot_cap = 0, cold_cap = 0;
+};
+
 // Dynamic shared memory of one block: q rows, staged keys (f32, padded),
 // value tile (as loaded), raw bf16 keys, p, alpha and l.
 template <typename T, int D, int DV>
@@ -285,10 +317,15 @@ constexpr size_t smem_bytes() {
          sizeof(T) * kTile * (DV + (sizeof(T) == sizeof(float) ? 0 : D));
 }
 
-// One block of either form: keys and queries of width D whose trailing RD
+// One block of any form: keys and queries of width D whose trailing RD
 // dims rotate, values of width DV; EMIT writes the rotated k and the v.
-template <typename T, int D, int DV, int RD, bool EMIT>
-__device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, int n_qb, float* smem) {
+// CHUNK (the chunked GQA form): the q rows and the chunk's keys sit at the
+// slot's offset tr.lengths[b] + t (cos / sin are per-slot tables (B, S,
+// RD / 2)), and the slot's hot tier's, then its cold tier's 32-key tiles
+// are folded before the chunk's own, for every row and without rotation.
+template <typename T, int D, int DV, int RD, bool EMIT, bool CHUNK>
+__device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const TierArgs<T>& tr,
+                                             int n_qb, float* smem) {
   constexpr int KS = D + kKeyPad;  // staged key row stride (words)
   constexpr bool kF32 = sizeof(T) == sizeof(float);
   constexpr int KRS = kF32 ? KS : D;  // raw key row stride (elements of T)
@@ -307,6 +344,7 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, int n_qb, 
                 "head width unsupported");
   static_assert((kRows < RG || RPT * RG == kRows) && U * DVT == DV, "value width unsupported");
   static_assert(!EMIT || D == DV, "the emitting form has DV = D");
+  static_assert(!CHUNK || (EMIT && RD == D), "the chunked form is the GQA form");
   float* q_s = smem;                           // [kRows][D], rotated
   float* k_s = q_s + kRows * D;                // [kTile][KS], rotated
   T* v_s = reinterpret_cast<T*>(k_s + kTile * KS);  // [kTile][DV], as loaded
@@ -329,8 +367,19 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, int n_qb, 
   const int nv = min(a.valid[b], S);
   auto head_row = [&](int tok, int rr) { return ((int64_t)b * S + tok) * H + g * rep + rr; };
   auto kv_row = [&](int tok) { return ((int64_t)b * S + tok) * G + g; };
-  auto cos_of = [&](int tok) { return a.cos + (int64_t)tok * HALF; };
-  auto sin_of = [&](int tok) { return a.sin + (int64_t)tok * HALF; };
+  // RoPE tables: by chunk row in the slot's own table, or by token
+  const int64_t tab0 = CHUNK ? (int64_t)b * S : 0;
+  auto cos_of = [&](int tok) { return a.cos + (tab0 + tok) * HALF; };
+  auto sin_of = [&](int tok) { return a.sin + (tab0 + tok) * HALF; };
+  // the slot's cached tokens in each tier, and its tier tiles (hot, then cold)
+  int n_hot = 0, n_cold = 0, n_ht = 0, n_tt = 0;
+  if constexpr (CHUNK) {
+    const int offset = tr.lengths[b];
+    n_hot = min(offset, tr.hot_cap);
+    n_cold = min(max(offset - tr.hot_cap, 0), tr.cold_cap);
+    n_ht = (n_hot + kTile - 1) / kTile;
+    n_tt = n_ht + (n_cold + kTile - 1) / kTile;
+  }
 
   const int q_hi = (min(row0 + kRows, S * rep) - 1) / rep;  // last token of the block
   const int kv_end = min(q_hi + 1, nv);
@@ -350,7 +399,27 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, int n_qb, 
       }
     }
   };
-  if (kv_end > 0) copy_tile(0);  // lands while the prologue runs
+  // tier tile i (hot, then cold): its keys (already rotated) and values,
+  // and the number of its rows that hold cached tokens
+  auto tier_tile = [&](int i, bool copy) {
+    const bool hot = i < n_ht;
+    const int start = (hot ? i : i - n_ht) * kTile, cap = hot ? tr.hot_cap : tr.cold_cap;
+    const int n = min(kTile, (hot ? n_hot : n_cold) - start);
+    const T* kb = hot ? tr.hot_k : tr.cold_k;
+    const T* vb = hot ? tr.hot_v : tr.cold_v;
+    for (int e = tid; copy && e < n * KC; e += kThreads) {
+      const int j = e / KC, c = CH * (e % KC);
+      const int64_t row = ((int64_t)b * cap + start + j) * G + g;
+      cp_async16(kr_s + j * KRS + c, kb + row * D + c);
+      cp_async16(v_s + j * DV + c, vb + row * DV + c);
+    }
+    return n;
+  };
+  if (CHUNK && n_tt > 0) {
+    tier_tile(0, true);  // lands while the prologue runs
+  } else if (kv_end > 0) {
+    copy_tile(0);
+  }
 
   // ---- prologue: rotate this block's q rows ----
 #pragma unroll 2
@@ -393,54 +462,18 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, int n_qb, 
     for (int u = 0; u < U; ++u) acc[k][u] = 0.f;
   __syncthreads();
 
-  // ---- stream key tiles up to the block's diagonal and the valid count ----
-  for (int start = 0; start < kv_end; start += kTile) {
-    const int n_load = min(kTile, nv - start);  // keys of the tile that exist
-    const int n_k = min(kTile, kv_end - start);  // keys staged
-    if (start > 0) copy_tile(start);
-    cp_async_wait_all();
-    __syncthreads();
-    // stage the keys in k_s: rotate the span (in place for f32), widen the
-    // rest of a bf16 row; zero the span of the rows not staged and the
-    // values of the keys that do not exist
-    constexpr int SQ = kF32 ? NQ - PQ : NQ;  // quads staged per key row
-#pragma unroll 4
-    for (int e = tid; e < kTile * SQ; e += kThreads) {
-      const int j = e / SQ, c = e % SQ + (NQ - SQ), tok = start + j;
-      if (PQ > 0 && c < PQ) {
-        F4 y = {};
-        if (j < n_k) y = load4(kr_s + j * KRS + 4 * c);
-        store4(k_s + j * KS + 4 * c, y);
-      } else {
-        const int i = 4 * (c - PQ);
-        F4 lo = {}, hi = {};
-        if (j < n_k) rope_quad<OFF, HALF>(kr_s + j * KRS, i, cos_of(tok), sin_of(tok), lo, hi);
-        store4(k_s + j * KS + OFF + i, lo);
-        store4(k_s + j * KS + OFF + HALF + i, hi);
-      }
-    }
-    for (int e = tid; e < (kTile - n_load) * VQ; e += kThreads) {
-      const F4 zero = {};
-      store4(v_s + (n_load + e / VQ) * DV + 4 * (e % VQ), zero);
-    }
-    __syncthreads();
-    if constexpr (EMIT) {  // the block's valid tokens in this tile: rotated k, v as loaded
-      const int e0 = max(t0, start), e1 = min(t1, start + n_load);
-      for (int e = tid; e < (e1 - e0) * VQ; e += kThreads) {
-        const int tok = e0 + e / VQ, j = tok - start, i = 4 * (e % VQ);
-        store4(a.k_cast + kv_row(tok) * D + i, load4(k_s + j * KS + i));
-        store4(a.v_cast + kv_row(tok) * DV + i, load4(v_s + j * DV + i));
-      }
-    }
+  // Fold the staged tile into every row: logits and the online softmax
+  // (lane = key, the warp's rows), then acc = acc * alpha + tile_sum(p * v).
+  // live(lane, tok): row tok sees key `lane` of the tile.
+  auto fold_staged = [&](auto live) {
     {  // logits and the online softmax: lane = key, the warp's rows
       float dots[kRowsPerWarp];
       dot_rows<D, kRowsPerWarp>(q_s + warp * kRowsPerWarp * D, k_s + lane * KS, dots);
-      const int key = start + lane;
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
         const int r = warp * kRowsPerWarp + rr, tok = (row0 + r) / rep;
         const float logit = __fmul_rn(dots[rr], a.scale);
-        const bool ok = key < nv && key <= tok && tok < S;
+        const bool ok = live(lane, tok) && tok < S;
         float mt = ok ? logit : kNegInf;
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
@@ -484,6 +517,69 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, int n_qb, 
       }
     }
     __syncthreads();
+  };
+
+  // ---- CHUNK: the slot's tier tiles, keys as stored, every row sees them ----
+  for (int i = 0; CHUNK && i < n_tt; ++i) {
+    const int n = tier_tile(i, i > 0);
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (!kF32) {  // widen the bf16 keys (f32 rows landed in k_s)
+      for (int e = tid; e < kTile * (D / 4); e += kThreads) {
+        const int j = e / (D / 4), c = 4 * (e % (D / 4));
+        F4 y = {};
+        if (j < n) y = load4(kr_s + j * KRS + c);
+        store4(k_s + j * KS + c, y);
+      }
+    }
+    for (int e = tid; e < (kTile - n) * VQ; e += kThreads) {
+      const F4 zero = {};
+      store4(v_s + (n + e / VQ) * DV + 4 * (e % VQ), zero);
+    }
+    __syncthreads();
+    fold_staged([&](int key, int) { return key < n; });
+  }
+
+  // ---- stream key tiles up to the block's diagonal and the valid count ----
+  for (int start = 0; start < kv_end; start += kTile) {
+    const int n_load = min(kTile, nv - start);  // keys of the tile that exist
+    const int n_k = min(kTile, kv_end - start);  // keys staged
+    if (start > 0 || (CHUNK && n_tt > 0)) copy_tile(start);
+    cp_async_wait_all();
+    __syncthreads();
+    // stage the keys in k_s: rotate the span (in place for f32), widen the
+    // rest of a bf16 row; zero the span of the rows not staged and the
+    // values of the keys that do not exist
+    constexpr int SQ = kF32 ? NQ - PQ : NQ;  // quads staged per key row
+#pragma unroll 4
+    for (int e = tid; e < kTile * SQ; e += kThreads) {
+      const int j = e / SQ, c = e % SQ + (NQ - SQ), tok = start + j;
+      if (PQ > 0 && c < PQ) {
+        F4 y = {};
+        if (j < n_k) y = load4(kr_s + j * KRS + 4 * c);
+        store4(k_s + j * KS + 4 * c, y);
+      } else {
+        const int i = 4 * (c - PQ);
+        F4 lo = {}, hi = {};
+        if (j < n_k) rope_quad<OFF, HALF>(kr_s + j * KRS, i, cos_of(tok), sin_of(tok), lo, hi);
+        store4(k_s + j * KS + OFF + i, lo);
+        store4(k_s + j * KS + OFF + HALF + i, hi);
+      }
+    }
+    for (int e = tid; e < (kTile - n_load) * VQ; e += kThreads) {
+      const F4 zero = {};
+      store4(v_s + (n_load + e / VQ) * DV + 4 * (e % VQ), zero);
+    }
+    __syncthreads();
+    if constexpr (EMIT) {  // the block's valid tokens in this tile: rotated k, v as loaded
+      const int e0 = max(t0, start), e1 = min(t1, start + n_load);
+      for (int e = tid; e < (e1 - e0) * VQ; e += kThreads) {
+        const int tok = e0 + e / VQ, j = tok - start, i = 4 * (e % VQ);
+        store4(a.k_cast + kv_row(tok) * D + i, load4(k_s + j * KS + i));
+        store4(a.v_cast + kv_row(tok) * DV + i, load4(v_s + j * DV + i));
+      }
+    }
+    fold_staged([&](int key, int tok) { return start + key < nv && start + key <= tok; });
   }
 
   // ---- epilogue ----
@@ -502,19 +598,28 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, int n_qb, 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) gqa_prefill_kernel(PrefillArgs<T> a, int n_qb) {
   extern __shared__ __align__(16) float smem[];
-  prefill_body<T, D, D, D, true>(a, n_qb, smem);
+  prefill_body<T, D, D, D, true, false>(a, TierArgs<T>{}, n_qb, smem);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    gqa_chunk_kernel(PrefillArgs<T> a, TierArgs<T> tr, int n_qb) {
+  extern __shared__ __align__(16) float smem[];
+  prefill_body<T, D, D, D, true, true>(a, tr, n_qb, smem);
 }
 
 template <typename T, int D, int DV, int RD>
 __global__ void __launch_bounds__(kThreads, kMlaMinBlocks) mla_prefill_kernel(PrefillArgs<T> a, int n_qb) {
   extern __shared__ __align__(16) float smem[];
-  prefill_body<T, D, DV, RD, false>(a, n_qb, smem);
+  prefill_body<T, D, DV, RD, false, false>(a, TierArgs<T>{}, n_qb, smem);
 }
 
-// One kernel instance K over (q block, group, slot); its shared-memory
-// attribute is set once per device.
-template <typename T, int D, int DV, void (*K)(PrefillArgs<T>, int)>
-cudaError_t launch_blocks(const PrefillArgs<T>& a, int B, cudaStream_t stream) {
+// One kernel instance K over (q block, group, slot), called with a, the
+// extra arguments and n_qb; its shared-memory attribute is set once per
+// device.
+template <typename T, int D, int DV, auto K, typename... Extra>
+cudaError_t launch_blocks(const PrefillArgs<T>& a, int B, cudaStream_t stream,
+                          const Extra&... extra) {
   constexpr size_t smem = smem_bytes<T, D, DV>();
   static unsigned long long attribute_set = 0;  // bit per device
   int dev = 0;
@@ -528,7 +633,7 @@ cudaError_t launch_blocks(const PrefillArgs<T>& a, int B, cudaStream_t stream) {
   const int n_qb = (a.S * a.rep + kRows - 1) / kRows;
   const long long blocks = (long long)n_qb * a.G * B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  K<<<(unsigned)blocks, kThreads, smem, stream>>>(a, n_qb);
+  K<<<(unsigned)blocks, kThreads, smem, stream>>>(a, extra..., n_qb);
   return cudaGetLastError();
 }
 
@@ -541,6 +646,20 @@ cudaError_t launch_gqa(const PrefillArgs<T>& a, int B, int D, cudaStream_t strea
     case 64: return launch_blocks<T, 64, 64, gqa_prefill_kernel<T, 64>>(a, B, stream);
     case 128: return launch_blocks<T, 128, 128, gqa_prefill_kernel<T, 128>>(a, B, stream);
     case 256: return launch_blocks<T, 256, 256, gqa_prefill_kernel<T, 256>>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The chunked GQA form on gqa_chunk_kernel.
+template <typename T>
+cudaError_t launch_chunk(const PrefillArgs<T>& a, const TierArgs<T>& tr, int B, int D,
+                         cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_blocks<T, 16, 16, gqa_chunk_kernel<T, 16>>(a, B, stream, tr);
+    case 32: return launch_blocks<T, 32, 32, gqa_chunk_kernel<T, 32>>(a, B, stream, tr);
+    case 64: return launch_blocks<T, 64, 64, gqa_chunk_kernel<T, 64>>(a, B, stream, tr);
+    case 128: return launch_blocks<T, 128, 128, gqa_chunk_kernel<T, 128>>(a, B, stream, tr);
+    case 256: return launch_blocks<T, 256, 256, gqa_chunk_kernel<T, 256>>(a, B, stream, tr);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -562,7 +681,7 @@ extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Both return cudaGetLastError() after the launch (0 on success).
+// Each returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_prefill_fresh(int is_bf16, const void* q, const void* k, const void* v,
                                    const void* valid, const void* cos, const void* sin,
                                    void* out, void* k_cast, void* v_cast, int B, int S, int G,
@@ -579,6 +698,33 @@ extern "C" int flash_prefill_fresh(int is_bf16, const void* q, const void* k, co
                              (const float*)cos, (const float*)sin, (float*)out, (float*)k_cast,
                              (float*)v_cast, S, G, rep, scale};
   return launch_gqa(a, B, D, st);
+}
+
+// Chunked GQA form: q (B, S, H, D), k / v (B, S, G, D) continuing each
+// slot's cached prefix; tiers (B, cap, G, D) in the dtype of q; cos / sin
+// (B, S, D / 2) at the rows' absolute positions lengths[b] + t.
+extern "C" int flash_prefill_chunk(int is_bf16, const void* q, const void* k, const void* v,
+                                   const void* valid, const void* cos, const void* sin,
+                                   void* out, void* k_cast, void* v_cast, const void* hot_k,
+                                   const void* hot_v, const void* cold_k, const void* cold_v,
+                                   const void* lengths, int B, int S, int G, int rep, int D,
+                                   int hot_cap, int cold_cap, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    const PrefillArgs<T> a{(const T*)q, (const T*)k, (const T*)v, (const int*)valid,
+                           (const float*)cos, (const float*)sin, (T*)out, (T*)k_cast,
+                           (T*)v_cast, S, G, rep, scale};
+    const TierArgs<T> tr{(const T*)hot_k, (const T*)hot_v, (const T*)cold_k, (const T*)cold_v,
+                         (const int*)lengths, hot_cap, cold_cap};
+    return launch_chunk(a, tr, B, D, st);
+  }
+  const PrefillArgs<float> a{(const float*)q, (const float*)k, (const float*)v, (const int*)valid,
+                             (const float*)cos, (const float*)sin, (float*)out, (float*)k_cast,
+                             (float*)v_cast, S, G, rep, scale};
+  const TierArgs<float> tr{(const float*)hot_k, (const float*)hot_v, (const float*)cold_k,
+                           (const float*)cold_v, (const int*)lengths, hot_cap, cold_cap};
+  return launch_chunk(a, tr, B, D, st);
 }
 
 // MLA form: q, k (B, S, H, D), v (B, S, H, DV), g = h; the trailing

@@ -1,26 +1,39 @@
-"""Causal GQA flash prefill of a fresh prompt (reference:
+"""Causal GQA flash prefill, fresh or over a live tiered cache (reference:
 ``repro/kernels/flash_prefill.py::_flash_prefill`` through
-``flash_prefill_attention(cache=None, emit_kv=True)``).
+``flash_prefill_attention(emit_kv=True)``).
 
-q (b, s, h, d), k and v (b, s, g, d) arrive UNROTATED; RoPE applies at
-positions 0..s-1. Returns ``(o, k_cast, v_cast)``: the causal attention
-output and the prompt's rotated k and its v in the tier dtype, with rows
-at or past ``valid[b]`` zeroed — ready for ``kv_cache.fill_fresh``. The
-CUDA kernel is ``csrc/flash_prefill.cu``; ``flash_prefill_fresh_plain``
-is the plain PyTorch version; it repeats the kernel's arithmetic (32-key
-tiles, halving-tree sums, separately rounded products), so the two agree
-bit for bit.
+q (b, s, h, d), k and v (b, s, g, d) arrive UNROTATED. Returns ``(o,
+k_cast, v_cast)``: the causal attention output and the rows' rotated k and
+their v in the input dtype, with rows at or past ``valid[b]`` zeroed.
+
+- Fresh form (``cache=None``, entry point ``flash_prefill_fresh``): RoPE
+  at positions 0..s-1; ``kv_cache.fill_fresh`` places the emitted rows.
+- Chunked form (``cache`` given, entry point ``flash_prefill_chunk``): a
+  chunk of s rows per slot continues the slot's cached prefix. Row t
+  rotates at ``cache.lengths[b] + t`` and attends over the slot's hot tier,
+  then its cold tier (rows already rotated, in the tier dtype), then the
+  chunk's own causal keys among its first ``valid[b]``;
+  ``kv_cache.append(valid=)`` places the emitted rows. Slots with ``valid
+  = 0`` ride along: they attend over their tiers and emit zeros.
+
+The CUDA kernels are in ``csrc/flash_prefill.cu``; ``flash_prefill_plain``
+is the plain PyTorch version of every form. It repeats the kernels'
+arithmetic (32-key tiles in the order hot, cold, chunk, tiles with no live
+key of the slot skipped, halving-tree sums, separately rounded products),
+so the two agree bit for bit. With ``hot_cap`` 32 and chunks of a multiple
+of 32 every tile lines up with the fresh form's, and a prompt streamed in
+f32 chunks gives the fresh form's output bit for bit.
 
 The MLA form (``rope_dims`` < the key width, ``emit_kv=False``; the
 reference's call in ``models/attention.py::mla_prefill``) has its own
 entry point, launch count and kernel (``mla_prefill_kernel``, the same
-block body as the GQA form's ``gqa_prefill_kernel``): g = h (rep 1), keys
-of width dk whose trailing ``rope_dims`` rotate, values of another width
-dv, and only ``o`` (b, s, h, dv) returned. The plain version serves both
-forms.
+block body as the GQA forms): g = h (rep 1), keys of width dk whose
+trailing ``rope_dims`` rotate, values of another width dv, and only ``o``
+(b, s, h, dv) returned. It is fresh only, as in the reference, which
+never chunks MLA.
 
-Only the fresh form is ported: continuation over a live cache (chunked
-prefill), SWA windows and rings and the paged cold tier raise here.
+Not ported, and raising here: SWA windows and the ring cold tier, the
+paged cold tier, an emit dtype other than the input's (fp8 tiers).
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import kv_cache as kvc
 from repro_torch.core.kv_cache import NEG_INF
 from repro_torch.kernels.flash_decode import TILE, fold_tile, tile_of, tree_sum
 from repro_torch.kernels.build import CudaKernel, ptr, stream_of
@@ -38,6 +52,11 @@ from repro_torch.models.layers import apply_rope, rope_cos_sin
 KERNEL = CudaKernel(
     "flash_prefill", "flash_prefill_fresh",
     [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_void_p],
+)
+CHUNK_KERNEL = CudaKernel(
+    "flash_prefill", "flash_prefill_chunk",
+    [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
 )
 MLA_KERNEL = CudaKernel(
@@ -63,35 +82,57 @@ def rope_trailing(x: torch.Tensor, positions: torch.Tensor, rope_dims: int,
     return torch.cat([x[..., : d - rope_dims], rot], dim=-1)
 
 
-def flash_prefill_fresh_plain(q, k_new, v_new, valid, scale: float, theta: float,
-                              rope_dims: Optional[int] = None):
-    """Plain version, in the kernel's arithmetic: rotate q and k (the
-    trailing ``rope_dims``, default all, in f32), fold the prompt's 32-key
-    tiles under the causal and valid masks, emit the rotated k / v zeroed
-    at rows past ``valid``."""
+def flash_prefill_plain(q, k_new, v_new, valid, scale: float, theta: float,
+                        rope_dims: Optional[int] = None,
+                        cache: Optional[kvc.TieredKVCache] = None):
+    """Plain version of every form, in the kernels' arithmetic: rotate q
+    and k (the trailing ``rope_dims``, default all, in f32) at the slot's
+    offset (``cache.lengths``, 0 without a cache), fold the hot tier's,
+    the cold tier's and then the chunk's 32-key tiles (the chunk's under
+    the causal and valid masks), skipping a slot's tiles that hold no live
+    key, and emit the rotated k / v zeroed at rows past ``valid``."""
     b, s, h, d = q.shape
     g, dv = k_new.shape[2], v_new.shape[-1]
     rep = h // g
-    rd = rope_dims or d
-    pos = torch.arange(s, device=q.device)[None]  # (1, s)
-    q_rot = rope_trailing(q.float(), pos, rd, theta)
-    k_rot = rope_trailing(k_new.float(), pos, rd, theta)  # (b, s, g, d) f32
+    dev = q.device
+    offset = (cache.lengths.long() if cache is not None
+              else torch.zeros((b,), dtype=torch.long, device=dev))
+    tok = torch.arange(s, device=dev)
+    pos = offset[:, None] + tok[None]  # (b, s)
+    q_rot = rope_trailing(q.float(), pos, rope_dims or d, theta)
+    k_rot = rope_trailing(k_new.float(), pos, rope_dims or d, theta)  # (b, s, g, d) f32
     qg = q_rot.reshape(b, s, g, rep, d).permute(0, 2, 3, 1, 4)[..., None, :]  # (b, g, rep, s, 1, d)
-    nv = valid.long().clamp(max=s)
-    tok = torch.arange(s, device=q.device)
-    keys = torch.arange(TILE, device=q.device)
+    keys = torch.arange(TILE, device=dev)
     state = (q.new_full((b, g, rep, s), NEG_INF, dtype=torch.float32),
              q.new_zeros((b, g, rep, s), dtype=torch.float32),
              q.new_zeros((b, g, rep, s, dv), dtype=torch.float32))
+
+    def fold(state, k_t, v_t, ok, live):
+        """One tile: k_t (b, T, g, d) and v_t (b, T, g, dv) f32, v zero at
+        keys that do not exist; ok (b, s | 1, T); live (b,): the slot has a
+        live key in the tile (else its state is kept as it was)."""
+        logits = tree_sum(qg * k_t.permute(0, 2, 1, 3)[:, :, None, None], -1) * scale
+        new = fold_tile(state, logits, ok[:, None, None],
+                        v_t.permute(0, 2, 1, 3)[:, :, None, None])
+        return tuple(torch.where(live.reshape((b,) + (1,) * (o.ndim - 1)), n, o)
+                     for n, o in zip(new, state))
+
+    if cache is not None:  # tier rows are rotated already, in the tier dtype
+        for kt, vt, n_valid in (
+                (cache.hot_k, cache.hot_v, offset.clamp(max=cache.hot_cap)),
+                (cache.cold_k, cache.cold_v, (offset - cache.hot_cap).clamp(0, cache.cold_cap))):
+            for start in range(0, kt.shape[1], TILE):
+                live = (start + keys)[None] < n_valid[:, None]  # (b, T)
+                v_t = torch.where(live[:, :, None, None], tile_of(vt, start).float(), 0.0)
+                state = fold(state, tile_of(kt, start).float(), v_t, live[:, None],
+                             start < n_valid)
+    nv = valid.long().clamp(max=s)
     for start in range(0, s, TILE):
         key = start + keys  # (TILE,)
         live = key[None] < nv[:, None]  # (b, TILE): keys that exist
-        k_t = tile_of(k_rot, start).permute(0, 2, 1, 3)[:, :, None, None]  # (b, g, 1, 1, T, d)
         v_t = torch.where(live[:, :, None, None], tile_of(v_new, start).float(), 0.0)
-        logits = tree_sum(qg * k_t, -1) * scale  # (b, g, rep, s, T)
         ok = live[:, None, :] & (key[None, None, :] <= tok[None, :, None])  # (b, s, T)
-        state = fold_tile(state, logits, ok[:, None, None],
-                          v_t.permute(0, 2, 1, 3)[:, :, None, None])
+        state = fold(state, tile_of(k_rot, start), v_t, ok, start < nv)
     _, l, acc = state
     out = acc / torch.clamp(l, min=1e-30)[..., None]  # (b, g, rep, s, dv)
     o = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)
@@ -107,15 +148,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(q, k_new, v_new, valid, scale, theta):
+def _launch(q, k_new, v_new, valid, scale, theta, cache=None):
+    """The GQA forms: fresh without ``cache``, chunked with it."""
     b, s, h, d = q.shape
     g = k_new.shape[2]
     rep = h // g
-    if not (q.is_cuda and k_new.is_cuda and v_new.is_cuda and valid.is_cuda):
+    tiers = () if cache is None else (cache.hot_k, cache.hot_v, cache.cold_k, cache.cold_v)
+    extra = () if cache is None else tiers + (cache.lengths,)
+    if not all(t.is_cuda for t in (q, k_new, v_new, valid) + extra):
         raise ValueError("flash_prefill_attention: all operands must be CUDA tensors")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k_new.dtype != q.dtype or (
-            v_new.dtype != q.dtype):
-        raise TypeError("flash_prefill_attention: q, k, v must share one dtype, f32 or bf16")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != q.dtype for t in (k_new, v_new) + tiers):
+        raise TypeError("flash_prefill_attention: q, k, v and the tiers must share one "
+                        "dtype, f32 or bf16")
     if rep * g != h or rep > MAX_REP or d not in HEAD_DIMS:
         raise ValueError(f"flash_prefill_attention: h={h}, g={g}, d={d} unsupported "
                          f"(rep <= {MAX_REP}, d in {HEAD_DIMS})")
@@ -123,17 +168,36 @@ def _launch(q, k_new, v_new, valid, scale, theta):
         raise ValueError("flash_prefill_attention: k/v must be (b, s, g, d), valid (b,)")
     q, k_new, v_new = (_aligned(t.contiguous()) for t in (q, k_new, v_new))
     valid = valid.to(torch.int32).contiguous()
-    cos, sin = rope_cos_sin(torch.arange(s, device=q.device), d, theta)  # (s, d/2)
-    cos, sin = cos.contiguous(), sin.contiguous()
     o = torch.empty_like(q)
     k_cast = torch.empty_like(k_new)
     v_cast = torch.empty_like(v_new)
     if b == 0 or s == 0:
         return o, k_cast, v_cast
-    KERNEL.launch(
-        int(q.dtype == torch.bfloat16), ptr(q), ptr(k_new), ptr(v_new), ptr(valid),
-        ptr(cos), ptr(sin), ptr(o), ptr(k_cast), ptr(v_cast),
-        b, s, g, rep, d, float(scale), stream_of(q),
+    bf16 = int(q.dtype == torch.bfloat16)
+    if cache is None:
+        cos, sin = rope_cos_sin(torch.arange(s, device=q.device), d, theta)  # (s, d/2)
+        KERNEL.launch(
+            bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin), ptr(o),
+            ptr(k_cast), ptr(v_cast), b, s, g, rep, d, float(scale), stream_of(q),
+        )
+        return o, k_cast, v_cast
+    for name, t, cap in (("hot", cache.hot_k, cache.hot_cap), ("cold", cache.cold_k, cache.cold_cap)):
+        if t.shape != (b, cap, g, d):
+            raise ValueError(f"flash_prefill_attention: {name} tier {tuple(t.shape)} "
+                             f"!= {(b, cap, g, d)}")
+    if cache.hot_v.shape != cache.hot_k.shape or cache.cold_v.shape != cache.cold_k.shape:
+        raise ValueError("flash_prefill_attention: v tiers must match the k tiers")
+    tiers = tuple(_aligned(t.contiguous()) for t in tiers)
+    lengths = cache.lengths.to(torch.int32).contiguous()
+    # per-slot tables at the rows' absolute positions: the plain version's
+    # own expression (apply_rope at lengths + t)
+    pos = lengths.long()[:, None] + torch.arange(s, device=q.device)[None]
+    cos, sin = rope_cos_sin(pos, d, theta)  # (b, s, d/2)
+    CHUNK_KERNEL.launch(
+        bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin),
+        ptr(o), ptr(k_cast), ptr(v_cast), *(ptr(t) for t in tiers),
+        ptr(lengths), b, s, g, rep, d, cache.hot_cap, cache.cold_cap, float(scale),
+        stream_of(q),
     )
     return o, k_cast, v_cast
 
@@ -171,40 +235,49 @@ def flash_prefill_attention(
     q: torch.Tensor,  # (b, s, h, d) — UNROTATED
     k_new: torch.Tensor,  # (b, s, g, d) — UNROTATED
     v_new: torch.Tensor,  # (b, s, g, d)
-    cache=None,
+    cache: Optional[kvc.TieredKVCache] = None,  # live cache: the chunked form
     valid: Optional[torch.Tensor] = None,  # (b,) valid rows (default s)
     *,
     scale: Optional[float] = None,
+    window: int = 0,
+    ring: bool = False,
     rope_theta: float = 1_000_000.0,
     rope_dims: Optional[int] = None,  # None = whole head (GQA); MLA: rope dims
     emit_kv: bool = True,
     kv_dtype=None,
     impl: str = "auto",
 ):
-    """Fresh causal prefill -> ``(o, k_cast, v_cast)``, or ``o`` alone when
-    ``emit_kv=False`` (the MLA form, with ``rope_dims``).
+    """Causal prefill, fresh (``cache=None``) or a chunk continuing each
+    slot's cached prefix (``cache`` a ``TieredKVCache``, the GQA form) ->
+    ``(o, k_cast, v_cast)``, or ``o`` alone when ``emit_kv=False`` (the
+    MLA form, fresh only, with ``rope_dims``).
 
     ``impl="auto"`` launches the CUDA kernel for CUDA tensors and runs the
     plain version for CPU tensors; ``impl="plain"`` runs the plain version."""
-    if cache is not None:
-        raise NotImplementedError("only the fresh form (cache=None) is ported")
-    if kv_dtype is not None and kv_dtype != k_new.dtype:
-        raise NotImplementedError("the emitted k/v keep the input dtype")
+    if window or ring:
+        raise NotImplementedError("SWA windows and the ring cold tier are not ported")
+    if cache is not None and not isinstance(cache, kvc.TieredKVCache):
+        raise NotImplementedError("only the contiguous tiered cache is ported (no paged form)")
+    tier_dt = cache.hot_k.dtype if cache is not None else k_new.dtype
+    if (kv_dtype or tier_dt) != k_new.dtype:
+        raise NotImplementedError("the emitted k/v and the tiers keep the input dtype")
     b, s, _, d = q.shape
     mla = not emit_kv
     if mla != (rope_dims is not None and rope_dims < d):
         raise NotImplementedError(
             "ported forms: whole-head RoPE with emit_kv=True (GQA), or "
             "rope_dims < head with emit_kv=False (MLA)")
+    if mla and cache is not None:
+        raise NotImplementedError("the MLA form is fresh only (the reference never chunks MLA)")
     scale = float(scale) if scale is not None else d ** -0.5
     if valid is None:
         valid = torch.full((b,), s, dtype=torch.int32, device=q.device)
     if impl == "plain" or (impl == "auto" and not q.is_cuda):
-        out = flash_prefill_fresh_plain(q, k_new, v_new, valid, scale, float(rope_theta),
-                                        rope_dims)
+        out = flash_prefill_plain(q, k_new, v_new, valid, scale, float(rope_theta), rope_dims,
+                                  cache)
         return out[0] if mla else out
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
     if mla:
         return _launch_mla(q, k_new, v_new, valid, scale, float(rope_theta), rope_dims)
-    return _launch(q, k_new, v_new, valid, scale, float(rope_theta))
+    return _launch(q, k_new, v_new, valid, scale, float(rope_theta), cache)

@@ -3,7 +3,9 @@
 
 Prefill runs the flash-prefill kernel (``kernels/flash_prefill.py``): q
 and k rotate inside it, and it emits the rotated k / v that
-``kv_cache.fill_fresh`` places into the fresh cache. Decode runs the
+``kv_cache.fill_fresh`` places into the fresh cache; a prompt chunk over
+the live cache (chunked admission) runs its chunked form and
+``kv_cache.append`` places the rows at each slot's offset. Decode runs the
 fused-RoPE flash-decode kernel (``kernels/flash_decode.py``) against the
 pre-append cache and then appends the kernel-rotated k in place.
 ``blockwise_attention`` is the plain full-sequence reference the tests
@@ -111,6 +113,26 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
         q, k, v, rope_theta=cfg.rope_theta, emit_kv=True, impl=cfg.bitnet.impl)
     kvc.fill_fresh(cache, k_c, v_c)
     y = qops.linear(p["wo"], o.reshape(b, s, h * hd), cfg, lora_leaf=p.get("lora_o"))
+    return y, cache
+
+
+def attention_prefill_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                            cache: kvc.TieredKVCache, n_valid: torch.Tensor):
+    """Chunked-prefill continuation of one layer (reference:
+    ``attention_prefill_chunk``, ``append=True``): the C chunk rows of each
+    slot attend to the slot's cached prefix (``cache.lengths`` tokens, both
+    tiers) and to the causally earlier chunk rows, then their rotated k / v
+    are appended at the slot's offset, in place, for the first
+    ``n_valid[b]`` rows (0: the slot is not prefilling and keeps its
+    rows). x: (b, C, d_model) -> (y, cache)."""
+    b, c, _ = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(p, x, cfg)
+    o, k_c, v_c = flash_prefill_attention(
+        q, k, v, cache, valid=n_valid, rope_theta=cfg.rope_theta, emit_kv=True,
+        impl=cfg.bitnet.impl)
+    kvc.append(cache, k_c, v_c, valid=n_valid)
+    y = qops.linear(p["wo"], o.reshape(b, c, h * hd), cfg, lora_leaf=p.get("lora_o"))
     return y, cache
 
 

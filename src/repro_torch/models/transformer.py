@@ -107,11 +107,16 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _attn_block_prefill(bp: dict, x: torch.Tensor, cfg: ModelConfig,
-                        cache: kvc.TieredKVCache) -> torch.Tensor:
-    """One block: full-prompt attention straight into its cache rows, then
+                        cache: kvc.TieredKVCache,
+                        n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block: full-prompt attention straight into its cache rows (or,
+    with ``n_valid``, a prompt chunk appended to the live cache rows), then
     the MLP or MoE."""
-    f = attn.mla_prefill if cfg.attn_type == "mla" else attn.attention_prefill
-    y, _ = f(bp["attn"], x, cfg, cache)
+    if n_valid is not None:
+        y, _ = attn.attention_prefill_chunk(bp["attn"], x, cfg, cache, n_valid)
+    else:
+        f = attn.mla_prefill if cfg.attn_type == "mla" else attn.attention_prefill
+        y, _ = f(bp["attn"], x, cfg, cache)
     x = x + y
     if "moe" in bp:
         return x + moe_lib.apply_moe(bp["moe"], x, cfg)[0]
@@ -144,6 +149,25 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         for i, bp in enumerate(params[pname]):
             x = _attn_block_prefill(bp, x, cfg, kvc.layer(cache[cname], i))
     x_last = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps)
+    return _lm_logits(params, cfg, x_last), cache
+
+
+def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+                       n_valid: torch.Tensor):
+    """One chunked-prefill dispatch over the live slot state: tokens
+    (slots, C), one prompt chunk per slot, of which ``n_valid[b]`` rows are
+    real (0: the slot is not prefilling). Each slot's rows are appended at
+    its own ``cache.lengths`` offset, in place, in every layer. Returns the
+    logits at each slot's last valid row (slots, V) f32 (meaningless for
+    idle slots) and the cache. Every shape is fixed by (slots, C),
+    whatever the prompt lengths."""
+    x = _embed_tokens(params, tokens, params["final_ln"].dtype)  # (slots, C, d)
+    for pname, cname, _ in layer_stacks(cfg):
+        for i, bp in enumerate(params[pname]):
+            x = _attn_block_prefill(bp, x, cfg, kvc.layer(cache[cname], i), n_valid)
+    idx = (n_valid.long() - 1).clamp(0, tokens.shape[1] - 1)
+    x_last = x[torch.arange(x.shape[0], device=x.device), idx]
+    x_last = rms_norm(x_last, params["final_ln"], cfg.norm_eps)
     return _lm_logits(params, cfg, x_last), cache
 
 

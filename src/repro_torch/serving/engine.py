@@ -1,6 +1,7 @@
 """Continuous-batching serving engine over packed-ternary weights and
 per-slot DR-tiered KV caches (reference: ``repro/serving/engine.py``, the
-core: grouped admission, the decode step, harvest and ``generate``).
+core: grouped and chunked admission, the decode step, harvest and
+``generate``).
 
 Weights are packed once at construction and stay on the device: no
 weight is ever reloaded (``weight_loads`` stays 0). Device state
@@ -11,7 +12,10 @@ accumulate the per-slot DR ledger, sample, fold the budget and stop token
 into ``done`` — with no host read. The host syncs only every
 ``sync_every`` steps: it reads the small ``done`` mask, harvests finished
 slots with their outputs and ledgers, and admits queued prompts into the
-freed slots as same-length groups (one prefill each).
+freed slots: as same-length groups (one prefill each), or, with
+``prefill_chunk = C``, one request per free slot streamed into the live
+cache as fixed-shape (slots, C) chunk waves (``_stream_chunks``), which
+interleave with the decode steps.
 
 Per sequence the ledger (prompt phase in closed form plus the per-step
 decode counts) reconciles exactly with
@@ -19,10 +23,10 @@ decode counts) reconciles exactly with
 
 The same loop serves the dense family (GQA cache) and the MoE family with
 MLA attention (latent cache, one stack per layer kind); MLA serves through
-grouped admission only, as in the reference.
+grouped admission only, as in the reference (``_chunked_capable``).
 
-Not ported: chunked and paged admission, speculation, SDC scrubbing,
-sessions and overload control.
+Not ported: paged admission, speculation, SDC scrubbing, sessions and
+overload control.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.core import kv_cache
+from repro_torch.core import dr_edram, kv_cache
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.pack import pack_params, tree_to
@@ -77,6 +81,7 @@ class GenerationResult:
     traffic: dict
     wall_s: float
     finished: Optional[List[FinishedRequest]] = None  # per row, with its own ledger
+    steps_per_row: Optional[List[int]] = None  # decode steps each row was active for
 
     @property
     def external_reduction(self) -> float:
@@ -92,7 +97,8 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params, hot_cap: int = 32, max_len: int = 256,
                  pack: bool = True, sample: str = "greedy", temperature: float = 1.0,
-                 seed: int = 0, slots: int = 8, sync_every: int = 8, device=None):
+                 seed: int = 0, slots: int = 8, sync_every: int = 8, device=None,
+                 prefill_chunk: int = 0):
         if not pack:
             raise NotImplementedError("QAT (unpacked) serving is not part of this port")
         if sample not in ("greedy", "temperature"):
@@ -109,7 +115,21 @@ class Engine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.slots = slots
         self.sync_every = sync_every
+        # chunked-prefill admission (0: grouped admission); archs that
+        # cannot chunk keep grouped admission, as in the reference
+        self.prefill_chunk = prefill_chunk
         self.weight_loads = 0  # host->device weight transfers after init
+        # (slots, C) of every chunk wave dispatched: one shape per slot
+        # count, whatever the prompt lengths
+        self.chunk_shapes: set = set()
+
+    def _chunked_capable(self) -> bool:
+        """Chunked prefill needs a pure attention-token path with GQA
+        tiers. The reference also requires a dense / MoE family, full or
+        sliding-window attention and no frontend; the port builds only
+        dense and MoE models and has neither SWA nor a frontend, so of
+        those clauses only the attention type can fail here (MLA)."""
+        return self.cfg.attn_type == "full"
 
     # ------------------------------------------------------------------
     def _kv_token_bytes(self) -> int:
@@ -191,6 +211,64 @@ class Engine:
         for k in TRAFFIC_KEYS:
             state.ledger[k][idx] = 0
 
+    def _chunk_step(self, state: DecodeState, tokens: torch.Tensor, n_valid: torch.Tensor,
+                    is_first: torch.Tensor, is_last: torch.Tensor,
+                    max_new: torch.Tensor) -> None:
+        """One chunk wave over every slot, in place (reference:
+        ``_get_chunk_step``): a slot's first chunk starts from a clean cache
+        row and ledger; each slot appends its ``n_valid`` rows (idle and
+        decoding slots ride along with 0 and touch nothing); where
+        ``is_last`` the slot samples its first token and joins the decode
+        steps as a group-admitted one would. Device work only."""
+        self.chunk_shapes.add(tuple(tokens.shape))
+        for stack in state.cache.values():  # every layer, before the first reads it
+            stack.lengths.masked_fill_(is_first[None, :], 0)
+        logits, _ = T.prefill_chunk_step(self.params, self.cfg, tokens, state.cache, n_valid)
+        first_tok = self._sample_fn(logits)
+        state.tok = torch.where(is_last, first_tok, state.tok)
+        state.allocated = state.allocated | is_last
+        state.done = torch.where(is_last, max_new <= 0, state.done & ~is_first)
+        state.seq_len = torch.where(is_first, 0, state.seq_len) + n_valid
+        state.n_gen = torch.where(is_first, 0, state.n_gen)
+        state.max_new = torch.where(is_last, max_new, state.max_new)
+        state.out = torch.where(is_first[:, None], 0, state.out)
+        state.ledger = {k: torch.where(is_first, 0, v) for k, v in state.ledger.items()}
+
+    def _stream_chunks(self, state: DecodeState, n_slots: int, prefilling: Dict[int, list],
+                       max_waves: int) -> None:
+        """Stream pending prompt chunks (reference: ``_stream_chunks``, no
+        draft or paged branch): one dispatch per wave, one C-token chunk per
+        prefilling slot. ``prefilling`` maps slot -> [request, offset]; after
+        ``max_waves`` waves it carries the remaining offsets into the next
+        serving-loop iteration, so a long prompt interleaves with decode
+        steps instead of stalling every active slot."""
+        c = self.prefill_chunk
+        waves = 0
+        while prefilling and waves < max_waves:
+            toks = np.zeros((n_slots, c), np.int32)
+            n_valid = np.zeros((n_slots,), np.int32)
+            is_first = np.zeros((n_slots,), bool)
+            is_last = np.zeros((n_slots,), bool)
+            max_new = np.zeros((n_slots,), np.int32)
+            for s, (req, off) in list(prefilling.items()):
+                part = np.asarray(req.tokens, np.int32)[off: off + c]
+                toks[s, : len(part)] = part
+                n_valid[s] = len(part)
+                is_first[s] = off == 0
+                max_new[s] = req.max_new_tokens
+                if off + len(part) >= req.prompt_len:
+                    is_last[s] = True
+                    del prefilling[s]
+                else:
+                    prefilling[s] = [req, off + len(part)]
+            dev = self.device
+            self._chunk_step(state, torch.as_tensor(toks, device=dev),
+                             torch.as_tensor(n_valid, device=dev),
+                             torch.as_tensor(is_first, device=dev),
+                             torch.as_tensor(is_last, device=dev),
+                             torch.as_tensor(max_new, device=dev))
+            waves += 1
+
     def _validate_request(self, r: Request) -> None:
         if r.prompt_len == 0:
             raise ValueError(f"request {r.rid}: empty prompt")
@@ -224,15 +302,25 @@ class Engine:
         token_bytes = self._kv_token_bytes()
         remaining = [0] * n_slots  # host mirror of each slot's budget (no sync)
         finished: List[FinishedRequest] = []
+        chunked = self.prefill_chunk > 0 and self._chunked_capable()
+        prefilling: Dict[int, list] = {}  # slot -> [request, next prompt offset]
         while not sched.idle():
-            while True:
-                slots_idx, group = sched.next_group()
-                if not group:
-                    break
-                self._admit(state, slots_idx, group)
-                for s, req in zip(slots_idx, group):
+            if chunked:
+                for s, req in sched.next_fills():
                     remaining[s] = req.max_new_tokens
-            decoding = sched.active_slots()
+                    prefilling[s] = [req, 0]
+                self._stream_chunks(state, n_slots, prefilling, max_waves=chunk)
+            else:
+                while True:
+                    slots_idx, group = sched.next_group()
+                    if not group:
+                        break
+                    self._admit(state, slots_idx, group)
+                    for s, req in zip(slots_idx, group):
+                        remaining[s] = req.max_new_tokens
+            # slots still mid-prefill ride through the decode steps inactive:
+            # they neither bound the step count nor burn budget
+            decoding = [s for s in sched.active_slots() if s not in prefilling]
             budgets = [remaining[s] for s in decoding if remaining[s] > 0]
             n_steps = min([chunk] + budgets) if budgets else 0
             for _ in range(n_steps):
@@ -259,7 +347,8 @@ class Engine:
 
     def generate(self, prompts, max_new_tokens: int = 32,
                  stop_token: Optional[int] = None) -> GenerationResult:
-        """Aligned-batch generation: one slot per prompt row, one prefill."""
+        """Aligned-batch generation: one slot per prompt row, admitted by one
+        prefill (or, with ``prefill_chunk``, by chunk waves)."""
         t0 = time.perf_counter()
         prompts_np = np.asarray(torch.as_tensor(prompts).cpu(), np.int32)
         reqs = [Request(rid=i, tokens=prompts_np[i], max_new_tokens=max_new_tokens)
@@ -276,4 +365,9 @@ class Engine:
             traffic=traffic,
             wall_s=time.perf_counter() - t0,
             finished=finished,
+            steps_per_row=[f.steps for f in finished],
         )
+
+    def expected_reduction(self, seq_len: int) -> float:
+        """Closed-form DR-eDRAM prediction for a full generation to seq_len."""
+        return dr_edram.closed_form_reduction(seq_len, self.hot_cap)

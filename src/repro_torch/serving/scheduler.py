@@ -3,9 +3,10 @@
 
 The engine holds a fixed number of slots (batch rows of the per-slot
 tiered KV cache). This module owns the admission queue, the slot table
-and grouped admission: ``next_group`` pairs the strongest-claim queued
-request with every queued request of the same prompt length, up to the
-number of free slots, so one prefill dispatch serves the group. Requests
+and admission: ``next_group`` pairs the strongest-claim queued request
+with every queued request of the same prompt length, up to the number of
+free slots, so one prefill dispatch serves the group; ``next_fills``
+(chunked admission) gives each free slot the oldest queued request. Requests
 are taken in arrival order (the reference's claim order at its default
 priority).
 """
@@ -93,6 +94,20 @@ class SlotScheduler:
         for s, req in zip(slots, group):
             self.slot_req[s] = req
         return slots, group
+
+    def next_fills(self) -> List[Tuple[int, Request]]:
+        """Chunked admission: pair each free slot with the oldest queued
+        request, with no grouping by length (the chunk dispatch has one
+        shape whatever the prompt lengths, so nothing waits for a partner)."""
+        out: List[Tuple[int, Request]] = []
+        for s in self.free_slots():
+            if not self.queue:
+                break
+            req = min(self.queue, key=lambda r: r.arrival)
+            self.queue.remove(req)
+            self.slot_req[s] = req
+            out.append((s, req))
+        return out
 
     def retire(self, slot: int) -> Request:
         req = self.slot_req[slot]

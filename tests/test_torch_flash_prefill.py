@@ -1,7 +1,9 @@
-"""Port parity for the fresh causal flash prefill and the attention layer
-around it (repro_torch.kernels.flash_prefill, models.attention,
+"""Port parity for the causal flash prefill and the attention layer around
+it (repro_torch.kernels.flash_prefill, models.attention,
 core.kv_cache.fill_fresh) against the reference's ``_flash_prefill``
-Pallas kernel (interpret mode, ``cache=None``) and its XLA path.
+Pallas kernel (interpret mode) and its XLA path: the fresh form
+(``cache=None``) and, across group sizes, the chunked form over a live
+cache (``tests/test_torch_chunked_prefill.py`` holds the rest of it).
 
 The emitted v is a copy and must match bit for bit; the attention output
 and the rotated k are f32 arithmetic in another order (and cos / sin
@@ -138,12 +140,54 @@ def test_fill_fresh_bit_identical(jref, s, hot, cold):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
 
 
-def test_only_the_fresh_form_is_ported():
+class _PagedCache(types.SimpleNamespace):
+    """Stands in for the reference's paged cache, which the port lacks."""
+
+
+@pytest.mark.parametrize("form", ["window", "ring", "paged", "kv_dtype", "mla_cache",
+                                  "mla_emit"])
+def test_forms_not_ported_raise(form):
+    """The forms still to port raise, on the CPU as on the card: SWA
+    windows and the ring cold tier (A3c), the paged cold tier (A3b), an
+    emit dtype other than the input's (fp8, A3d), and the MLA form over a
+    cache (the reference never chunks MLA) or with whole-head emits."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 4, 2, 1, 16))
+    cache = kvc.init_cache(1, 2, 2, (1, 16))
+    kw = {"window": dict(cache=cache, window=2), "ring": dict(cache=cache, ring=True),
+          "paged": dict(cache=_PagedCache(hot_k=cache.hot_k)),
+          "kv_dtype": dict(cache=cache, kv_dtype=torch.bfloat16),
+          "mla_cache": dict(cache=cache, rope_dims=8, emit_kv=False),
+          "mla_emit": dict(emit_kv=False)}[form]
     with pytest.raises(NotImplementedError):
-        fp.flash_prefill_attention(q, k, v, cache=kvc.init_cache(1, 2, 2, (1, 16)))
-    with pytest.raises(NotImplementedError):
-        fp.flash_prefill_attention(q, k, v, emit_kv=False)
+        fp.flash_prefill_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("s", [1, 33])
+@pytest.mark.parametrize("rep", [1, 4, 7])
+def test_chunk_form_matches_pallas_and_xla_across_group_sizes(jref, s, rep):
+    """The chunked form (a live cache of hot 4 / cold 12, offsets 0, 3 and
+    9) at the group sizes of the fresh test above: o on valid rows and
+    k_cast to TOL, v_cast exactly."""
+    b, g, d = 3, 2, 32
+    lens, valid = [0, 3, 9], [s, max(s - 5, 1), 0]
+    rng = np.random.default_rng(rep + s)
+    tiers = [rng.standard_normal((b, cap, g, d)).astype(np.float32)
+             for cap in (4, 4, 12, 12)] + [np.asarray(lens, np.int32)]
+    q, k, v = _qkv(200 * rep + s, b, s, g * rep, g, d)
+    jv = jref.jnp.asarray(np.asarray(valid, np.int32))
+    jc = jref.kvc.TieredKVCache(*(jref.jnp.asarray(a) for a in tiers))
+    got = fp.flash_prefill_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        kvc.TieredKVCache(*(torch.from_numpy(a) for a in tiers)),
+        torch.tensor(valid, dtype=torch.int32), rope_theta=THETA)
+    for impl in ("pallas", "xla"):
+        want = jref.fp.flash_prefill_attention(
+            *(jref.jnp.asarray(a) for a in (q, k, v)), jc, jv, rope_theta=THETA, impl=impl,
+            interpret=True)
+        for i, n in enumerate(valid):
+            np.testing.assert_allclose(got[0][i, :n].numpy(), np.asarray(want[0])[i, :n], **TOL)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), **TOL)
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
 
 
 def _bit_reverse(x, bits):
