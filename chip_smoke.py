@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-1. Prints the card's name and power limit, builds the four CUDA kernel
+1. Prints the card's name and power limit, builds the six CUDA kernel
    sources from src/repro_torch/csrc (one nvcc each, in parallel) and
    prints the build time.
-2. Kernel phases: hold each of the eleven kernel forms against its plain
+2. Kernel phases: hold each of the sixteen kernel forms against its plain
    PyTorch version on the card at the shapes the serving paths give it,
    and time both (plus a PyTorch library call of the same work as a
    yardstick: bf16 matmul / bmm at decode, torch._int_mm at M = 192, bf16
@@ -33,7 +33,21 @@
    ternary matmul (also equal to ref.ternary_matmul_ref, quickstart's
    shape included) and the post-append GQA decode (f32 and bf16, length 0,
    kernel_bench's case, and within 1e-5 of the fused decode; timed at
-   lengths 80 and 128).
+   lengths 80 and 128); the LoRA kernel (the adapter delta in a sum order
+   fixed per row: bit-identical to its plain version at falcon3-1b's three
+   adapter shapes, M = 1 / 6 / 192 / 576, f32 and bf16, and row i of an
+   M = 576 launch equal to the row launched alone; one decode step's 54
+   launches timed with the torch.matmul pair); the rms_norm kernel (the
+   same per-row fixed order; bit-identical to its plain version at
+   falcon3-1b's and DeepSeek-V3's widths, M = 1 / 6 / 192 / 576, x and w in
+   f32 and bf16; one decode step's 37 norms timed with F.rms_norm), after a
+   report of which float ops change a row with M on the card (the f32
+   lm_head GEMM, the LoRA product, PyTorch's rms_norm reduction) and a check
+   that the two kernels' rows do not; and the paged forms of the
+   fused and post-append decode and of the chunked prefill (each
+   bit-identical to its plain version and to its contiguous kernel on the
+   same content, f32 and bf16, identity and shuffled page tables, page
+   size 32 and 48; timed beside the contiguous form in the same call).
 3. falcon3-1b: full width and depth from a seeded generator (LoRA B
    factors filled with small seeded values), packed, serving 6 prompts x
    32 tokens with max_new_tokens=96 through Engine.generate (hot_cap=32,
@@ -49,12 +63,21 @@
    under fuse_act_quant=False (the carried-scale path): tokens equal on
    6/6 rows, ledger, no act-quant kernel launch, one known-scale launch
    per projection. Then chunked admission (prefill_chunk=32): generate
-   6 x (96 + 32), tokens equal to the plain chunked run on 6/6 rows and
-   compared with grouped admission (reported), 18 chunk launches per wave
+   6 x (96 + 32), tokens equal to the plain chunked run and to grouped
+   admission of the same prompts on 6/6 rows, 18 chunk launches per wave
    and no fresh launch; serve six requests of prompt lengths 5 / 31 / 32 /
    33 / 77 / 100 through 4 slots, each request's tokens equal to the plain
    chunked run's and its ledger at its closed form; a traced breakdown of
-   the chunked generate.
+   the chunked generate. Then paged serving with prefix sharing (hot 32,
+   max_len 192, prefill_chunk 32, page size 32, 4 slots): eight requests,
+   five sharing a 96-token prefix (one of them copy-on-write inside a
+   page, one growing its pages mid-decode), served shared, unshared,
+   contiguous, grouped and by the plain versions: tokens equal on 8/8
+   requests, prefix reuse as the prefix tree's rule gives, the ledger
+   deltas equal to the skipped prompt work, 18 paged chunk launches per
+   wave and 18 paged decode launches per step and no contiguous one; a
+   traced shared serve. The entry-point path also drives the paged
+   post-append decode on the 18 layers' caches.
 4. deepseek-v3-671b-l5: DeepSeek-V3 at full width, 3 dense + 2 MoE layers
    (the routed experts drawn and packed one at a time from seed 0), serving
    6 prompts x (32 + 32) tokens (hot_cap=32, max_len=128, 6 slots: rows
@@ -1077,6 +1100,355 @@ def kernel6_phase(torch, gen, theta, smi):
 
 
 # ---------------------------------------------------------------------------
+# the LoRA kernel: the adapter delta in a sum order fixed per row
+# ---------------------------------------------------------------------------
+
+LORA_SHAPES = ((2048, 1024), (2048, 2048), (8192, 2048))  # lora_v, lora_o, lora_down (K, N)
+LORA_ROWS = (1, 6, 192, 576)  # decode, chunk wave (6 x 32), grouped admission (6 x 96)
+
+
+def rows_against_one(torch, fn, x, ms=(2, 6, 32, 192, 576)):
+    """For each M, how many of the first 8 rows of ``fn(x[:M])`` differ from
+    the same rows computed one at a time (M = 1)."""
+    one = torch.cat([fn(x[i:i + 1]) for i in range(8)])
+    return {m: int((fn(x[:m])[:8] != one[: min(m, 8)]).any(dim=-1).sum()) for m in ms}
+
+
+def m_dependence(torch, gen):
+    """Why the LoRA products and rms_norm run in kernels of their own and
+    the lm_head at a fixed M: on the card the rows of an f32 cuBLAS GEMM
+    and of PyTorch's row reduction change with the number of rows; the
+    kernels' rows do not (checked; the rest is reported)."""
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+
+    x = torch.randn((576, 2048), generator=gen, device="cuda")
+    w = torch.randn((2048, 131072), generator=gen, device="cuda") * 2048 ** -0.5
+    a = torch.randn((2048, 16), generator=gen, device="cuda") * 0.25
+    b = torch.randn((16, 1024), generator=gen, device="cuda") * 0.02
+    ln = torch.ones((2048,), device="cuda")
+
+    def torch_rms(t):  # the port's rms_norm before its kernel: PyTorch's mean
+        return t * torch.rsqrt((t * t).mean(dim=-1, keepdim=True) + 1e-6) * ln
+
+    for label, fn in (("lm_head x @ W (2048 x 131072)", lambda t: t @ w),
+                      ("LoRA x @ A (2048 x 16)", lambda t: t @ a),
+                      ("PyTorch rms_norm (2048)", torch_rms)):
+        print(f"rows differing from M = 1, by M: {label}: {rows_against_one(torch, fn, x)}")
+    for label, fn in (("LoRA kernel", lambda t: kl.lora_delta(t, a, b, 2.0)),
+                      ("rms_norm kernel", lambda t: krms.rms_norm(t, ln))):
+        rows = rows_against_one(torch, fn, x)
+        print(f"rows differing from M = 1, by M: {label}: {rows}")
+        check(not any(rows.values()), f"{label}: rows depend on M: {rows}")
+    del w
+
+
+def lora_phase(torch, gen, smi):
+    """The LoRA kernel at falcon3-1b's three adapter shapes, rank 16: equal
+    to its plain version bit for bit at M = 1, 6, 192 and 576 in f32 and
+    bf16; row i of an M = 576 launch equal to row i launched alone; one
+    decode step's 54 launches (18 layers x 3 adapters at M = 6) timed with
+    the torch.matmul pair at the same shapes and the byte bound."""
+    from repro_torch.kernels import lora as kl
+
+    m_dependence(torch, gen)
+    worst, n = 0.0, 0
+    ops_by_shape = {}
+    for k, nn in LORA_SHAPES:
+        a = torch.randn((k, 16), generator=gen, device="cuda") * 0.25
+        b = torch.randn((16, nn), generator=gen, device="cuda") * 0.02
+        x = torch.randn((max(LORA_ROWS), k), generator=gen, device="cuda")
+        ops_by_shape[(k, nn)] = (x[:6].contiguous(), a, b)
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, as_, bs = (t.to(dtype) for t in (x, a, b))
+            for m in LORA_ROWS:
+                before = kl.KERNEL.launches
+                got = kl.lora_delta(xs[:m], as_, bs, 2.0)
+                want = kl.lora_delta(xs[:m], as_, bs, 2.0, impl="plain")
+                torch.cuda.synchronize()
+                check(kl.KERNEL.launches == before + 1, "lora_delta: not one launch")
+                worst = max(worst, max_err(got, want))
+                check(torch.equal(got, want), f"lora_delta not bit-identical to plain (K {k}, "
+                                              f"N {nn}, M {m}, {dtype}): {max_err(got, want)}")
+                n += 1
+        full = kl.lora_delta(x, a, b, 2.0)
+        rows = torch.cat([kl.lora_delta(x[i:i + 1], a, b, 2.0) for i in range(x.shape[0])])
+        torch.cuda.synchronize()
+        check(torch.equal(full, rows), f"lora_delta rows depend on M (K {k}, N {nn}): "
+                                       f"{max_err(full, rows)}")
+    print(f"lora_delta: bit-identical to plain on {n} cases (falcon3-1b's lora_v / lora_o / "
+          f"lora_down, rank 16, M {LORA_ROWS}, f32 and bf16); every row of an M = 576 launch "
+          f"equal to the same row launched alone")
+
+    def step(fn):
+        def run():
+            for _ in range(18):
+                for x, a, b in ops_by_shape.values():
+                    fn(x, a, b)
+        return run
+
+    print("LoRA deltas of one falcon3-1b decode step (18 layers x 3 adapters, M = 6, f32):")
+    ms, _ = timed("kernel", step(lambda x, a, b: kl.lora_delta(x, a, b, 2.0)), only="lora_kernel")
+    plain_ms, _ = timed("plain", step(lambda x, a, b: kl.lora_delta(x, a, b, 2.0, impl="plain")),
+                        iters=3)
+    b2 = {key: (x, a, b * 2.0) for key, (x, a, b) in ops_by_shape.items()}
+    library_ms, _ = timed("torch.matmul pair", lambda: [
+        torch.matmul(torch.matmul(x, a), b) for _ in range(18) for x, a, b in b2.values()])
+    n_bytes = 18 * sum(4 * (6 * k + 16 * k + 16 * nn + 6 * nn) for k, nn in LORA_SHAPES)
+    ops = 18 * sum(2 * 6 * 16 * (k + nn) for k, nn in LORA_SHAPES)
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"lora_delta per decode step (54 launches, M = 6, f32): kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, torch.matmul pair {library_ms:.5f} ms, bound {b_ms:.6f} ms by "
+          f"{b_by} ({n_bytes} B, {ops} FLOP) on {smi}")
+    return dict(name="lora_delta", route="cuda", source="src/repro_torch/csrc/lora.cu",
+                replaces="src/repro/core/lora.py:64", max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def rms_norm_phase(torch, gen, smi):
+    """The rms_norm kernel at falcon3-1b's width and DeepSeek-V3's (d_model,
+    q and kv ranks): equal to its plain version bit for bit at M = 1, 6, 192
+    and 576, x and w in f32 and bf16; one falcon3-1b decode step's 37 norms
+    (2 a layer and the final one, M = 6) timed with F.rms_norm and the byte
+    bound."""
+    from repro_torch.kernels import rms_norm as krms
+
+    n = 0
+    for d in (2048, 7168, 1536, 512):
+        x = torch.randn((576, d), generator=gen, device="cuda") * 3.0
+        w = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            for wdtype in (torch.float32, torch.bfloat16):
+                for m in LORA_ROWS:
+                    xs, ws = x[:m].to(dtype), w.to(wdtype)
+                    before = krms.KERNEL.launches
+                    got = krms.rms_norm(xs, ws, 1e-6)
+                    want = krms.rms_norm(xs, ws, 1e-6, impl="plain")
+                    torch.cuda.synchronize()
+                    check(krms.KERNEL.launches == before + 1, "rms_norm: not one launch")
+                    check(torch.equal(got, want), f"rms_norm not bit-identical to plain (D {d}, "
+                                                  f"M {m}, {dtype}, w {wdtype}): "
+                                                  f"{max_err(got, want)}")
+                    n += 1
+    print(f"rms_norm: bit-identical to plain on {n} cases (D 2048 / 7168 / 1536 / 512, M "
+          f"{LORA_ROWS}, x and w in f32 / bf16)")
+    x = torch.randn((6, 2048), generator=gen, device="cuda")
+    w = 1 + 0.1 * torch.randn((2048,), generator=gen, device="cuda")
+
+    def step(fn):
+        return lambda: [fn() for _ in range(37)]
+
+    print("rms_norm of one falcon3-1b decode step (37 norms, M = 6, D = 2048, f32):")
+    ms, _ = timed("kernel", step(lambda: krms.rms_norm(x, w, 1e-6)), only="rms_norm_kernel")
+    plain_ms, _ = timed("plain", step(lambda: krms.rms_norm(x, w, 1e-6, impl="plain")), iters=5)
+    library_ms, _ = timed("F.rms_norm", step(
+        lambda: torch.nn.functional.rms_norm(x, (2048,), w, 1e-6)))
+    n_bytes = 37 * 4 * (2 * 6 * 2048 + 2048)
+    ops = 37 * 4 * 6 * 2048
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"rms_norm per decode step (37 launches, M = 6, f32): kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, F.rms_norm {library_ms:.5f} ms, bound {b_ms:.6f} ms by {b_by} "
+          f"({n_bytes} B, {ops} FLOP) on {smi}")
+    return dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rms_norm.cu",
+                replaces="src/repro/models/layers.py:12", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# the paged forms of kernels 2, 6 and 3 (A1b, A2a, A3b)
+# ---------------------------------------------------------------------------
+
+PAGED_DECODE = "gqa_decode_paged_kernel"  # profiler key of both paged decode forms
+PAGED_CHUNK = "chunk_paged_kernel"
+
+
+def paged_copy(torch, cache, ps, shuffle_seed=None):
+    """A ``PagedKVCache`` on the card holding ``cache``'s content: slot b's
+    cold rows in pool pages b * pps + j (rows past the tier NaN) and one
+    spare page, re-addressed through a seeded page permutation when
+    ``shuffle_seed`` is given."""
+    import numpy as np
+
+    from repro_torch.core import kv_cache as kvc
+
+    b, cold = cache.cold_k.shape[:2]
+    pps = -(-cold // ps)
+    n_pages = b * pps + 1
+    pools = []
+    for src in (cache.cold_k, cache.cold_v):
+        pool = torch.full((n_pages, ps) + tuple(src.shape[2:]), float("nan"), dtype=src.dtype,
+                          device=src.device)
+        pad = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, pps * ps - cold), value=float("nan"))
+        pool[: b * pps] = pad.reshape((b * pps, ps) + tuple(src.shape[2:]))
+        pools.append(pool)
+    table = (torch.arange(b, device=src.device)[:, None] * pps
+             + torch.arange(pps, device=src.device)[None]).to(torch.int32)
+    if shuffle_seed is not None:
+        perm = np.random.default_rng(shuffle_seed).permutation(n_pages)
+        inv = torch.as_tensor(np.argsort(perm), device=src.device)
+        pools = [p[inv] for p in pools]
+        table = torch.as_tensor(perm, dtype=torch.int32, device=src.device)[table.long()]
+    return kvc.PagedKVCache(cache.hot_k, cache.hot_v, pools[0], pools[1], table,
+                            cache.lengths.clone())
+
+
+def paged_variants(torch, cache):
+    """(label, paged cache) over identity and shuffled tables at page size
+    32 and 48 (a page that is not one key tile)."""
+    return [(f"ps {ps}, {'shuffled' if sh is not None else 'identity'}",
+             paged_copy(torch, cache, ps, sh)) for ps in (32, 48) for sh in (None, ps)]
+
+
+def paged_timing(torch, name, paged_fn, cont_fn, plain_fn, library_fn, only, cont_only,
+                 n_bytes, ops, smi):
+    """Kernel, its contiguous form in the same call (contiguous, paged,
+    paged, contiguous), plain, library and the bound of one paged form."""
+    print(f"{name}:")
+    c1, _ = timed("contiguous kernel", cont_fn, only=cont_only)
+    ms, _ = timed("paged kernel", paged_fn, only=only)
+    ms2, _ = timed("paged kernel again", paged_fn, only=only)
+    c2, _ = timed("contiguous kernel again", cont_fn, only=cont_only)
+    plain_ms, _ = timed("plain", plain_fn, iters=5)
+    library_ms, _ = timed("library", library_fn)
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    ms = (ms + ms2) / 2
+    print(f"{name}: paged kernel {ms:.5f} ms (contiguous {(c1 + c2) / 2:.5f}), plain "
+          f"{plain_ms:.5f} ms, library {library_ms:.5f} ms, bound {b_ms:.6f} ms by {b_by} "
+          f"({n_bytes} B, {ops} FLOP) on {smi}")
+    return dict(ms=ms, contiguous_ms=(c1 + c2) / 2, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def decode_sdpa(torch, q, cache, length, pend=None):
+    """SDPA over a decode case's valid rows (and the pending token), k / v
+    expanded to the query heads."""
+    h, g = q.shape[1], cache.hot_k.shape[2]
+    pk, pv = ([pend[0][:, None]], [pend[1][:, None]]) if pend else ([], [])
+    kk = torch.cat([cache.hot_k, cache.cold_k[:, : length - 32]] + pk, 1)
+    vv = torch.cat([cache.hot_v, cache.cold_v[:, : length - 32]] + pv, 1)
+    kh = kk.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    vh = vv.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q[:, :, None], kh, vh)
+
+
+def paged_decode_phase(torch, gen, theta, smi, fused):
+    """A1b (``fused``: kernel 2's paged form) or A2a (kernel 6's): at
+    falcon3-1b's heads over hot 32 / cold 96 at lengths 0-128 (NaN past
+    each), f32 and bf16, identity and shuffled tables at page size 32 and
+    48: equal to its plain version and to the contiguous kernel on the same
+    content, bit for bit, one launch of its own entry point each; timed
+    beside the contiguous form at b 6, length 80."""
+    from repro_torch.kernels import flash_decode as fd
+
+    kern, cont_kern = (fd.PAGED_KERNEL, fd.KERNEL) if fused else (fd.GQA_PAGED_KERNEL,
+                                                                  fd.GQA_KERNEL)
+    lengths = [0, 1, 31, 32, 33, 80, 127, 128] if not fused else [0, 1, 31, 32, 33, 80, 127]
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, cache, k_new, v_new = decode_case(torch, gen, lengths, dtype, b=len(lengths))
+        active = torch.tensor([False] + [True] * (len(lengths) - 1), device="cuda")
+        kw = dict(k_new=k_new, v_new=v_new, active=active, rope_theta=theta) if fused else {}
+        want_c = fd.flash_decode_attention(q, cache, **kw)
+        for label, paged in paged_variants(torch, cache):
+            before = (kern.launches, cont_kern.launches)
+            got = fd.flash_decode_attention(q, paged, **kw)
+            torch.cuda.synchronize()
+            check((kern.launches, cont_kern.launches) == (before[0] + 1, before[1]),
+                  f"{kern.symbol}: not one launch of its own ({label})")
+            want = fd.flash_decode_attention(q, paged, impl="plain", **kw)
+            for x, y, z, part in zip(*(t if fused else (t,) for t in (got, want, want_c)),
+                                     ("o", "k_rot")):
+                worst = max(worst, max_err(x, y))
+                check(torch.equal(x, y), f"{kern.symbol} {part} not bit-identical to plain "
+                                         f"({label}, {dtype}): {max_err(x, y)}")
+                check(torch.equal(x, z), f"{kern.symbol} {part} differs from the contiguous "
+                                         f"kernel ({label}, {dtype}): {max_err(x, z)}")
+            n += 1
+    print(f"{kern.symbol}: bit-identical to plain and to {cont_kern.symbol} on {n} cases "
+          f"(f32 / bf16 x page size 32 / 48 x identity / shuffled tables; lengths {lengths}, "
+          f"NaN past each), one launch of its own entry point each")
+    b, h, g, d, length = 6, 8, 4, 256, 80
+    q, cache, k_new, v_new = decode_case(torch, gen, [length] * b, torch.float32)
+    paged = paged_copy(torch, cache, 32, shuffle_seed=1)
+    kw = dict(k_new=k_new, v_new=v_new, active=torch.ones(b, dtype=torch.bool, device="cuda"),
+              rope_theta=theta) if fused else {}
+    # as the contiguous form's bound, plus the page table's (b, pps) int32
+    n_bytes = b * h * d * 4 + b * length * g * d * 4 * 2 + 4 * b + b * h * d * 4 + b * 3 * 4
+    if fused:
+        n_bytes += 2 * b * g * d * 4 + 4 * b + b * d * 4 + b * g * d * 4
+    t = paged_timing(
+        torch, f"{kern.symbol} (b 6, length {length}, page size 32, shuffled, f32)",
+        lambda: fd.flash_decode_attention(q, paged, **kw),
+        lambda: fd.flash_decode_attention(q, cache, **kw),
+        lambda: fd.flash_decode_attention(q, paged, impl="plain", **kw),
+        decode_sdpa(torch, q, cache, length, (k_new, v_new) if fused else None),
+        PAGED_DECODE, GQA_DECODE, n_bytes, 4 * b * h * (length + int(fused)) * d, smi)
+    ref_line = "src/repro/kernels/flash_decode.py:481" if fused else \
+        "src/repro/kernels/flash_decode.py:402"
+    return dict(name=kern.symbol, route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+                replaces=ref_line, max_abs_err=worst, **t)
+
+
+def paged_chunk_phase(torch, gen, theta, smi):
+    """A3b (kernel 3's paged chunked form): falcon3-1b's wave shape (h 8, g
+    4, d 256, C 32) at offsets 0-96 with every valid count, f32 and bf16,
+    identity and shuffled tables at page size 32 and 48: o, k_cast and
+    v_cast equal to the plain version and to the contiguous chunk kernel,
+    bit for bit, one launch of its own entry point each; timed beside the
+    contiguous form at b 6, C 32, offset 96."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models.layers import apply_rope
+
+    kern, cont_kern = fp.CHUNK_PAGED_KERNEL, fp.CHUNK_KERNEL
+    worst, n, c = 0.0, 0, 32
+    offs = [0, 5, 31, 32, 33, 64, 70, 96]
+    valid = torch.tensor([32, 1, 27, 0, 32, 32, 26, 32], dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, cache = chunk_case(torch, gen, c, dtype, offs)
+        want_c = fp.flash_prefill_attention(q, k, v, cache, valid, rope_theta=theta)
+        for label, paged in paged_variants(torch, cache):
+            before = (kern.launches, cont_kern.launches)
+            got = fp.flash_prefill_attention(q, k, v, paged, valid, rope_theta=theta)
+            torch.cuda.synchronize()
+            check((kern.launches, cont_kern.launches) == (before[0] + 1, before[1]),
+                  f"{kern.symbol}: not one launch of its own ({label})")
+            want = fp.flash_prefill_attention(q, k, v, paged, valid, rope_theta=theta,
+                                              impl="plain")
+            for part, x, y, z in zip(("o", "k_cast", "v_cast"), got, want, want_c):
+                worst = max(worst, max_err(x, y))
+                check(torch.equal(x, y), f"{kern.symbol} {part} not bit-identical to plain "
+                                         f"({label}, {dtype}): {max_err(x, y)}")
+                check(torch.equal(x, z), f"{kern.symbol} {part} differs from the contiguous "
+                                         f"kernel ({label}, {dtype}): {max_err(x, z)}")
+            n += 1
+    print(f"{kern.symbol}: o, k_cast and v_cast bit-identical to plain and to "
+          f"{cont_kern.symbol} on {n} cases (f32 / bf16 x page size 32 / 48 x identity / "
+          f"shuffled; C 32 at offsets {offs}, NaN past each length), one launch each")
+    b, h, g, d, off = 6, 8, 4, 256, 96
+    q, k, v, cache = chunk_case(torch, gen, c, torch.float32, [off] * b)
+    paged = paged_copy(torch, cache, 32, shuffle_seed=2)
+    pos = off + torch.arange(c, device="cuda")[None].expand(b, -1)
+    qh = apply_rope(q, pos, theta).permute(0, 2, 1, 3).contiguous()
+    kk = torch.cat([cache.hot_k, cache.cold_k[:, : off - 32], apply_rope(k, pos, theta)], 1)
+    vv = torch.cat([cache.hot_v, cache.cold_v[:, : off - 32], v], 1)
+    kh = kk.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    vh = vv.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    mask = (off + torch.arange(c, device="cuda"))[:, None] >= torch.arange(off + c, device="cuda")
+    # as the contiguous chunked form's bound, plus the page table
+    n_bytes = 4 * (2 * b * c * h * d + 4 * b * c * g * d + 2 * b * off * g * d) + 8 * b + 4 * b * 3
+    ops = 4 * b * h * d * (c * off + c * (c + 1) // 2)
+    t = paged_timing(
+        torch, f"{kern.symbol} (b 6, C {c}, offset {off}, page size 32, shuffled, f32)",
+        lambda: fp.flash_prefill_attention(q, k, v, paged, rope_theta=theta),
+        lambda: fp.flash_prefill_attention(q, k, v, cache, rope_theta=theta),
+        lambda: fp.flash_prefill_attention(q, k, v, paged, rope_theta=theta, impl="plain"),
+        lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+        PAGED_CHUNK, "gqa_chunk_kernel", n_bytes, ops, smi)
+    return dict(name=kern.symbol, route="cuda", source="src/repro_torch/csrc/flash_prefill.cu",
+                replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst, **t)
+
+
+# ---------------------------------------------------------------------------
 # slice phase: falcon3-1b served end to end
 # ---------------------------------------------------------------------------
 
@@ -1181,8 +1553,10 @@ def entry_point_path(torch, gen, packed, cache):
     quickstart's (8, 256) x (256, 64) (its step 5) and on every layer's
     four packed projections at decode width, each against
     ``ref.ternary_matmul_ref``; ``flash_decode_attention(q, cache)`` over
-    every layer's post-append cache after prefill and one decode step,
-    each against its plain version. Returns the launch counts."""
+    every layer's post-append cache after prefill and one decode step, and
+    over the same rows in a paged cache (shuffled 32-row pages: the paged
+    form, 18 launches), each against its plain version. Returns the launch
+    counts."""
     from repro_torch.core import kv_cache as kvc
     from repro_torch.core import packing
     from repro_torch.core.ternary import act_quant
@@ -1207,12 +1581,18 @@ def entry_point_path(torch, gen, packed, cache):
             q = torch.randn((6, 8, 256), generator=gen, device="cuda")
             pairs.append((fd.flash_decode_attention(q, layer),
                           fd.flash_decode_attention(q, layer, impl="plain")))
+            # the paged form (A2a) over the same rows in shuffled 32-row pages
+            paged = paged_copy(torch, layer, 32, shuffle_seed=i)
+            pairs.append((fd.flash_decode_attention(q, paged),
+                          fd.flash_decode_attention(q, paged, impl="plain")))
         return pairs
 
-    pairs, launches, wall = counted([tm.INT32_KERNEL, fd.GQA_KERNEL], run)
+    pairs, launches, wall = counted([tm.INT32_KERNEL, fd.GQA_KERNEL, fd.GQA_PAGED_KERNEL], run)
     for got, want in pairs:
         check(torch.equal(got, want), f"entry-point path: kernel != oracle ({max_err(got, want)})")
     check(all(n > 0 for n in launches.values()), f"an entry point never launched: {launches}")
+    check(launches[fd.GQA_PAGED_KERNEL.symbol] == 18,
+          f"paged post-append decode launches {launches[fd.GQA_PAGED_KERNEL.symbol]} != 18")
     print(f"entry-point path (falcon3-1b state): {len(pairs)} results equal to their oracles "
           f"(int32 exact, decode bit-identical to plain) in {wall:.2f} s, launches {launches}")
     return launches
@@ -1234,8 +1614,7 @@ def counting_waves(eng):
 def chunked_phase(torch, cfg, packed, kernels):
     """falcon3-1b admitted by chunk waves of 32 (``prefill_chunk=32``, hot 32,
     max_len 128): (a) ``generate`` 6 x (96 + 32), against the plain chunked
-    run (6/6 rows) and beside grouped admission of the same prompts
-    (reported); (b) ``serve`` six requests of prompt lengths 5 / 31 / 32 /
+    run and grouped admission of the same prompts (6/6 rows each); (b) ``serve`` six requests of prompt lengths 5 / 31 / 32 /
     33 / 77 / 100 through 4 slots, 24 new tokens each, ``sync_every`` 8
     (slot reuse at another length, offsets into the cold tier, partial and
     idle chunks), against the plain chunked run. Ledgers at the closed
@@ -1279,6 +1658,8 @@ def chunked_phase(torch, cfg, packed, kernels):
              for g, t, ok in zip(grouped, tokens, rows)]
     print(f"{label} against grouped admission of the same prompts: {int(rows.sum())}/6 rows "
           f"equal; first differing step per row {first}")
+    check(bool(rows.all()), f"{label}: greedy tokens differ from grouped admission "
+                            f"({int(rows.sum())}/6 rows equal; first differing steps {first})")
     breakdown(torch, eng, prompts, label=label, new=8)
 
     label_b = "falcon3-1b chunked serve"
@@ -1313,14 +1694,206 @@ def chunked_phase(torch, cfg, packed, kernels):
     return launches, launches_b
 
 
-def slice_phase(torch, gen):
+def counting_steps(eng):
+    """Count the engine's decode steps (one ``_step`` call each)."""
+    steps = []
+    step = eng._step
+
+    def counted_step(*args):
+        steps.append(1)
+        return step(*args)
+
+    eng._step = counted_step
+    return steps
+
+
+def paged_requests(vocab):
+    """The paged phase's eight requests (rid, prompt, new tokens) from one
+    seeded 96-token prefix P: r0 = P + 8; r1-r3 unrelated prompts of 50, 77
+    and 5 tokens; r4 = P + 17; r5 = P + 3; r6 = P[:70] + 30 other tokens
+    (its match ends inside the cold page of rows 64-95: copy-on-write);
+    r7 = P + 40 with 40 new tokens (its decode grows its pages mid-run).
+    With 4 slots, r0-r3 take every slot in the first admission round and
+    r4-r7 wait in the queue until slots free, at least 24 decode steps
+    after r0's last prompt wave recorded P in the prefix tree; so every
+    one of r4-r7 is matched against P."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    p = rng.integers(0, vocab, 96).astype(np.int32)
+
+    def tail(n):
+        return rng.integers(0, vocab, n).astype(np.int32)
+
+    other = ((p[70:] + 1 + rng.integers(0, vocab - 1, 26)) % vocab).astype(np.int32)
+    return [(0, np.concatenate([p, tail(8)]), 24), (1, tail(50), 24), (2, tail(77), 24),
+            (3, tail(5), 24), (4, np.concatenate([p, tail(17)]), 24),
+            (5, np.concatenate([p, tail(3)]), 24),
+            (6, np.concatenate([p[:70], other, tail(4)]), 24),
+            (7, np.concatenate([p, tail(40)]), 40)]
+
+
+def expected_reuse(specs, hot, ps):
+    """The prefix tokens the port's ``PrefixCache`` rule gives r4-r7 once
+    r0 is in the tree (r0-r3 are admitted into an empty one)."""
+    from repro_torch.serving.paging import PagePool, PrefixCache, pages_needed
+
+    pool = PagePool(64)
+    tree = PrefixCache(pool, hot, ps)
+    toks = specs[0][1]
+    tree.insert(toks, pool.alloc(pages_needed(len(toks), hot, ps)), lambda ids: None)
+    return {rid: (tree.match(t).length if rid >= 4 else 0) for rid, t, _ in specs}
+
+
+def traced_serve(torch, eng, reqs_fn, label):
+    """Wall time, device busy share and the top kernels of one traced
+    ``serve`` (after a warm-up serve)."""
+    timing = {}
+
+    def run():
+        t0 = time.perf_counter()
+        eng.serve(reqs_fn())
+        torch.cuda.synchronize()
+        timing["wall"] = (time.perf_counter() - t0) * 1e3
+
+    events = sorted(trace_events(run, warm=lambda: eng.serve(reqs_fn())), key=_device_us,
+                    reverse=True)
+    wall = timing["wall"]
+    busy = sum(_device_us(e) for e in events) / 1e3
+    if busy <= 0:
+        print(f"{label} trace: device time not measured (the trace holds none); wall {wall:.2f} ms")
+        return
+    print(f"{label}, traced serve: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
+    for e in events[:8]:
+        print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
+    for name, key in (("paged decode kernel", PAGED_DECODE), ("paged chunk kernel", PAGED_CHUNK),
+                      ("LoRA kernel", "lora_kernel"), ("ternary kernels", TERNARY)):
+        sel = [e for e in events if key in e.key]
+        sel_ms = sum(_device_us(e) for e in sel) / 1e3
+        print(f"  {name}: {sel_ms:.3f} ms device time in {sum(e.count for e in sel)} launches "
+              f"({100 * sel_ms / busy:.2f} % of device busy)")
+
+
+def paged_phase(torch, cfg, packed, kernels, smi):
+    """falcon3-1b served with a paged cold tier and prefix sharing
+    (``Engine(..., paged=True, page_size=32, prefix_sharing=True)``, hot 32,
+    max_len 192, ``prefill_chunk`` 32, 4 slots, ``sync_every`` 8, the
+    default pool) on ``paged_requests``, then unshared paged, contiguous
+    chunked, grouped and the plain run of the shared engine. Checks: tokens
+    equal on 8/8 requests across all five; ``prefix_tokens_reused`` 0 for
+    r0-r3 and the ``PrefixCache`` rule's for r4-r7 (capped at len - 1,
+    copy-on-write rows for r6); per request and traffic key the unshared
+    ledger minus the shared one equals (full - resumed) x token bytes; the
+    unshared and contiguous ledgers at the closed form; ``weight_loads ==
+    0``; in the shared run 18 paged chunk launches per wave, 18 paged
+    decode launches per decode step and no contiguous chunk or decode
+    launch. Then one traced shared serve. Returns the shared run's
+    launches."""
+    import numpy as np
+
+    from repro_torch.core import dr_edram
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+
+    label = "falcon3-1b paged"
+    hot, ps = 32, 32
+    specs = paged_requests(cfg.vocab_size)
+
+    def reqs():
+        return [Request(rid, t, n) for rid, t, n in specs]
+
+    kw = dict(hot_cap=hot, max_len=192, prefill_chunk=32, slots=4, sync_every=8)
+    pkw = dict(paged=True, page_size=ps)
+    eng = Engine(cfg, packed, **kw, **pkw)
+    waves, steps = counting_waves(eng), counting_steps(eng)
+    fin, launches, wall = counted(kernels, lambda: eng.serve(reqs()))
+    fin = {f.rid: f for f in fin}
+    print(f"{label} shared serve (prompts {[len(t) for _, t, _ in specs]}, 4 slots, page size "
+          f"{ps}): {wall:.3f} s, {len(waves)} chunk waves, {len(steps)} decode steps, launches "
+          f"{launches}")
+    n_l = cfg.n_layers
+    check(launches[fp.CHUNK_PAGED_KERNEL.symbol] == n_l * len(waves),
+          f"{label}: {launches[fp.CHUNK_PAGED_KERNEL.symbol]} paged chunk launches for "
+          f"{len(waves)} waves, not {n_l} per wave")
+    check(launches[fd.PAGED_KERNEL.symbol] == n_l * len(steps),
+          f"{label}: {launches[fd.PAGED_KERNEL.symbol]} paged decode launches for "
+          f"{len(steps)} decode steps, not {n_l} per step")
+    check(launches[fp.CHUNK_KERNEL.symbol] == 0 and launches[fd.KERNEL.symbol] == 0
+          and launches[fp.KERNEL.symbol] == 0,
+          f"{label}: a contiguous-form attention kernel launched: {launches}")
+    check(all(n > 0 for sym, n in launches.items()
+              if sym not in (fp.CHUNK_KERNEL.symbol, fd.KERNEL.symbol, fp.KERNEL.symbol)),
+          f"{label}: a kernel of the path never launched: {launches}")
+    pool, tree = eng._last_pool, eng._last_ptree
+    want_reuse = expected_reuse(specs, hot, ps)
+    got_reuse = {rid: f.prefix_tokens_reused for rid, f in fin.items()}
+    print(f"{label}: prefix tokens reused {got_reuse} (the PrefixCache rule: {want_reuse}); "
+          f"pool {pool.n_pages} pages, {len(tree.tree_pages())} held by the tree after the serve, "
+          f"{pool.available()} free")
+    check(got_reuse == want_reuse and want_reuse[6] == 70 and min(want_reuse[i] for i in
+                                                                  (4, 5, 7)) == 96,
+          f"{label}: prefix reuse {got_reuse} != {want_reuse}")
+    check(pool.available() == pool.n_pages - len(tree.tree_pages()),
+          f"{label}: pages still held after every slot retired")
+
+    cfg_plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
+    runs = {}
+    for name, c, extra in (("unshared paged", cfg, dict(pkw, prefix_sharing=False)),
+                           ("contiguous chunked", cfg, {}),
+                           ("grouped", cfg, dict(prefill_chunk=0)),
+                           ("plain shared paged", cfg_plain, pkw)):
+        e = Engine(c, packed, **{**kw, **extra})
+        t0 = time.perf_counter()
+        runs[name] = {f.rid: f for f in e.serve(reqs())}
+        torch.cuda.synchronize()
+        check(e.weight_loads == 0, f"{label} {name}: weights were reloaded")
+        print(f"{label} {name} serve: {time.perf_counter() - t0:.2f} s")
+    check(eng.weight_loads == 0, f"{label}: weights were reloaded")
+    for name, other in runs.items():
+        same = sum(np.array_equal(fin[rid].tokens, other[rid].tokens) for rid, _, _ in specs)
+        print(f"{label}: shared run against {name}: greedy tokens equal on {same}/8 requests")
+        check(same == 8, f"{label}: tokens differ from the {name} run ({same}/8 requests)")
+    tb = eng._kv_token_bytes()
+    unshared = runs["unshared paged"]
+    for rid, toks, n in specs:
+        f, u = fin[rid], unshared[rid]
+        full = kvc.prompt_traffic_tokens(len(toks), hot)
+        resumed = kvc.prompt_traffic_tokens_resumed(len(toks), f.prefix_tokens_reused, hot)
+        for k in kvc.TRAFFIC_KEYS:
+            check(u.traffic[k] - f.traffic[k] == (full[k] - resumed[k]) * tb,
+                  f"{label}: request {rid} {k}: unshared {u.traffic[k]} - shared "
+                  f"{f.traffic[k]} != {(full[k] - resumed[k]) * tb}")
+        for name in ("unshared paged", "contiguous chunked"):
+            r = runs[name][rid]
+            closed = dr_edram.closed_form_reduction(r.seq_len, hot)
+            check(r.seq_len == len(toks) + n and abs(r.external_reduction - closed) <= 1e-12,
+                  f"{label} {name}: request {rid} seq_len {r.seq_len}, reduction "
+                  f"{r.external_reduction} != {closed}")
+    saved = {k: sum(unshared[r].traffic[k] - fin[r].traffic[k] for r in fin)
+             for k in kvc.TRAFFIC_KEYS}
+    print(f"{label}: tokens equal on 8/8 requests across shared, unshared, contiguous, grouped "
+          f"and plain runs; ledger bytes the sharing saved {saved} (each request's delta = "
+          f"(full - resumed prompt ledger) x {tb} B); unshared and contiguous ledgers at the "
+          f"closed form; weight_loads = 0")
+    traced_serve(torch, eng, reqs, label)
+    return launches
+
+
+def slice_phase(torch, gen, smi):
     """falcon3-1b served end to end: the fused kernel run, its plain run,
-    the entry-point path, the carried-scale run and the chunked runs."""
+    the entry-point path, the carried-scale run, the chunked runs and the
+    paged runs."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
     from repro_torch.kernels import ternary_matmul as tm
     from repro_torch.models import transformer as T
     from repro_torch.models.pack import pack_params
@@ -1341,7 +1914,7 @@ def slice_phase(torch, gen):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (6, 32)).astype(np.int32)
     kw = dict(hot_cap=32, max_len=128, slots=6)
-    kernels = [tm.KERNEL, fd.KERNEL, fp.KERNEL]
+    kernels = [tm.KERNEL, fd.KERNEL, fp.KERNEL, kl.KERNEL, krms.KERNEL]
 
     eng = Engine(cfg, packed, **kw)
     eng.generate(prompts[:, :8], max_new_tokens=4)  # warm-up (cuBLAS, allocator)
@@ -1355,6 +1928,14 @@ def slice_phase(torch, gen):
     print(f"flash_decode_gqa_fused launches per falcon3-1b decode step: {gqa / 96:g} "
           f"({gqa} over 96 steps)")
     check(gqa == cfg.n_layers * 96, f"GQA decode launches {gqa} != {cfg.n_layers} per step")
+    n_lora = launches[kl.KERNEL.symbol]
+    print(f"lora_delta launches per falcon3-1b generate: {n_lora} (3 adapters x "
+          f"{cfg.n_layers} layers x (96 decode steps + 1 admission))")
+    check(n_lora == 3 * cfg.n_layers * 97, f"LoRA launches {n_lora} != 3 x 18 x 97")
+    n_rms = launches[krms.KERNEL.symbol]
+    print(f"rms_norm launches per falcon3-1b generate: {n_rms} ((2 x {cfg.n_layers} + 1) x "
+          f"(96 decode steps + 1 admission))")
+    check(n_rms == (2 * cfg.n_layers + 1) * 97, f"rms_norm launches {n_rms} != 37 x 97")
 
     cfg_plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
     t0 = time.perf_counter()
@@ -1384,18 +1965,26 @@ def slice_phase(torch, gen):
         entry = entry_point_path(torch, gen, packed, cache)
     del cache, cache_p
     carried, carried_tok_s = carried_scale_run(
-        torch, cfg, packed, prompts, kw, 96, [tm.KERNEL, tm.KNOWN_KERNEL, fd.KERNEL, fp.KERNEL],
+        torch, cfg, packed, prompts, kw, 96,
+        [tm.KERNEL, tm.KNOWN_KERNEL, fd.KERNEL, fp.KERNEL, kl.KERNEL, krms.KERNEL],
         (eng, wall, launches), tokens)
     check(carried[fd.KERNEL.symbol] == gqa,
           f"carried-scale run: {carried[fd.KERNEL.symbol]} GQA decode launches, fused run {gqa}")
     chunked, chunked_serve = chunked_phase(torch, cfg, packed,
-                                           [tm.KERNEL, fd.KERNEL, fp.KERNEL, fp.CHUNK_KERNEL])
+                                           [tm.KERNEL, fd.KERNEL, fp.KERNEL, fp.CHUNK_KERNEL,
+                                            kl.KERNEL, krms.KERNEL])
+    t0 = time.perf_counter()
+    paged = paged_phase(torch, cfg, packed,
+                        [tm.KERNEL, fd.KERNEL, fd.PAGED_KERNEL, fp.KERNEL, fp.CHUNK_KERNEL,
+                         fp.CHUNK_PAGED_KERNEL, kl.KERNEL, krms.KERNEL], smi)
+    print(f"[falcon3-1b paged phase: {time.perf_counter() - t0:.2f} s]")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     breakdown(torch, eng, prompts, before="57.693 ms in 1224 launches on an H100")
     decode_glue_per_step(torch, cfg, kw, cfg.rope_theta)
     return {"falcon3-1b": launches, "falcon3-1b entry points": entry,
             "falcon3-1b carried-scale": carried, "falcon3-1b chunked": chunked,
-            "falcon3-1b chunked serve": chunked_serve}, {"falcon3-1b": 6 * 96 / wall,
+            "falcon3-1b chunked serve": chunked_serve, "falcon3-1b paged": paged}, {
+                "falcon3-1b": 6 * 96 / wall,
                                                          "falcon3-1b carried-scale": carried_tok_s}
 
 
@@ -1408,6 +1997,7 @@ def deepseek_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import rms_norm as krms
     from repro_torch.kernels import ternary_matmul as tm
     from repro_torch.models import transformer as T
     from repro_torch.models.pack import pack_params
@@ -1430,7 +2020,7 @@ def deepseek_phase(torch):
           "kernel 7 phases check")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (6, 32)).astype(np.int32)
     kw = dict(hot_cap=32, max_len=128, slots=6)
-    kernels = [tm.KERNEL, tm.EXPERT_KERNEL, fp.MLA_KERNEL, fd.LATENT_KERNEL]
+    kernels = [tm.KERNEL, tm.EXPERT_KERNEL, fp.MLA_KERNEL, fd.LATENT_KERNEL, krms.KERNEL]
     # MLA cannot chunk (as in the reference): with prefill_chunk set the
     # engine keeps grouped admission
     eng = Engine(cfg, packed, **kw, prefill_chunk=32)
@@ -1473,7 +2063,7 @@ def deepseek_phase(torch):
     carried, carried_tok_s = carried_scale_run(
         torch, cfg, packed, prompts, kw, 32,
         [tm.KERNEL, tm.EXPERT_KERNEL, tm.KNOWN_KERNEL, tm.KNOWN_EXPERT_KERNEL, fp.MLA_KERNEL,
-         fd.LATENT_KERNEL], (eng, wall, launches), tokens)
+         fd.LATENT_KERNEL, krms.KERNEL], (eng, wall, launches), tokens)
     breakdown(torch, eng, prompts, label="deepseek-v3-671b-l5", new=8,
               before="181.988 ms in 261 launches on an H100")
     latent_glue_per_step(torch, cfg, kw)
@@ -1652,6 +2242,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_decode, flash_prefill, ternary_matmul
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
 
     t0 = time.perf_counter()
     build.build_all()
@@ -1685,14 +2277,23 @@ def main() -> int:
               ("kernel 6", lambda: kernel6_phase(torch, gen, theta, smi), fd.GQA_KERNEL,
                "falcon3-1b entry points"),
               ("kernel 7", lambda: kernel7_phase(torch, gen), tm.KNOWN_EXPERT_KERNEL,
-               "deepseek-v3-671b-l5 carried-scale")]
+               "deepseek-v3-671b-l5 carried-scale"),
+              ("LoRA kernel", lambda: lora_phase(torch, gen, smi), kl.KERNEL, "falcon3-1b"),
+              ("rms_norm kernel", lambda: rms_norm_phase(torch, gen, smi), krms.KERNEL,
+               "falcon3-1b"),
+              ("kernel 2 paged form", lambda: paged_decode_phase(torch, gen, theta, smi, True),
+               fd.PAGED_KERNEL, "falcon3-1b paged"),
+              ("kernel 6 paged form", lambda: paged_decode_phase(torch, gen, theta, smi, False),
+               fd.GQA_PAGED_KERNEL, "falcon3-1b entry points"),
+              ("kernel 3 paged chunked form", lambda: paged_chunk_phase(torch, gen, theta, smi),
+               fp.CHUNK_PAGED_KERNEL, "falcon3-1b paged")]
     rows = []
     for label, fn, _, _ in phases:
         t0 = time.perf_counter()
         rows.append(fn())
         print(f"[{label} phase: {time.perf_counter() - t0:.2f} s]")
     t0 = time.perf_counter()
-    paths, tok_s = slice_phase(torch, gen)
+    paths, tok_s = slice_phase(torch, gen, smi)
     print(f"[falcon3-1b phase: {time.perf_counter() - t0:.2f} s]")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -1,9 +1,19 @@
-"""Two-tier (DR eDRAM-style) KV cache with per-slot lengths, contiguous
-tier only (reference: ``repro/core/kv_cache.py``).
+"""Two-tier (DR eDRAM-style) KV cache with per-slot lengths (reference:
+``repro/core/kv_cache.py``), with a contiguous or a paged cold tier.
 
   hot_k/hot_v   : (batch, hot_cap, g, d)   the first ``hot_cap`` tokens
   cold_k/cold_v : (batch, cold_cap, g, d)  the rest
   lengths       : (batch,) int32           tokens written, per slot
+
+``PagedKVCache`` keeps the hot tier and replaces the cold one by a pool
+shared by every slot: ``pool_k/pool_v`` (n_pages, page_size, g, d) and a
+``page_table`` (batch, pages_per_slot) int32; cold row r of slot b lives
+at row ``r % page_size`` of pool page ``page_table[b, r // page_size]``.
+Slots that share a prompt prefix map the same pool pages (the host-side
+refcounts and prefix tree are ``serving/paging.py``); ``paged_admit``
+installs a slot's table and restores its hot tier, ``save_hot`` snapshots
+one into the pool. ``as_tiered`` gathers the cold tier back into a
+contiguous view for the plain references.
 
 The MLA latent cache keeps one row (c_kv ‖ k_rope) per token in the
 k-slot, (batch, cap, kv_lora_rank + rope dims), and an empty v-slot
@@ -72,9 +82,175 @@ def init_cache(batch: int, hot_cap: int, cold_cap: int, kv_shape: Sequence[int],
     )
 
 
-def layer(stack: TieredKVCache, i: int) -> TieredKVCache:
-    """View of layer ``i`` of a stacked cache (writes go to the stack)."""
-    return TieredKVCache(*(t[i] for t in stack))
+class PagedKVCache(NamedTuple):
+    """Tiered cache with a paged cold tier (reference: ``PagedKVCache``).
+
+    Unused table entries hold a VALID pool index (convention: 0): reads
+    are bounded by ``lengths``, never by the table."""
+
+    hot_k: torch.Tensor
+    hot_v: torch.Tensor
+    pool_k: torch.Tensor  # (n_pages, page_size, ...)
+    pool_v: torch.Tensor
+    page_table: torch.Tensor  # (batch, pages_per_slot) int32
+    lengths: torch.Tensor  # (batch,) int32
+
+    # axes follow the stacking axes of ``lengths``, as in TieredKVCache
+    @property
+    def hot_cap(self) -> int:
+        return self.hot_k.shape[self.lengths.ndim]
+
+    @property
+    def page_size(self) -> int:
+        return self.pool_k.shape[self.lengths.ndim]
+
+    @property
+    def n_pages(self) -> int:
+        return self.pool_k.shape[self.lengths.ndim - 1]
+
+    @property
+    def pages_per_slot(self) -> int:
+        return self.page_table.shape[-1]
+
+    @property
+    def cold_cap(self) -> int:
+        return self.pages_per_slot * self.page_size
+
+    @property
+    def capacity(self) -> int:
+        return self.hot_cap + self.cold_cap
+
+
+def init_paged_cache(batch: int, hot_cap: int, cold_cap: int, kv_shape: Sequence[int],
+                     dtype=torch.float32, page_size: int = 32, n_pages: Optional[int] = None,
+                     device=None, lead: tuple = (),
+                     v_shape: Optional[Sequence[int]] = None) -> PagedKVCache:
+    """Zeroed paged cache. ``cold_cap`` rounds up to whole pages; the pool
+    defaults to one private page set per slot and the table to the
+    identity (slot b's page j = pool page b * pps + j, clipped to the
+    pool), so an unshared paged cache is the contiguous one re-addressed.
+    ``lead`` prepends stacking dims (one cache per layer)."""
+    if cold_cap <= 0:
+        raise ValueError("a paged cache needs a non-empty cold tier")
+    lead = tuple(lead)
+    v_shape = tuple(kv_shape) if v_shape is None else tuple(v_shape)
+    pps = -(-cold_cap // page_size)
+    n_pages = batch * pps if n_pages is None else n_pages
+    if n_pages < 1:
+        raise ValueError("a paged cache needs at least one page")
+    table = (torch.arange(batch, dtype=torch.int32, device=device)[:, None] * pps
+             + torch.arange(pps, dtype=torch.int32, device=device)[None]).clamp(max=n_pages - 1)
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    return PagedKVCache(
+        hot_k=zeros(batch, hot_cap, *kv_shape),
+        hot_v=zeros(batch, hot_cap, *v_shape),
+        pool_k=zeros(n_pages, page_size, *kv_shape),
+        pool_v=zeros(n_pages, page_size, *v_shape),
+        page_table=table.expand(lead + table.shape).contiguous(),
+        lengths=torch.zeros(lead + (batch,), dtype=torch.int32, device=device),
+    )
+
+
+def cold_view(cache: PagedKVCache) -> tuple:
+    """The paged cold tier gathered into contiguous (batch, cold_cap, ...)
+    k / v copies: the indirection the paged kernels do per row, done at
+    once for the plain references."""
+    b = cache.page_table.shape[0]
+    table = cache.page_table.long()
+    tail = cache.pool_k.shape[2:]
+    return (cache.pool_k[table].reshape((b, cache.cold_cap) + tail),
+            cache.pool_v[table].reshape((b, cache.cold_cap) + cache.pool_v.shape[2:]))
+
+
+def as_tiered(cache: PagedKVCache) -> TieredKVCache:
+    """Contiguous view of a paged cache (gathers the cold tier; a copy)."""
+    ck, cv = cold_view(cache)
+    return TieredKVCache(cache.hot_k, cache.hot_v, ck, cv, cache.lengths)
+
+
+def layer(stack, i: int):
+    """View of layer ``i`` of a stacked cache, tiered or paged (writes go
+    to the stack)."""
+    return type(stack)(*(t[i] for t in stack))
+
+
+def _put_rows(flat: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+              write: torch.Tensor) -> None:
+    """``flat[rows[i]] = vals[i]`` where ``write[i]``, in place, with no
+    host sync. The entries that do not write repeat the first writer's
+    (row, value), or, when none writes, write back ``flat``'s own value at
+    their first row, so every index that occurs twice carries one value.
+    The writers' rows are distinct (one writer per page row)."""
+    rows = rows.reshape(-1).long().clamp(0, flat.shape[0] - 1)
+    write = write.reshape(-1)
+    if rows.numel() == 0 or flat.numel() == 0:
+        return
+    vals = vals.reshape((rows.shape[0],) + flat.shape[1:]).to(flat.dtype)
+    first = torch.argmax(write.to(torch.int32))  # first writer, or 0
+    r0 = rows[first]
+    bshape = (-1,) + (1,) * (flat.ndim - 1)
+    v0 = torch.where(write[first], vals[first], flat[r0])
+    flat.index_put_((torch.where(write, rows, r0),),
+                    torch.where(write.reshape(bshape), vals, v0[None]))
+
+
+def paged_cold_rows(cache: PagedKVCache, cold_pos: torch.Tensor) -> torch.Tensor:
+    """Pool row of each cold position (b, ...) of its slot (reference:
+    ``_paged_cold_rows``): page ``page_table[b, pos // ps]`` (the page index
+    clipped to the table), row ``pos % ps``."""
+    ps = cache.page_size
+    pg = (cold_pos // ps).clamp(0, cache.pages_per_slot - 1)
+    page = torch.gather(cache.page_table.long(), 1, pg.reshape(pg.shape[0], -1)).reshape(pg.shape)
+    return page * ps + cold_pos % ps
+
+
+def pool_flat(cache: PagedKVCache):
+    """The k and v pools as views of (n_pages * page_size, ...) rows."""
+    n_rows = cache.n_pages * cache.page_size
+    return (cache.pool_k.view((n_rows,) + cache.pool_k.shape[2:]),
+            cache.pool_v.view((n_rows,) + cache.pool_v.shape[2:]))
+
+
+def _paged_append(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                  valid: Optional[torch.Tensor]) -> PagedKVCache:
+    """Bulk append into a paged cache, in place (reference:
+    ``_paged_append``): hot rows as in the contiguous append, cold rows to
+    their pool rows through the page table. Each writable page has one
+    writer slot (shared pages are only read; ``serving/paging.py``)."""
+    t = k_new.shape[1]
+    start = cache.lengths.long()
+    t_idx = torch.arange(t, device=start.device)
+    pos = start[:, None] + t_idx[None]  # (b, t)
+    n_new = (torch.full_like(start, t) if valid is None else valid.long())
+    write = t_idx[None] < n_new[:, None]
+    for tier, new in ((cache.hot_k, k_new), (cache.hot_v, v_new)):
+        _write_rows(tier, new, pos, write & (pos < cache.hot_cap))
+    in_cold = write & (pos >= cache.hot_cap)
+    rows = paged_cold_rows(cache, pos - cache.hot_cap)
+    for flat, new in zip(pool_flat(cache), (k_new, v_new)):
+        _put_rows(flat, rows, new, in_cold)
+    cache.lengths.add_(n_new.to(cache.lengths.dtype))
+    return cache
+
+
+def _paged_append_one(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                      active: Optional[torch.Tensor]) -> PagedKVCache:
+    """Decode append (one token per slot) into a paged cache, in place."""
+    b = cache.lengths.shape[0]
+    pos = cache.lengths.long()
+    act = (torch.ones(b, dtype=torch.bool, device=pos.device) if active is None
+           else active.bool())
+    in_hot = pos < cache.hot_cap
+    for tier, new in ((cache.hot_k, k_new), (cache.hot_v, v_new)):
+        _write_rows(tier, new[:, None], pos[:, None], (in_hot & act)[:, None])
+    rows = paged_cold_rows(cache, pos - cache.hot_cap)
+    for flat, new in zip(pool_flat(cache), (k_new, v_new)):
+        _put_rows(flat, rows, new, ~in_hot & act)
+    cache.lengths.add_(act.to(cache.lengths.dtype))
+    return cache
 
 
 def append_decode(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -84,6 +260,8 @@ def append_decode(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor
     ``active`` (batch,) bool gates the write per slot: inactive slots keep
     their rows and length. Positions past the capacity clip to the last
     row, as in the reference."""
+    if isinstance(cache, PagedKVCache):
+        return _paged_append_one(cache, k_new, v_new, active)
     b = cache.lengths.shape[0]
     pos = cache.lengths.long()
     act = (torch.ones(b, dtype=torch.bool, device=pos.device) if active is None
@@ -138,6 +316,8 @@ def append(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     archs is not ported."""
     if ring:
         raise NotImplementedError("the ring cold tier (SWA archs) is not ported")
+    if isinstance(cache, PagedKVCache):
+        return _paged_append(cache, k_new, v_new, valid)
     t = k_new.shape[1]
     start = cache.lengths.long()
     t_idx = torch.arange(t, device=start.device)
@@ -168,6 +348,62 @@ def fill_fresh(cache: TieredKVCache, k_new: torch.Tensor,
         cache.cold_k[:, :n_c] = k_new[:, n_h:n_h + n_c].to(cache.cold_k.dtype)
         cache.cold_v[:, :n_c] = v_new[:, n_h:n_h + n_c].to(cache.cold_v.dtype)
     cache.lengths.fill_(s)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Paged-serving admission ops (device side of serving/paging.py)
+# ---------------------------------------------------------------------------
+
+
+def paged_admit(cache: PagedKVCache, reset: torch.Tensor, new_lengths: torch.Tensor,
+                new_table: torch.Tensor, hot_src: torch.Tensor, cow_src: torch.Tensor,
+                cow_dst: torch.Tensor) -> PagedKVCache:
+    """(Re)initialise the ``reset`` slots (b,) for new requests, in place
+    (reference: ``paged_admit``): install each one's page-table row and
+    prefix length M, copy the partially matched boundary page ``cow_src``
+    into the slot's private ``cow_dst`` (copy-on-write; -1 = none), then
+    restore hot rows i < min(M, hot_cap) from the snapshot pages
+    ``hot_src`` (b, n_hot_pages) (row i at row i % ps of page
+    ``hot_src[b, i // ps]``; -1 = none). Other slots are untouched."""
+    reset = reset.bool()
+    new_lengths = new_lengths.to(cache.lengths.dtype)
+    cache.page_table.copy_(torch.where(reset[:, None], new_table.to(cache.page_table.dtype),
+                                       cache.page_table))
+    cache.lengths.copy_(torch.where(reset, new_lengths, cache.lengths))
+    ps = cache.page_size
+    pk, pv = pool_flat(cache)
+    j = torch.arange(ps, device=reset.device)[None]  # (1, ps)
+    cow_src, cow_dst = cow_src.long(), cow_dst.long()
+    cow_ok = (reset & (cow_src >= 0) & (cow_dst >= 0))[:, None].expand(-1, ps)
+    src_rows = (cow_src.clamp(min=0)[:, None] * ps + j).clamp(max=pk.shape[0] - 1)
+    dst_rows = cow_dst.clamp(min=0)[:, None] * ps + j
+    for flat in (pk, pv):
+        _put_rows(flat, dst_rows, flat[src_rows.reshape(-1)], cow_ok)
+    if cache.hot_cap:
+        i = torch.arange(cache.hot_cap, device=reset.device)[None]  # (1, hc)
+        pg = (i // ps).clamp(max=hot_src.shape[1] - 1).expand(hot_src.shape[0], -1)
+        src_pages = torch.gather(hot_src.long(), 1, pg)  # (b, hc)
+        rows = (src_pages.clamp(min=0) * ps + i % ps).clamp(max=pk.shape[0] - 1)
+        ok = (reset[:, None] & (src_pages >= 0)
+              & (i < new_lengths.long().clamp(max=cache.hot_cap)[:, None]))
+        for hot, flat in ((cache.hot_k, pk), (cache.hot_v, pv)):
+            if hot.numel():
+                m = ok.reshape(ok.shape + (1,) * (hot.ndim - 2))
+                hot.copy_(torch.where(m, flat[rows].to(hot.dtype), hot))
+    return cache
+
+
+def save_hot(cache: PagedKVCache, slot: int, page_ids: torch.Tensor) -> PagedKVCache:
+    """Snapshot slot ``slot``'s hot tier into pool pages ``page_ids``
+    ((n_hot_pages,), -1 = skip), in place (reference: ``save_hot``): hot
+    row i lands at row i % ps of page ``page_ids[i // ps]``."""
+    ps = cache.page_size
+    i = torch.arange(cache.hot_cap, device=cache.hot_k.device)
+    pages = page_ids.long()[(i // ps).clamp(max=page_ids.shape[0] - 1)]
+    rows = pages.clamp(min=0) * ps + i % ps
+    for flat, hot in zip(pool_flat(cache), (cache.hot_k, cache.hot_v)):
+        _put_rows(flat, rows, hot[slot], pages >= 0)
     return cache
 
 
@@ -230,7 +466,10 @@ def merge_partials(parts):
 def tiered_decode_attention(q: torch.Tensor, cache: TieredKVCache,
                             scale: float | None = None) -> torch.Tensor:
     """One-token attention over both tiers. q: (b, h, d) -> (b, h, d).
-    A slot with length 0 returns zeros."""
+    A slot with length 0 returns zeros. A paged cache is read through
+    ``as_tiered`` (a reference for the tests; no card path calls it)."""
+    if isinstance(cache, PagedKVCache):
+        cache = as_tiered(cache)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     hot_valid, cold_valid = valid_masks(cache)
     out = merge_partials([
@@ -267,7 +506,10 @@ def tiered_chunk_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Te
     C, g, dv). Chunk row t of slot b sits at position ``lengths[b] + t``
     and attends to the slot's cached tokens (both tiers) and to the chunk
     rows 0..t that are among its first ``valid[b]``. Per-tier partials
-    merge as in the decode read; the tiers are never concatenated."""
+    merge as in the decode read; the tiers are never concatenated. A paged
+    cache is read through ``as_tiered`` (a reference for the tests)."""
+    if isinstance(cache, PagedKVCache):
+        cache = as_tiered(cache)
     b, c, h, dk = q.shape
     g, dv = k_new.shape[2], v_new.shape[-1]
     rep = h // g

@@ -1,10 +1,12 @@
 """Quantized LoRA adapters (reference: ``repro/core/lora.py``).
 
 The adapter delta ``(x_q @ A_q) @ B_q * (alpha / r)`` with 6-bit
-per-output-column weights and A8 activations, in plain PyTorch (the
-reference computes it in XLA too; no kernel carries it). The fake-quant
-expressions keep the reference's straight-through form so the forward
-values match it operation for operation.
+per-output-column weights and A8 activations. The fake-quant expressions
+(elementwise, plus an ``amax``, exact in any order) keep the reference's
+straight-through form; the two products run through
+``kernels/lora.py::lora_delta``, whose sum order is fixed per row, so a
+token's delta is the same whether it arrives in a grouped prefill, a
+chunk wave or a decode step (the reference leaves the products to XLA).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.ternary import act_quant_ste
+from repro_torch.kernels.lora import lora_delta
 
 DEFAULT_RANK = 16
 DEFAULT_LORA_BITS = 6
@@ -39,10 +42,12 @@ def _quant_sym_ste(w: torch.Tensor, bits: int) -> torch.Tensor:
 
 def apply(params: dict, x: torch.Tensor, alpha: float = 2.0 * DEFAULT_RANK,
           weight_bits: int = DEFAULT_LORA_BITS,
-          act_bits: int = DEFAULT_ACT_BITS) -> torch.Tensor:
-    """Quantized LoRA delta: (x_q @ A_q) @ B_q * (alpha / r)."""
+          act_bits: int = DEFAULT_ACT_BITS, impl: str = "auto") -> torch.Tensor:
+    """Quantized LoRA delta: (x_q @ A_q) @ B_q * (alpha / r). ``impl``
+    as for the kernels: "auto" launches the LoRA kernel on CUDA tensors,
+    "plain" runs its plain version."""
     rank = params["a"].shape[-1]
     aq = _quant_sym_ste(params["a"], weight_bits)
     bq = _quant_sym_ste(params["b"], weight_bits)
     xq = act_quant_ste(x, bits=act_bits)
-    return ((xq @ aq) @ bq) * (alpha / rank)
+    return lora_delta(xq, aq.to(xq.dtype), bq.to(xq.dtype), alpha / rank, impl=impl)

@@ -88,7 +88,17 @@
 //    80 and up; issuing every load of a chunk before its first use and
 //    running the butterflies of a warp's dot products together gained the
 //    rest.
-//  * Ring, paged and fp8 layouts are not handled here (the wrapper raises).
+//  * Paged cold tier (the reference's paged forms of both kernels,
+//    _flash_gqa_fused and _flash_gqa with a PagedKVCache; entry points
+//    flash_decode_gqa_fused_paged and flash_decode_gqa_paged, kernel
+//    gqa_decode_paged_kernel): the cold tier is a pool of pages shared by
+//    the slots, and cold row r of slot b is pool row page_table[b, r / ps]
+//    * ps + r % ps. The address is resolved per row (fetch), so a 32-key
+//    tile may span pages when ps is not a multiple of 32; the tiles, their
+//    order (hot, cold, pending) and every sum are the contiguous form's,
+//    so over the same content the two forms agree bit for bit. The same
+//    body (PAGED flag) compiles into a kernel of its own name.
+//  * Ring and fp8 layouts are not handled here (the wrapper raises).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -236,7 +246,7 @@ struct DecodeArgs {
   const T* q;       // (B, H, D)
   const T* hot_k;   // (B, HC, G, D)
   const T* hot_v;
-  const T* cold_k;  // (B, CC, G, D)
+  const T* cold_k;  // (B, CC, G, D); paged: the pool (n_pages, ps, G, D)
   const T* cold_v;
   const T* k_new;   // (B, G, D); fused form only, like active, cos, sin, k_rot
   const T* v_new;
@@ -246,12 +256,14 @@ struct DecodeArgs {
   const float* sin;
   T* out;    // (B, H, D)
   T* k_rot;  // (B, G, D)
-  int G, rep, HC, CC;
+  int G, rep, HC, CC;  // paged: CC = pps * ps
   float scale;
+  const int* page_table = nullptr;  // (B, pps), paged form only
+  int ps = 0, pps = 0;
 };
 
-template <typename T, int D, bool FUSED>
-__global__ void __launch_bounds__(kThreads, 1) gqa_decode_kernel(DecodeArgs<T> a) {
+template <typename T, int D, bool FUSED, bool PAGED>
+__device__ __forceinline__ void decode_body(const DecodeArgs<T>& a) {
   constexpr int TL = D >= 32 ? D / 32 : 1;  // head dims per lane
   constexpr int DVS = slice_dims(D);        // value dims per block
   constexpr int S = D / DVS;                // slice blocks of a cluster
@@ -322,20 +334,37 @@ __global__ void __launch_bounds__(kThreads, 1) gqa_decode_kernel(DecodeArgs<T> a
   auto fetch = [&](int c0) {
     const T* kt[kChunk];
     const T* vt[kChunk];
+    bool hot[kChunk];
+    int start[kChunk];
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       const int tk = c0 + k;
-      const bool hot = tk < t_hot;
-      const int start = (hot ? tk : tk - t_hot) * kTile;
-      n[k] = tk < n_tiles ? min(kTile, (hot ? n_hot : n_cold) - start) : 0;
-      const int64_t row0 = ((int64_t)b * (hot ? a.HC : a.CC) + start) * gd + (int64_t)g * D;
-      kt[k] = (hot ? a.hot_k : a.cold_k) + row0;
-      vt[k] = (hot ? a.hot_v : a.cold_v) + row0 + part * gd + dv;
+      hot[k] = tk < t_hot;
+      start[k] = (hot[k] ? tk : tk - t_hot) * kTile;
+      n[k] = tk < n_tiles ? min(kTile, (hot[k] ? n_hot : n_cold) - start[k]) : 0;
+      const int64_t row0 = ((int64_t)b * (hot[k] ? a.HC : a.CC) + start[k]) * gd + (int64_t)g * D;
+      kt[k] = (hot[k] ? a.hot_k : a.cold_k) + (PAGED ? (int64_t)g * D : row0);
+      vt[k] = (hot[k] ? a.hot_v : a.cold_v) + (PAGED ? (int64_t)g * D + dv : row0 + part * gd + dv);
     }
+    // key j of tile k: its row's offset from kt[k] / vt[k], in elements.
+    // Paged: a hot row at its place in the slot's hot tier, a cold one
+    // through the page table (only for a key the slot holds: j < n[k])
+    auto at = [&](int k, int j) -> int64_t {
+      if constexpr (PAGED) {
+        if (j >= n[k]) return 0;
+        const int pos = start[k] + j;
+        const int64_t r = hot[k] ? (int64_t)b * a.HC + pos
+                                 : (int64_t)a.page_table[(int64_t)b * a.pps + pos / a.ps] * a.ps +
+                                       pos % a.ps;
+        return r * gd;
+      } else {
+        return j * gd;
+      }
+    };
 #pragma unroll
     for (int i = 0; i < KPW; ++i) {
       const int k = i / kSpan, j = gw + CW * (i % kSpan);
-      const T* row = kt[k] + j * gd;
+      const T* row = kt[k] + at(k, j);
 #pragma unroll
       for (int t = 0; t < TL; ++t) {
         const int idx = lane + 32 * t;
@@ -346,7 +375,9 @@ __global__ void __launch_bounds__(kThreads, 1) gqa_decode_kernel(DecodeArgs<T> a
     for (int k = 0; k < kChunk; ++k)
 #pragma unroll
       for (int u = 0; u < KPT; ++u)
-        v[k][u] = part + SPLIT * u < n[k] ? to_f32(vt[k][SPLIT * u * gd]) : 0.f;
+        v[k][u] = part + SPLIT * u < n[k]
+                      ? to_f32(vt[k][PAGED ? at(k, part + SPLIT * u) : SPLIT * u * gd])
+                      : 0.f;
   };
   fetch(0);  // the first chunk's rows load while the queries rotate
 
@@ -518,6 +549,16 @@ __global__ void __launch_bounds__(kThreads, 1) gqa_decode_kernel(DecodeArgs<T> a
 }
 
 template <typename T, int D, bool FUSED>
+__global__ void __launch_bounds__(kThreads, 1) gqa_decode_kernel(DecodeArgs<T> a) {
+  decode_body<T, D, FUSED, false>(a);
+}
+
+template <typename T, int D, bool FUSED>
+__global__ void __launch_bounds__(kThreads, 1) gqa_decode_paged_kernel(DecodeArgs<T> a) {
+  decode_body<T, D, FUSED, true>(a);
+}
+
+template <typename T, int D, bool FUSED, bool PAGED>
 cudaError_t launch_d(const DecodeArgs<T>& a, int B, cudaStream_t stream) {
   constexpr int S = D / slice_dims(D);
   cudaLaunchConfig_t cfg = {};
@@ -532,18 +573,23 @@ cudaError_t launch_d(const DecodeArgs<T>& a, int B, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, gqa_decode_kernel<T, D, FUSED>, a);
+  cudaError_t err;
+  if constexpr (PAGED) {
+    err = cudaLaunchKernelEx(&cfg, gqa_decode_paged_kernel<T, D, FUSED>, a);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, gqa_decode_kernel<T, D, FUSED>, a);
+  }
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T, bool FUSED>
+template <typename T, bool FUSED, bool PAGED = false>
 cudaError_t launch(const DecodeArgs<T>& a, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_d<T, 16, FUSED>(a, B, stream);
-    case 32: return launch_d<T, 32, FUSED>(a, B, stream);
-    case 64: return launch_d<T, 64, FUSED>(a, B, stream);
-    case 128: return launch_d<T, 128, FUSED>(a, B, stream);
-    case 256: return launch_d<T, 256, FUSED>(a, B, stream);
+    case 16: return launch_d<T, 16, FUSED, PAGED>(a, B, stream);
+    case 32: return launch_d<T, 32, FUSED, PAGED>(a, B, stream);
+    case 64: return launch_d<T, 64, FUSED, PAGED>(a, B, stream);
+    case 128: return launch_d<T, 128, FUSED, PAGED>(a, B, stream);
+    case 256: return launch_d<T, 256, FUSED, PAGED>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -596,4 +642,52 @@ extern "C" int flash_decode_gqa(int is_bf16, const void* q, const void* hot_k,
                   (const T*)cold_v, nullptr, nullptr, (const int*)lengths, nullptr, nullptr,
                   nullptr, (T*)out, nullptr, G, rep, HC, CC, scale};
   return launch<T, false>(a, B, D, s);
+}
+
+// Paged forms: the cold tier is the pool (n_pages, ps, G, D) read through
+// page_table (B, pps); otherwise as flash_decode_gqa_fused and
+// flash_decode_gqa. Each returns cudaGetLastError() after the launch.
+extern "C" int flash_decode_gqa_fused_paged(
+    int is_bf16, const void* q, const void* hot_k, const void* hot_v, const void* pool_k,
+    const void* pool_v, const void* k_new, const void* v_new, const void* lengths,
+    const void* active, const void* cos, const void* sin, void* out, void* k_rot,
+    const void* page_table, int B, int G, int rep, int D, int HC, int ps, int pps, float scale,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    DecodeArgs<T> a{(const T*)q, (const T*)hot_k, (const T*)hot_v, (const T*)pool_k,
+                    (const T*)pool_v, (const T*)k_new, (const T*)v_new, (const int*)lengths,
+                    (const int*)active, (const float*)cos, (const float*)sin, (T*)out,
+                    (T*)k_rot, G, rep, HC, ps * pps, scale, (const int*)page_table, ps, pps};
+    return launch<T, true, true>(a, B, D, s);
+  }
+  using T = float;
+  DecodeArgs<T> a{(const T*)q, (const T*)hot_k, (const T*)hot_v, (const T*)pool_k,
+                  (const T*)pool_v, (const T*)k_new, (const T*)v_new, (const int*)lengths,
+                  (const int*)active, (const float*)cos, (const float*)sin, (T*)out,
+                  (T*)k_rot, G, rep, HC, ps * pps, scale, (const int*)page_table, ps, pps};
+  return launch<T, true, true>(a, B, D, s);
+}
+
+extern "C" int flash_decode_gqa_paged(int is_bf16, const void* q, const void* hot_k,
+                                      const void* hot_v, const void* pool_k, const void* pool_v,
+                                      const void* lengths, void* out, const void* page_table,
+                                      int B, int G, int rep, int D, int HC, int ps, int pps,
+                                      float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    DecodeArgs<T> a{(const T*)q, (const T*)hot_k, (const T*)hot_v, (const T*)pool_k,
+                    (const T*)pool_v, nullptr, nullptr, (const int*)lengths, nullptr, nullptr,
+                    nullptr, (T*)out, nullptr, G, rep, HC, ps * pps, scale,
+                    (const int*)page_table, ps, pps};
+    return launch<T, false, true>(a, B, D, s);
+  }
+  using T = float;
+  DecodeArgs<T> a{(const T*)q, (const T*)hot_k, (const T*)hot_v, (const T*)pool_k,
+                  (const T*)pool_v, nullptr, nullptr, (const int*)lengths, nullptr, nullptr,
+                  nullptr, (T*)out, nullptr, G, rep, HC, ps * pps, scale, (const int*)page_table,
+                  ps, pps};
+  return launch<T, false, true>(a, B, D, s);
 }

@@ -14,13 +14,25 @@
 //    reference call flash_prefill_attention(cache, valid, emit_kv=True),
 //    the chunked-prefill admission of serving/engine.py): chunk row t of
 //    slot b sits at position lengths[b] + t (lengths read on the device),
-//    and every row first folds the slot's hot tier's, then its cold tier's
-//    32-key tiles (rows already rotated, never rotated again), then the
-//    chunk's own keys as the fresh form does; emits as the fresh form.
-//    Tiles holding no cached or valid key of the slot are skipped, as the
-//    reference's pl.when does, so with hot_cap 32 and chunks of a multiple
-//    of 32 every tile lines up with the fresh form's, and a prompt streamed
-//    in f32 chunks gives the fresh form's output bit for bit.
+//    and every row folds the 32-key tiles of the slot's key sequence
+//    [cached prefix ‖ chunk] at ABSOLUTE positions: tile i holds positions
+//    32 i .. 32 i + 31, each a tier row (hot below hot_cap, else cold;
+//    already rotated, never rotated again) below the offset, else a chunk
+//    row (rotated in the prologue's way), so a tile may hold both. Tiles
+//    holding no key of the slot are skipped, as the reference's pl.when
+//    does. The tiles are then the fresh form's whatever the offsets, so a
+//    prompt streamed in f32 chunks of any size, or resumed mid-tile from a
+//    shared prefix, gives the fresh form's output bit for bit (the
+//    reference folds the tiers' tiles and the chunk's separately, which is
+//    the same fold only when the offset is a multiple of the block).
+//  * GQA chunked form over a paged cold tier (entry point
+//    flash_prefill_chunk_paged, gqa_chunk_paged_kernel; the reference's
+//    chunked call with a PagedKVCache): the cold tier is a pool of pages
+//    shared by the slots, and cold row r of slot b is pool row
+//    page_table[b, r / ps] * ps + r % ps, resolved per row as a tier tile
+//    is staged, so a tile may span pages when ps is not a multiple of 32.
+//    The tiles, their order and every sum are the chunked form's, so over
+//    the same content the two agree bit for bit.
 //  * MLA form (entry point flash_prefill_mla, mla_prefill_kernel; reference
 //    call flash_prefill_attention(rope_dims=qk_rope_head_dim, emit_kv=False)
 //    in models/attention.py::mla_prefill): g = h (rep 1), keys of
@@ -88,10 +100,11 @@
 //  * GQA only: each block emits the rotated k and the v of the tokens whose
 //    first grouped head is among its rows, copied from the staged tile;
 //    rows past the valid count are zeroed.
-//  * Chunked form only: a tier tile is staged by cp.async like a chunk
-//    tile, one at a time (the first while q rotates): f32 rows land in the
-//    staged-key rows as they are, bf16 rows are widened; values past the
-//    slot's cached count are zeroed. Offsets are per slot, so the RoPE
+//  * Chunked form only: a tile is staged by cp.async, one at a time (the
+//    first while q rotates), each row from its tier or from the chunk: f32
+//    tier rows land in the staged-key rows as they are, bf16 ones are
+//    widened, chunk rows are rotated; values of keys that do not exist are
+//    zeroed. Offsets are per slot, so the RoPE
 //    tables are per slot too, (B, S, D / 2), built by the wrapper with the
 //    plain version's expression at lengths[b] + t. A block of a slot with
 //    valid = 0 (an idle or decoding slot riding along a chunk wave) folds
@@ -305,7 +318,9 @@ struct TierArgs {
   const T* cold_k = nullptr;
   const T* cold_v = nullptr;
   const int* lengths = nullptr;  // (B,): the slot's offset
-  int hot_cap = 0, cold_cap = 0;
+  int hot_cap = 0, cold_cap = 0;    // paged: cold_cap = pps * ps
+  const int* page_table = nullptr;  // (B, pps): paged form only; cold_k / v are the pool
+  int ps = 0, pps = 0;
 };
 
 // Dynamic shared memory of one block: q rows, staged keys (f32, padded),
@@ -323,7 +338,9 @@ constexpr size_t smem_bytes() {
 // slot's offset tr.lengths[b] + t (cos / sin are per-slot tables (B, S,
 // RD / 2)), and the slot's hot tier's, then its cold tier's 32-key tiles
 // are folded before the chunk's own, for every row and without rotation.
-template <typename T, int D, int DV, int RD, bool EMIT, bool CHUNK>
+// PAGED (chunked form only): the cold tier's rows come through the page
+// table.
+template <typename T, int D, int DV, int RD, bool EMIT, bool CHUNK, bool PAGED = false>
 __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const TierArgs<T>& tr,
                                              int n_qb, float* smem) {
   constexpr int KS = D + kKeyPad;  // staged key row stride (words)
@@ -345,6 +362,7 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const Tier
   static_assert((kRows < RG || RPT * RG == kRows) && U * DVT == DV, "value width unsupported");
   static_assert(!EMIT || D == DV, "the emitting form has DV = D");
   static_assert(!CHUNK || (EMIT && RD == D), "the chunked form is the GQA form");
+  static_assert(CHUNK || !PAGED, "only the chunked form reads a paged tier");
   float* q_s = smem;                           // [kRows][D], rotated
   float* k_s = q_s + kRows * D;                // [kTile][KS], rotated
   T* v_s = reinterpret_cast<T*>(k_s + kTile * KS);  // [kTile][DV], as loaded
@@ -371,18 +389,14 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const Tier
   const int64_t tab0 = CHUNK ? (int64_t)b * S : 0;
   auto cos_of = [&](int tok) { return a.cos + (tab0 + tok) * HALF; };
   auto sin_of = [&](int tok) { return a.sin + (tab0 + tok) * HALF; };
-  // the slot's cached tokens in each tier, and its tier tiles (hot, then cold)
-  int n_hot = 0, n_cold = 0, n_ht = 0, n_tt = 0;
-  if constexpr (CHUNK) {
-    const int offset = tr.lengths[b];
-    n_hot = min(offset, tr.hot_cap);
-    n_cold = min(max(offset - tr.hot_cap, 0), tr.cold_cap);
-    n_ht = (n_hot + kTile - 1) / kTile;
-    n_tt = n_ht + (n_cold + kTile - 1) / kTile;
-  }
+  // CHUNK: the slot's cached tokens, which sit before the chunk's rows
+  const int offset = CHUNK ? tr.lengths[b] : 0;
 
   const int q_hi = (min(row0 + kRows, S * rep) - 1) / rep;  // last token of the block
   const int kv_end = min(q_hi + 1, nv);
+  // CHUNK: the block folds the absolute tiles of [tiers ‖ chunk] that hold
+  // a key up to its last row's diagonal (the tiers' keys precede every row)
+  const int n_abs = CHUNK ? (offset + kv_end + kTile - 1) / kTile : 0;
   // the raw keys (up to the diagonal) and values (of the keys that exist)
   // of the tile starting at `start`, every copy in flight at once
   auto copy_tile = [&](int start) {
@@ -399,24 +413,34 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const Tier
       }
     }
   };
-  // tier tile i (hot, then cold): its keys (already rotated) and values,
-  // and the number of its rows that hold cached tokens
-  auto tier_tile = [&](int i, bool copy) {
-    const bool hot = i < n_ht;
-    const int start = (hot ? i : i - n_ht) * kTile, cap = hot ? tr.hot_cap : tr.cold_cap;
-    const int n = min(kTile, (hot ? n_hot : n_cold) - start);
-    const T* kb = hot ? tr.hot_k : tr.cold_k;
-    const T* vb = hot ? tr.hot_v : tr.cold_v;
-    for (int e = tid; copy && e < n * KC; e += kThreads) {
-      const int j = e / KC, c = CH * (e % KC);
-      const int64_t row = ((int64_t)b * cap + start + j) * G + g;
-      cp_async16(kr_s + j * KRS + c, kb + row * D + c);
-      cp_async16(v_s + j * DV + c, vb + row * DV + c);
+  // CHUNK: absolute tile ti, positions 32 ti + j of the slot's [tiers ‖
+  // chunk]: a position below the offset is a tier row (hot below hot_cap,
+  // else cold, through the page table when PAGED), already rotated; one
+  // at or past it is chunk row pos - offset, raw (its key only up to the
+  // block's diagonal, its value if it exists)
+  auto copy_abs = [&](int ti) {
+    const int start = ti * kTile;
+    for (int e = tid; e < kTile * KC; e += kThreads) {
+      const int j = e / KC, c = CH * (e % KC), pos = start + j;
+      if (pos < offset) {
+        const bool hot = pos < tr.hot_cap;
+        const int tp = hot ? pos : pos - tr.hot_cap;
+        int64_t slot_row = (int64_t)b * (hot ? tr.hot_cap : tr.cold_cap) + tp;
+        if constexpr (PAGED) {
+          if (!hot) slot_row = (int64_t)tr.page_table[(int64_t)b * tr.pps + tp / tr.ps] * tr.ps + tp % tr.ps;
+        }
+        const int64_t row = slot_row * G + g;
+        cp_async16(kr_s + j * KRS + c, (hot ? tr.hot_k : tr.cold_k) + row * D + c);
+        cp_async16(v_s + j * DV + c, (hot ? tr.hot_v : tr.cold_v) + row * DV + c);
+      } else {
+        const int ci = pos - offset;
+        if (ci < kv_end) cp_async16(kr_s + j * KRS + c, a.k + kv_row(ci) * D + c);
+        if (ci < nv) cp_async16(v_s + j * DV + c, a.v + kv_row(ci) * DV + c);
+      }
     }
-    return n;
   };
-  if (CHUNK && n_tt > 0) {
-    tier_tile(0, true);  // lands while the prologue runs
+  if constexpr (CHUNK) {
+    if (n_abs > 0) copy_abs(0);  // lands while the prologue runs
   } else if (kv_end > 0) {
     copy_tile(0);
   }
@@ -519,32 +543,53 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const Tier
     __syncthreads();
   };
 
-  // ---- CHUNK: the slot's tier tiles, keys as stored, every row sees them ----
-  for (int i = 0; CHUNK && i < n_tt; ++i) {
-    const int n = tier_tile(i, i > 0);
+  // ---- CHUNK: the absolute tiles of [tiers ‖ chunk] ----
+  for (int ti = 0; CHUNK && ti < n_abs; ++ti) {
+    const int start = ti * kTile, c0 = start - offset;  // c0: the tile's first chunk row
+    if (ti > 0) copy_abs(ti);
     cp_async_wait_all();
     __syncthreads();
-    if constexpr (!kF32) {  // widen the bf16 keys (f32 rows landed in k_s)
-      for (int e = tid; e < kTile * (D / 4); e += kThreads) {
-        const int j = e / (D / 4), c = 4 * (e % (D / 4));
-        F4 y = {};
-        if (j < n) y = load4(kr_s + j * KRS + c);
-        store4(k_s + j * KS + c, y);
+    // stage the keys in k_s: a chunk row rotated at its own table, a tier
+    // row as stored (a bf16 one widened; f32 rows landed in k_s), the rest
+    // zeroed; zero the values of the keys that do not exist
+#pragma unroll 4
+    for (int e = tid; e < kTile * (HALF / 4); e += kThreads) {
+      const int j = e / (HALF / 4), i = 4 * (e % (HALF / 4)), ci = c0 + j;
+      F4 lo = {}, hi = {};
+      if (ci < 0) {
+        if constexpr (kF32) continue;
+        lo = load4(kr_s + j * KRS + i);
+        hi = load4(kr_s + j * KRS + HALF + i);
+      } else if (ci < kv_end) {
+        rope_quad<0, HALF>(kr_s + j * KRS, i, cos_of(ci), sin_of(ci), lo, hi);
+      }
+      store4(k_s + j * KS + i, lo);
+      store4(k_s + j * KS + HALF + i, hi);
+    }
+    for (int e = tid; e < kTile * VQ; e += kThreads) {
+      const int j = e / VQ;
+      if (c0 + j >= nv) {
+        const F4 zero = {};
+        store4(v_s + j * DV + 4 * (e % VQ), zero);
       }
     }
-    for (int e = tid; e < (kTile - n) * VQ; e += kThreads) {
-      const F4 zero = {};
-      store4(v_s + (n + e / VQ) * DV + 4 * (e % VQ), zero);
-    }
     __syncthreads();
-    fold_staged([&](int key, int) { return key < n; });
+    {  // the block's valid tokens in this tile: rotated k, v as loaded
+      const int e0 = max(t0, c0), e1 = min(min(t1, nv), c0 + kTile);
+      for (int e = tid; e < (e1 - e0) * VQ; e += kThreads) {
+        const int tok = e0 + e / VQ, j = tok - c0, i = 4 * (e % VQ);
+        store4(a.k_cast + kv_row(tok) * D + i, load4(k_s + j * KS + i));
+        store4(a.v_cast + kv_row(tok) * DV + i, load4(v_s + j * DV + i));
+      }
+    }
+    fold_staged([&](int key, int tok) { return c0 + key < nv && c0 + key <= tok; });
   }
 
   // ---- stream key tiles up to the block's diagonal and the valid count ----
-  for (int start = 0; start < kv_end; start += kTile) {
+  for (int start = 0; !CHUNK && start < kv_end; start += kTile) {
     const int n_load = min(kTile, nv - start);  // keys of the tile that exist
     const int n_k = min(kTile, kv_end - start);  // keys staged
-    if (start > 0 || (CHUNK && n_tt > 0)) copy_tile(start);
+    if (start > 0) copy_tile(start);
     cp_async_wait_all();
     __syncthreads();
     // stage the keys in k_s: rotate the span (in place for f32), widen the
@@ -608,6 +653,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   prefill_body<T, D, D, D, true, true>(a, tr, n_qb, smem);
 }
 
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    gqa_chunk_paged_kernel(PrefillArgs<T> a, TierArgs<T> tr, int n_qb) {
+  extern __shared__ __align__(16) float smem[];
+  prefill_body<T, D, D, D, true, true, true>(a, tr, n_qb, smem);
+}
+
 template <typename T, int D, int DV, int RD>
 __global__ void __launch_bounds__(kThreads, kMlaMinBlocks) mla_prefill_kernel(PrefillArgs<T> a, int n_qb) {
   extern __shared__ __align__(16) float smem[];
@@ -650,16 +702,27 @@ cudaError_t launch_gqa(const PrefillArgs<T>& a, int B, int D, cudaStream_t strea
   }
 }
 
-// The chunked GQA form on gqa_chunk_kernel.
-template <typename T>
+// The chunked GQA form on gqa_chunk_kernel, or on gqa_chunk_paged_kernel
+// over a paged cold tier.
+template <typename T, int D, bool PAGED>
+cudaError_t launch_chunk_d(const PrefillArgs<T>& a, const TierArgs<T>& tr, int B,
+                           cudaStream_t stream) {
+  if constexpr (PAGED) {
+    return launch_blocks<T, D, D, gqa_chunk_paged_kernel<T, D>>(a, B, stream, tr);
+  } else {
+    return launch_blocks<T, D, D, gqa_chunk_kernel<T, D>>(a, B, stream, tr);
+  }
+}
+
+template <typename T, bool PAGED = false>
 cudaError_t launch_chunk(const PrefillArgs<T>& a, const TierArgs<T>& tr, int B, int D,
                          cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_blocks<T, 16, 16, gqa_chunk_kernel<T, 16>>(a, B, stream, tr);
-    case 32: return launch_blocks<T, 32, 32, gqa_chunk_kernel<T, 32>>(a, B, stream, tr);
-    case 64: return launch_blocks<T, 64, 64, gqa_chunk_kernel<T, 64>>(a, B, stream, tr);
-    case 128: return launch_blocks<T, 128, 128, gqa_chunk_kernel<T, 128>>(a, B, stream, tr);
-    case 256: return launch_blocks<T, 256, 256, gqa_chunk_kernel<T, 256>>(a, B, stream, tr);
+    case 16: return launch_chunk_d<T, 16, PAGED>(a, tr, B, stream);
+    case 32: return launch_chunk_d<T, 32, PAGED>(a, tr, B, stream);
+    case 64: return launch_chunk_d<T, 64, PAGED>(a, tr, B, stream);
+    case 128: return launch_chunk_d<T, 128, PAGED>(a, tr, B, stream);
+    case 256: return launch_chunk_d<T, 256, PAGED>(a, tr, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -725,6 +788,36 @@ extern "C" int flash_prefill_chunk(int is_bf16, const void* q, const void* k, co
   const TierArgs<float> tr{(const float*)hot_k, (const float*)hot_v, (const float*)cold_k,
                            (const float*)cold_v, (const int*)lengths, hot_cap, cold_cap};
   return launch_chunk(a, tr, B, D, st);
+}
+
+// Chunked GQA form over a paged cold tier: as flash_prefill_chunk, with
+// the pool (n_pages, ps, G, D) in place of the cold tier and page_table
+// (B, pps) mapping each slot's cold pages to pool pages.
+extern "C" int flash_prefill_chunk_paged(int is_bf16, const void* q, const void* k,
+                                         const void* v, const void* valid, const void* cos,
+                                         const void* sin, void* out, void* k_cast, void* v_cast,
+                                         const void* hot_k, const void* hot_v, const void* pool_k,
+                                         const void* pool_v, const void* lengths,
+                                         const void* page_table, int B, int S, int G, int rep,
+                                         int D, int hot_cap, int ps, int pps, float scale,
+                                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    const PrefillArgs<T> a{(const T*)q, (const T*)k, (const T*)v, (const int*)valid,
+                           (const float*)cos, (const float*)sin, (T*)out, (T*)k_cast,
+                           (T*)v_cast, S, G, rep, scale};
+    const TierArgs<T> tr{(const T*)hot_k, (const T*)hot_v, (const T*)pool_k, (const T*)pool_v,
+                         (const int*)lengths, hot_cap, ps * pps, (const int*)page_table, ps, pps};
+    return launch_chunk<T, true>(a, tr, B, D, st);
+  }
+  const PrefillArgs<float> a{(const float*)q, (const float*)k, (const float*)v, (const int*)valid,
+                             (const float*)cos, (const float*)sin, (float*)out, (float*)k_cast,
+                             (float*)v_cast, S, G, rep, scale};
+  const TierArgs<float> tr{(const float*)hot_k, (const float*)hot_v, (const float*)pool_k,
+                           (const float*)pool_v, (const int*)lengths, hot_cap, ps * pps,
+                           (const int*)page_table, ps, pps};
+  return launch_chunk<float, true>(a, tr, B, D, st);
 }
 
 // MLA form: q, k (B, S, H, D), v (B, S, H, DV), g = h; the trailing

@@ -28,7 +28,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("ternary_matmul", "flash_decode", "flash_prefill", "flash_latent")
+KERNEL_SOURCES = ("ternary_matmul", "flash_decode", "flash_prefill", "flash_latent", "lora",
+                  "rms_norm")
 
 
 def nvcc_path() -> str:

@@ -26,8 +26,17 @@ give the values (their first ``value_dim`` dims); CUDA kernel
 ``csrc/flash_latent.cu``, plain version ``flash_decode_latent_plain`` in
 the same reproducible arithmetic.
 
-The reference's ring, paged and fp8 forms are not ported: their caches do
-not exist here, and fp8 tiers raise.
+Both GQA forms also take a ``PagedKVCache`` (the reference's paged forms):
+cold row r of slot b is pool row ``page_table[b, r // ps] * ps + r % ps``,
+and the kernel (``gqa_decode_paged_kernel``, entry points
+``flash_decode_gqa_fused_paged`` / ``flash_decode_gqa_paged``, counters
+``PAGED_KERNEL`` / ``GQA_PAGED_KERNEL``) resolves that address per row. The
+tiles and every sum stay those of the contiguous form (``tier_rows`` reads
+a paged tier's rows through the table for the plain versions), so paging
+is invisible in the result.
+
+The reference's ring and fp8 forms are not ported: the ring cache does not
+exist here, and fp8 tiers raise.
 """
 
 from __future__ import annotations
@@ -51,6 +60,16 @@ GQA_KERNEL = CudaKernel(
     "flash_decode", "flash_decode_gqa",
     [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+)
+PAGED_KERNEL = CudaKernel(
+    "flash_decode", "flash_decode_gqa_fused_paged",
+    [ctypes.c_int] + [ctypes.c_void_p] * 14
+    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+)
+GQA_PAGED_KERNEL = CudaKernel(
+    "flash_decode", "flash_decode_gqa_paged",
+    [ctypes.c_int] + [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 )
 MAX_REP = 8
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
@@ -95,6 +114,22 @@ def tile_of(t: torch.Tensor, start: int, dim: int = 1) -> torch.Tensor:
     return torch.cat([part, part.new_zeros(pad)], dim=dim)
 
 
+def tier_rows(cache, hot: bool, rel: torch.Tensor):
+    """Rows ``rel`` of every slot's hot or cold tier, as k and v (b, n,
+    ...): ``rel`` (n,) or (b, n) in-tier positions; a paged cold tier's rows
+    are read through the page table one by one."""
+    b = cache.lengths.shape[0]
+    rel = rel.long()
+    rel = rel[None].expand(b, -1) if rel.ndim == 1 else rel
+    if hot or not isinstance(cache, kvc.PagedKVCache):
+        kt, vt = (cache.hot_k, cache.hot_v) if hot else (cache.cold_k, cache.cold_v)
+        slots = torch.arange(b, device=rel.device)[:, None]
+        return kt[slots, rel], vt[slots, rel]
+    rows = kvc.paged_cold_rows(cache, rel)  # (b, n)
+    pk, pv = kvc.pool_flat(cache)
+    return pk[rows], pv[rows]
+
+
 def fold_tile(state, logits, valid, v):
     """One key tile of the online softmax in the kernels' arithmetic.
 
@@ -118,14 +153,16 @@ def fold_tiers(qg: torch.Tensor, cache: kvc.TieredKVCache, scale: float):
     lengths = cache.lengths.long()
     state = (qg.new_full((b, g, rep), NEG_INF), qg.new_zeros((b, g, rep)),
              qg.new_zeros((b, g, rep, d)))
-    tiers = ((cache.hot_k, cache.hot_v, lengths.clamp(max=cache.hot_cap)),
-             (cache.cold_k, cache.cold_v, (lengths - cache.hot_cap).clamp(0, cache.cold_cap)))
+    tiers = ((True, cache.hot_cap, lengths.clamp(max=cache.hot_cap)),
+             (False, cache.cold_cap, (lengths - cache.hot_cap).clamp(0, cache.cold_cap)))
     keys = torch.arange(TILE, device=qg.device)
-    for kt, vt, n_valid in tiers:
-        for start in range(0, kt.shape[1], TILE):
+    for hot, cap, n_valid in tiers:
+        for start in range(0, cap, TILE):
             valid = (start + keys)[None] < n_valid[:, None]  # (b, TILE)
-            k_t = tile_of(kt, start).float().permute(0, 2, 1, 3)[:, :, None]  # (b, g, 1, T, d)
-            v_t = torch.where(valid[:, :, None, None], tile_of(vt, start).float(), 0.0)
+            # rows past the tier repeat its last one: masked, as every invalid key
+            kt, vt = tier_rows(cache, hot, (start + keys).clamp(max=cap - 1))
+            k_t = kt.float().permute(0, 2, 1, 3)[:, :, None]  # (b, g, 1, T, d)
+            v_t = torch.where(valid[:, :, None, None], vt.float(), 0.0)
             logits = tree_sum(qg * k_t, -1) * scale  # (b, g, rep, T)
             state = fold_tile(state, logits, valid[:, None, None, :],
                               v_t.permute(0, 2, 1, 3)[:, :, None])
@@ -167,11 +204,14 @@ def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
 
 
 def _check_gqa(q, cache, extra=()):
-    """Operands the GQA kernel takes; raises on anything else."""
+    """Operands the GQA kernel takes; raises on anything else. A paged
+    cache passes its pools where the cold tiers go."""
     b, h, d = q.shape
     g = cache.hot_k.shape[2]
     rep = h // g
-    tensors = (q, cache.hot_k, cache.hot_v, cache.cold_k, cache.cold_v) + tuple(extra)
+    paged = isinstance(cache, kvc.PagedKVCache)
+    cold_k, cold_v = (cache.pool_k, cache.pool_v) if paged else (cache.cold_k, cache.cold_v)
+    tensors = (q, cache.hot_k, cache.hot_v, cold_k, cold_v) + tuple(extra)
     if not all(t.is_cuda for t in tensors + (cache.lengths,)):
         raise ValueError("flash_decode_attention: all operands must be CUDA tensors")
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
@@ -181,14 +221,24 @@ def _check_gqa(q, cache, extra=()):
     if rep * g != h or rep > MAX_REP or d not in HEAD_DIMS:
         raise ValueError(f"flash_decode_attention: h={h}, g={g}, d={d} unsupported "
                          f"(rep <= {MAX_REP}, d in {HEAD_DIMS})")
-    for name, t, cap in (("hot", cache.hot_k, cache.hot_cap),
-                         ("cold", cache.cold_k, cache.cold_cap)):
-        if t.shape != (b, cap, g, d):
-            raise ValueError(f"flash_decode_attention: {name} tier {tuple(t.shape)} "
-                             f"!= {(b, cap, g, d)}")
-    if cache.hot_v.shape != cache.hot_k.shape or cache.cold_v.shape != cache.cold_k.shape:
+    cold_shape = (cache.n_pages, cache.page_size, g, d) if paged else (b, cache.cold_cap, g, d)
+    for name, t, shape in (("hot", cache.hot_k, (b, cache.hot_cap, g, d)),
+                           ("cold", cold_k, cold_shape)):
+        if t.shape != shape:
+            raise ValueError(f"flash_decode_attention: {name} tier {tuple(t.shape)} != {shape}")
+    if cache.hot_v.shape != cache.hot_k.shape or cold_v.shape != cold_k.shape:
         raise ValueError("flash_decode_attention: v shapes must match k shapes")
+    if paged and (cache.page_table.shape != (b, cache.pages_per_slot)
+                  or not cache.page_table.is_cuda):
+        raise ValueError(f"flash_decode_attention: page table {tuple(cache.page_table.shape)} "
+                         f"!= {(b, cache.pages_per_slot)} on the card")
     return tuple(t.contiguous() for t in tensors), cache.lengths.to(torch.int32).contiguous()
+
+
+def _paged_args(cache):
+    """The paged forms' trailing operands: (page table, ps, pps)."""
+    table = cache.page_table.to(torch.int32).contiguous()
+    return table, cache.page_size, cache.pages_per_slot
 
 
 def _launch(q, cache, k_new, v_new, active, scale, theta):
@@ -205,8 +255,17 @@ def _launch(q, cache, k_new, v_new, active, scale, theta):
     k_rot = torch.empty((b, g, d), dtype=k_new.dtype, device=q.device)
     if b == 0:
         return out, k_rot
+    bf16 = int(q.dtype == torch.bfloat16)
+    if isinstance(cache, kvc.PagedKVCache):
+        table, ps, pps = _paged_args(cache)
+        PAGED_KERNEL.launch(
+            bf16, *(ptr(t) for t in tensors), ptr(lengths), ptr(act), ptr(cos), ptr(sin),
+            ptr(out), ptr(k_rot), ptr(table), b, g, h // g, d, cache.hot_cap, ps, pps,
+            float(scale), stream_of(q),
+        )
+        return out, k_rot
     KERNEL.launch(
-        int(q.dtype == torch.bfloat16), *(ptr(t) for t in tensors), ptr(lengths),
+        bf16, *(ptr(t) for t in tensors), ptr(lengths),
         ptr(act), ptr(cos), ptr(sin), ptr(out), ptr(k_rot),
         b, g, h // g, d, cache.hot_cap, cache.cold_cap, float(scale), stream_of(q),
     )
@@ -218,18 +277,27 @@ def _launch_gqa(q, cache, scale):
     g = cache.hot_k.shape[2]
     tensors, lengths = _check_gqa(q, cache)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    if out.numel():
-        GQA_KERNEL.launch(
-            int(q.dtype == torch.bfloat16), *(ptr(t) for t in tensors), ptr(lengths),
-            ptr(out), b, g, h // g, d, cache.hot_cap, cache.cold_cap, float(scale),
-            stream_of(q),
+    if not out.numel():
+        return out
+    bf16 = int(q.dtype == torch.bfloat16)
+    if isinstance(cache, kvc.PagedKVCache):
+        table, ps, pps = _paged_args(cache)
+        GQA_PAGED_KERNEL.launch(
+            bf16, *(ptr(t) for t in tensors), ptr(lengths), ptr(out), ptr(table), b, g, h // g,
+            d, cache.hot_cap, ps, pps, float(scale), stream_of(q),
         )
+        return out
+    GQA_KERNEL.launch(
+        bf16, *(ptr(t) for t in tensors), ptr(lengths),
+        ptr(out), b, g, h // g, d, cache.hot_cap, cache.cold_cap, float(scale),
+        stream_of(q),
+    )
     return out
 
 
 def flash_decode_attention(
     q: torch.Tensor,  # (b, h, d) — UNROTATED with k_new, rotated without
-    cache: kvc.TieredKVCache,  # PRE-append state with k_new, POST-append without
+    cache,  # TieredKVCache or PagedKVCache: PRE-append with k_new, POST-append without
     scale: Optional[float] = None,
     *,
     k_new: Optional[torch.Tensor] = None,  # (b, g, d) — UNROTATED pending token

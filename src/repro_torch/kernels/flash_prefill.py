@@ -10,19 +10,29 @@ their v in the input dtype, with rows at or past ``valid[b]`` zeroed.
   at positions 0..s-1; ``kv_cache.fill_fresh`` places the emitted rows.
 - Chunked form (``cache`` given, entry point ``flash_prefill_chunk``): a
   chunk of s rows per slot continues the slot's cached prefix. Row t
-  rotates at ``cache.lengths[b] + t`` and attends over the slot's hot tier,
-  then its cold tier (rows already rotated, in the tier dtype), then the
-  chunk's own causal keys among its first ``valid[b]``;
-  ``kv_cache.append(valid=)`` places the emitted rows. Slots with ``valid
-  = 0`` ride along: they attend over their tiers and emit zeros.
+  rotates at ``cache.lengths[b] + t`` and attends over the slot's key
+  sequence [cached prefix ‖ chunk]: the tier rows (already rotated, in the
+  tier dtype), then the chunk's own causal keys among its first
+  ``valid[b]``; ``kv_cache.append(valid=)`` places the emitted rows. Slots
+  with ``valid = 0`` ride along: they attend over their tiers and emit
+  zeros.
+- Paged chunked form (``cache`` a ``PagedKVCache``, entry point
+  ``flash_prefill_chunk_paged``, kernel ``gqa_chunk_paged_kernel``, counter
+  ``CHUNK_PAGED_KERNEL``): the same, with cold row r of slot b at pool row
+  ``page_table[b, r // ps] * ps + r % ps``, resolved per row; the tiles
+  and sums are the chunked form's, so paging is invisible in the result.
 
 The CUDA kernels are in ``csrc/flash_prefill.cu``; ``flash_prefill_plain``
 is the plain PyTorch version of every form. It repeats the kernels'
-arithmetic (32-key tiles in the order hot, cold, chunk, tiles with no live
-key of the slot skipped, halving-tree sums, separately rounded products),
-so the two agree bit for bit. With ``hot_cap`` 32 and chunks of a multiple
-of 32 every tile lines up with the fresh form's, and a prompt streamed in
-f32 chunks gives the fresh form's output bit for bit.
+arithmetic (32-key tiles, tiles with no key of the slot skipped,
+halving-tree sums, separately rounded products), so the two agree bit for
+bit. The chunked forms tile the key sequence at absolute positions (tile i
+holds positions 32 i .. 32 i + 31, from the tiers below the offset and
+from the chunk above it), so every tile is the fresh form's: a prompt
+streamed in f32 chunks of any size, or resumed mid-tile after a shared
+prefix, gives the fresh form's output bit for bit. (The reference folds
+the tiers' tiles and the chunk's apart; that is the same fold when the
+offsets are multiples of 32, and within TOL otherwise.)
 
 The MLA form (``rope_dims`` < the key width, ``emit_kv=False``; the
 reference's call in ``models/attention.py::mla_prefill``) has its own
@@ -32,8 +42,8 @@ trailing ``rope_dims`` rotate, values of another width dv, and only ``o``
 (b, s, h, dv) returned. It is fresh only, as in the reference, which
 never chunks MLA.
 
-Not ported, and raising here: SWA windows and the ring cold tier, the
-paged cold tier, an emit dtype other than the input's (fp8 tiers).
+Not ported, and raising here: SWA windows and the ring cold tier, an
+emit dtype other than the input's (fp8 tiers).
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ import torch
 
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core.kv_cache import NEG_INF
-from repro_torch.kernels.flash_decode import TILE, fold_tile, tile_of, tree_sum
+from repro_torch.kernels.flash_decode import TILE, fold_tile, tier_rows, tile_of, tree_sum
 from repro_torch.kernels.build import CudaKernel, ptr, stream_of
 from repro_torch.models.layers import apply_rope, rope_cos_sin
 
@@ -57,6 +67,11 @@ KERNEL = CudaKernel(
 CHUNK_KERNEL = CudaKernel(
     "flash_prefill", "flash_prefill_chunk",
     [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+)
+CHUNK_PAGED_KERNEL = CudaKernel(
+    "flash_prefill", "flash_prefill_chunk_paged",
+    [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_void_p],
 )
 MLA_KERNEL = CudaKernel(
@@ -83,14 +98,17 @@ def rope_trailing(x: torch.Tensor, positions: torch.Tensor, rope_dims: int,
 
 
 def flash_prefill_plain(q, k_new, v_new, valid, scale: float, theta: float,
-                        rope_dims: Optional[int] = None,
-                        cache: Optional[kvc.TieredKVCache] = None):
+                        rope_dims: Optional[int] = None, cache=None):
     """Plain version of every form, in the kernels' arithmetic: rotate q
     and k (the trailing ``rope_dims``, default all, in f32) at the slot's
-    offset (``cache.lengths``, 0 without a cache), fold the hot tier's,
-    the cold tier's and then the chunk's 32-key tiles (the chunk's under
-    the causal and valid masks), skipping a slot's tiles that hold no live
-    key, and emit the rotated k / v zeroed at rows past ``valid``."""
+    offset (``cache.lengths``, 0 without a cache) and fold the 32-key tiles
+    of the slot's key sequence under the causal and valid masks, skipping
+    a slot's tiles that hold no key of it; emit the rotated k / v zeroed at
+    rows past ``valid``. Without a cache the sequence is the chunk's own
+    keys; with one it is [cached prefix ‖ chunk], tiled at ABSOLUTE
+    positions (tile i holds positions 32 i .. 32 i + 31, whichever tier or
+    the chunk each comes from), so a prompt streamed in chunks folds
+    exactly the fresh form's tiles, whatever the offsets."""
     b, s, h, d = q.shape
     g, dv = k_new.shape[2], v_new.shape[-1]
     rep = h // g
@@ -109,30 +127,45 @@ def flash_prefill_plain(q, k_new, v_new, valid, scale: float, theta: float,
 
     def fold(state, k_t, v_t, ok, live):
         """One tile: k_t (b, T, g, d) and v_t (b, T, g, dv) f32, v zero at
-        keys that do not exist; ok (b, s | 1, T); live (b,): the slot has a
-        live key in the tile (else its state is kept as it was)."""
+        keys that do not exist; ok (b, s, T); live (b,): the slot has a key
+        in the tile (else its state is kept as it was)."""
         logits = tree_sum(qg * k_t.permute(0, 2, 1, 3)[:, :, None, None], -1) * scale
         new = fold_tile(state, logits, ok[:, None, None],
                         v_t.permute(0, 2, 1, 3)[:, :, None, None])
         return tuple(torch.where(live.reshape((b,) + (1,) * (o.ndim - 1)), n, o)
                      for n, o in zip(new, state))
 
-    if cache is not None:  # tier rows are rotated already, in the tier dtype
-        for kt, vt, n_valid in (
-                (cache.hot_k, cache.hot_v, offset.clamp(max=cache.hot_cap)),
-                (cache.cold_k, cache.cold_v, (offset - cache.hot_cap).clamp(0, cache.cold_cap))):
-            for start in range(0, kt.shape[1], TILE):
-                live = (start + keys)[None] < n_valid[:, None]  # (b, T)
-                v_t = torch.where(live[:, :, None, None], tile_of(vt, start).float(), 0.0)
-                state = fold(state, tile_of(kt, start).float(), v_t, live[:, None],
-                             start < n_valid)
     nv = valid.long().clamp(max=s)
-    for start in range(0, s, TILE):
-        key = start + keys  # (TILE,)
-        live = key[None] < nv[:, None]  # (b, TILE): keys that exist
-        v_t = torch.where(live[:, :, None, None], tile_of(v_new, start).float(), 0.0)
-        ok = live[:, None, :] & (key[None, None, :] <= tok[None, :, None])  # (b, s, T)
-        state = fold(state, tile_of(k_rot, start), v_t, ok, start < nv)
+    if cache is None:
+        for start in range(0, s, TILE):
+            key = start + keys  # (TILE,)
+            live = key[None] < nv[:, None]  # (b, TILE): keys that exist
+            v_t = torch.where(live[:, :, None, None], tile_of(v_new, start).float(), 0.0)
+            ok = live[:, None, :] & (key[None, None, :] <= tok[None, :, None])  # (b, s, T)
+            state = fold(state, tile_of(k_rot, start), v_t, ok, start < nv)
+    else:
+        # tier rows are rotated already, in the tier dtype; chunk rows are
+        # k_rot / v_new; a tile may hold both (an offset off a multiple of 32)
+        slots = torch.arange(b, device=dev)[:, None]
+        end = offset + nv  # one past the slot's last key
+        for start in range(0, int((offset + s).max()) if b else 0, TILE):
+            kpos = start + keys  # (TILE,)
+            tier = kpos[None] < offset[:, None]  # (b, TILE)
+            hot = kpos[None] < offset.clamp(max=cache.hot_cap)[:, None]
+            chunk_i = (kpos[None] - offset[:, None]).clamp(0, s - 1)  # (b, TILE)
+            k_t, v_t = k_rot[slots, chunk_i], v_new[slots, chunk_i].float()
+            for is_hot, sel in ((False, tier & ~hot), (True, hot)):
+                if not bool(sel.any()):
+                    continue
+                rel = (kpos if is_hot else kpos - cache.hot_cap).clamp(
+                    0, (cache.hot_cap if is_hot else cache.cold_cap) - 1)
+                tk, tv = tier_rows(cache, is_hot, rel)
+                m = sel[:, :, None, None]
+                k_t, v_t = torch.where(m, tk.float(), k_t), torch.where(m, tv.float(), v_t)
+            exists = kpos[None] < end[:, None]  # (b, TILE)
+            v_t = torch.where(exists[:, :, None, None], v_t, 0.0)
+            ok = exists[:, None, :] & (kpos[None, None, :] <= pos[:, :, None])  # (b, s, T)
+            state = fold(state, k_t, v_t, ok, start < end)
     _, l, acc = state
     out = acc / torch.clamp(l, min=1e-30)[..., None]  # (b, g, rep, s, dv)
     o = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)
@@ -153,7 +186,7 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None):
     b, s, h, d = q.shape
     g = k_new.shape[2]
     rep = h // g
-    tiers = () if cache is None else (cache.hot_k, cache.hot_v, cache.cold_k, cache.cold_v)
+    tiers = () if cache is None else tuple(cache[:4])  # hot k / v, cold k / v or the pools
     extra = () if cache is None else tiers + (cache.lengths,)
     if not all(t.is_cuda for t in (q, k_new, v_new, valid) + extra):
         raise ValueError("flash_prefill_attention: all operands must be CUDA tensors")
@@ -181,11 +214,12 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None):
             ptr(k_cast), ptr(v_cast), b, s, g, rep, d, float(scale), stream_of(q),
         )
         return o, k_cast, v_cast
-    for name, t, cap in (("hot", cache.hot_k, cache.hot_cap), ("cold", cache.cold_k, cache.cold_cap)):
-        if t.shape != (b, cap, g, d):
-            raise ValueError(f"flash_prefill_attention: {name} tier {tuple(t.shape)} "
-                             f"!= {(b, cap, g, d)}")
-    if cache.hot_v.shape != cache.hot_k.shape or cache.cold_v.shape != cache.cold_k.shape:
+    paged = isinstance(cache, kvc.PagedKVCache)
+    cold_shape = (cache.n_pages, cache.page_size, g, d) if paged else (b, cache.cold_cap, g, d)
+    for name, t, shape in (("hot", tiers[0], (b, cache.hot_cap, g, d)), ("cold", tiers[2], cold_shape)):
+        if t.shape != shape:
+            raise ValueError(f"flash_prefill_attention: {name} tier {tuple(t.shape)} != {shape}")
+    if tiers[1].shape != tiers[0].shape or tiers[3].shape != tiers[2].shape:
         raise ValueError("flash_prefill_attention: v tiers must match the k tiers")
     tiers = tuple(_aligned(t.contiguous()) for t in tiers)
     lengths = cache.lengths.to(torch.int32).contiguous()
@@ -193,6 +227,19 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None):
     # own expression (apply_rope at lengths + t)
     pos = lengths.long()[:, None] + torch.arange(s, device=q.device)[None]
     cos, sin = rope_cos_sin(pos, d, theta)  # (b, s, d/2)
+    if paged:
+        if cache.page_table.shape != (b, cache.pages_per_slot) or not cache.page_table.is_cuda:
+            raise ValueError(f"flash_prefill_attention: page table "
+                             f"{tuple(cache.page_table.shape)} != {(b, cache.pages_per_slot)} "
+                             "on the card")
+        table = cache.page_table.to(torch.int32).contiguous()
+        CHUNK_PAGED_KERNEL.launch(
+            bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin),
+            ptr(o), ptr(k_cast), ptr(v_cast), *(ptr(t) for t in tiers), ptr(lengths),
+            ptr(table), b, s, g, rep, d, cache.hot_cap, cache.page_size, cache.pages_per_slot,
+            float(scale), stream_of(q),
+        )
+        return o, k_cast, v_cast
     CHUNK_KERNEL.launch(
         bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin),
         ptr(o), ptr(k_cast), ptr(v_cast), *(ptr(t) for t in tiers),
@@ -235,7 +282,7 @@ def flash_prefill_attention(
     q: torch.Tensor,  # (b, s, h, d) — UNROTATED
     k_new: torch.Tensor,  # (b, s, g, d) — UNROTATED
     v_new: torch.Tensor,  # (b, s, g, d)
-    cache: Optional[kvc.TieredKVCache] = None,  # live cache: the chunked form
+    cache=None,  # live TieredKVCache or PagedKVCache: the chunked form
     valid: Optional[torch.Tensor] = None,  # (b,) valid rows (default s)
     *,
     scale: Optional[float] = None,
@@ -248,7 +295,8 @@ def flash_prefill_attention(
     impl: str = "auto",
 ):
     """Causal prefill, fresh (``cache=None``) or a chunk continuing each
-    slot's cached prefix (``cache`` a ``TieredKVCache``, the GQA form) ->
+    slot's cached prefix (``cache`` a ``TieredKVCache`` or a
+    ``PagedKVCache``, the GQA form) ->
     ``(o, k_cast, v_cast)``, or ``o`` alone when ``emit_kv=False`` (the
     MLA form, fresh only, with ``rope_dims``).
 
@@ -256,8 +304,8 @@ def flash_prefill_attention(
     plain version for CPU tensors; ``impl="plain"`` runs the plain version."""
     if window or ring:
         raise NotImplementedError("SWA windows and the ring cold tier are not ported")
-    if cache is not None and not isinstance(cache, kvc.TieredKVCache):
-        raise NotImplementedError("only the contiguous tiered cache is ported (no paged form)")
+    if cache is not None and not isinstance(cache, (kvc.TieredKVCache, kvc.PagedKVCache)):
+        raise TypeError(f"flash_prefill_attention: unknown cache type {type(cache).__name__}")
     tier_dt = cache.hot_k.dtype if cache is not None else k_new.dtype
     if (kv_dtype or tier_dt) != k_new.dtype:
         raise NotImplementedError("the emitted k/v and the tiers keep the input dtype")

@@ -7,7 +7,10 @@ and k rotate inside it, and it emits the rotated k / v that
 the live cache (chunked admission) runs its chunked form and
 ``kv_cache.append`` places the rows at each slot's offset. Decode runs the
 fused-RoPE flash-decode kernel (``kernels/flash_decode.py``) against the
-pre-append cache and then appends the kernel-rotated k in place.
+pre-append cache and then appends the kernel-rotated k in place. The
+chunk and decode paths take a paged cache (``kv_cache.PagedKVCache``) as
+well: the kernels' paged forms read its cold tier through the page
+table, and the appends write through it.
 ``blockwise_attention`` is the plain full-sequence reference the tests
 hold both against.
 
@@ -95,7 +98,7 @@ def init_attention(cfg: ModelConfig, *, generator, device, dtype=torch.float32) 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    hidden = rms_norm(x, p["ln"], cfg.norm_eps)
+    hidden = rms_norm(x, p["ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     # fused packed wq‖wk‖wv: one act-quant + one kernel launch; the v
     # adapter applies to its segment after the split
     return qops.fused_linear(p["wqkv"], hidden, cfg, out_shapes=((h, hd), (g, hd), (g, hd)),
@@ -199,7 +202,7 @@ def _mla_queries(p: dict, dq: torch.Tensor, cfg: ModelConfig, positions=None):
     q_rope rotated at ``positions`` (batch-broadcastable (1, s) or (b, 1));
     ``positions=None`` leaves it unrotated (the prefill kernel rotates)."""
     m, h = cfg.mla, cfg.n_heads
-    cq = rms_norm(dq, p["q_ln"], cfg.norm_eps)
+    cq = rms_norm(dq, p["q_ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     q = qops.linear(p["w_uq"], cq, cfg, out_shape=(h, m.qk_nope_head_dim + m.qk_rope_head_dim))
     q_nope, q_rope = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     if positions is not None:
@@ -211,7 +214,8 @@ def _mla_latent(p: dict, dkv: torch.Tensor, cfg: ModelConfig, positions):
     """dkv (b, t, dl + dr) -> the normed latent c_kv (b, t, dl), the
     rotated k_rope (b, t, dr) and the unrotated one."""
     m = cfg.mla
-    c_kv = rms_norm(dkv[..., : m.kv_lora_rank], p["kv_ln"], cfg.norm_eps)
+    c_kv = rms_norm(dkv[..., : m.kv_lora_rank], p["kv_ln"], cfg.norm_eps,
+                    impl=cfg.bitnet.impl)
     k_rope_raw = dkv[..., m.kv_lora_rank:]
     k_rope = apply_rope(k_rope_raw[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     return c_kv, k_rope, k_rope_raw
@@ -227,7 +231,7 @@ def mla_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: kvc.TieredKVC
     with k_rope rotated once per token. x: (b, s, d_model) -> (y, cache)."""
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = x.shape
-    hidden = rms_norm(x, p["ln"], cfg.norm_eps)
+    hidden = rms_norm(x, p["ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     dq, dkv = _mla_down(p, hidden, cfg)
     _, _, q = _mla_queries(p, dq, cfg)
     c_kv, k_rope, k_rope_raw = _mla_latent(
@@ -267,7 +271,7 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: kvc.TieredKVCa
     context."""
     m, h = cfg.mla, cfg.n_heads
     b, _ = x.shape
-    hidden = rms_norm(x[:, None, :], p["ln"], cfg.norm_eps)
+    hidden = rms_norm(x[:, None, :], p["ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     pos = cache.lengths.long()[:, None]  # (b, 1)
     dq, dkv = _mla_down(p, hidden, cfg)
     q_nope, q_rope, _ = _mla_queries(p, dq, cfg, pos)  # (b, 1, h, ·)

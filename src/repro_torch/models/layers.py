@@ -7,13 +7,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.kernels.rms_norm import rms_norm as rms_norm_k
 from repro_torch.models import qops
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return ((x32 * torch.rsqrt(var + eps)) * w.float()).to(x.dtype)
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+             impl: str = "auto") -> torch.Tensor:
+    """RMSNorm over the last dim in a sum order fixed per row
+    (``kernels/rms_norm.py``: the CUDA kernel for CUDA tensors, its plain
+    version for CPU tensors or ``impl="plain"``), so a token's norm does
+    not depend on how many rows share its call."""
+    return rms_norm_k(x, w, eps, impl=impl)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -59,7 +63,7 @@ def init_mlp(cfg: ModelConfig, d_ff: int | None = None, *, generator, device,
 
 
 def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = rms_norm(x, p["ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     # fused packed gate‖up: one act-quant + one kernel launch for both halves
     g, u = qops.fused_linear(p["wgu"], h, cfg)
     return qops.linear(p["down"], F.silu(g) * u, cfg, lora_leaf=p.get("lora_down"))

@@ -133,7 +133,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """x: (b, t, d) -> (y (b, t, d), load-balance aux loss)."""
     mo = cfg.moe
     b, t, d = x.shape
-    h3 = rms_norm(x, p["ln"], cfg.norm_eps)
+    h3 = rms_norm(x, p["ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     y, probs, top1 = _route_tokens(p, h3.reshape(b * t, d), cfg, _capacity(b * t, cfg))
     if mo.n_shared:
         # fused packed gate‖up: one act-quant + one kernel launch
@@ -145,6 +145,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
         y = y + lora_lib.apply(p["lora_down"], h3.reshape(b * t, d),
                                alpha=2.0 * cfg.bitnet.lora_rank,
-                               weight_bits=cfg.bitnet.lora_bits).float()
+                               weight_bits=cfg.bitnet.lora_bits,
+                               impl=cfg.bitnet.impl).float()
     aux = mo.n_experts * (probs.mean(dim=0) * top1.mean(dim=0)).sum() * mo.router_aux_weight
     return y.reshape(b, t, d).to(x.dtype), aux

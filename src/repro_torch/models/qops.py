@@ -47,7 +47,7 @@ def _apply_lora(y: torch.Tensor, x: torch.Tensor, lora_leaf: dict,
     x2l, _ = _flatten_x(x, lora_leaf["a"].shape[0])
     return y + lora_lib.apply(
         lora_leaf, x2l, alpha=2.0 * cfg.bitnet.lora_rank,
-        weight_bits=cfg.bitnet.lora_bits, act_bits=8,
+        weight_bits=cfg.bitnet.lora_bits, act_bits=8, impl=cfg.bitnet.impl,
     ).to(y.dtype)
 
 

@@ -10,8 +10,9 @@ and scans them; here a Python loop walks the list):
     when ``cfg.attn_type == "mla"``.
 The decode cache stacks the per-layer caches of each stack along a
 leading axis: ``{"attn": TieredKVCache}`` (dense, tiers (L, b, cap, g,
-hd)) or ``{"attn_dense", "attn_moe"}`` (moe; under MLA the k-slot tiers
-are (L, b, cap, 576) latent rows and the v-slot is empty).
+hd), or a ``PagedKVCache`` with pools (L, n_pages, page_size, g, hd)) or
+``{"attn_dense", "attn_moe"}`` (moe; under MLA the k-slot tiers are (L, b,
+cap, 576) latent rows and the v-slot is empty).
 """
 
 from __future__ import annotations
@@ -88,19 +89,35 @@ def _embed_tokens(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return params["embed"]["w"][tokens.long()].to(dtype)
 
 
-def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor,
+               rows: Optional[int] = None) -> torch.Tensor:
     """The untied float lm_head: a plain matmul (outside any kernel in the
-    reference too)."""
-    return qops.linear(params["lm_head"], x, cfg).float()
+    reference too). ``rows`` pads x (M, d) with zero rows to that many
+    first: a GEMM library picks its algorithm, and so a row's sum order,
+    by M (on the H100 every M >= 2 gave other logits than M = 1), so the
+    engine runs every lm_head of a serve at its slot count."""
+    m = x.shape[0]
+    if rows is not None and rows > m:
+        x = torch.cat([x, x.new_zeros((rows - m,) + tuple(x.shape[1:]))])
+    return qops.linear(params["lm_head"], x, cfg).float()[:m]
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       hot_cap: int = DEFAULT_HOT_CAP, dtype=torch.float32,
-                      device=None) -> dict:
+                      device=None, paged: bool = False, page_size: int = 32,
+                      n_pages: Optional[int] = None) -> dict:
     """Empty stacked cache per layer stack: hot tier min(hot_cap,
-    max_len), cold the rest."""
+    max_len), cold the rest. With ``paged`` the cold tier is a pool of
+    ``n_pages`` pages of ``page_size`` rows per layer
+    (``kv_cache.PagedKVCache``); a page id names the same pool page in
+    every layer, so the engine keeps one host-side page account."""
     hc = min(hot_cap, max_len)
     kshape, vshape = _attn_cache_spec(cfg)
+    if paged:
+        return {cname: kvc.init_paged_cache(batch, hc, max_len - hc, kshape, dtype,
+                                            page_size=page_size, n_pages=n_pages,
+                                            device=device, lead=(n,), v_shape=vshape)
+                for _, cname, n in layer_stacks(cfg)}
     return {cname: kvc.init_cache(batch, hc, max_len - hc, kshape, dtype, device=device,
                                   lead=(n,), v_shape=vshape)
             for _, cname, n in layer_stacks(cfg)}
@@ -134,11 +151,13 @@ def _attn_block_decode(bp: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            hot_cap: int = DEFAULT_HOT_CAP, max_len: Optional[int] = None):
+            hot_cap: int = DEFAULT_HOT_CAP, max_len: Optional[int] = None,
+            logit_rows: Optional[int] = None):
     """Prompt (b, s) -> (last-token logits (b, V) f32, filled cache).
 
     The per-layer flash-prefill loop of the reference's ``_prefill_flash``:
-    each layer's attention fills its cache rows, then its MLP or MoE runs."""
+    each layer's attention fills its cache rows, then its MLP or MoE runs.
+    ``logit_rows``: the lm_head's row count (``_lm_logits``)."""
     b, s = tokens.shape
     if max_len is None:
         max_len = s + cfg.decode_headroom
@@ -148,8 +167,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for pname, cname, _ in layer_stacks(cfg):
         for i, bp in enumerate(params[pname]):
             x = _attn_block_prefill(bp, x, cfg, kvc.layer(cache[cname], i))
-    x_last = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps)
-    return _lm_logits(params, cfg, x_last), cache
+    x_last = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
+    return _lm_logits(params, cfg, x_last, logit_rows), cache
 
 
 def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
@@ -167,7 +186,7 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cac
             x = _attn_block_prefill(bp, x, cfg, kvc.layer(cache[cname], i), n_valid)
     idx = (n_valid.long() - 1).clamp(0, tokens.shape[1] - 1)
     x_last = x[torch.arange(x.shape[0], device=x.device), idx]
-    x_last = rms_norm(x_last, params["final_ln"], cfg.norm_eps)
+    x_last = rms_norm(x_last, params["final_ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     return _lm_logits(params, cfg, x_last), cache
 
 
@@ -179,5 +198,5 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     for pname, cname, _ in layer_stacks(cfg):
         for i, bp in enumerate(params[pname]):
             x = _attn_block_decode(bp, x, cfg, kvc.layer(cache[cname], i), active)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     return _lm_logits(params, cfg, x), cache

@@ -25,8 +25,21 @@ The same loop serves the dense family (GQA cache) and the MoE family with
 MLA attention (latent cache, one stack per layer kind); MLA serves through
 grouped admission only, as in the reference (``_chunked_capable``).
 
-Not ported: paged admission, speculation, SDC scrubbing, sessions and
-overload control.
+With ``paged=True`` (chunked admission only) the cold tier is a pool of
+pages shared by the slots (``kv_cache.PagedKVCache``), accounted on the
+host by ``serving/paging.py``: each admission round matches every new
+prompt against the prefix tree, adopts the matched cold pages (and a
+copy-on-write copy of a partly matched boundary page), restores the
+matched hot tier from a pooled snapshot, all in one ``paged_admit`` pass
+over the layers, and streams only the prompt past the match. Pages are
+allocated for the prompt at admission and for decode growth before each
+decode chunk (``_ensure_pages``); a prompt that completes its prefill is
+recorded in the tree (``_record_prefix``), and a retired slot drops its
+page references. The decode and chunk steps read the pool through the
+paged forms of the attention kernels; nothing gathers it back.
+
+Not ported: speculation, SDC scrubbing, sessions and overload control
+(preempting a slot when the page pool runs dry raises instead).
 """
 
 from __future__ import annotations
@@ -41,11 +54,18 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core import dr_edram, kv_cache
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_decode import TILE
 from repro_torch.models import transformer as T
 from repro_torch.models.pack import pack_params, tree_to
+from repro_torch.serving.paging import PagePool, PrefixCache, PrefixMatch, pages_needed
 from repro_torch.serving.scheduler import FinishedRequest, Request, SlotScheduler
 
 TRAFFIC_KEYS = kv_cache.TRAFFIC_KEYS
+# One page is one 32-key tile of the attention kernels, so a page never
+# splits a tile. The reference keeps its rationale (one page = one kernel
+# block) but reads the size from its TPU block table, which does not
+# carry over.
+DEFAULT_PAGE_SIZE = TILE
 
 
 def _n_attn_layers(cfg: ModelConfig) -> int:
@@ -75,6 +95,18 @@ class DecodeState:
 
 
 @dataclasses.dataclass
+class _PagedServe:
+    """Host side of one ``serve`` call's paged cold tier."""
+
+    pool: PagePool
+    ptree: PrefixCache
+    host_table: np.ndarray  # (slots, pages_per_slot) int32: the device tables' mirror
+    slot_pages: List[List[int]]  # pool pages each slot's table maps, in order
+    prefix_used: List[int]  # prompt tokens each slot took from the prefix tree
+    seq_mirror: List[int]  # upper bound of each slot's cache length
+
+
+@dataclasses.dataclass
 class GenerationResult:
     tokens: torch.Tensor  # (b, max_new) int32 on the CPU, PAD_TOKEN past each row's end
     steps: int
@@ -98,7 +130,8 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, hot_cap: int = 32, max_len: int = 256,
                  pack: bool = True, sample: str = "greedy", temperature: float = 1.0,
                  seed: int = 0, slots: int = 8, sync_every: int = 8, device=None,
-                 prefill_chunk: int = 0):
+                 prefill_chunk: int = 0, paged: bool = False, page_size: Optional[int] = None,
+                 n_pages: Optional[int] = None, prefix_sharing: bool = True):
         if not pack:
             raise NotImplementedError("QAT (unpacked) serving is not part of this port")
         if sample not in ("greedy", "temperature"):
@@ -122,6 +155,25 @@ class Engine:
         # (slots, C) of every chunk wave dispatched: one shape per slot
         # count, whatever the prompt lengths
         self.chunk_shapes: set = set()
+        # paged cold tier + refcounted prefix sharing (serving/paging.py)
+        self.paged = paged
+        self.prefix_sharing = bool(prefix_sharing) and paged
+        if paged:
+            if not (prefill_chunk > 0 and self._chunked_capable()):
+                raise ValueError(
+                    "paged serving needs chunked prefill (prefill_chunk > 0) on a "
+                    "full-attention cache family: grouped whole-prompt admission bypasses "
+                    "the page table")
+            if max_len <= hot_cap:
+                raise ValueError(f"paged serving needs a non-empty cold tier (max_len "
+                                 f"{max_len} <= hot_cap {hot_cap})")
+            self._page_size = int(page_size or DEFAULT_PAGE_SIZE)
+            self._pps = -(-(max_len - hot_cap) // self._page_size)
+            self._n_hot_pages = -(-hot_cap // self._page_size) if hot_cap else 0
+            self._n_pages_cfg = n_pages
+        # the refcount ledger and prefix tree of the last paged serve()
+        self._last_pool: Optional[PagePool] = None
+        self._last_ptree: Optional[PrefixCache] = None
 
     def _chunked_capable(self) -> bool:
         """Chunked prefill needs a pure attention-token path with GQA
@@ -143,15 +195,29 @@ class Engine:
             per_layer = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
         return per_layer * _n_attn_layers(cfg)
 
+    def _pool_pages(self, n_slots: int) -> int:
+        """Pool size for a serve() call (reference: ``_pool_pages``): a
+        full private page set per slot, headroom for the pages one
+        admission round pins (per fill the matched hot snapshot and the
+        copy-on-write source) and one spare page set so insertion can
+        snapshot a hot node."""
+        if self._n_pages_cfg is not None:
+            return self._n_pages_cfg
+        return (n_slots * self._pps + self._pps + n_slots * (self._n_hot_pages + 1)
+                + self._n_hot_pages)
+
     def _init_state(self, n_slots: int, out_cap: int) -> DecodeState:
         dev = self.device
+        paged_kw = (dict(paged=True, page_size=self._page_size,
+                         n_pages=self._pool_pages(n_slots)) if self.paged else {})
 
         def z():
             return torch.zeros((n_slots,), dtype=torch.int32, device=dev)
 
         return DecodeState(
             cache=T.init_decode_cache(self.cfg, n_slots, self.max_len, self.hot_cap,
-                                      dtype=self.params["final_ln"].dtype, device=dev),
+                                      dtype=self.params["final_ln"].dtype, device=dev,
+                                      **paged_kw),
             tok=z(),
             allocated=torch.zeros((n_slots,), dtype=torch.bool, device=dev),
             done=torch.zeros((n_slots,), dtype=torch.bool, device=dev),
@@ -193,8 +259,9 @@ class Engine:
         rows into ``slots_idx`` and sample the first tokens."""
         toks = torch.as_tensor(np.stack([np.asarray(r.tokens, np.int32) for r in group]),
                                device=self.device)
+        # the lm_head at the slot count, as in the chunk and decode steps
         logits, fresh = T.prefill(self.params, self.cfg, toks, hot_cap=self.hot_cap,
-                                  max_len=self.max_len)
+                                  max_len=self.max_len, logit_rows=state.tok.shape[0])
         idx = torch.as_tensor(slots_idx, dtype=torch.long, device=self.device)
         for name, stack in state.cache.items():
             for live, new in zip(stack, fresh[name]):
@@ -235,13 +302,15 @@ class Engine:
         state.ledger = {k: torch.where(is_first, 0, v) for k, v in state.ledger.items()}
 
     def _stream_chunks(self, state: DecodeState, n_slots: int, prefilling: Dict[int, list],
-                       max_waves: int) -> None:
+                       max_waves: int, on_last=None) -> None:
         """Stream pending prompt chunks (reference: ``_stream_chunks``, no
-        draft or paged branch): one dispatch per wave, one C-token chunk per
+        draft branch): one dispatch per wave, one C-token chunk per
         prefilling slot. ``prefilling`` maps slot -> [request, offset]; after
         ``max_waves`` waves it carries the remaining offsets into the next
         serving-loop iteration, so a long prompt interleaves with decode
-        steps instead of stalling every active slot."""
+        steps instead of stalling every active slot. ``on_last(slot, req)``
+        runs after the wave that completes a slot's prompt (paged serving
+        records the prefix there)."""
         c = self.prefill_chunk
         waves = 0
         while prefilling and waves < max_waves:
@@ -250,14 +319,18 @@ class Engine:
             is_first = np.zeros((n_slots,), bool)
             is_last = np.zeros((n_slots,), bool)
             max_new = np.zeros((n_slots,), np.int32)
+            done_slots = []
             for s, (req, off) in list(prefilling.items()):
                 part = np.asarray(req.tokens, np.int32)[off: off + c]
                 toks[s, : len(part)] = part
                 n_valid[s] = len(part)
-                is_first[s] = off == 0
+                # paged slots were reset by the paged admission and may
+                # resume mid-prompt at a matched offset: no reset here
+                is_first[s] = off == 0 and not self.paged
                 max_new[s] = req.max_new_tokens
                 if off + len(part) >= req.prompt_len:
                     is_last[s] = True
+                    done_slots.append((s, req))
                     del prefilling[s]
                 else:
                     prefilling[s] = [req, off + len(part)]
@@ -268,20 +341,161 @@ class Engine:
                              torch.as_tensor(is_last, device=dev),
                              torch.as_tensor(max_new, device=dev))
             waves += 1
+            if on_last is not None:
+                for s, req in done_slots:
+                    on_last(s, req)
 
-    def _validate_request(self, r: Request) -> None:
+    # ------------------------------------------------------------------
+    # paged admission: page-table install + hot restore + copy-on-write
+    # ------------------------------------------------------------------
+    def _layers(self, state: DecodeState):
+        """Every layer's cache view, over all the stacks."""
+        for stack in state.cache.values():
+            for i in range(stack.lengths.shape[0]):
+                yield kv_cache.layer(stack, i)
+
+    def _paged_alloc(self, pg: _PagedServe, n: int) -> List[int]:
+        """``n`` free pages, evicting cached prefixes (leaf-only LRU) first
+        (reference: ``_paged_alloc``). Where the reference would then
+        preempt a weaker slot, the port raises: its overload control is
+        not ported, and the default pool never runs dry."""
+        pg.ptree.evict_for(n)
+        pages = pg.pool.alloc(n)
+        if pages is None:
+            raise NotImplementedError(
+                f"page pool exhausted: {n} pages needed, {pg.pool.available()} of "
+                f"{pg.pool.n_pages} free after eviction; preempting a slot to fund them "
+                "(the reference's overload control) is not ported; raise n_pages")
+        return pages
+
+    def _set_tables(self, state: DecodeState, table: np.ndarray) -> None:
+        """Install the host mirror as every stack's page table (reference:
+        ``_get_set_table``)."""
+        t = torch.as_tensor(table, device=self.device)
+        for stack in state.cache.values():
+            stack.page_table.copy_(t.expand_as(stack.page_table))
+
+    def _admit_paged(self, state: DecodeState, pg: _PagedServe, fills,
+                     prefilling: Dict[int, list]) -> None:
+        """Page bookkeeping for every slot paired this round, then one
+        ``paged_admit`` pass over the layers (reference: ``_admit_paged``).
+        A fill adopts its matched cold pages, gets fresh pages for the rest
+        of its prompt (decode growth comes later, ``_ensure_pages``) and
+        streams from the matched offset. Matched pages are increfed for
+        the round, so the eviction that funds the fresh pages cannot free
+        them before the admission reads them."""
+        n_slots = pg.host_table.shape[0]
+        ps, hc, pps = self._page_size, self.hot_cap, self._pps
+        reset = np.zeros((n_slots,), bool)
+        new_len = np.zeros((n_slots,), np.int32)
+        new_table = pg.host_table.copy()
+        hot_src = np.full((n_slots, max(self._n_hot_pages, 1)), -1, np.int32)
+        cow_src = np.full((n_slots,), -1, np.int32)
+        cow_dst = np.full((n_slots,), -1, np.int32)
+        transient: List[int] = []
+        for s, req in fills:
+            m = pg.ptree.match(req.tokens) if self.prefix_sharing else PrefixMatch()
+            if m.length:
+                pg.pool.incref(m.hot_pages)
+                transient.extend(m.hot_pages)
+                if m.cow_src >= 0:
+                    pg.pool.incref([m.cow_src])
+                    transient.append(m.cow_src)
+                pg.pool.incref(m.shared_pages)  # the slot's own reader refs
+            shared = list(m.shared_pages)
+            fresh = self._paged_alloc(pg, min(pages_needed(req.prompt_len, hc, ps), pps)
+                                      - len(shared))
+            row = shared + fresh
+            if m.cow_src >= 0 and fresh:
+                cow_src[s] = m.cow_src
+                cow_dst[s] = fresh[0]  # the boundary page: the first one not shared
+            reset[s] = True
+            new_len[s] = m.length
+            hot_src[s, : len(m.hot_pages)] = m.hot_pages
+            new_table[s] = row + [0] * (pps - len(row))
+            pg.slot_pages[s] = row
+            pg.prefix_used[s] = m.length
+            pg.seq_mirror[s] = req.prompt_len
+            prefilling[s] = [req, m.length]  # only the prompt past the match streams
+        dev = self.device
+        args = [torch.as_tensor(a, device=dev)
+                for a in (reset, new_len, new_table, hot_src, cow_src, cow_dst)]
+        for cache in self._layers(state):
+            kv_cache.paged_admit(cache, *args)
+        r = args[0]
+        state.tok = torch.where(r, 0, state.tok)
+        state.allocated = state.allocated & ~r  # decodes after its last chunk
+        state.done = state.done & ~r
+        state.seq_len = torch.where(r, args[1], state.seq_len)
+        state.n_gen = torch.where(r, 0, state.n_gen)
+        state.out = torch.where(r[:, None], 0, state.out)
+        state.ledger = {k: torch.where(r, 0, v) for k, v in state.ledger.items()}
+        pg.host_table[:] = new_table
+        if transient:
+            pg.pool.decref(transient)
+
+    def _ensure_pages(self, state: DecodeState, pg: _PagedServe, sched: SlotScheduler,
+                      decoding: List[int], remaining: List[int], chunk: int) -> None:
+        """Fund each decoding slot's cold growth for the next decode chunk
+        (reference: ``_ensure_pages``): its pages must cover the furthest
+        position the chunk can append, bounded by the host budget mirror
+        (no device read). Oldest requests first."""
+        hc, ps = self.hot_cap, self._page_size
+        dirty = False
+        for s in sorted(decoding, key=lambda i: sched.slot_req[i].arrival):
+            target = min(pg.seq_mirror[s] + min(chunk, remaining[s]), self.max_len)
+            need = pages_needed(target, hc, ps) - len(pg.slot_pages[s])
+            if need <= 0:
+                continue
+            pages = self._paged_alloc(pg, need)
+            k0 = len(pg.slot_pages[s])
+            pg.slot_pages[s].extend(pages)
+            pg.host_table[s, k0: k0 + len(pages)] = pages
+            dirty = True
+        if dirty:
+            self._set_tables(state, pg.host_table)
+
+    def _record_prefix(self, state: DecodeState, pg: _PagedServe, s: int, req: Request) -> None:
+        """Insert a fully prefilled prompt into the prefix tree (reference:
+        ``_record_prefix``); its cold pages are adopted by reference, and
+        ``save_hot`` snapshots the slot's hot tier only when the tree needs
+        a new hot node."""
+        def save(ids):
+            arr = np.full((max(pg.ptree.n_hot_pages, 1),), -1, np.int32)
+            arr[: len(ids)] = ids
+            page_ids = torch.as_tensor(arr, device=self.device)
+            for cache in self._layers(state):
+                kv_cache.save_hot(cache, s, page_ids)
+
+        pg.ptree.insert(np.asarray(req.tokens, np.int32), pg.host_table[s], save)
+
+    def _validate_request(self, r: Request, n_slots: int) -> None:
         if r.prompt_len == 0:
             raise ValueError(f"request {r.rid}: empty prompt")
         if r.prompt_len + r.max_new_tokens > self.max_len:
             raise ValueError(f"request {r.rid}: prompt {r.prompt_len} + max_new "
                              f"{r.max_new_tokens} exceeds max_len {self.max_len}")
+        if self.paged:
+            # a request whose peak page set cannot fit the pool alone can
+            # never be served
+            peak = pages_needed(min(r.prompt_len + r.max_new_tokens, self.max_len),
+                                self.hot_cap, self._page_size)
+            if peak > self._pool_pages(n_slots):
+                raise ValueError(f"request {r.rid}: needs {peak} cold pages at its peak but "
+                                 f"the pool holds {self._pool_pages(n_slots)}; raise n_pages")
 
     def _build_finished(self, req: Request, out_row: np.ndarray, seq_len: int,
-                        decode_ledger: Dict[str, int], token_bytes: int) -> FinishedRequest:
-        prompt = kv_cache.prompt_traffic_tokens(req.prompt_len, self.hot_cap)
+                        decode_ledger: Dict[str, int], token_bytes: int,
+                        prefix_used: int = 0) -> FinishedRequest:
+        """The request's record; its prompt ledger leaves out the
+        ``prefix_used`` tokens restored from the prefix tree (and charges
+        the reload of their hot part)."""
+        prompt = kv_cache.prompt_traffic_tokens_resumed(
+            req.prompt_len, min(prefix_used, req.prompt_len), self.hot_cap)
         traffic = {k: (int(decode_ledger[k]) + prompt[k]) * token_bytes for k in TRAFFIC_KEYS}
         return FinishedRequest(rid=req.rid, prompt_len=req.prompt_len, tokens=out_row,
-                               seq_len=seq_len, steps=len(out_row), traffic=traffic)
+                               seq_len=seq_len, steps=len(out_row), traffic=traffic,
+                               prefix_tokens_reused=prefix_used)
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -293,7 +507,7 @@ class Engine:
         n_slots = slots or self.slots
         chunk = sync_every or self.sync_every
         for r in requests:
-            self._validate_request(r)
+            self._validate_request(r, n_slots)
         out_cap = self.max_len  # fixed: any budget fits, no per-batch shapes
         sched = SlotScheduler(n_slots)
         for r in requests:
@@ -304,12 +518,29 @@ class Engine:
         finished: List[FinishedRequest] = []
         chunked = self.prefill_chunk > 0 and self._chunked_capable()
         prefilling: Dict[int, list] = {}  # slot -> [request, next prompt offset]
+        pg = None
+        if self.paged:
+            pool = PagePool(self._pool_pages(n_slots))
+            pg = _PagedServe(pool=pool, ptree=PrefixCache(pool, self.hot_cap, self._page_size),
+                             host_table=np.zeros((n_slots, self._pps), np.int32),
+                             slot_pages=[[] for _ in range(n_slots)],
+                             prefix_used=[0] * n_slots, seq_mirror=[0] * n_slots)
+            self._last_pool, self._last_ptree = pg.pool, pg.ptree
+        on_last = None
+        if self.prefix_sharing:
+            on_last = lambda s, req: self._record_prefix(state, pg, s, req)  # noqa: E731
         while not sched.idle():
             if chunked:
-                for s, req in sched.next_fills():
+                fills = sched.next_fills()
+                for s, req in fills:
                     remaining[s] = req.max_new_tokens
-                    prefilling[s] = [req, 0]
-                self._stream_chunks(state, n_slots, prefilling, max_waves=chunk)
+                if pg is not None and fills:
+                    self._admit_paged(state, pg, fills, prefilling)
+                else:
+                    for s, req in fills:
+                        prefilling[s] = [req, 0]
+                self._stream_chunks(state, n_slots, prefilling, max_waves=chunk,
+                                    on_last=on_last)
             else:
                 while True:
                     slots_idx, group = sched.next_group()
@@ -321,12 +552,16 @@ class Engine:
             # slots still mid-prefill ride through the decode steps inactive:
             # they neither bound the step count nor burn budget
             decoding = [s for s in sched.active_slots() if s not in prefilling]
+            if pg is not None:
+                self._ensure_pages(state, pg, sched, decoding, remaining, chunk)
             budgets = [remaining[s] for s in decoding if remaining[s] > 0]
             n_steps = min([chunk] + budgets) if budgets else 0
             for _ in range(n_steps):
                 self._step(state, out_cap, stop_token)
             for s in decoding:
                 remaining[s] = max(remaining[s] - n_steps, 0)
+                if pg is not None:
+                    pg.seq_mirror[s] = min(pg.seq_mirror[s] + n_steps, self.max_len)
             # sync point: only the small done mask crosses to the host
             done = state.done.cpu().numpy()
             ripe = [s for s in decoding if done[s]]
@@ -340,8 +575,13 @@ class Engine:
                 req = sched.retire(s)
                 finished.append(self._build_finished(
                     req, out[s, : n_gen[s]].copy(), int(seq_len[s]),
-                    {k: ledger[k][s] for k in TRAFFIC_KEYS}, token_bytes))
+                    {k: ledger[k][s] for k in TRAFFIC_KEYS}, token_bytes,
+                    pg.prefix_used[s] if pg is not None else 0))
                 remaining[s] = 0
+                if pg is not None:  # pages free when their last reader leaves
+                    pg.pool.decref(pg.slot_pages[s])
+                    pg.slot_pages[s] = []
+                    pg.prefix_used[s] = pg.seq_mirror[s] = 0
             state.allocated[torch.as_tensor(ripe, device=self.device)] = False
         return finished
 

@@ -47,6 +47,10 @@ class FinishedRequest:
     seq_len: int  # prompt + appended decode tokens
     steps: int  # decode dispatches this request was active for
     traffic: Dict[str, int]
+    # prompt tokens restored from the shared prefix cache instead of being
+    # prefilled (paged serving with prefix sharing, ``serving/paging.py``);
+    # the skipped prefill work is absent from ``traffic``
+    prefix_tokens_reused: int = 0
 
     @property
     def external_reduction(self) -> float:

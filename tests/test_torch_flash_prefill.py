@@ -140,21 +140,20 @@ def test_fill_fresh_bit_identical(jref, s, hot, cold):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
 
 
-class _PagedCache(types.SimpleNamespace):
-    """Stands in for the reference's paged cache, which the port lacks."""
-
-
 @pytest.mark.parametrize("form", ["window", "ring", "paged", "kv_dtype", "mla_cache",
                                   "mla_emit"])
 def test_forms_not_ported_raise(form):
     """The forms still to port raise, on the CPU as on the card: SWA
-    windows and the ring cold tier (A3c), the paged cold tier (A3b), an
-    emit dtype other than the input's (fp8, A3d), and the MLA form over a
-    cache (the reference never chunks MLA) or with whole-head emits."""
+    windows and the ring cold tier (A3c), also over a paged cache (the
+    paged chunked form itself, A3b, is ported; the reference has no paged
+    window or ring either), an emit dtype other than the input's (fp8,
+    A3d), and the MLA form over a cache (the reference never chunks MLA)
+    or with whole-head emits."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 4, 2, 1, 16))
     cache = kvc.init_cache(1, 2, 2, (1, 16))
+    paged = kvc.init_paged_cache(1, 2, 2, (1, 16), page_size=2)
     kw = {"window": dict(cache=cache, window=2), "ring": dict(cache=cache, ring=True),
-          "paged": dict(cache=_PagedCache(hot_k=cache.hot_k)),
+          "paged": dict(cache=paged, window=2),
           "kv_dtype": dict(cache=cache, kv_dtype=torch.bfloat16),
           "mla_cache": dict(cache=cache, rope_dims=8, emit_kv=False),
           "mla_emit": dict(emit_kv=False)}[form]
