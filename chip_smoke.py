@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-1. Prints the card's name and power limit, builds the six CUDA kernel
+1. Prints the card's name and power limit, builds the nine CUDA kernel
    sources from src/repro_torch/csrc (one nvcc each, in parallel) and
    prints the build time.
-2. Kernel phases: hold each of the sixteen kernel forms against its plain
+2. Kernel phases: hold each of the nineteen kernel forms against its plain
    PyTorch version on the card at the shapes the serving paths give it,
    and time both (plus a PyTorch library call of the same work as a
    yardstick: bf16 matmul / bmm at decode, torch._int_mm at M = 192, bf16
@@ -47,7 +47,16 @@
    fused and post-append decode and of the chunked prefill (each
    bit-identical to its plain version and to its contiguous kernel on the
    same content, f32 and bf16, identity and shuffled page tables, page
-   size 32 and 48; timed beside the contiguous form in the same call).
+   size 32 and 48; timed beside the contiguous form in the same call); and
+   the sliding-window forms of mixtral-8x22b (A1d, A3c): the ring form of
+   the fused decode, the fresh window prefill and the chunked prefill over
+   the ring, each bit-identical to its plain version at mixtral-8x22b's
+   heads (rep 6, d 128) and falcon3-1b's, rings of 64 and 4096 rows,
+   lengths and chunk offsets before, at and past the wrap, inactive slots,
+   valid 0 / partial / full, f32 and bf16, and chunks over a ring equal to
+   the fresh window kernel; timed with SDPA under an explicit window mask
+   and their bounds at b 4 over a wrapped 4096-row ring, one 4200-token
+   prompt and a 4-slot chunk wave of 256.
 3. falcon3-1b: full width and depth from a seeded generator (LoRA B
    factors filled with small seeded values), packed, serving 6 prompts x
    32 tokens with max_new_tokens=96 through Engine.generate (hot_cap=32,
@@ -94,7 +103,19 @@
    6/6 rows; prints peak device memory, each phase's time and, for each
    model, the ternary, prefill and latent kernels' device time per traced
    generate.
-5. Prints {"kernels": [...]} (each form's launches on its own path and on
+5. mixtral-8x22b at full width and depth (56 layers, 8 experts top-2,
+   sliding window 4096 over a ring cold tier; capacity raised so that no
+   token is dropped), drawn from seed 0 and packed layer by layer, served
+   over 4 slots (max_len 4352): prompts of 1000 and 3000 tokens inside the
+   window, 4050 + 64 crossing it during decode, 4200 + 32 past it at
+   admission, by grouped admission (window prefill, ring realign) and by
+   chunk waves of 256 (the ring continuation): tokens equal on every
+   request, 56 ring decode launches per step, one window or ring-chunk
+   prefill per layer per admission or wave, ledgers at the reference's
+   rule, no weight reloaded; a traced decode; at the depth cut to 2 layers
+   each request served alone equals the batched serve and the kernel run
+   equals its plain run.
+6. Prints {"kernels": [...]} (each form's launches on its own path and on
    every path that counted it) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero. Run from the
@@ -226,6 +247,13 @@ DEEPSEEK_SHAPES = ((7168, 2112), (1536, 24576), (16384, 7168), (7168, 36864), (1
 # qwen3-32b's down projection (K, N): K/4 = 6400 groups in pack2, past the
 # 5888 that the first kernel's shared-memory tile held
 QWEN_DOWN = (25600, 5120)
+# mixtral-8x22b's packed projections (K, N): wqkv, wo; the experts' w_gate‖w_up
+# and w_down (E 8). Its decode step has 4 slots (M 4; expert capacity 2 at
+# the published capacity factor 1.25, 5 when every expert takes every
+# token); its longest admission is a 4200-token prompt (M 4200; capacity
+# 1313 at 1.25, 4200 when dropless)
+MIXTRAL_2D = ((6144, 8192), (6144, 6144))
+MIXTRAL_EXPERT = ((6144, 32768), (16384, 6144))
 
 
 def projection_operands(torch, gen, m, k, n, codec="pack2", dtype=None, copies=1):
@@ -242,15 +270,15 @@ def projection_operands(torch, gen, m, k, n, codec="pack2", dtype=None, copies=1
     return x, packed, col
 
 
-def layer_runner(layer, fn, copies=8):
+def layer_runner(layer, fn, copies=8, shapes=DECODE_SHAPES):
     """A callable that runs ``fn(x, packed, col, k)`` over one decode
-    layer's four projections, cycling over ``copies`` packed copies that
-    together exceed the 50 MB L2, as the 18 layers of a real step do."""
+    layer's projections (``shapes``), cycling over ``copies`` packed copies
+    that together exceed the 50 MB L2, as the layers of a real step do."""
     it = {"i": 0}
 
     def go():
         i = it["i"] = (it["i"] + 1) % copies
-        for (k, n), (x, ps, col) in zip(DECODE_SHAPES, layer):
+        for (k, n), (x, ps, col) in zip(shapes, layer):
             fn(x, ps[i], col, k)
     return go
 
@@ -328,10 +356,49 @@ def kernel1_phase(torch, gen):
         print(f"ternary_matmul_actq prefill M=192 K={k} N={n}: kernel {t:.5f} ms, torch._int_mm "
               f"{fmt(int_mm_ms(torch, act_quant(x).xq, p, k))}, bound "
               f"{bound_ms(nb, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
+    worst = max(worst, mixtral_2d(torch, gen))
     return dict(name="ternary_matmul_actq", route="cuda",
                 source="src/repro_torch/csrc/ternary_matmul.cu",
                 replaces="src/repro/kernels/ternary_matmul.py:381", max_abs_err=worst,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def mixtral_2d(torch, gen):
+    """Kernel 1 at mixtral-8x22b's wqkv and wo: bit-identical to plain at a
+    decode step's M 4 and the 4200-token admission's M, f32 pack2; timed
+    per layer at decode (the two launches over copies past the L2) and per
+    shape at admission, beside the byte / operation bound. Returns the
+    largest |kernel - plain|."""
+    from repro_torch.core.ternary import act_quant
+    from repro_torch.kernels import ternary_matmul as tm
+
+    worst = 0.0
+    for m in (4, 4200):
+        for k, n in MIXTRAL_2D:
+            x, (p,), col = projection_operands(torch, gen, m, k, n)
+            got = tm.ternary_matmul_actq(x, p, col, k=k)
+            ref = tm.ternary_matmul_actq_plain(x, p, col, k)
+            torch.cuda.synchronize()
+            worst = max(worst, max_err(got, ref))
+            check(torch.equal(got, ref), f"ternary_matmul_actq not bit-identical at "
+                                         f"mixtral-8x22b's M={m} K={k} N={n}")
+            if m == 4200:
+                t = device_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k), only=TERNARY)
+                t = time_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k)) if t is None else t
+                nb = m * k * 4 + k // 4 * n + n * 4 + m * n * 4
+                print(f"ternary_matmul_actq mixtral-8x22b admission M={m} K={k} N={n}: kernel "
+                      f"{t:.5f} ms, torch._int_mm {fmt(int_mm_ms(torch, act_quant(x).xq, p, k))}"
+                      f", bound {bound_ms(nb, 2 * m * k * n, INT8_OPS)[0]:.5f} ms")
+    print("ternary_matmul_actq: bit-identical to plain at mixtral-8x22b's wqkv / wo, M 4 and "
+          "4200 (f32, pack2)")
+    layer = [projection_operands(torch, gen, 4, k, n, copies=4) for k, n in MIXTRAL_2D]
+    ms, _ = timed("kernel", layer_runner(layer, lambda x, p, col, k: tm.ternary_matmul_actq(
+        x, p, col, k=k), copies=4, shapes=MIXTRAL_2D), only=TERNARY)
+    nb = sum(4 * k * 4 + k // 4 * n + n * 4 + 4 * n * 4 for k, n in MIXTRAL_2D)
+    b_ms, b_by = bound_ms(nb, sum(2 * 4 * k * n for k, n in MIXTRAL_2D), INT8_OPS)
+    print(f"ternary_matmul_actq mixtral-8x22b decode layer (2 launches, M=4, pack2, f32 x): "
+          f"kernel {ms:.5f} ms, bound {b_ms:.5f} ms by {b_by} ({nb} B / 3.35 TB/s)")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -426,7 +493,7 @@ def kernel2_phase(torch, gen, theta, smi):
     # longest pre-append length
     t80, t127 = (decode_timing(torch, gen, theta, n, True, smi) for n in (80, 127))
     return dict(name="flash_decode_gqa_fused", route="cuda",
-                source="src/repro_torch/csrc/flash_decode.cu",
+                source="src/repro_torch/csrc/flash_decode.cuh",
                 replaces="src/repro/kernels/flash_decode.py:481", max_abs_err=worst,
                 **t80, len127=t127)
 
@@ -482,7 +549,7 @@ def kernel3_phase(torch, gen, theta):
         out[s] = (ms, plain_ms, library_ms, b_ms, b_by)
     ms, plain_ms, library_ms, b_ms, b_by = out[32]
     return dict(name="flash_prefill_fresh", route="cuda",
-                source="src/repro_torch/csrc/flash_prefill.cu",
+                source="src/repro_torch/csrc/flash_prefill.cuh",
                 replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 s128={"ms": out[128][0], "plain_ms": out[128][1], "library_ms": out[128][2],
@@ -623,7 +690,7 @@ def kernel3_chunk_phase(torch, gen, theta, smi):
           f"{ms:.5f} ms, plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms "
           f"by {b_by} ({n_bytes} B, {ops} FLOP) on {smi}")
     return dict(name="flash_prefill_chunk", route="cuda",
-                source="src/repro_torch/csrc/flash_prefill.cu",
+                source="src/repro_torch/csrc/flash_prefill.cuh",
                 replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
@@ -713,10 +780,69 @@ def kernel1_expert_phase(torch, gen):
         print(f"ternary_matmul_expert prefill E=256 C=8 K={k} N={n}: kernel {t:.5f} ms, "
               f"bf16 bmm {bmm_ms:.5f} ms, bound "
               f"{bound_ms(nb, 2 * e * 8 * k * n, INT8_OPS)[0]:.5f} ms")
+    worst = max(worst, mixtral_experts(torch, gen))
     return dict(name="ternary_matmul_actq_expert", route="cuda",
                 source="src/repro_torch/csrc/ternary_matmul.cu",
                 replaces="src/repro/kernels/ternary_matmul.py:381", max_abs_err=worst,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def mixtral_experts(torch, gen):
+    """Kernel 1's expert form at mixtral-8x22b's E 8, w_gu and w_down:
+    bit-identical to plain at the capacities of its decode step (2 and 5)
+    and of its 4200-token admission (1313 and 4200), f32, empty slots
+    exactly zero; one MoE layer timed at decode (C 2) beside plain, bf16
+    ``torch.bmm`` and the bound, each launch at the admission's C 1313.
+    Returns the largest |kernel - plain|."""
+    from repro_torch.kernels import ternary_matmul as tm
+
+    e, worst = 8, 0.0
+    for c in (2, 5, 1313, 4200):
+        for k, n in MIXTRAL_EXPERT:
+            x, p, col = expert_operands(torch, gen, c, k, n, e=e)
+            got = tm.ternary_matmul_expert(x, p, col, k=k)
+            ref = tm.ternary_matmul_expert(x, p, col, k=k, impl="plain")
+            torch.cuda.synchronize()
+            worst = max(worst, max_err(got, ref))
+            check(torch.equal(got, ref), f"ternary_matmul_expert not bit-identical at "
+                                         f"mixtral-8x22b's E={e} C={c} K={k} N={n}")
+            check(not got[::7, -1].any(), "an empty expert slot is not exactly zero")
+            del x, p, col, got, ref
+    print("ternary_matmul_expert: bit-identical to plain at mixtral-8x22b's E=8 w_gu / w_down, "
+          "C 2 / 5 / 1313 / 4200 (f32); empty slots exactly zero")
+    layer = [expert_operands(torch, gen, 2, k, n, e=e) for k, n in MIXTRAL_EXPERT]
+
+    def run(fn):
+        return lambda: [fn(x, p, col, k) for (k, _), (x, p, col) in zip(MIXTRAL_EXPERT, layer)]
+
+    ms, _ = timed("kernel", run(lambda x, p, col, k: tm.ternary_matmul_expert(x, p, col, k=k)),
+                  only=TERNARY)
+    plain_ms, _ = timed("plain", run(lambda x, p, col, k: tm.ternary_matmul_expert(
+        x, p, col, k=k, impl="plain")), iters=2)
+    ws = [torch.randn((e, k, n), generator=gen, device="cuda", dtype=torch.bfloat16)
+          for k, n in MIXTRAL_EXPERT]
+    xb = [x.to(torch.bfloat16) for x, _, _ in layer]
+    library_ms, _ = timed("bf16 torch.bmm", lambda: [torch.bmm(a, w) for a, w in zip(xb, ws)])
+    nb = sum(e * (2 * k * 4 + k // 4 * n + n * 4 + 2 * n * 4) for k, n in MIXTRAL_EXPERT)
+    b_ms, b_by = bound_ms(nb, sum(2 * e * 2 * k * n for k, n in MIXTRAL_EXPERT), INT8_OPS)
+    print(f"ternary_matmul_expert mixtral-8x22b MoE layer (2 launches, E=8, C=2, pack2, f32 x): "
+          f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bf16 bmm {library_ms:.5f} ms, bound "
+          f"{b_ms:.5f} ms by {b_by} ({nb} B / 3.35 TB/s)")
+    c = 1313
+    for (k, n), w in zip(MIXTRAL_EXPERT, ws):
+        x, p, col = expert_operands(torch, gen, c, k, n, e=e)
+        t = device_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k), only=TERNARY)
+        t = time_ms(lambda: tm.ternary_matmul_expert(x, p, col, k=k)) if t is None else t
+        xbf = x.to(torch.bfloat16)
+        bmm = time_ms(lambda: torch.bmm(xbf, w), iters=5)
+        nb = e * (c * k * 4 + k // 4 * n + n * 4 + c * n * 4)
+        print(f"ternary_matmul_expert mixtral-8x22b admission E={e} C={c} K={k} N={n}: kernel "
+              f"{t:.5f} ms, bf16 bmm {bmm:.5f} ms, bound "
+              f"{bound_ms(nb, 2 * e * c * k * n, INT8_OPS)[0]:.5f} ms")
+        del x, p, col, xbf
+    del ws, xb, layer
+    torch.cuda.empty_cache()
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -770,7 +896,7 @@ def kernel3_mla_phase(torch, gen, theta):
         out[s] = (ms, plain_ms, library_ms, b_ms, b_by)
     ms, plain_ms, library_ms, b_ms, b_by = out[32]
     return dict(name="flash_prefill_mla", route="cuda",
-                source="src/repro_torch/csrc/flash_prefill.cu",
+                source="src/repro_torch/csrc/flash_prefill.cuh",
                 replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 s128={"ms": out[128][0], "plain_ms": out[128][1], "library_ms": out[128][2],
@@ -1094,7 +1220,7 @@ def kernel6_phase(torch, gen, theta, smi):
     # append) and a full cache
     t80, t128 = (decode_timing(torch, gen, theta, n, False, smi) for n in (80, 128))
     return dict(name="flash_decode_gqa", route="cuda",
-                source="src/repro_torch/csrc/flash_decode.cu",
+                source="src/repro_torch/csrc/flash_decode.cuh",
                 replaces="src/repro/kernels/flash_decode.py:402", max_abs_err=worst,
                 **t80, len128=t128)
 
@@ -1115,12 +1241,14 @@ def rows_against_one(torch, fn, x, ms=(2, 6, 32, 192, 576)):
 
 
 def m_dependence(torch, gen):
-    """Why the LoRA products and rms_norm run in kernels of their own and
-    the lm_head at a fixed M: on the card the rows of an f32 cuBLAS GEMM
-    and of PyTorch's row reduction change with the number of rows; the
-    kernels' rows do not (checked; the rest is reported)."""
+    """Why the LoRA products and rms_norm run in kernels of their own, the
+    lm_head at a fixed M and the MoE router in a fixed order: on the card
+    the rows of an f32 cuBLAS GEMM and of PyTorch's row reduction change
+    with the number of rows; the kernels' rows and the router's do not
+    (checked; the rest is reported)."""
     from repro_torch.kernels import lora as kl
     from repro_torch.kernels import rms_norm as krms
+    from repro_torch.models.moe import router_logits
 
     x = torch.randn((576, 2048), generator=gen, device="cuda")
     w = torch.randn((2048, 131072), generator=gen, device="cuda") * 2048 ** -0.5
@@ -1131,13 +1259,18 @@ def m_dependence(torch, gen):
     def torch_rms(t):  # the port's rms_norm before its kernel: PyTorch's mean
         return t * torch.rsqrt((t * t).mean(dim=-1, keepdim=True) + 1e-6) * ln
 
-    for label, fn in (("lm_head x @ W (2048 x 131072)", lambda t: t @ w),
-                      ("LoRA x @ A (2048 x 16)", lambda t: t @ a),
-                      ("PyTorch rms_norm (2048)", torch_rms)):
-        print(f"rows differing from M = 1, by M: {label}: {rows_against_one(torch, fn, x)}")
-    for label, fn in (("LoRA kernel", lambda t: kl.lora_delta(t, a, b, 2.0)),
-                      ("rms_norm kernel", lambda t: krms.rms_norm(t, ln))):
-        rows = rows_against_one(torch, fn, x)
+    # mixtral-8x22b's router: d_model 6144 onto 8 experts
+    xr = torch.randn((576, 6144), generator=gen, device="cuda")
+    wr = torch.randn((6144, 8), generator=gen, device="cuda") * 6144 ** -0.5
+    for label, fn, xx in (("lm_head x @ W (2048 x 131072)", lambda t: t @ w, x),
+                          ("LoRA x @ A (2048 x 16)", lambda t: t @ a, x),
+                          ("PyTorch rms_norm (2048)", torch_rms, x),
+                          ("router x @ W (6144 x 8)", lambda t: t @ wr, xr)):
+        print(f"rows differing from M = 1, by M: {label}: {rows_against_one(torch, fn, xx)}")
+    for label, fn, xx in (("LoRA kernel", lambda t: kl.lora_delta(t, a, b, 2.0), x),
+                          ("rms_norm kernel", lambda t: krms.rms_norm(t, ln), x),
+                          ("router_logits", lambda t: router_logits(t, wr), xr)):
+        rows = rows_against_one(torch, fn, xx)
         print(f"rows differing from M = 1, by M: {label}: {rows}")
         check(not any(rows.values()), f"{label}: rows depend on M: {rows}")
     del w
@@ -1179,6 +1312,7 @@ def lora_phase(torch, gen, smi):
     print(f"lora_delta: bit-identical to plain on {n} cases (falcon3-1b's lora_v / lora_o / "
           f"lora_down, rank 16, M {LORA_ROWS}, f32 and bf16); every row of an M = 576 launch "
           f"equal to the same row launched alone")
+    router_through_lora(torch, gen)
 
     def step(fn):
         def run():
@@ -1203,6 +1337,38 @@ def lora_phase(torch, gen, smi):
     return dict(name="lora_delta", route="cuda", source="src/repro_torch/csrc/lora.cu",
                 replaces="src/repro/core/lora.py:64", max_abs_err=worst, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def router_through_lora(torch, gen):
+    """The MoE router's logits through the LoRA kernel (the identity as its
+    second factor, models/moe.py ``router_logits``): bit-identical to the
+    plain version at mixtral-8x22b's 6144 -> 8 and DeepSeek-V3's 7168 ->
+    256 (eight launches of 32 columns), at a decode step's M 4, a chunk
+    wave's 1024 and the 4200-token admission; mixtral's timed at M 4 and
+    4200 beside the f32 torch.matmul."""
+    from repro_torch.kernels import lora as kl
+    from repro_torch.models.moe import router_logits
+
+    for d, n_e in ((6144, 8), (7168, 256)):
+        w = torch.randn((d, n_e), generator=gen, device="cuda") * d ** -0.5
+        for m in (4, 1024, 4200):
+            h = torch.randn((m, d), generator=gen, device="cuda")
+            before = kl.KERNEL.launches
+            got = router_logits(h, w)
+            want = router_logits(h, w, impl="plain")
+            torch.cuda.synchronize()
+            check(kl.KERNEL.launches == before + -(-n_e // kl.MAX_RANK),
+                  "router_logits: not one launch per 32 experts")
+            check(torch.equal(got, want), f"router_logits not bit-identical to plain (d {d}, "
+                                          f"E {n_e}, M {m}): {max_err(got, want)}")
+            if n_e == 8 and m in (4, 4200):
+                t, _ = timed(f"router kernel M={m}", lambda: router_logits(h, w),
+                             only="lora_kernel")
+                lib = time_ms(lambda: h @ w)
+                print(f"router_logits mixtral-8x22b M={m}: kernel {t:.5f} ms, f32 torch.matmul "
+                      f"{lib:.5f} ms")
+    print("router_logits: bit-identical to plain at 6144 -> 8 and 7168 -> 256, M 4 / 1024 / "
+          "4200")
 
 
 def rms_norm_phase(torch, gen, smi):
@@ -1385,7 +1551,7 @@ def paged_decode_phase(torch, gen, theta, smi, fused):
         PAGED_DECODE, GQA_DECODE, n_bytes, 4 * b * h * (length + int(fused)) * d, smi)
     ref_line = "src/repro/kernels/flash_decode.py:481" if fused else \
         "src/repro/kernels/flash_decode.py:402"
-    return dict(name=kern.symbol, route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+    return dict(name=kern.symbol, route="cuda", source="src/repro_torch/csrc/flash_decode.cuh",
                 replaces=ref_line, max_abs_err=worst, **t)
 
 
@@ -1444,8 +1610,286 @@ def paged_chunk_phase(torch, gen, theta, smi):
         lambda: fp.flash_prefill_attention(q, k, v, paged, rope_theta=theta, impl="plain"),
         lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
         PAGED_CHUNK, "gqa_chunk_kernel", n_bytes, ops, smi)
-    return dict(name=kern.symbol, route="cuda", source="src/repro_torch/csrc/flash_prefill.cu",
+    return dict(name=kern.symbol, route="cuda", source="src/repro_torch/csrc/flash_prefill.cuh",
                 replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst, **t)
+
+
+# ---------------------------------------------------------------------------
+# kernels 2 and 3 over the sliding-window ring (A1d, A3c): mixtral-8x22b
+# ---------------------------------------------------------------------------
+
+RING_DECODE = "gqa_decode_ring_kernel"  # profiler keys of the SWA forms
+WINDOW_PREFILL = "gqa_window_kernel"
+CHUNK_RING = "gqa_chunk_ring_kernel"
+SWA_SHAPES = ((48, 8, 128), (8, 4, 256))  # (h, g, d): mixtral-8x22b's, falcon3-1b's
+
+
+def window_live(q_pos, k_lo, k_hi, window):
+    """Key-row pairs a causal window attends: rows at positions ``q_pos``
+    see the keys of [max(k_lo, p - window + 1), min(k_hi, p + 1))."""
+    return sum(max(min(k_hi, p + 1) - max(k_lo, p - window + 1), 0) for p in q_pos)
+
+
+def ring_decode_phase(torch, gen, theta, smi):
+    """A1d, the ring form of the fused GQA decode: o and k_rot
+    bit-identical to its plain version at mixtral-8x22b's heads (rep 6, d
+    128) and falcon3-1b's (rep 2, d 256), rings of 64 and 4096 rows,
+    lengths before, at and past the wrap, an inactive wrapped slot and an
+    inactive empty one, f32 and bf16, NaN past each length; the
+    post-append form over the same rings too. Held bit for bit and timed
+    at b 4, h 48, g 8, d 128 over a wrapped 4096-row ring (f32) beside
+    SDPA with the evictee masked out."""
+    from repro_torch.kernels import flash_decode as fd
+
+    worst, n = 0.0, 0
+    for h, g, d in SWA_SHAPES:
+        for cold in (64, 4096):
+            lengths = [0, cold - 1, cold, cold + 1, 3 * cold + 5, cold + 2]
+            active = torch.tensor([False, True, True, True, True, False], device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                q, cache, k_new, v_new = decode_case(torch, gen, lengths, dtype, b=6, h=h, g=g,
+                                                     d=d, hot=0, cold=cold)
+                kw = dict(k_new=k_new, v_new=v_new, active=active, rope_theta=theta)
+                before = fd.RING_KERNEL.launches
+                o, k_rot = fd.flash_decode_attention_ring(q, cache, **kw)
+                o_p, k_p = fd.flash_decode_attention_ring(q, cache, impl="plain", **kw)
+                post = fd.flash_decode_attention_ring(q, cache)
+                post_p = fd.flash_decode_attention_ring(q, cache, impl="plain")
+                torch.cuda.synchronize()
+                check(fd.RING_KERNEL.launches == before + 1, "ring decode: not one launch")
+                check(torch.isfinite(o).all() and torch.isfinite(post).all(),
+                      "ring decode output not finite (read a masked row?)")
+                worst = max(worst, max_err(o, o_p), max_err(post, post_p))
+                check(torch.equal(o, o_p) and torch.equal(k_rot, k_p),
+                      f"ring decode not bit-identical to plain (h {h}, d {d}, ring {cold}, "
+                      f"{dtype}): {max_err(o, o_p)}")
+                check(torch.equal(post, post_p), f"post-append decode over the ring (ring {cold})"
+                      f" not bit-identical: {max_err(post, post_p)}")
+                n += 1
+    print(f"{fd.RING_KERNEL.symbol}: o and k_rot bit-identical to plain on {n} cases (h/g/d "
+          f"{SWA_SHAPES}, rings 64 / 4096, lengths before / at / past the wrap, inactive "
+          f"slots, f32 / bf16); the post-append form over the same rings too")
+    b, (h, g, d), cold = 4, SWA_SHAPES[0], 4096
+    length = cold + 80
+    q, cache, k_new, v_new = decode_case(torch, gen, [length] * b, torch.float32, b=b, h=h, g=g,
+                                         d=d, hot=0, cold=cold)
+    act = torch.ones(b, dtype=torch.bool, device="cuda")
+    kw = dict(k_new=k_new, v_new=v_new, active=act, rope_theta=theta)
+    o, k_rot = fd.flash_decode_attention_ring(q, cache, **kw)
+    o_p, k_p = fd.flash_decode_attention_ring(q, cache, impl="plain", **kw)
+    torch.cuda.synchronize()
+    worst = max(worst, max_err(o, o_p))
+    check(torch.equal(o, o_p) and torch.equal(k_rot, k_p),
+          f"ring decode not bit-identical at the timed case: {max_err(o, o_p)}")
+    print(f"{fd.RING_KERNEL.symbol} at b {b}, h {h}, g {g}, d {d}, ring {cold}, length {length}: "
+          f"o and k_rot bit-identical to plain")
+    ms, _ = timed("kernel", lambda: fd.flash_decode_attention_ring(q, cache, **kw),
+                  only=RING_DECODE)
+    plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention_ring(q, cache, impl="plain",
+                                                                         **kw), iters=3)
+    # SDPA over the ring rows and the pending token (rotated as the kernel
+    # does), the evictee masked out
+    from repro_torch.models.layers import apply_rope
+
+    q_rot = apply_rope(q[:, None], cache.lengths.long()[:, None], theta)[:, 0]
+    kk = torch.cat([cache.cold_k, k_rot[:, None]], 1).permute(0, 2, 1, 3)
+    vv = torch.cat([cache.cold_v, v_new[:, None]], 1).permute(0, 2, 1, 3)
+    kh = kk.repeat_interleave(h // g, dim=1).contiguous()
+    vh = vv.repeat_interleave(h // g, dim=1).contiguous()
+    mask = torch.ones((b, 1, 1, cold + 1), dtype=torch.bool, device="cuda")
+    mask[:, :, :, (length % cold)] = False
+    library_ms, _ = timed("SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_rot[:, :, None], kh, vh, attn_mask=mask))
+    # q, the ring rows the window still needs (every row but the evictee),
+    # k_new, v_new, lengths, active, the cos / sin tables; o and k_rot
+    rows = cold - 1
+    n_bytes = (b * h * d * 4 + b * rows * g * d * 4 * 2 + 2 * b * g * d * 4 + 8 * b
+               + b * d * 4 + b * h * d * 4 + b * g * d * 4)
+    ops = 4 * b * h * (rows + 1) * d
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"{fd.RING_KERNEL.symbol} (b {b}, wrapped ring {cold}, f32): kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms by {b_by} "
+          f"({n_bytes} B, {ops} FLOP) on {smi}")
+    return dict(name=fd.RING_KERNEL.symbol, route="cuda",
+                source="src/repro_torch/csrc/flash_decode.cuh",
+                replaces="src/repro/kernels/flash_decode.py:481", max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def qkv_case(torch, gen, b, s, h, g, d, dtype):
+    return tuple(torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                 for sh in ((b, s, h, d), (b, s, g, d), (b, s, g, d)))
+
+
+def window_sdpa(torch, q, k, v, q_pos, k_pos, k_ok, window, theta, h, g):
+    """SDPA over rotated q / keys with the causal window as an explicit
+    mask; keys given rotated, ``k_ok`` (b, S) the keys that exist."""
+    from repro_torch.models.layers import apply_rope
+
+    qr = apply_rope(q.float(), q_pos, theta).permute(0, 2, 1, 3)  # (b, h, s, d)
+    kh = k.float().permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    vh = v.float().permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    dq = q_pos[:, :, None] - k_pos[:, None, :]  # (b, s, S)
+    mask = ((dq >= 0) & (dq < window) & k_ok[:, None, :])[:, None]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qr, kh, vh, attn_mask=mask)
+
+
+def window_prefill_phase(torch, gen, theta, smi):
+    """A3c, fresh: ``flash_prefill_window`` against its plain version, o,
+    k_cast and v_cast bit for bit, at mixtral-8x22b's heads and
+    falcon3-1b's, s / window 40 / 8, 300 / 256 and 700 / 512, valid s, a
+    part and 0, f32 and bf16. Timed at one 4200-token prompt under the
+    4096 window (mixtral-8x22b's admission past its window), held bit for
+    bit there too, beside SDPA with the window as an explicit mask."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    worst, n = 0.0, 0
+    for h, g, d in SWA_SHAPES:
+        for s, window in ((40, 8), (300, 256), (700, 512)):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = qkv_case(torch, gen, 3, s, h, g, d, dtype)
+                valid = torch.tensor([s, s // 2 + 3, 0], dtype=torch.int32, device="cuda")
+                before = fp.WINDOW_KERNEL.launches
+                got = fp.flash_prefill_attention(q, k, v, valid=valid, window=window,
+                                                 rope_theta=theta)
+                want = fp.flash_prefill_attention(q, k, v, valid=valid, window=window,
+                                                  rope_theta=theta, impl="plain")
+                torch.cuda.synchronize()
+                check(fp.WINDOW_KERNEL.launches == before + 1, "window prefill: not one launch")
+                worst = max(worst, max_err(got[0], want[0]))
+                check(all(torch.equal(a, b_) for a, b_ in zip(got, want)),
+                      f"window prefill not bit-identical (h {h}, d {d}, s {s}, window {window}, "
+                      f"{dtype}): {max_err(got[0], want[0])}")
+                n += 1
+    print(f"{fp.WINDOW_KERNEL.symbol}: o, k_cast, v_cast bit-identical to plain on {n} cases")
+    b, (h, g, d), s, window = 1, SWA_SHAPES[0], 4200, 4096
+    q, k, v = qkv_case(torch, gen, b, s, h, g, d, torch.float32)
+    valid = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    run = lambda impl: fp.flash_prefill_attention(q, k, v, valid=valid, window=window,  # noqa: E731
+                                                  rope_theta=theta, impl=impl)
+    got, want = run("auto"), run("plain")  # the plain call is its timing's warm-up too
+    torch.cuda.synchronize()
+    worst = max(worst, max_err(got[0], want[0]))
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, want)),
+          f"window prefill not bit-identical at s {s}, window {window}: "
+          f"{max_err(got[0], want[0])}")
+    print(f"{fp.WINDOW_KERNEL.symbol} at b {b}, s {s}, window {window}, h {h}, g {g}, d {d}: "
+          f"o, k_cast, v_cast bit-identical to plain")
+    ms, _ = timed("kernel", lambda: run("auto"), only=WINDOW_PREFILL, iters=5)
+    plain_ms = time_ms(lambda: run("plain"), iters=1, warmup=0)
+    print(f"  plain: CUDA events {plain_ms:.5f} ms per call")
+    pos = torch.arange(s, device="cuda")[None]
+    k_c = got[1]
+    del want
+    library_ms, _ = timed("SDPA", window_sdpa(torch, q, k_c, v, pos, pos,
+                                              torch.ones((b, s), dtype=torch.bool, device="cuda"),
+                                              window, theta, h, g), iters=5)
+    # q, k, v, valid and the (s, d/2) cos / sin tables in; o, k_cast, v_cast out
+    n_bytes = 4 * (b * s * h * d * 2 + 4 * b * s * g * d + s * d) + 4 * b
+    ops = 4 * h * d * b * window_live(range(s), 0, s, window)
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"{fp.WINDOW_KERNEL.symbol} (s {s}, window {window}, f32): kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms by {b_by} "
+          f"({n_bytes} B, {ops} FLOP) on {smi}")
+    return dict(name=fp.WINDOW_KERNEL.symbol, route="cuda",
+                source="src/repro_torch/csrc/flash_prefill.cuh",
+                replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def ring_chunk_phase(torch, gen, theta, smi):
+    """A3c, chunked over the ring: ``flash_prefill_chunk_ring`` against its
+    plain version (o on valid rows, k_cast, v_cast bit for bit) at both
+    head shapes, rings of 64 (C 16 and 48) and 4096 (C 256) with the
+    window the ring's size, offsets 0, inside, just past and far past the
+    wrap, valid C, C - 5, 0 and C / 2, f32 and bf16, NaN past each length;
+    and f32 chunks of 48 over a ring of 64 equal to the fresh window
+    kernel while the prompt wraps three times. Held bit for bit and timed
+    at mixtral-8x22b's chunk wave (4 slots, C 256, offsets past the wrap)
+    beside SDPA over the materialised keys with the window mask."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_prefill as fp
+
+    worst, n = 0.0, 0
+    for h, g, d in SWA_SHAPES:
+        for cold, c in ((64, 16), (64, 48), (4096, 256)):
+            lens = [0, cold - 5, cold + 3, 3 * cold + 1]
+            for dtype in (torch.float32, torch.bfloat16):
+                _, cache, _, _ = decode_case(torch, gen, lens, dtype, b=4, h=h, g=g, d=d, hot=0,
+                                             cold=cold)
+                q, k, v = qkv_case(torch, gen, 4, c, h, g, d, dtype)
+                valid = torch.tensor([c, c - 5, 0, c // 2], dtype=torch.int32, device="cuda")
+                kw = dict(valid=valid, window=cold, ring=True, rope_theta=theta)
+                before = fp.CHUNK_RING_KERNEL.launches
+                got = fp.flash_prefill_attention(q, k, v, cache, **kw)
+                want = fp.flash_prefill_attention(q, k, v, cache, impl="plain", **kw)
+                torch.cuda.synchronize()
+                check(fp.CHUNK_RING_KERNEL.launches == before + 1, "ring chunk: not one launch")
+                for i, nv in enumerate(valid.tolist()):
+                    worst = max(worst, max_err(got[0][i, :nv], want[0][i, :nv]))
+                    check(torch.equal(got[0][i, :nv], want[0][i, :nv]),
+                          f"ring chunk o not bit-identical (h {h}, d {d}, ring {cold}, C {c}, "
+                          f"{dtype}, slot {i})")
+                check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+                      f"ring chunk k_cast / v_cast not bit-identical (ring {cold}, {dtype})")
+                n += 1
+    b, (h, g, d), s, w = 2, SWA_SHAPES[0], 200, 64
+    q, k, v = qkv_case(torch, gen, b, s, h, g, d, torch.float32)
+    o, k_c, _ = fp.flash_prefill_attention(q, k, v, window=w, rope_theta=theta)
+    cache = kvc.init_cache(b, 0, w, (g, d), device="cuda")
+    for c0 in range(0, s, 48):
+        sl = slice(c0, c0 + 48)
+        oc, kc, vc = fp.flash_prefill_attention(q[:, sl], k[:, sl], v[:, sl], cache, window=w,
+                                                ring=True, rope_theta=theta)
+        check(torch.equal(oc, o[:, sl]) and torch.equal(kc, k_c[:, sl]),
+              f"ring chunks at offset {c0} differ from the fresh window kernel")
+        kvc.append(cache, kc, vc, ring=True)
+    print(f"{fp.CHUNK_RING_KERNEL.symbol}: o (valid rows), k_cast, v_cast bit-identical to plain "
+          f"on {n} cases; f32 chunks of 48 over a ring of 64 equal the fresh window kernel")
+    b, c, cold = 4, 256, 4096
+    offs = [cold + 104, cold + 1000, 2 * cold + 7, 3 * cold + 300]
+    _, cache, _, _ = decode_case(torch, gen, offs, torch.float32, b=b, h=h, g=g, d=d, hot=0,
+                                 cold=cold)
+    q, k, v = qkv_case(torch, gen, b, c, h, g, d, torch.float32)
+    valid = torch.full((b,), c, dtype=torch.int32, device="cuda")
+    kw = dict(valid=valid, window=cold, ring=True, rope_theta=theta)
+    got = fp.flash_prefill_attention(q, k, v, cache, **kw)
+    want = fp.flash_prefill_attention(q, k, v, cache, impl="plain", **kw)  # and warm-up
+    torch.cuda.synchronize()
+    worst = max(worst, max_err(got[0], want[0]))
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, want)),
+          f"ring chunk not bit-identical at the timed wave: {max_err(got[0], want[0])}")
+    print(f"{fp.CHUNK_RING_KERNEL.symbol} at b {b}, C {c}, ring {cold}, offsets {offs}: o, "
+          f"k_cast, v_cast bit-identical to plain")
+    ms, _ = timed("kernel", lambda: fp.flash_prefill_attention(q, k, v, cache, **kw),
+                  only=CHUNK_RING, iters=5)
+    plain_ms = time_ms(lambda: fp.flash_prefill_attention(q, k, v, cache, impl="plain", **kw),
+                       iters=1, warmup=0)
+    print(f"  plain: CUDA events {plain_ms:.5f} ms per call")
+    k_c = got[1]
+    del want
+    off = cache.lengths.long()
+    ring_pos = kvc.ring_slot_positions(off, cold).long()  # (b, cold)
+    k_pos = torch.cat([ring_pos, off[:, None] + torch.arange(c, device="cuda")[None]], 1)
+    keys = torch.cat([cache.cold_k, k_c], 1)
+    vals = torch.cat([cache.cold_v, v], 1)
+    q_pos = off[:, None] + torch.arange(c, device="cuda")[None]
+    library_ms, _ = timed("SDPA", window_sdpa(torch, q, keys, vals, q_pos, k_pos, k_pos >= 0,
+                                              cold, theta, h, g), iters=5)
+    # the chunk's q, k, v, valid, lengths and (b, C, d/2) tables in, the ring
+    # rows some row's window sees (all but the oldest of a wrapped ring) in,
+    # o, k_cast and v_cast out
+    n_bytes = (4 * (b * c * h * d * 2 + 4 * b * c * g * d + b * c * d) + 8 * b
+               + 4 * 2 * g * d * b * (cold - 1))
+    ops = 4 * h * d * sum(window_live(range(o, o + c), o - cold, o + c, cold) for o in offs)
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"{fp.CHUNK_RING_KERNEL.symbol} (b {b}, C {c}, ring {cold}, f32): kernel {ms:.5f} ms, "
+          f"plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms by {b_by} "
+          f"({n_bytes} B, {ops} FLOP) on {smi}")
+    return dict(name=fp.CHUNK_RING_KERNEL.symbol, route="cuda",
+                source="src/repro_torch/csrc/flash_prefill.cuh",
+                replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 # ---------------------------------------------------------------------------
@@ -2076,6 +2520,250 @@ def deepseek_phase(torch):
              f"{name} pack243": pack243_tok_s})
 
 
+# ---------------------------------------------------------------------------
+# mixtral-8x22b: sliding-window attention over the ring, MoE top-2 of 8
+# ---------------------------------------------------------------------------
+
+# (prompt, new tokens): two inside the 4096 window, one that crosses it
+# during decode (at its 47th token), one longer than it at admission
+MIXTRAL_SPECS = ((1000, 48), (3000, 64), (4050, 64), (4200, 32))
+MIXTRAL_KW = dict(hot_cap=32, max_len=4352, slots=4)
+MIXTRAL_SHAPES = {2: set(MIXTRAL_2D), 3: set(MIXTRAL_EXPERT)}
+
+
+def mixtral_requests(vocab):
+    """A function giving fresh Requests of MIXTRAL_SPECS (seeded prompts)."""
+    import numpy as np
+
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, vocab, (p,)).astype(np.int32) for p, _ in MIXTRAL_SPECS]
+    return lambda: [Request(i, t, n) for i, (t, (_, n)) in enumerate(zip(prompts, MIXTRAL_SPECS))]
+
+
+def check_requests(fin, cfg, eng, label):
+    """Every request finished with its budget, tokens in range, no weight
+    reloaded, and its ledger the reference's rule: the prompt in closed
+    form plus one step ledger per decode step at the engine's hot_cap
+    (which the SWA cache does not have; the reference charges it all the
+    same), i.e. external_reduction at closed_form_reduction(seq_len,
+    hot_cap)."""
+    from repro_torch.core import dr_edram
+    from repro_torch.core import kv_cache as kvc
+
+    import torch
+
+    hot, token_bytes = eng.hot_cap, eng._kv_token_bytes()
+    check(len(fin) == len(MIXTRAL_SPECS), f"{label}: {len(fin)} requests finished")
+    check(eng.weight_loads == 0, f"{label}: weights were reloaded")
+    for f in fin:
+        p, n = MIXTRAL_SPECS[f.rid]
+        check(f.prompt_len == p and f.seq_len == p + n and len(f.tokens) == n
+              and ((f.tokens >= 0) & (f.tokens < cfg.vocab_size)).all(),
+              f"{label}: request {f.rid} finished as {f.prompt_len} + {len(f.tokens)}")
+        steps = kvc.step_traffic_tokens(torch.arange(p, p + n, dtype=torch.int32), hot)
+        prompt = kvc.prompt_traffic_tokens(p, hot)
+        want = {k: (prompt[k] + int(steps[k].sum())) * token_bytes for k in kvc.TRAFFIC_KEYS}
+        closed = dr_edram.closed_form_reduction(p + n, hot)
+        check(f.traffic == want and abs(f.external_reduction - closed) <= 1e-12,
+              f"{label}: request {f.rid} ledger {f.traffic} != {want} or reduction "
+              f"{f.external_reduction} != {closed}")
+
+
+def swa_decode_breakdown(torch, eng, label, length=4180, n_steps=16):
+    """Where a mixtral-8x22b decode step's time goes: ``n_steps`` steps of
+    the engine's decode (every slot active over a wrapped ring of seeded
+    rows at ``length``), traced with torch.profiler after two warm-up
+    steps."""
+    state = eng._init_state(eng.slots, eng.max_len)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for stack in state.cache.values():
+        for t in stack[:4]:
+            if t.numel():
+                t.normal_(generator=gen)
+        stack.lengths.fill_(length)
+    state.allocated.fill_(True)
+    state.seq_len.fill_(length)
+    state.max_new.fill_(1 << 20)
+    state.tok = torch.randint(0, eng.cfg.vocab_size, (eng.slots,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+    timing = {}
+
+    def steps(k):
+        for _ in range(k):
+            eng._step(state, eng.max_len, None)
+
+    def run():
+        t0 = time.perf_counter()
+        steps(n_steps)
+        torch.cuda.synchronize()
+        timing["wall"] = (time.perf_counter() - t0) * 1e3
+
+    events = sorted(trace_events(run, warm=lambda: steps(2)), key=_device_us, reverse=True)
+    wall, busy = timing["wall"], sum(_device_us(e) for e in events) / 1e3
+    if busy <= 0:
+        print(f"{label} decode breakdown: device time not measured (the trace holds none)")
+        return
+    print(f"{label} decode breakdown, {n_steps} steps of {eng.slots} slots at length {length}: "
+          f"wall {wall:.2f} ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f} %), idle "
+          f"{100 * (1 - busy / wall):.1f} %; per step wall {wall / n_steps:.3f} ms")
+    for e in events[:8]:
+        print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
+    for name, key in (("ternary matmul kernels", TERNARY), ("ring decode kernel", RING_DECODE),
+                      ("rms_norm kernel", "rms_norm_kernel")):
+        sel = [e for e in events if key in e.key]
+        sel_ms = sum(_device_us(e) for e in sel) / 1e3
+        print(f"  {name}: {sel_ms:.3f} ms device time in {sum(e.count for e in sel)} launches "
+              f"({100 * sel_ms / busy:.2f} % of device busy)")
+
+
+def mixtral_phase(torch, smi):
+    """mixtral-8x22b at full width and depth (56 layers, 48 / 8 heads of
+    128, 8 experts top-2, window 4096), seeded, packed as drawn, served over
+    4 slots (hot_cap 32 for the ledger, max_len 4352, a 4096-row ring) with
+    the four requests of MIXTRAL_SPECS. At the published capacity factor
+    1.25 (tokens past an expert's capacity drop): grouped admission (the
+    window prefill and the ring realign), the launches of every kernel of
+    the path, one ring decode and one router launch per layer per step,
+    ledgers, a traced decode. Dropless (capacity factor E / k, every expert
+    takes every token, so a token's output does not depend on the tokens
+    batched with it): grouped and chunked admission (prefill_chunk 256: the
+    chunked ring form), tokens equal on every request. At the depth cut to
+    2 layers: the published run equal to its plain run (the same batching),
+    and each request served alone equal to the dropless batched serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+
+    cfg = get_config("mixtral-8x22b")
+    # with the published 1.25 a token's experts, and so its output, depend
+    # on the tokens batched with it (the reference's own semantics), so only
+    # runs of the same batching can be held equal; runs that batch
+    # differently are compared dropless
+    cfg_d = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    label = cfg.name
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed = T.init_params(cfg, seed=0, device="cuda", pack=True)
+    torch.cuda.synchronize()
+    print(f"{label}: init + pack (layer by layer) {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, init peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    shapes = {leaf.packed.dim(): set() for leaf in packed_leaves(packed)}
+    for leaf in packed_leaves(packed):
+        shapes[leaf.packed.dim()].add((leaf.k, leaf.packed.shape[-1]))
+    check(set(packed) == {"embed", "final_ln", "lm_head", "moe_blocks"}
+          and len(packed["moe_blocks"]) == cfg.n_layers and shapes == MIXTRAL_SHAPES,
+          f"{label}: tree {sorted(packed)} with packed shapes {shapes} is not the MoE stack "
+          f"alone at {MIXTRAL_SHAPES}")
+    print(f"{label} packed projection shapes (K, N): {shapes}")
+    reqs = mixtral_requests(cfg.vocab_size)
+    n_new = sum(n for _, n in MIXTRAL_SPECS)
+    kernels = [tm.KERNEL, tm.EXPERT_KERNEL, fd.RING_KERNEL, fd.KERNEL, fp.WINDOW_KERNEL,
+               fp.CHUNK_RING_KERNEL, fp.KERNEL, fp.CHUNK_KERNEL, kl.KERNEL, krms.KERNEL]
+    eng = Engine(cfg, packed, **MIXTRAL_KW)
+    t0 = time.perf_counter()
+    eng.serve([Request(99, reqs()[0].tokens[:40], 2)])  # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    print(f"warm-up serve 1 x (40 + 2): {time.perf_counter() - t0:.2f} s")
+    steps = counting_steps(eng)
+    torch.cuda.reset_peak_memory_stats()
+    fin, launches, wall = counted(kernels, lambda: eng.serve(reqs()))
+    tok_s = n_new / wall
+    print(f"{label} grouped serve of {MIXTRAL_SPECS} over 4 slots, capacity factor "
+          f"{cfg.moe.capacity_factor}: {wall:.3f} s, {tok_s:.2f} tokens/s, {len(steps)} decode "
+          f"steps, launches {launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_requests(fin, cfg, eng, label)
+    L, n_adm = cfg.n_layers, len(MIXTRAL_SPECS)
+    check(all(launches[k.symbol] > 0 for k in (tm.KERNEL, tm.EXPERT_KERNEL, fd.RING_KERNEL,
+                                               fp.WINDOW_KERNEL, kl.KERNEL, krms.KERNEL)),
+          f"{label}: a kernel of the path never launched: {launches}")
+    check(launches[fd.RING_KERNEL.symbol] == L * len(steps) and launches[fd.KERNEL.symbol] == 0,
+          f"{label}: not one ring decode per layer per step ({len(steps)} steps): {launches}")
+    check(launches[fp.WINDOW_KERNEL.symbol] == L * n_adm
+          and launches[fp.KERNEL.symbol] == 0 and launches[fp.CHUNK_RING_KERNEL.symbol] == 0,
+          f"{label}: not one window prefill per layer per admission: {launches}")
+    check(launches[kl.KERNEL.symbol] == L * (len(steps) + n_adm),
+          f"{label}: not one router launch per layer per step and admission: {launches}")
+    print(f"{label}: {launches[fd.RING_KERNEL.symbol] / len(steps):g} ring decode launches per "
+          f"step, {launches[fp.WINDOW_KERNEL.symbol] / n_adm:g} window prefill launches per "
+          f"admission, {L} router launches per step and admission; ledgers at the reference's "
+          f"rule; weight_loads = 0")
+    swa_decode_breakdown(torch, eng, label)
+
+    # dropless: grouped against chunked admission
+    torch.cuda.reset_peak_memory_stats()
+    eng_d = Engine(cfg_d, packed, **MIXTRAL_KW)
+    t0 = time.perf_counter()
+    fin_d = eng_d.serve(reqs())
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    check_requests(fin_d, cfg_d, eng_d, f"{label} dropless")
+    grouped = {f.rid: f.tokens for f in fin_d}
+    eng_c = Engine(cfg_d, packed, **MIXTRAL_KW, prefill_chunk=256)
+    waves, steps_c = counting_waves(eng_c), counting_steps(eng_c)
+    fin_c, launches_c, wall_c = counted(kernels, lambda: eng_c.serve(reqs()))
+    print(f"{label} dropless (capacity factor {cfg_d.moe.capacity_factor}): grouped serve "
+          f"{wall_d:.3f} s, {n_new / wall_d:.2f} tokens/s; chunked serve (prefill_chunk 256) "
+          f"{wall_c:.3f} s, {n_new / wall_c:.2f} tokens/s ({wall_d / wall_c:.3f} x the dropless "
+          f"grouped serve's rate), {len(waves)} chunk waves, {len(steps_c)} decode steps, "
+          f"launches {launches_c}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_requests(fin_c, cfg_d, eng_c, f"{label} chunked")
+    check(launches_c[fp.CHUNK_RING_KERNEL.symbol] == L * len(waves)
+          and launches_c[fp.WINDOW_KERNEL.symbol] == 0
+          and launches_c[fd.RING_KERNEL.symbol] == L * len(steps_c)
+          and launches_c[kl.KERNEL.symbol] == L * (len(steps_c) + len(waves)),
+          f"{label} chunked: not {L} ring chunk and router launches per wave and {L} ring "
+          f"decodes and router launches per step: {launches_c}")
+    same = [bool((grouped[f.rid] == f.tokens).all()) for f in sorted(fin_c, key=lambda f: f.rid)]
+    print(f"{label} dropless: chunked against grouped admission, tokens equal on {sum(same)}/"
+          f"{len(same)} requests")
+    check(all(same), f"{label}: chunked and grouped admission differ: {same}")
+    del eng_d, eng_c
+
+    # the depth cut to 2 layers (the run's time; the weights are the first
+    # two layers'): the published run against its plain run, and dropless,
+    # each request served alone against the batched serve
+    packed2 = dict(packed, moe_blocks=packed["moe_blocks"][:2])
+    cfg2 = dataclasses.replace(cfg, name="mixtral-8x22b-l2", n_layers=2)
+    cfg2_plain = dataclasses.replace(cfg2, bitnet=dataclasses.replace(cfg2.bitnet, impl="plain"))
+    fin2 = Engine(cfg2, packed2, **MIXTRAL_KW).serve(reqs())
+    t0 = time.perf_counter()
+    fin2_p = Engine(cfg2_plain, packed2, **MIXTRAL_KW).serve(reqs())
+    torch.cuda.synchronize()
+    want = {f.rid: f.tokens for f in fin2_p}
+    same = [bool((want[f.rid] == f.tokens).all()) for f in fin2]
+    print(f"{cfg2.name} (capacity factor {cfg2.moe.capacity_factor}): kernel run against its "
+          f"plain run ({time.perf_counter() - t0:.2f} s): tokens equal on {sum(same)}/"
+          f"{len(same)} requests")
+    check(all(same), f"{cfg2.name}: the kernel run differs from the plain run: {same}")
+    eng2 = Engine(dataclasses.replace(cfg_d, name="mixtral-8x22b-l2", n_layers=2), packed2,
+                  **MIXTRAL_KW)
+    batched = {f.rid: f.tokens for f in eng2.serve(reqs())}
+    t0 = time.perf_counter()
+    same = [bool((batched[r.rid] == eng2.serve([r])[0].tokens).all()) for r in reqs()]
+    print(f"{cfg2.name} dropless: each request served alone ({time.perf_counter() - t0:.2f} s): "
+          f"tokens equal to the batched serve on {sum(same)}/{len(same)}")
+    check(all(same), f"{cfg2.name}: a request served alone differs from the batched serve: "
+                     f"{same}")
+    print(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"on {smi}")
+    del eng, eng2, packed, packed2
+    torch.cuda.empty_cache()
+    return {label: launches, f"{label} chunked": launches_c}, {
+        label: tok_s, f"{label} dropless": n_new / wall_d, f"{label} chunked": n_new / wall_c}
+
+
 def decode_glue_per_step(torch, cfg, kw, theta):
     """Device time and launches per falcon3-1b decode step of the fused
     GQA decode wrapper's own work around its kernel (kernels/flash_decode.py
@@ -2255,6 +2943,7 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}")
 
     theta = get_config("falcon3-1b").rope_theta
+    swa_theta = get_config("mixtral-8x22b").rope_theta
     gen = torch.Generator(device="cuda").manual_seed(0)
     tm, fd, fp = ternary_matmul, flash_decode, flash_prefill
     # (label, phase, its kernel, the path whose run gives its launches)
@@ -2286,7 +2975,13 @@ def main() -> int:
               ("kernel 6 paged form", lambda: paged_decode_phase(torch, gen, theta, smi, False),
                fd.GQA_PAGED_KERNEL, "falcon3-1b entry points"),
               ("kernel 3 paged chunked form", lambda: paged_chunk_phase(torch, gen, theta, smi),
-               fp.CHUNK_PAGED_KERNEL, "falcon3-1b paged")]
+               fp.CHUNK_PAGED_KERNEL, "falcon3-1b paged"),
+              ("kernel 2 ring form", lambda: ring_decode_phase(torch, gen, swa_theta, smi),
+               fd.RING_KERNEL, "mixtral-8x22b"),
+              ("kernel 3 window form", lambda: window_prefill_phase(torch, gen, swa_theta, smi),
+               fp.WINDOW_KERNEL, "mixtral-8x22b"),
+              ("kernel 3 ring chunked form", lambda: ring_chunk_phase(torch, gen, swa_theta, smi),
+               fp.CHUNK_RING_KERNEL, "mixtral-8x22b chunked")]
     rows = []
     for label, fn, _, _ in phases:
         t0 = time.perf_counter()
@@ -2301,6 +2996,12 @@ def main() -> int:
     print(f"[deepseek-v3-671b-l5 phase: {time.perf_counter() - t0:.2f} s]")
     paths.update(ds_paths)
     tok_s.update(ds_tok_s)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mx_paths, mx_tok_s = mixtral_phase(torch, smi)
+    print(f"[mixtral-8x22b phase: {time.perf_counter() - t0:.2f} s]")
+    paths.update(mx_paths)
+    tok_s.update(mx_tok_s)
     for row, (_, _, kern, main_path) in zip(rows, phases):
         row["launches"] = paths[main_path][kern.symbol]
         row["launches_by_path"] = {p: d[kern.symbol] for p, d in paths.items()

@@ -1,10 +1,13 @@
 """Model configs of the port (reference: ``repro/configs/base.py``,
-``repro/configs/falcon3_1b.py`` and ``repro/configs/deepseek_v3_671b.py``).
+``repro/configs/falcon3_1b.py``, ``repro/configs/deepseek_v3_671b.py`` and
+``repro/configs/mixtral_8x22b.py``).
 
 A copy of the fields the ported paths read — the dense family (falcon3-1b:
-untied, SwiGLU, full GQA attention) and the MoE family with MLA attention
-(deepseek-v3-671b: latent KV cache, shared + routed experts) — so the
-port imports nothing of the JAX package. ``BitNetConfig.impl`` mirrors the
+untied, SwiGLU, full GQA attention), the MoE family with MLA attention
+(deepseek-v3-671b: latent KV cache, shared + routed experts) and the MoE
+family with sliding-window GQA attention (mixtral-8x22b: a ring-buffer
+cold tier of ``swa_window`` rows, no hot tier) — so the port imports
+nothing of the JAX package. ``BitNetConfig.impl`` mirrors the
 reference's dispatch switch: ``"auto"`` runs the CUDA kernels on CUDA
 tensors and the plain PyTorch versions on CPU tensors; ``"plain"`` forces
 the plain versions everywhere (used to run the same path twice for
@@ -70,7 +73,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // n_heads
-    attn_type: str = "full"  # "full" (GQA) | "mla"
+    attn_type: str = "full"  # "full" (GQA) | "swa" (GQA, sliding window) | "mla"
+    swa_window: int = 4096
     rope_theta: float = 1_000_000.0
     norm_eps: float = 1e-6
     decode_headroom: int = 128
@@ -96,6 +100,7 @@ def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=256,
+        swa_window=8 if cfg.attn_type == "swa" else cfg.swa_window,
     )
     if cfg.mla is not None:
         kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
@@ -161,12 +166,29 @@ DEEPSEEK_V3_671B = ModelConfig(
 DEEPSEEK_V3_671B_L5 = dataclasses.replace(DEEPSEEK_V3_671B, name="deepseek-v3-671b-l5",
                                           n_layers=5)
 
+# mixtral-8x22b — 8 experts top-2, sliding-window attention (window 4096):
+# the decode cache is a ring of the window's last tokens [arXiv:2401.04088; hf]
+MIXTRAL_8X22B = ModelConfig(
+    name="mixtral-8x22b",
+    family="moe",
+    n_layers=56,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab_size=32768,
+    attn_type="swa",
+    swa_window=4096,
+    moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=16384),
+    rope_theta=1_000_000.0,
+    source="arXiv:2401.04088; hf",
+)
+
 _REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (FALCON3_1B, DEEPSEEK_V3_671B, DEEPSEEK_V3_671B_L5)}
+    c.name: c for c in (FALCON3_1B, DEEPSEEK_V3_671B, DEEPSEEK_V3_671B_L5, MIXTRAL_8X22B)}
 _SMOKE: Dict[str, ModelConfig] = {
-    FALCON3_1B.name: shrink(FALCON3_1B),
-    DEEPSEEK_V3_671B.name: shrink(DEEPSEEK_V3_671B),
-}
+    c.name: shrink(c) for c in (FALCON3_1B, DEEPSEEK_V3_671B, MIXTRAL_8X22B)}
 
 
 def get_config(name: str) -> ModelConfig:

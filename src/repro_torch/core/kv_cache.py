@@ -19,6 +19,13 @@ The MLA latent cache keeps one row (c_kv ‖ k_rope) per token in the
 k-slot, (batch, cap, kv_lora_rank + rope dims), and an empty v-slot
 (batch, cap, 0).
 
+Sliding-window archs (SWA) keep a RING cold tier: position p >= hot_cap
+lands at cold row ``(p - hot_cap) % cold_cap``, so the tier holds the last
+``cold_cap`` tokens (``append(ring=True)``, ``append_decode_ring``,
+``fill_fresh(ring=True)``); the serving layout has no hot tier and a ring
+of ``min(window, max_len)`` rows. A paged cache refuses the ring, as the
+reference does.
+
 The serving path stacks one cache per layer along a leading axis
 (``layer`` returns a view of one layer). Unlike the reference, whose
 arrays are immutable, the appends here write the tier buffers and
@@ -253,13 +260,18 @@ def _paged_append_one(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Ten
     return cache
 
 
-def append_decode(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                  active: Optional[torch.Tensor] = None) -> TieredKVCache:
-    """Append one token (batch, g, d) per slot at its own length, in place.
+def _refuse_paged_ring(cache, ring: bool) -> None:
+    if ring and isinstance(cache, PagedKVCache):
+        raise NotImplementedError("a paged cache has no ring layout (as in the reference)")
 
-    ``active`` (batch,) bool gates the write per slot: inactive slots keep
-    their rows and length. Positions past the capacity clip to the last
-    row, as in the reference."""
+
+def _append_one(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                active: Optional[torch.Tensor], ring: bool) -> TieredKVCache:
+    """Append one token (batch, g, d) per slot at its own length, in place
+    (reference: ``_append_one``). ``ring``: a cold position lands at row
+    ``(pos - hot_cap) % cold_cap``; else positions past the capacity clip to
+    the last row, as in the reference."""
+    _refuse_paged_ring(cache, ring)
     if isinstance(cache, PagedKVCache):
         return _paged_append_one(cache, k_new, v_new, active)
     b = cache.lengths.shape[0]
@@ -273,7 +285,7 @@ def append_decode(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor
         cap = tier.shape[1]
         if tier.numel() == 0:  # zero-capacity tier or the empty latent v-slot
             return
-        idx = tier_pos.clamp(0, cap - 1)
+        idx = tier_pos % cap if ring else tier_pos.clamp(0, cap - 1)
         mask = (write & act).reshape((b,) + (1,) * (tier.ndim - 2))
         tier[rows, idx] = torch.where(mask, new.to(tier.dtype), tier[rows, idx])
 
@@ -283,6 +295,25 @@ def append_decode(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor
     upd(cache.cold_v, v_new, pos - cache.hot_cap, ~in_hot)
     cache.lengths.add_(act.to(cache.lengths.dtype))
     return cache
+
+
+def append_decode(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                  active: Optional[torch.Tensor] = None) -> TieredKVCache:
+    """Append one token (batch, g, d) per slot at its own length, in place.
+
+    ``active`` (batch,) bool gates the write per slot: inactive slots keep
+    their rows and length. Positions past the capacity clip to the last
+    row, as in the reference."""
+    return _append_one(cache, k_new, v_new, active, ring=False)
+
+
+def append_decode_ring(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                       active: Optional[torch.Tensor] = None) -> TieredKVCache:
+    """Decode append over a ring cold tier (sliding-window archs), in place:
+    position p >= hot_cap lands at cold row ``(p - hot_cap) % cold_cap``, so
+    the tier keeps the last ``cold_cap`` tokens (reference:
+    ``append_decode_ring``)."""
+    return _append_one(cache, k_new, v_new, active, ring=True)
 
 
 def _write_rows(tier: torch.Tensor, new: torch.Tensor, tier_pos: torch.Tensor,
@@ -312,10 +343,14 @@ def append(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     below ``hot_cap`` and to the cold tier at ``pos - hot_cap`` above it;
     then ``lengths`` grows by ``valid``. A slot with ``valid = 0`` keeps its
     rows and length. Positions past the capacity are not written (the
-    engine never makes them). The ring layout of the sliding-window
-    archs is not ported."""
-    if ring:
-        raise NotImplementedError("the ring cold tier (SWA archs) is not ported")
+    engine never makes them).
+
+    ``ring=True`` (sliding-window archs): a cold position lands at row
+    ``(pos - hot_cap) % cold_cap`` and only each slot's last ``cold_cap``
+    valid rows write (the earlier ones would be evicted within this call),
+    so every ring row has one writer, as in the reference. A paged cache
+    refuses the ring."""
+    _refuse_paged_ring(cache, ring)
     if isinstance(cache, PagedKVCache):
         return _paged_append(cache, k_new, v_new, valid)
     t = k_new.shape[1]
@@ -325,7 +360,11 @@ def append(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     n_new = (torch.full_like(start, t) if valid is None else valid.long())
     write = t_idx[None] < n_new[:, None]
     in_hot = write & (pos < cache.hot_cap)
-    in_cold = write & (pos >= cache.hot_cap) & (pos < cache.capacity)
+    if ring:
+        in_cold = write & (pos >= cache.hot_cap) & (
+            n_new[:, None] - 1 - t_idx[None] < cache.cold_cap)
+    else:
+        in_cold = write & (pos >= cache.hot_cap) & (pos < cache.capacity)
     for tier, new in ((cache.hot_k, k_new), (cache.hot_v, v_new)):
         _write_rows(tier, new, pos, in_hot)
     for tier, new in ((cache.cold_k, k_new), (cache.cold_v, v_new)):
@@ -334,11 +373,22 @@ def append(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
-def fill_fresh(cache: TieredKVCache, k_new: torch.Tensor,
-               v_new: torch.Tensor) -> TieredKVCache:
+def fill_fresh(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+               ring: bool = False) -> TieredKVCache:
     """Place an aligned full prompt (batch, s, g, d) — already rotated and
-    in the tier dtype — into a fresh cache with static slices, in place."""
+    in the tier dtype — into a fresh cache with static slices, in place.
+
+    ``ring`` with s > cold_cap: the reference's ring realign — the last
+    ``cold_cap`` rows go to the cold tier with position p at row
+    ``p % cold_cap`` (the SWA layout, hot_cap = 0), and ``lengths`` is s."""
     s = k_new.shape[1]
+    if ring and s > cache.cold_cap:
+        w = cache.cold_cap
+        order = torch.argsort(torch.arange(s - w, s, device=k_new.device) % w)
+        cache.cold_k.copy_(k_new[:, s - w:][:, order].to(cache.cold_k.dtype))
+        cache.cold_v.copy_(v_new[:, s - w:][:, order].to(cache.cold_v.dtype))
+        cache.lengths.fill_(s)
+        return cache
     n_h = min(s, cache.hot_cap)
     n_c = min(s - n_h, cache.cold_cap)
     if n_h:
@@ -413,7 +463,9 @@ def save_hot(cache: PagedKVCache, slot: int, page_ids: torch.Tensor) -> PagedKVC
 
 
 def valid_masks(cache: TieredKVCache):
-    """Per-slot validity of each tier row: (b, hot_cap), (b, cold_cap) bool."""
+    """Per-slot validity of each tier row: (b, hot_cap), (b, cold_cap) bool.
+    The cold count clamps at cold_cap, which also covers a wrapped ring:
+    every row is valid once the window has wrapped."""
     lengths = cache.lengths.long()
     dev = lengths.device
     hot_valid = torch.arange(cache.hot_cap, device=dev)[None] < lengths[:, None]
@@ -495,12 +547,26 @@ def tiered_decode_attention_latent(q: torch.Tensor, cache: TieredKVCache,
     return merge_partials(parts)
 
 
+def ring_slot_positions(offset: torch.Tensor, cold_cap: int) -> torch.Tensor:
+    """Absolute position held by each ring row, (b, cold_cap) (reference:
+    ``ring_slot_positions``; the SWA layout, hot_cap = 0): row j holds the
+    largest p < offset with p = j (mod cold_cap), negative where no token
+    has been written yet."""
+    j = torch.arange(cold_cap, dtype=torch.int32, device=offset.device)[None]
+    off = offset.to(torch.int32)[:, None]
+    return off - 1 - torch.remainder(off - 1 - j, cold_cap)
+
+
 def tiered_chunk_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                            cache: Optional[TieredKVCache],
                            valid: Optional[torch.Tensor] = None,
-                           scale: float | None = None) -> torch.Tensor:
+                           scale: float | None = None, window: int = 0,
+                           ring: bool = False) -> torch.Tensor:
     """Causal chunk attention over [tiered cache prefix ‖ own chunk], in
-    f32 (reference: ``kv_cache.tiered_chunk_attention``, no window).
+    f32 (reference: ``kv_cache.tiered_chunk_attention``). ``window`` masks
+    keys at or past ``window`` positions behind a row (SWA); ``ring``: the
+    cold tier is the ring layout, its rows' positions from
+    ``ring_slot_positions``.
 
     q (b, C, h, dk), k_new (b, C, g, dk), RoPE already applied; v_new (b,
     C, g, dv). Chunk row t of slot b sits at position ``lengths[b] + t``
@@ -508,6 +574,7 @@ def tiered_chunk_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Te
     rows 0..t that are among its first ``valid[b]``. Per-tier partials
     merge as in the decode read; the tiers are never concatenated. A paged
     cache is read through ``as_tiered`` (a reference for the tests)."""
+    _refuse_paged_ring(cache, ring)
     if isinstance(cache, PagedKVCache):
         cache = as_tiered(cache)
     b, c, h, dk = q.shape
@@ -530,7 +597,10 @@ def tiered_chunk_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Te
                     q.new_full((b, g, rep, c), NEG_INF, dtype=torch.float32))
         vf = torch.where(kvalid[:, :, None, None], vbuf.float(), 0.0)
         logits = torch.einsum("bgrcd,bsgd->bgrcs", qg, kbuf.float()) * scale
-        mask = (kvalid[:, None, :] & (q_pos[:, :, None] >= kpos[:, None, :]))[:, None, None]
+        mask = kvalid[:, None, :] & (q_pos[:, :, None] >= kpos[:, None, :])
+        if window:
+            mask = mask & (q_pos[:, :, None] - kpos[:, None, :] < window)
+        mask = mask[:, None, None]
         logits = torch.where(mask, logits, NEG_INF)
         m = logits.amax(dim=-1)
         p = torch.exp(logits - m[..., None]) * mask
@@ -542,9 +612,14 @@ def tiered_chunk_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Te
         parts.append(partial(cache.hot_k, cache.hot_v, hpos,
                              hpos < offset.clamp(max=cache.hot_cap)[:, None]))
     if cache is not None and cache.cold_cap:
-        j = torch.arange(cache.cold_cap, device=dev)[None].expand(b, -1)
-        n_cold = (offset - cache.hot_cap).clamp(0, cache.cold_cap)
-        parts.append(partial(cache.cold_k, cache.cold_v, cache.hot_cap + j, j < n_cold[:, None]))
+        if ring:
+            cpos = ring_slot_positions(offset, cache.cold_cap).long()
+            cvalid = cpos >= 0
+        else:
+            j = torch.arange(cache.cold_cap, device=dev)[None].expand(b, -1)
+            n_cold = (offset - cache.hot_cap).clamp(0, cache.cold_cap)
+            cpos, cvalid = cache.hot_cap + j, j < n_cold[:, None]
+        parts.append(partial(cache.cold_k, cache.cold_v, cpos, cvalid))
     parts.append(partial(k_new, v_new, q_pos,
                          torch.arange(c, device=dev)[None] < n_new[:, None]))
     out = merge_partials(parts)  # (b, g, rep, C, dv)

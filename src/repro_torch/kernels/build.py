@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded through ``ctypes`` (no PyTorch
-headers: a build takes seconds). Libraries land in ``_build/`` beside
-this package, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads from disk. ``build_all``
+headers: a build takes seconds). Sources that share kernels include them
+from a ``csrc/*.cuh`` header and hold only their own entry points, so that
+one big template file does not serialise the build. Libraries land in
+``_build/`` beside this package, named by a hash of the source, the
+headers it includes and the flags, so an edited source rebuilds and an unchanged one
+loads from disk. ``build_all``
 starts one ``nvcc`` per source, all at once.
 
 Nothing is built or loaded at import time: the CPU tests import every
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,8 +32,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("ternary_matmul", "flash_decode", "flash_prefill", "flash_latent", "lora",
-                  "rms_norm")
+KERNEL_SOURCES = ("ternary_matmul", "flash_decode", "flash_decode_paged", "flash_decode_ring",
+                  "flash_prefill", "flash_prefill_swa", "flash_latent", "lora", "rms_norm")
 
 
 def nvcc_path() -> str:
@@ -43,7 +47,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the headers the source includes from csrc/ are part of what it builds from
+    text = (CSRC_DIR / f"{name}.cu").read_bytes()
+    headers = sorted(set(re.findall(rb'#include\s+"([^"]+)"', text)))
+    src = text + b"".join((CSRC_DIR / h.decode()).read_bytes() for h in headers)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,6 +1,8 @@
 """GQA flash decode over the tiered KV cache (reference:
-``repro/kernels/flash_decode.py``), in two forms on one CUDA source,
-``csrc/flash_decode.cu``:
+``repro/kernels/flash_decode.py``), in two forms of one CUDA kernel
+template, ``csrc/flash_decode.cuh`` (entry points in ``csrc/flash_decode.cu``;
+the paged and ring forms' in ``flash_decode_paged.cu`` and
+``flash_decode_ring.cu``):
 
 - fused RoPE (``_flash_gqa_fused`` through ``flash_decode_attention(
   k_new=..., rope_theta=...)``): q (b, h, d) and the pending token's k
@@ -35,8 +37,23 @@ tiles and every sum stay those of the contiguous form (``tier_rows`` reads
 a paged tier's rows through the table for the plain versions), so paging
 is invisible in the result.
 
-The reference's ring and fp8 forms are not ported: the ring cache does not
-exist here, and fp8 tiers raise.
+Ring form (the reference's ``_flash_gqa_fused(..., ring=True)`` through
+``flash_decode_attention_ring``; entry point ``flash_decode_gqa_fused_ring``,
+kernel ``gqa_decode_ring_kernel``, counter ``RING_KERNEL``): the cold tier
+is the sliding-window ring of ``kv_cache.append_decode_ring``. Over the
+pre-append cache the fused form masks cold row ``(length - hot_cap) %
+cold_cap`` of an active slot whose window has wrapped (``length - hot_cap
+>= cold_cap``): the append that follows overwrites it, and the position it
+holds has left the window of the token being decoded. The tiles, their
+order (hot, then the cold rows in ring order, then the pending token) and
+every sum are the contiguous form's; only that one key is masked. Ring
+order is not position order, but every path that decodes a row reads the
+ring through this one form, so grouped and chunked admission give the
+same bits. Without ``k_new`` the ring entry point is the post-append form
+(kernel 6) as it is: over a wrapped ring the length clip marks every row
+valid, as the reference's clamp does.
+
+The reference's fp8 tiers are not ported: they raise.
 """
 
 from __future__ import annotations
@@ -61,13 +78,18 @@ GQA_KERNEL = CudaKernel(
     [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
 )
+RING_KERNEL = CudaKernel(
+    "flash_decode_ring", "flash_decode_gqa_fused_ring",
+    [ctypes.c_int] + [ctypes.c_void_p] * 13
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+)
 PAGED_KERNEL = CudaKernel(
-    "flash_decode", "flash_decode_gqa_fused_paged",
+    "flash_decode_paged", "flash_decode_gqa_fused_paged",
     [ctypes.c_int] + [ctypes.c_void_p] * 14
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 )
 GQA_PAGED_KERNEL = CudaKernel(
-    "flash_decode", "flash_decode_gqa_paged",
+    "flash_decode_paged", "flash_decode_gqa_paged",
     [ctypes.c_int] + [ctypes.c_void_p] * 8
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 )
@@ -136,36 +158,75 @@ def fold_tile(state, logits, valid, v):
     state: (m, l, acc) with shapes (...), (...), (..., dv); logits (..., J)
     f32; valid broadcastable to logits; v (..., J, dv) f32, zero at
     invalid keys. Every product and sum is rounded on its own."""
+    return fold_tiles(state, logits[..., None, :], valid[..., None, :], v[..., None, :, :])
+
+
+def ring_evictee(cache: kvc.TieredKVCache, active) -> torch.Tensor:
+    """Cold row of each slot that the coming ring append overwrites, where
+    the slot is active and its window has wrapped; -1 elsewhere (b,)."""
+    b = cache.lengths.shape[0]
+    n = cache.lengths.long() - cache.hot_cap
+    act = (torch.ones(b, dtype=torch.bool, device=n.device) if active is None
+           else active.bool())
+    wrapped = act & (n >= cache.cold_cap) & (cache.cold_cap > 0)
+    return torch.where(wrapped, torch.remainder(n, max(cache.cold_cap, 1)), -1)
+
+
+FOLD_TILES = 32  # tiles whose products the plain decode forms at once
+
+
+def fold_tiles(state, logits, valid, v):
+    """``fold_tile`` over n consecutive tiles at once, with the same
+    values: logits (..., n, J), valid broadcastable to them, v (..., n, J,
+    dv). The running max is a cumulative max (exact), so every tile's
+    products and sums are formed together; only l and acc chain from tile
+    to tile, in order: m_t = max(m_{t-1}, max_j logit), alpha = exp(m_{t-1}
+    - m_t), p = exp(logit - m_t), l = l alpha + sum p, acc = acc alpha +
+    sum p v, each sum a halving tree."""
     m, l, acc = state
-    m_new = torch.maximum(m, torch.where(valid, logits, NEG_INF).amax(dim=-1))
-    alpha = torch.exp(m - m_new)
+    tmax = torch.where(valid, logits, NEG_INF).amax(dim=-1)  # (..., n)
+    ms = torch.cummax(torch.cat([m[..., None], tmax], dim=-1), dim=-1).values
+    m_prev, m_new = ms[..., :-1], ms[..., 1:]
+    alpha = torch.exp(m_prev - m_new)
     p = torch.where(valid, torch.exp(logits - m_new[..., None]), 0.0)
-    l = l * alpha + tree_sum(p, -1)
-    acc = acc * alpha[..., None] + tree_sum(p[..., None] * v, -2)
-    return m_new, l, acc
+    p_sum, pv = tree_sum(p, -1), tree_sum(p[..., None] * v, -2)  # (..., n), (..., n, dv)
+    for t in range(logits.shape[-2]):
+        l = l * alpha[..., t] + p_sum[..., t]
+        acc = acc * alpha[..., t, None] + pv[..., t, :]
+    return m_new[..., -1], l, acc
 
 
-def fold_tiers(qg: torch.Tensor, cache: kvc.TieredKVCache, scale: float):
+def fold_tiers(qg: torch.Tensor, cache: kvc.TieredKVCache, scale: float,
+               evict: Optional[torch.Tensor] = None):
     """Online-softmax state after the hot tier's and then the cold tier's
-    32-key tiles, valid rows only. qg: (b, g, rep, 1, d) f32 (rotated)
-    queries; returns (m, l, acc) of shapes (b, g, rep) and (b, g, rep, d)."""
+    32-key tiles, valid rows only, folded as ``fold_tile`` would one by
+    one (``fold_tiles``, ``FOLD_TILES`` at a time). qg: (b, g, rep, 1, d)
+    f32 (rotated) queries; ``evict`` (b,): a cold row to mask per slot
+    (-1: none, the ring form); returns (m, l, acc) of shapes (b, g, rep)
+    and (b, g, rep, d)."""
     b, g, rep, _, d = qg.shape
     lengths = cache.lengths.long()
     state = (qg.new_full((b, g, rep), NEG_INF), qg.new_zeros((b, g, rep)),
              qg.new_zeros((b, g, rep, d)))
     tiers = ((True, cache.hot_cap, lengths.clamp(max=cache.hot_cap)),
              (False, cache.cold_cap, (lengths - cache.hot_cap).clamp(0, cache.cold_cap)))
-    keys = torch.arange(TILE, device=qg.device)
     for hot, cap, n_valid in tiers:
-        for start in range(0, cap, TILE):
-            valid = (start + keys)[None] < n_valid[:, None]  # (b, TILE)
+        for start in range(0, cap, TILE * FOLD_TILES):
+            n = min(FOLD_TILES, -(-(cap - start) // TILE))
+            pos = start + torch.arange(n * TILE, device=qg.device)
+            valid = pos[None] < n_valid[:, None]  # (b, n T)
+            if evict is not None and not hot:
+                valid = valid & (pos[None] != evict[:, None])
             # rows past the tier repeat its last one: masked, as every invalid key
-            kt, vt = tier_rows(cache, hot, (start + keys).clamp(max=cap - 1))
-            k_t = kt.float().permute(0, 2, 1, 3)[:, :, None]  # (b, g, 1, T, d)
-            v_t = torch.where(valid[:, :, None, None], vt.float(), 0.0)
-            logits = tree_sum(qg * k_t, -1) * scale  # (b, g, rep, T)
-            state = fold_tile(state, logits, valid[:, None, None, :],
-                              v_t.permute(0, 2, 1, 3)[:, :, None])
+            kt, vt = tier_rows(cache, hot, pos.clamp(max=cap - 1))  # (b, n T, g, d)
+            vt = torch.where(valid[:, :, None, None], vt.float(), 0.0)
+
+            def tiles(x):  # (b, n T, g, d) -> (b, g, 1, n, T, d)
+                return x.float().reshape(b, n, TILE, g, d).permute(0, 3, 1, 2, 4)[:, :, None]
+
+            logits = tree_sum(qg[:, :, :, :, None] * tiles(kt), -1) * scale  # (b, g, rep, n, T)
+            state = fold_tiles(state, logits, valid.reshape(b, n, TILE)[:, None, None],
+                               tiles(vt))
     return state
 
 
@@ -184,9 +245,10 @@ def flash_decode_plain(q, cache: kvc.TieredKVCache, scale: float):
 
 
 def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
-                             active, scale: float, theta: float):
+                             active, scale: float, theta: float, ring: bool = False):
     """Plain fused version, in the kernel's arithmetic: rotate q and k_new
-    at ``lengths`` (in f32), fold the tiers and, for active slots, the
+    at ``lengths`` (in f32), fold the tiers (``ring``: without each active
+    wrapped slot's evictee, ``ring_evictee``) and, for active slots, the
     pending token."""
     b, h, d = q.shape
     g = k_new.shape[1]
@@ -194,7 +256,7 @@ def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
     q_rot = apply_rope(q.float()[:, None], pos, theta)[:, 0]
     k_rot = apply_rope(k_new.float()[:, None], pos, theta)[:, 0]  # (b, g, d) f32
     qg = q_rot.reshape(b, g, h // g, 1, d)
-    state = fold_tiers(qg, cache, scale)
+    state = fold_tiers(qg, cache, scale, ring_evictee(cache, active) if ring else None)
     act = (torch.ones(b, dtype=torch.bool, device=q.device) if active is None
            else active.bool())
     logit = tree_sum(qg[:, :, :, 0] * k_rot[:, :, None], -1) * scale  # (b, g, rep)
@@ -241,7 +303,7 @@ def _paged_args(cache):
     return table, cache.page_size, cache.pages_per_slot
 
 
-def _launch(q, cache, k_new, v_new, active, scale, theta):
+def _launch(q, cache, k_new, v_new, active, scale, theta, ring=False):
     b, h, d = q.shape
     g = cache.hot_k.shape[2]
     if k_new.shape != (b, g, d) or v_new.shape != (b, g, d):
@@ -264,7 +326,7 @@ def _launch(q, cache, k_new, v_new, active, scale, theta):
             float(scale), stream_of(q),
         )
         return out, k_rot
-    KERNEL.launch(
+    (RING_KERNEL if ring else KERNEL).launch(
         bf16, *(ptr(t) for t in tensors), ptr(lengths),
         ptr(act), ptr(cos), ptr(sin), ptr(out), ptr(k_rot),
         b, g, h // g, d, cache.hot_cap, cache.cold_cap, float(scale), stream_of(q),
@@ -295,6 +357,27 @@ def _launch_gqa(q, cache, scale):
     return out
 
 
+def _decode_entry(q, cache, scale, k_new, v_new, active, rope_theta, impl, ring):
+    if ring and isinstance(cache, kvc.PagedKVCache):
+        raise NotImplementedError("a paged cache has no ring layout (as in the reference)")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    plain = impl == "plain" or not q.is_cuda
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if k_new is None:
+        if v_new is not None or active is not None or rope_theta is not None:
+            raise ValueError("flash_decode_attention: v_new, active and rope_theta belong "
+                             "to the fused form, which needs k_new")
+        return flash_decode_plain(q, cache, scale) if plain else _launch_gqa(q, cache, scale)
+    if v_new is None or rope_theta is None:
+        raise ValueError("flash_decode_attention: the fused form needs k_new, v_new "
+                         "and rope_theta")
+    if plain:
+        return flash_decode_fused_plain(q, cache, k_new, v_new, active, scale,
+                                        float(rope_theta), ring)
+    return _launch(q, cache, k_new, v_new, active, scale, float(rope_theta), ring)
+
+
 def flash_decode_attention(
     q: torch.Tensor,  # (b, h, d) — UNROTATED with k_new, rotated without
     cache,  # TieredKVCache or PagedKVCache: PRE-append with k_new, POST-append without
@@ -312,22 +395,27 @@ def flash_decode_attention(
     d))``. Without: the post-append form -> ``o (b, h, d)``.
     ``impl="auto"`` launches the CUDA kernel for CUDA tensors and runs the
     plain version for CPU tensors; ``impl="plain"`` runs the plain version."""
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"unknown impl {impl!r}")
-    plain = impl == "plain" or not q.is_cuda
-    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    if k_new is None:
-        if v_new is not None or active is not None or rope_theta is not None:
-            raise ValueError("flash_decode_attention: v_new, active and rope_theta belong "
-                             "to the fused form, which needs k_new")
-        return flash_decode_plain(q, cache, scale) if plain else _launch_gqa(q, cache, scale)
-    if v_new is None or rope_theta is None:
-        raise ValueError("flash_decode_attention: the fused form needs k_new, v_new "
-                         "and rope_theta")
-    if plain:
-        return flash_decode_fused_plain(q, cache, k_new, v_new, active, scale,
-                                        float(rope_theta))
-    return _launch(q, cache, k_new, v_new, active, scale, float(rope_theta))
+    return _decode_entry(q, cache, scale, k_new, v_new, active, rope_theta, impl, False)
+
+
+def flash_decode_attention_ring(
+    q: torch.Tensor,
+    cache: kvc.TieredKVCache,  # ring cold tier: PRE-append with k_new, POST-append without
+    scale: Optional[float] = None,
+    *,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
+    rope_theta: Optional[float] = None,
+    impl: str = "auto",
+):
+    """GQA decode over a ring cold tier (sliding-window archs; reference:
+    ``flash_decode_attention_ring``). The fused form (``k_new``) masks the
+    ring row the coming append evicts (``ring_evictee``) and launches
+    ``flash_decode_gqa_fused_ring``; the post-append form is
+    ``flash_decode_attention``'s, since a wrapped ring is valid in every
+    row."""
+    return _decode_entry(q, cache, scale, k_new, v_new, active, rope_theta, impl, True)
 
 
 # ---------------------------------------------------------------------------

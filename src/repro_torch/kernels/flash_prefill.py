@@ -22,7 +22,9 @@ their v in the input dtype, with rows at or past ``valid[b]`` zeroed.
   ``page_table[b, r // ps] * ps + r % ps``, resolved per row; the tiles
   and sums are the chunked form's, so paging is invisible in the result.
 
-The CUDA kernels are in ``csrc/flash_prefill.cu``; ``flash_prefill_plain``
+The CUDA kernels are in ``csrc/flash_prefill.cuh`` (entry points in
+``csrc/flash_prefill.cu``, the sliding-window forms' in
+``flash_prefill_swa.cu``); ``flash_prefill_plain``
 is the plain PyTorch version of every form. It repeats the kernels'
 arithmetic (32-key tiles, tiles with no key of the slot skipped,
 halving-tree sums, separately rounded products), so the two agree bit for
@@ -42,8 +44,22 @@ trailing ``rope_dims`` rotate, values of another width dv, and only ``o``
 (b, s, h, dv) returned. It is fresh only, as in the reference, which
 never chunks MLA.
 
-Not ported, and raising here: SWA windows and the ring cold tier, an
-emit dtype other than the input's (fp8 tiers).
+Sliding-window forms (the reference's ``window`` and ``ring`` arguments):
+a row at position P sees the keys P - window < p <= P, and key tiles that
+lie wholly before every row's window are skipped (a skipped tile and a
+folded fully masked one leave the state as it was). The fresh form with a
+window has its own entry point and kernel (``flash_prefill_window``,
+``gqa_window_kernel``, counter ``WINDOW_KERNEL``); the chunked form over a
+ring cold tier too (``flash_prefill_chunk_ring``, ``gqa_chunk_ring_kernel``,
+counter ``CHUNK_RING_KERNEL``): cold position p is held at ring row (p -
+hot_cap) % cold_cap while p >= offset - cold_cap (the reference's
+``ring_slot_positions`` at hot_cap = 0) and is no key once evicted. The
+chunked form still folds absolute tiles, so a prompt admitted in chunks
+over the ring gives the fresh windowed form's output bit for bit.
+
+Not ported, and raising here: an emit dtype other than the input's (fp8
+tiers), and a window or ring over a paged cache (the reference has
+neither).
 """
 
 from __future__ import annotations
@@ -55,7 +71,7 @@ import torch
 
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core.kv_cache import NEG_INF
-from repro_torch.kernels.flash_decode import TILE, fold_tile, tier_rows, tile_of, tree_sum
+from repro_torch.kernels.flash_decode import TILE, fold_tile, tier_rows, tree_sum
 from repro_torch.kernels.build import CudaKernel, ptr, stream_of
 from repro_torch.models.layers import apply_rope, rope_cos_sin
 
@@ -67,6 +83,16 @@ KERNEL = CudaKernel(
 CHUNK_KERNEL = CudaKernel(
     "flash_prefill", "flash_prefill_chunk",
     [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+)
+WINDOW_KERNEL = CudaKernel(
+    "flash_prefill_swa", "flash_prefill_window",
+    [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_void_p],
+)
+CHUNK_RING_KERNEL = CudaKernel(
+    "flash_prefill_swa", "flash_prefill_chunk_ring",
+    [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p],
 )
 CHUNK_PAGED_KERNEL = CudaKernel(
@@ -97,18 +123,26 @@ def rope_trailing(x: torch.Tensor, positions: torch.Tensor, rope_dims: int,
     return torch.cat([x[..., : d - rope_dims], rot], dim=-1)
 
 
+PLAIN_ROWS = 256  # query rows per pass of the plain version (rows are independent)
+
+
 def flash_prefill_plain(q, k_new, v_new, valid, scale: float, theta: float,
-                        rope_dims: Optional[int] = None, cache=None):
+                        rope_dims: Optional[int] = None, cache=None, window: int = 0,
+                        ring: bool = False):
     """Plain version of every form, in the kernels' arithmetic: rotate q
     and k (the trailing ``rope_dims``, default all, in f32) at the slot's
     offset (``cache.lengths``, 0 without a cache) and fold the 32-key tiles
-    of the slot's key sequence under the causal and valid masks, skipping
-    a slot's tiles that hold no key of it; emit the rotated k / v zeroed at
-    rows past ``valid``. Without a cache the sequence is the chunk's own
-    keys; with one it is [cached prefix ‖ chunk], tiled at ABSOLUTE
-    positions (tile i holds positions 32 i .. 32 i + 31, whichever tier or
-    the chunk each comes from), so a prompt streamed in chunks folds
-    exactly the fresh form's tiles, whatever the offsets."""
+    of the slot's key sequence under the causal, valid and window masks,
+    skipping a tile that holds no key any of the rows sees; emit the
+    rotated k / v zeroed at rows past ``valid``. Without a cache the
+    sequence is the chunk's own keys; with one it is [cached prefix ‖
+    chunk], tiled at ABSOLUTE positions (tile i holds positions 32 i .. 32
+    i + 31, whichever tier or the chunk each comes from), so a prompt
+    streamed in chunks folds exactly the fresh form's tiles, whatever the
+    offsets. ``ring``: a cold position p is held at row (p - hot_cap) %
+    cold_cap while p >= offset - cold_cap, and is no key once evicted.
+    ``window`` > 0: row at position P sees keys P - window < p <= P.
+    Rows are independent, so they are folded in passes of ``PLAIN_ROWS``."""
     b, s, h, d = q.shape
     g, dv = k_new.shape[2], v_new.shape[-1]
     rep = h // g
@@ -119,55 +153,65 @@ def flash_prefill_plain(q, k_new, v_new, valid, scale: float, theta: float,
     pos = offset[:, None] + tok[None]  # (b, s)
     q_rot = rope_trailing(q.float(), pos, rope_dims or d, theta)
     k_rot = rope_trailing(k_new.float(), pos, rope_dims or d, theta)  # (b, s, g, d) f32
-    qg = q_rot.reshape(b, s, g, rep, d).permute(0, 2, 3, 1, 4)[..., None, :]  # (b, g, rep, s, 1, d)
+    qg_all = q_rot.reshape(b, s, g, rep, d).permute(0, 2, 3, 1, 4)[..., None, :]  # (b, g, rep, s, 1, d)
     keys = torch.arange(TILE, device=dev)
-    state = (q.new_full((b, g, rep, s), NEG_INF, dtype=torch.float32),
-             q.new_zeros((b, g, rep, s), dtype=torch.float32),
-             q.new_zeros((b, g, rep, s, dv), dtype=torch.float32))
-
-    def fold(state, k_t, v_t, ok, live):
-        """One tile: k_t (b, T, g, d) and v_t (b, T, g, dv) f32, v zero at
-        keys that do not exist; ok (b, s, T); live (b,): the slot has a key
-        in the tile (else its state is kept as it was)."""
-        logits = tree_sum(qg * k_t.permute(0, 2, 1, 3)[:, :, None, None], -1) * scale
-        new = fold_tile(state, logits, ok[:, None, None],
-                        v_t.permute(0, 2, 1, 3)[:, :, None, None])
-        return tuple(torch.where(live.reshape((b,) + (1,) * (o.ndim - 1)), n, o)
-                     for n, o in zip(new, state))
-
+    slots = torch.arange(b, device=dev)[:, None]
     nv = valid.long().clamp(max=s)
-    if cache is None:
-        for start in range(0, s, TILE):
-            key = start + keys  # (TILE,)
-            live = key[None] < nv[:, None]  # (b, TILE): keys that exist
-            v_t = torch.where(live[:, :, None, None], tile_of(v_new, start).float(), 0.0)
-            ok = live[:, None, :] & (key[None, None, :] <= tok[None, :, None])  # (b, s, T)
-            state = fold(state, tile_of(k_rot, start), v_t, ok, start < nv)
-    else:
-        # tier rows are rotated already, in the tier dtype; chunk rows are
-        # k_rot / v_new; a tile may hold both (an offset off a multiple of 32)
-        slots = torch.arange(b, device=dev)[:, None]
-        end = offset + nv  # one past the slot's last key
-        for start in range(0, int((offset + s).max()) if b else 0, TILE):
-            kpos = start + keys  # (TILE,)
-            tier = kpos[None] < offset[:, None]  # (b, TILE)
+    end = offset + nv  # one past the slot's last key
+
+    def tile_keys(start):
+        """Keys at positions start .. start + 31 of every slot: k (b, T, g, d)
+        and v (b, T, g, dv) f32, v zero where no key exists, and exists (b,
+        T). Tier rows are rotated already, in the tier dtype; chunk rows are
+        k_rot / v_new; a tile may hold both."""
+        kpos = start + keys  # (TILE,)
+        chunk_i = (kpos[None] - offset[:, None]).clamp(0, s - 1)  # (b, TILE)
+        k_t, v_t = k_rot[slots, chunk_i], v_new[slots, chunk_i].float()
+        exists = kpos[None] < end[:, None]  # (b, TILE)
+        if cache is not None:
+            tier = kpos[None] < offset[:, None]
             hot = kpos[None] < offset.clamp(max=cache.hot_cap)[:, None]
-            chunk_i = (kpos[None] - offset[:, None]).clamp(0, s - 1)  # (b, TILE)
-            k_t, v_t = k_rot[slots, chunk_i], v_new[slots, chunk_i].float()
-            for is_hot, sel in ((False, tier & ~hot), (True, hot)):
+            cold = tier & ~hot
+            if ring:  # rows still held by the ring: the last cold_cap positions
+                cold = cold & (kpos[None] >= (offset - cache.cold_cap)[:, None])
+                exists = exists & (cold | hot | ~tier)
+                rel_cold = torch.remainder(kpos - cache.hot_cap, max(cache.cold_cap, 1))
+            else:
+                rel_cold = kpos - cache.hot_cap
+            for is_hot, sel, rel in ((False, cold, rel_cold), (True, hot, kpos)):
                 if not bool(sel.any()):
                     continue
-                rel = (kpos if is_hot else kpos - cache.hot_cap).clamp(
-                    0, (cache.hot_cap if is_hot else cache.cold_cap) - 1)
+                rel = rel.clamp(0, (cache.hot_cap if is_hot else cache.cold_cap) - 1)
                 tk, tv = tier_rows(cache, is_hot, rel)
                 m = sel[:, :, None, None]
                 k_t, v_t = torch.where(m, tk.float(), k_t), torch.where(m, tv.float(), v_t)
-            exists = kpos[None] < end[:, None]  # (b, TILE)
-            v_t = torch.where(exists[:, :, None, None], v_t, 0.0)
-            ok = exists[:, None, :] & (kpos[None, None, :] <= pos[:, :, None])  # (b, s, T)
-            state = fold(state, k_t, v_t, ok, start < end)
-    _, l, acc = state
-    out = acc / torch.clamp(l, min=1e-30)[..., None]  # (b, g, rep, s, dv)
+        v_t = torch.where(exists[:, :, None, None], v_t, 0.0)
+        return kpos, k_t, v_t, exists
+
+    outs = []
+    for r0 in range(0, s, PLAIN_ROWS):
+        qg = qg_all[:, :, :, r0:r0 + PLAIN_ROWS]
+        rpos = pos[:, r0:r0 + PLAIN_ROWS]  # (b, R)
+        n_r = rpos.shape[1]
+        state = (q.new_full((b, g, rep, n_r), NEG_INF, dtype=torch.float32),
+                 q.new_zeros((b, g, rep, n_r), dtype=torch.float32),
+                 q.new_zeros((b, g, rep, n_r, dv), dtype=torch.float32))
+        lo = max(int(rpos[:, 0].min()) - window + 1, 0) if window and b else 0
+        hi = int(torch.minimum(rpos[:, -1] + 1, end).max()) if b else 0
+        for start in range(lo - lo % TILE, hi, TILE):
+            kpos, k_t, v_t, exists = tile_keys(start)
+            ok = exists[:, None, :] & (kpos[None, None, :] <= rpos[:, :, None])  # (b, R, T)
+            if window:
+                ok = ok & (rpos[:, :, None] - kpos[None, None, :] < window)
+            logits = tree_sum(qg * k_t.permute(0, 2, 1, 3)[:, :, None, None], -1) * scale
+            new = fold_tile(state, logits, ok[:, None, None],
+                            v_t.permute(0, 2, 1, 3)[:, :, None, None])
+            live = ok.flatten(1).any(1)  # (b,): a row of the slot sees a key of the tile
+            state = tuple(torch.where(live.reshape((b,) + (1,) * (o.ndim - 1)), n, o)
+                          for n, o in zip(new, state))
+        _, l, acc = state
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])  # (b, g, rep, R, dv)
+    out = torch.cat(outs, dim=3) if outs else q.new_zeros((b, g, rep, 0, dv), dtype=torch.float32)
     o = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)
     keep = (tok[None] < nv[:, None])[:, :, None, None]
     k_cast = torch.where(keep, k_rot, 0.0).to(k_new.dtype)
@@ -181,8 +225,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(q, k_new, v_new, valid, scale, theta, cache=None):
-    """The GQA forms: fresh without ``cache``, chunked with it."""
+def _launch(q, k_new, v_new, valid, scale, theta, cache=None, window=0, ring=False):
+    """The GQA forms: fresh without ``cache``, chunked with it; the
+    sliding-window forms when ``window`` or ``ring`` is set."""
     b, s, h, d = q.shape
     g = k_new.shape[2]
     rep = h // g
@@ -209,10 +254,12 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None):
     bf16 = int(q.dtype == torch.bfloat16)
     if cache is None:
         cos, sin = rope_cos_sin(torch.arange(s, device=q.device), d, theta)  # (s, d/2)
-        KERNEL.launch(
-            bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin), ptr(o),
-            ptr(k_cast), ptr(v_cast), b, s, g, rep, d, float(scale), stream_of(q),
-        )
+        args = (bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin), ptr(o),
+                ptr(k_cast), ptr(v_cast), b, s, g, rep, d)
+        if window:
+            WINDOW_KERNEL.launch(*args, window, float(scale), stream_of(q))
+        else:
+            KERNEL.launch(*args, float(scale), stream_of(q))
         return o, k_cast, v_cast
     paged = isinstance(cache, kvc.PagedKVCache)
     cold_shape = (cache.n_pages, cache.page_size, g, d) if paged else (b, cache.cold_cap, g, d)
@@ -240,12 +287,13 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None):
             float(scale), stream_of(q),
         )
         return o, k_cast, v_cast
-    CHUNK_KERNEL.launch(
-        bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin),
-        ptr(o), ptr(k_cast), ptr(v_cast), *(ptr(t) for t in tiers),
-        ptr(lengths), b, s, g, rep, d, cache.hot_cap, cache.cold_cap, float(scale),
-        stream_of(q),
-    )
+    args = (bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin),
+            ptr(o), ptr(k_cast), ptr(v_cast), *(ptr(t) for t in tiers),
+            ptr(lengths), b, s, g, rep, d, cache.hot_cap, cache.cold_cap)
+    if window or ring:
+        CHUNK_RING_KERNEL.launch(*args, window, int(ring), float(scale), stream_of(q))
+    else:
+        CHUNK_KERNEL.launch(*args, float(scale), stream_of(q))
     return o, k_cast, v_cast
 
 
@@ -302,8 +350,6 @@ def flash_prefill_attention(
 
     ``impl="auto"`` launches the CUDA kernel for CUDA tensors and runs the
     plain version for CPU tensors; ``impl="plain"`` runs the plain version."""
-    if window or ring:
-        raise NotImplementedError("SWA windows and the ring cold tier are not ported")
     if cache is not None and not isinstance(cache, (kvc.TieredKVCache, kvc.PagedKVCache)):
         raise TypeError(f"flash_prefill_attention: unknown cache type {type(cache).__name__}")
     tier_dt = cache.hot_k.dtype if cache is not None else k_new.dtype
@@ -317,15 +363,21 @@ def flash_prefill_attention(
             "rope_dims < head with emit_kv=False (MLA)")
     if mla and cache is not None:
         raise NotImplementedError("the MLA form is fresh only (the reference never chunks MLA)")
+    if (window or ring) and (mla or isinstance(cache, kvc.PagedKVCache)):
+        raise NotImplementedError("a window or ring over a paged cache or in the MLA form "
+                                  "(the reference has neither)")
+    if window < 0:
+        raise ValueError(f"flash_prefill_attention: window {window} < 0")
+    ring = bool(ring) and cache is not None  # without a cache there is no ring to read
     scale = float(scale) if scale is not None else d ** -0.5
     if valid is None:
         valid = torch.full((b,), s, dtype=torch.int32, device=q.device)
     if impl == "plain" or (impl == "auto" and not q.is_cuda):
         out = flash_prefill_plain(q, k_new, v_new, valid, scale, float(rope_theta), rope_dims,
-                                  cache)
+                                  cache, int(window), ring)
         return out[0] if mla else out
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
     if mla:
         return _launch_mla(q, k_new, v_new, valid, scale, float(rope_theta), rope_dims)
-    return _launch(q, k_new, v_new, valid, scale, float(rope_theta), cache)
+    return _launch(q, k_new, v_new, valid, scale, float(rope_theta), cache, int(window), ring)

@@ -14,6 +14,13 @@ table, and the appends write through it.
 ``blockwise_attention`` is the plain full-sequence reference the tests
 hold both against.
 
+Sliding-window attention (``cfg.attn_type == "swa"``, mixtral-8x22b) runs
+the same paths with ``window = cfg.swa_window`` over a ring cold tier (no
+hot tier): the prefill kernel's window form and ``fill_fresh(ring=True)``
+(which realigns a prompt longer than the ring), the chunked form over the
+ring and ``append(ring=True)``, and the ring form of the fused decode
+(``flash_decode_attention_ring``) with ``append_decode_ring``.
+
 MLA (DeepSeek-V3) caches the compressed latent (c_kv ‖ k_rope, 576 values
 per token) in the k-slot of a cache with an empty v-slot. Prefill expands
 per-head keys and values from the latent and runs the flash-prefill
@@ -29,7 +36,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core.ternary import act_quant_ste
 from repro_torch.kernels.flash_decode import (flash_decode_attention,
-                                              flash_decode_attention_latent)
+                                              flash_decode_attention_latent,
+                                              flash_decode_attention_ring)
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 from repro_torch.models import qops
 from repro_torch.models.layers import apply_rope, rms_norm
@@ -38,14 +46,16 @@ NEG_INF = kvc.NEG_INF
 DEFAULT_CHUNK = 512
 
 
-def blockwise_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                        scale: float | None = None, q_chunk: int | None = None,
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, scale: float | None = None,
+                        q_chunk: int | None = None,
                         kv_chunk: int | None = None) -> torch.Tensor:
     """Streaming-softmax attention over full sequences, in f32.
 
     q: (b, g, r, sq, dk); k: (b, g, sk, dk); v: (b, g, sk, dv) ->
     (b, g, r, sq, dv). Chunks of at most 512 rows and keys; a partial last
-    chunk is masked rather than padded away."""
+    chunk is masked rather than padded away. ``window`` > 0 is SWA: a row
+    sees the keys with q_pos - k_pos < window."""
     b, g, r, sq, dk = q.shape
     sk = k.shape[2]
     scale = scale if scale is not None else dk ** -0.5
@@ -65,6 +75,8 @@ def blockwise_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
             mask = torch.ones((qc.shape[3], kc.shape[2]), dtype=torch.bool, device=q.device)
             if causal:
                 mask &= q_pos[:, None] >= k_pos[None, :]
+            if window:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
             logits = torch.where(mask, logits, NEG_INF)
             m_new = torch.maximum(m, logits.amax(dim=-1))
             p = torch.where(mask, torch.exp(logits - m_new[..., None]), 0.0)
@@ -105,16 +117,23 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
                              lora_leaves={2: p.get("lora_v")})
 
 
+def _window(cfg: ModelConfig):
+    """(window, ring) of the arch: SWA masks by ``swa_window`` over a ring."""
+    swa = cfg.attn_type == "swa"
+    return (cfg.swa_window if swa else 0), swa
+
+
 def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
                       cache: kvc.TieredKVCache):
     """Full-prompt attention + fill of one layer's fresh cache (in place).
     x: (b, s, d_model) -> (y, cache)."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
+    window, ring = _window(cfg)
     q, k, v = _project_qkv(p, x, cfg)
     o, k_c, v_c = flash_prefill_attention(
-        q, k, v, rope_theta=cfg.rope_theta, emit_kv=True, impl=cfg.bitnet.impl)
-    kvc.fill_fresh(cache, k_c, v_c)
+        q, k, v, window=window, rope_theta=cfg.rope_theta, emit_kv=True, impl=cfg.bitnet.impl)
+    kvc.fill_fresh(cache, k_c, v_c, ring=ring)
     y = qops.linear(p["wo"], o.reshape(b, s, h * hd), cfg, lora_leaf=p.get("lora_o"))
     return y, cache
 
@@ -130,11 +149,12 @@ def attention_prefill_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
     rows). x: (b, C, d_model) -> (y, cache)."""
     b, c, _ = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
+    window, ring = _window(cfg)
     q, k, v = _project_qkv(p, x, cfg)
     o, k_c, v_c = flash_prefill_attention(
-        q, k, v, cache, valid=n_valid, rope_theta=cfg.rope_theta, emit_kv=True,
-        impl=cfg.bitnet.impl)
-    kvc.append(cache, k_c, v_c, valid=n_valid)
+        q, k, v, cache, valid=n_valid, window=window, ring=ring, rope_theta=cfg.rope_theta,
+        emit_kv=True, impl=cfg.bitnet.impl)
+    kvc.append(cache, k_c, v_c, valid=n_valid, ring=ring)
     y = qops.linear(p["wo"], o.reshape(b, c, h * hd), cfg, lora_leaf=p.get("lora_o"))
     return y, cache
 
@@ -143,15 +163,18 @@ def attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                      cache: kvc.TieredKVCache, active: torch.Tensor | None = None):
     """One decode step of one layer: x (b, d_model) -> (y, cache); the
     pending token's k (rotated by the kernel) and v are appended in place
-    for ``active`` slots after attention."""
+    for ``active`` slots after attention (SWA: the ring forms of both)."""
     b, _ = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(p, x[:, None, :], cfg)  # (b, 1, h, hd) / (b, 1, g, hd)
-    o, k_rot = flash_decode_attention(
+    ring = cfg.attn_type == "swa"
+    entry = flash_decode_attention_ring if ring else flash_decode_attention
+    o, k_rot = entry(
         q[:, 0], cache, k_new=k[:, 0], v_new=v[:, 0], active=active,
         rope_theta=cfg.rope_theta, impl=cfg.bitnet.impl,
     )
-    kvc.append_decode(cache, k_rot, v[:, 0], active=active)
+    (kvc.append_decode_ring if ring else kvc.append_decode)(cache, k_rot, v[:, 0],
+                                                            active=active)
     y = qops.linear(p["wo"], o.reshape(b, h * hd), cfg, lora_leaf=p.get("lora_o"))
     return y, cache
 

@@ -8,7 +8,13 @@ over all experts (``qops.expert_fused_linear`` / ``expert_linear``) ->
 weighted combine back in bfloat16, as the reference combines in
 inference. Tokens beyond an expert's capacity pass through the residual.
 
-Two orders are fixed on purpose:
+Three orders are fixed on purpose:
+  * the router logits sum each row's products in the LoRA kernel's fixed
+    per-row order (``router_logits``), not in a GEMM library whose order
+    changes with the number of rows: a token then routes with the same
+    bits whether it is prefilled whole, in a chunk wave beside other
+    slots, or decoded in a batch (at full width a one-ulp gate difference
+    can flip greedy tokens, as the attention's and the LoRA delta's did);
   * top-k breaks ties toward the lower index (``jax.lax.top_k``'s rule),
     through a stable descending sort;
   * the combine adds each token's expert outputs in ascending expert
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core.bitlinear import PackedLinear
+from repro_torch.kernels.lora import MAX_RANK, lora_delta
 from repro_torch.models import qops
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.pack import pack_weight, stack_packed
@@ -96,8 +103,9 @@ def combine(ye: torch.Tensor, sel_w: torch.Tensor, sel_idx: torch.Tensor,
     slot = torch.full((n_tok, n_e), -1, dtype=torch.long, device=dev)
     e_idx = torch.arange(n_e, device=dev)[:, None].expand(n_e, cap)
     c_idx = torch.arange(cap, device=dev)[None].expand(n_e, cap)
-    kept = sel_w > 0
-    slot[sel_idx[kept], e_idx[kept]] = c_idx[kept]
+    # every (token, expert) pair occurs once in the selection, so one
+    # scatter writes the kept slots and -1 elsewhere, with no host sync
+    slot[sel_idx, e_idx] = torch.where(sel_w > 0, c_idx, -1)
     experts, _ = torch.sort(gate_idx, dim=-1)  # ascending expert order per token
     rows = torch.arange(n_tok, device=dev)
     y = torch.zeros((n_tok, d), dtype=torch.bfloat16, device=dev)
@@ -109,12 +117,27 @@ def combine(ye: torch.Tensor, sel_w: torch.Tensor, sel_idx: torch.Tensor,
     return y.float()
 
 
+def router_logits(h: torch.Tensor, w: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """h (T, d) @ w (d, E) in f32, each row's sums in one fixed order
+    whatever T: ``lora_delta(h, w, I, 1.0)``, whose first product is that
+    row's fixed-order x @ A; the identity as its second factor adds one
+    product by 1.0 to zeros, which is exact. The experts go in groups of
+    at most ``MAX_RANK`` columns (DeepSeek-V3 has 256); a column's sums do
+    not depend on the others."""
+    hf, wf = h.float(), w.float()
+    n_e = wf.shape[1]
+    eye = torch.eye(min(n_e, MAX_RANK), dtype=torch.float32, device=hf.device)
+    groups = [wf[:, j:j + MAX_RANK] for j in range(0, n_e, MAX_RANK)]
+    return torch.cat([lora_delta(hf, a, eye[:a.shape[1], :a.shape[1]], 1.0, impl=impl)
+                      for a in groups], dim=-1)
+
+
 def _route_tokens(p: dict, h: torch.Tensor, cfg: ModelConfig, cap: int):
     """Dispatch + expert GEMMs + combine for one token group. h: (T, d) ->
     (y (T, d) f32, probs (T, E) f32, top-1 one-hot (T, E))."""
     mo = cfg.moe
     n_tok, d = h.shape
-    logits = h.float() @ p["router"]["w"].float()  # (T, E)
+    logits = router_logits(h, p["router"]["w"], impl=cfg.bitnet.impl)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, mo.top_k)  # (T, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)  # renorm
@@ -125,7 +148,7 @@ def _route_tokens(p: dict, h: torch.Tensor, cfg: ModelConfig, cap: int):
     g, u = qops.expert_fused_linear(p["w_gu"], xe, cfg)
     ye = qops.expert_linear(p["w_down"], F.silu(g) * u, cfg)  # (E, C, d)
     y = combine(ye, sel_w, sel_idx, gate_idx, n_tok)
-    top1 = F.one_hot(gate_idx[:, 0], mo.n_experts).float()
+    top1 = torch.zeros_like(probs).scatter_(1, gate_idx[:, :1], 1.0)
     return y, probs, top1
 
 

@@ -6,13 +6,16 @@ layer stacks, lists with one dict per layer (the reference stacks layers
 and scans them; here a Python loop walks the list):
   * dense: ``blocks``, each ``{"attn": ..., "mlp": ...}``;
   * moe: ``dense_blocks`` (the leading dense-FFN layers, ``{"attn",
-    "mlp"}``) then ``moe_blocks`` (``{"attn", "moe"}``); attention is MLA
-    when ``cfg.attn_type == "mla"``.
+    "mlp"}``; absent without any, as in mixtral) then ``moe_blocks``
+    (``{"attn", "moe"}``); attention is MLA when ``cfg.attn_type ==
+    "mla"``, sliding-window GQA when it is ``"swa"``.
 The decode cache stacks the per-layer caches of each stack along a
 leading axis: ``{"attn": TieredKVCache}`` (dense, tiers (L, b, cap, g,
 hd), or a ``PagedKVCache`` with pools (L, n_pages, page_size, g, hd)) or
-``{"attn_dense", "attn_moe"}`` (moe; under MLA the k-slot tiers are (L, b,
-cap, 576) latent rows and the v-slot is empty).
+``{"attn_dense", "attn_moe"}`` (moe; ``attn_dense`` only with dense
+layers; under MLA the k-slot tiers are (L, b, cap, 576) latent rows and
+the v-slot is empty). Under SWA the cache has no hot tier and a ring cold
+tier of ``min(swa_window, max_len)`` rows, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,16 +31,21 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import qops
 from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
+from repro_torch.models.pack import pack_params
 
 DEFAULT_HOT_CAP = 32  # paper: 32 buffered early tokens (S = 128)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, pack: bool = False) -> dict:
     """Parameters drawn from a seeded ``torch.Generator`` with the
     reference init's distributions and shapes (embed N(0, 0.02^2),
     projections N(0, 1/d_in), LoRA A N(0, 1/r) and B = 0, norms 1). Float,
-    except the routed experts, which come packed (``moe.init_moe``)."""
+    except the routed experts, which come packed (``moe.init_moe``).
+    ``pack``: each layer is packed (``pack.pack_params``) as soon as it is
+    drawn, so no float copy of the stack exists (mixtral-8x22b's float
+    attention projections alone take 20 GB); the result equals
+    ``pack_params(init_params(...))``, draw for draw."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     device = resolve_device(device)
@@ -50,30 +58,38 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
         "lm_head": qops.init_linear(d, cfg.vocab_size, **kw),
     }
     init_attn = attn.init_mla if cfg.attn_type == "mla" else attn.init_attention
+
+    def done(block: dict) -> dict:
+        return pack_params(block, cfg) if pack else block
+
     if cfg.family == "dense":
         params["blocks"] = [
-            {"attn": init_attn(cfg, **kw), "mlp": init_mlp(cfg, **kw)}
+            done({"attn": init_attn(cfg, **kw), "mlp": init_mlp(cfg, **kw)})
             for _ in range(cfg.n_layers)
         ]
         return params
     nd = cfg.moe.n_dense_layers
-    params["dense_blocks"] = [
-        {"attn": init_attn(cfg, **kw), "mlp": init_mlp(cfg, cfg.moe.d_ff_dense or None, **kw)}
-        for _ in range(nd)
-    ]
+    if nd:
+        params["dense_blocks"] = [
+            done({"attn": init_attn(cfg, **kw),
+                  "mlp": init_mlp(cfg, cfg.moe.d_ff_dense or None, **kw)})
+            for _ in range(nd)
+        ]
     params["moe_blocks"] = [
-        {"attn": init_attn(cfg, **kw), "moe": moe_lib.init_moe(cfg, **kw)}
+        done({"attn": init_attn(cfg, **kw), "moe": moe_lib.init_moe(cfg, **kw)})
         for _ in range(cfg.n_layers - nd)
     ]
     return params
 
 
 def layer_stacks(cfg: ModelConfig):
-    """(parameter stack, cache stack, layers) in the order the layers run."""
+    """(parameter stack, cache stack, layers) in the order the layers run;
+    a MoE model without dense layers has no dense stack."""
     if cfg.family == "dense":
         return (("blocks", "attn", cfg.n_layers),)
     nd = cfg.moe.n_dense_layers
-    return (("dense_blocks", "attn_dense", nd), ("moe_blocks", "attn_moe", cfg.n_layers - nd))
+    moe = ("moe_blocks", "attn_moe", cfg.n_layers - nd)
+    return (("dense_blocks", "attn_dense", nd), moe) if nd else (moe,)
 
 
 def _attn_cache_spec(cfg: ModelConfig):
@@ -107,18 +123,25 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device=None, paged: bool = False, page_size: int = 32,
                       n_pages: Optional[int] = None) -> dict:
     """Empty stacked cache per layer stack: hot tier min(hot_cap,
-    max_len), cold the rest. With ``paged`` the cold tier is a pool of
-    ``n_pages`` pages of ``page_size`` rows per layer
+    max_len), cold the rest; under SWA no hot tier and a ring of
+    min(swa_window, max_len) rows. With ``paged`` the cold tier is a pool
+    of ``n_pages`` pages of ``page_size`` rows per layer
     (``kv_cache.PagedKVCache``); a page id names the same pool page in
     every layer, so the engine keeps one host-side page account."""
     hc = min(hot_cap, max_len)
+    cc = max_len - hc
+    if cfg.attn_type == "swa":
+        hc, cc = 0, min(cfg.swa_window, max_len)
     kshape, vshape = _attn_cache_spec(cfg)
     if paged:
-        return {cname: kvc.init_paged_cache(batch, hc, max_len - hc, kshape, dtype,
+        if cfg.attn_type == "swa":
+            raise NotImplementedError("a paged cold tier has no ring layout (SWA archs), "
+                                      "as in the reference")
+        return {cname: kvc.init_paged_cache(batch, hc, cc, kshape, dtype,
                                             page_size=page_size, n_pages=n_pages,
                                             device=device, lead=(n,), v_shape=vshape)
                 for _, cname, n in layer_stacks(cfg)}
-    return {cname: kvc.init_cache(batch, hc, max_len - hc, kshape, dtype, device=device,
+    return {cname: kvc.init_cache(batch, hc, cc, kshape, dtype, device=device,
                                   lead=(n,), v_shape=vshape)
             for _, cname, n in layer_stacks(cfg)}
 

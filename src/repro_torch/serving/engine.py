@@ -21,9 +21,15 @@ Per sequence the ledger (prompt phase in closed form plus the per-step
 decode counts) reconciles exactly with
 ``dr_edram.closed_form_reduction(seq_len, hot_cap)``.
 
-The same loop serves the dense family (GQA cache) and the MoE family with
-MLA attention (latent cache, one stack per layer kind); MLA serves through
-grouped admission only, as in the reference (``_chunked_capable``).
+The same loop serves the dense family (GQA cache), the MoE family with
+MLA attention (latent cache, one stack per layer kind) and the MoE family
+with sliding-window attention (mixtral-8x22b: a ring cold tier of the
+window's last tokens and no hot tier); MLA serves through grouped
+admission only, as in the reference (``_chunked_capable``). Under SWA the
+ledger still charges the engine's ``hot_cap`` (``step_traffic_tokens``,
+``prompt_traffic_tokens``, ``expected_reduction``), exactly as the
+reference's does, although the cache has no hot tier and the ring caps
+the reads at the window.
 
 With ``paged=True`` (chunked admission only) the cold tier is a pool of
 pages shared by the slots (``kv_cache.PagedKVCache``), accounted on the
@@ -176,12 +182,12 @@ class Engine:
         self._last_ptree: Optional[PrefixCache] = None
 
     def _chunked_capable(self) -> bool:
-        """Chunked prefill needs a pure attention-token path with GQA
-        tiers. The reference also requires a dense / MoE family, full or
-        sliding-window attention and no frontend; the port builds only
-        dense and MoE models and has neither SWA nor a frontend, so of
-        those clauses only the attention type can fail here (MLA)."""
-        return self.cfg.attn_type == "full"
+        """Chunked prefill needs a pure attention-token path: a dense / MoE
+        family with full or sliding-window GQA attention and no frontend
+        (reference: ``_chunked_capable``). The port builds only dense and
+        MoE models and no frontend, so of those clauses only the attention
+        type can fail here (MLA)."""
+        return self.cfg.attn_type in ("full", "swa")
 
     # ------------------------------------------------------------------
     def _kv_token_bytes(self) -> int:

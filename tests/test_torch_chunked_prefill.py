@@ -229,9 +229,28 @@ def test_bulk_append_bit_identical(jref, lens, valid):
 
 
 def test_bulk_append_refuses_the_ring():
-    cache = kvc.init_cache(1, 2, 2, (1, 4))
+    """Over a paged cache, as the reference asserts; the contiguous ring
+    append is ported (``test_ring_bulk_append_matches_reference``)."""
+    cache = kvc.init_paged_cache(1, 2, 2, (1, 4), page_size=2)
     with pytest.raises(NotImplementedError):
         kvc.append(cache, torch.zeros(1, 1, 1, 4), torch.zeros(1, 1, 1, 4), ring=True)
+
+
+@pytest.mark.parametrize("lens,valid", CASES[:2])
+def test_ring_bulk_append_matches_reference(jref, lens, valid):
+    """The chunked admission's ring append (hot 0, a ring of 6 rows) from
+    the slot offsets of the chunk cases, bit for bit: only each slot's
+    last 6 valid rows write, at (pos - hot_cap) % cold_cap."""
+    b, t, g, d = len(lens), 8, 2, 8
+    arrs = _tiers(11, b, 0, 6, g, d, lens)
+    jc, tc = _caches(jref, arrs)
+    _, k, v = _qkv(12, b, t, g, g, d)
+    want = jref.kvc.append(jc, jref.jnp.asarray(k), jref.jnp.asarray(v),
+                           valid=jref.jnp.asarray(np.asarray(valid, np.int32)), ring=True)
+    got = kvc.append(tc, torch.from_numpy(k), torch.from_numpy(v),
+                     valid=torch.tensor(valid, dtype=torch.int32), ring=True)
+    for a, b_ in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
 
 
 @pytest.mark.parametrize("lens,valid", CASES)

@@ -221,7 +221,7 @@ def test_fused_form_is_post_append_form_after_the_append():
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel's schedule (csrc/flash_decode.cu), modelled in torch
+# The CUDA kernel's schedule (csrc/flash_decode.cuh), modelled in torch
 # ---------------------------------------------------------------------------
 
 KERNEL_THREADS = 256  # kThreads

@@ -143,22 +143,56 @@ def test_fill_fresh_bit_identical(jref, s, hot, cold):
 @pytest.mark.parametrize("form", ["window", "ring", "paged", "kv_dtype", "mla_cache",
                                   "mla_emit"])
 def test_forms_not_ported_raise(form):
-    """The forms still to port raise, on the CPU as on the card: SWA
-    windows and the ring cold tier (A3c), also over a paged cache (the
-    paged chunked form itself, A3b, is ported; the reference has no paged
-    window or ring either), an emit dtype other than the input's (fp8,
-    A3d), and the MLA form over a cache (the reference never chunks MLA)
-    or with whole-head emits."""
+    """The forms that do not exist raise, on the CPU as on the card: an SWA
+    window, the ring cold tier, or both over a paged cache (the window and
+    ring forms themselves, A3c, are ported; the reference has no paged
+    window or ring: tests/test_torch_swa.py holds the ported forms), an
+    emit dtype other than the input's (fp8, A3d), and the MLA form over a
+    cache (the reference never chunks MLA) or with whole-head emits."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 4, 2, 1, 16))
     cache = kvc.init_cache(1, 2, 2, (1, 16))
     paged = kvc.init_paged_cache(1, 2, 2, (1, 16), page_size=2)
-    kw = {"window": dict(cache=cache, window=2), "ring": dict(cache=cache, ring=True),
-          "paged": dict(cache=paged, window=2),
+    kw = {"window": dict(cache=paged, window=2), "ring": dict(cache=paged, ring=True),
+          "paged": dict(cache=paged, window=2, ring=True),
           "kv_dtype": dict(cache=cache, kv_dtype=torch.bfloat16),
           "mla_cache": dict(cache=cache, rope_dims=8, emit_kv=False),
           "mla_emit": dict(emit_kv=False)}[form]
     with pytest.raises(NotImplementedError):
         fp.flash_prefill_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("form", ["window", "ring"])
+def test_window_and_ring_forms_match_pallas_and_xla(jref, form):
+    """The two raise cases above before the forms were ported, now parity
+    cases: a window over the fresh form, and a chunk over a wrapped ring
+    (hot 0, cold 8; offsets past, at and before the wrap) with the window
+    of the ring's size; o on valid rows and k_cast to TOL, v_cast exactly."""
+    b, g, d, w = 3, 2, 16, 8
+    valid = [6, 4, 0]
+    q, k, v = _qkv(50 + len(form), b, 6, 4, g, d)
+    jcache, cache, kw = None, None, dict(window=w)
+    if form == "ring":
+        rng = np.random.default_rng(51)
+        jcache = jref.kvc.init_cache(b, 0, w, (g, d), jref.jnp.float32)
+        for t in range(13):
+            act = jref.jnp.asarray([True, t < 8, t < 3])
+            jcache = jref.kvc.append_decode_ring(
+                jcache, *(jref.jnp.asarray(rng.standard_normal((b, g, d)).astype(np.float32))
+                          for _ in range(2)), active=act)
+        cache = kvc.TieredKVCache(*(torch.from_numpy(np.asarray(a).copy()) for a in jcache))
+        kw["ring"] = True
+    jv = jref.jnp.asarray(np.asarray(valid, np.int32))
+    outs = [jref.fp.flash_prefill_attention(
+        *(jref.jnp.asarray(a) for a in (q, k, v)), jcache, jv, rope_theta=THETA, emit_kv=True,
+        impl=impl, interpret=True, **kw) for impl in ("pallas", "xla")]
+    o, k_c, v_c = fp.flash_prefill_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), cache,
+        torch.tensor(valid, dtype=torch.int32), rope_theta=THETA, **kw)
+    for want_o, want_k, want_v in outs:
+        for i, n in enumerate(valid):
+            np.testing.assert_allclose(o[i, :n].numpy(), np.asarray(want_o)[i, :n], **TOL)
+        np.testing.assert_allclose(k_c.numpy(), np.asarray(want_k), **TOL)
+        np.testing.assert_array_equal(v_c.numpy(), np.asarray(want_v))
 
 
 @pytest.mark.parametrize("s", [1, 33])
@@ -198,7 +232,7 @@ def _trailing_ones(x):
 
 
 def _dot_rows_order(prod):
-    """The kernels' dot product (``dot_rows`` in csrc/flash_prefill.cu) of
+    """The kernels' dot product (``dot_rows`` in csrc/flash_prefill.cuh) of
     each row of f32 products (rows, d), in their order: the width padded to
     a power of two dp, the dims split by residue p mod 4, each residue's
     dp / 4 steps taken in bit-reversed order in groups of 16 on binary-

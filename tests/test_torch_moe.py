@@ -249,6 +249,34 @@ def test_route_tokens_matches_reference(jref, top_k):
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **BF16_TOL)
 
 
+def test_router_logits_rows_do_not_depend_on_the_batch(jref):
+    """Each row's router logits are one fixed-order sum, so a row gives the
+    same bits alone and in any batch; the identity factor passes the LoRA
+    product's first stage through exactly; 40 experts (two column groups)
+    give each column the bits it has alone; and the logits agree with the
+    reference's f32 product to 1e-5."""
+    from repro_torch.kernels.lora import lora_delta_plain
+
+    rng = np.random.default_rng(9)
+    h = rng.standard_normal((40, 96)).astype(np.float32)
+    w = (rng.standard_normal((96, 40)) / 10).astype(np.float32)
+    th, tw = torch.from_numpy(h), torch.from_numpy(w)
+    full = moe.router_logits(th, tw)
+    for rows in (slice(0, 1), slice(7, 8), slice(3, 29)):
+        assert torch.equal(moe.router_logits(th[rows], tw), full[rows])
+    for j in (0, 17, 31, 32, 39):
+        assert torch.equal(moe.router_logits(th, tw[:, j:j + 1])[:, 0], full[:, j])
+    # the first stage alone: t = x @ A in the kernel's order, read through a
+    # second factor that picks one column
+    for j in (3, 35):
+        pick = torch.zeros((40, 1))
+        pick[j] = 1.0
+        t_j = lora_delta_plain(th, tw, pick, 1.0)[:, 0]
+        assert torch.equal(full[:, j], t_j)
+    want = np.asarray(jref.jnp.asarray(h) @ jref.jnp.asarray(w))
+    np.testing.assert_allclose(full.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("b,t", [(2, 5), (6, 1)])
 def test_apply_moe_matches_reference(jref, codec, b, t):
@@ -294,7 +322,8 @@ def test_init_packs_experts_with_reference_shapes(jref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4, 3, 130, 70), (256, 1, 7168, 4096), (256, 8, 2048, 7168)])
+@pytest.mark.parametrize("shape", [(4, 3, 130, 70), (256, 1, 7168, 4096), (256, 8, 2048, 7168),
+                                   (8, 5, 6144, 32768), (8, 2, 16384, 6144)])
 def test_cuda_expert_kernel_bit_identical_to_plain(cuda, dtype, shape):
     e, c, k, n = shape
     g = torch.Generator(device=cuda).manual_seed(e + c)
@@ -332,3 +361,23 @@ def test_cuda_expert_known_scale_kernel_bit_identical_to_plain(cuda, codec, shap
                                                            codec=codec, impl="plain"))
     assert torch.equal(got, tm.ternary_matmul_expert(x, packed, col, k=k, codec=codec))
     assert not got[0, -1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n_e", [(6144, 8), (7168, 256)])
+def test_cuda_router_logits_kernel_rows_do_not_depend_on_m(cuda, d, n_e):
+    """mixtral-8x22b's router (6144 -> 8) and deepseek-v3's (7168 -> 256,
+    eight column groups) through the LoRA kernel: bit-identical to the
+    plain version, and each row's bits the same at M = 1 and M = 300."""
+    from repro_torch.kernels import lora as klora
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    h = torch.randn((300, d), generator=g, device=cuda)
+    w = torch.randn((d, n_e), generator=g, device=cuda) * d ** -0.5
+    before = klora.KERNEL.launches
+    got = moe.router_logits(h, w)
+    torch.cuda.synchronize()
+    assert klora.KERNEL.launches == before + -(-n_e // klora.MAX_RANK)
+    assert torch.equal(got, moe.router_logits(h, w, impl="plain"))
+    one = torch.cat([moe.router_logits(h[i:i + 1], w) for i in range(0, 300, 37)])
+    assert torch.equal(one, got[0:300:37])
