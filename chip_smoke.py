@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-1. Prints the card's name and power limit, builds the nine CUDA kernel
+1. Prints the card's name and power limit, builds the twelve CUDA kernel
    sources from src/repro_torch/csrc (one nvcc each, in parallel) and
    prints the build time.
-2. Kernel phases: hold each of the nineteen kernel forms against its plain
+2. Kernel phases: hold each of the thirty kernel forms against its plain
    PyTorch version on the card at the shapes the serving paths give it,
    and time both (plus a PyTorch library call of the same work as a
    yardstick: bf16 matmul / bmm at decode, torch._int_mm at M = 192, bf16
@@ -56,7 +56,16 @@
    valid 0 / partial / full, f32 and bf16, and chunks over a ring equal to
    the fresh window kernel; timed with SDPA under an explicit window mask
    and their bounds at b 4 over a wrapped 4096-row ring, one 4200-token
-   prompt and a 4-slot chunk wave of 256.
+   prompt and a 4-slot chunk wave of 256; and the eleven fp8-tier forms
+   (A1c: kernel 2 over contiguous, paged and ring fp8 tiers; kernel 6
+   contiguous and paged; A4a: kernel 8; A3d: kernel 3's fresh, window,
+   chunked, paged and ring forms with an fp8 emit), each bit-identical to
+   its plain version (fp8 outputs by their bytes) with f32 and bf16
+   activations at its f32 form's cases, each emitting form's v_cast
+   byte-equal to kv_cache.to_tier on v rows carrying the cast's boundary
+   values (448, 449, 464, 464.01, 480, +-inf, NaN, 2^-10, -0.0), each
+   timed at its f32 form's case beside SDPA over the upcast keys and its
+   bound with 1-byte tiers.
 3. falcon3-1b: full width and depth from a seeded generator (LoRA B
    factors filled with small seeded values), packed, serving 6 prompts x
    32 tokens with max_new_tokens=96 through Engine.generate (hot_cap=32,
@@ -86,7 +95,15 @@
    deltas equal to the skipped prompt work, 18 paged chunk launches per
    wave and 18 paged decode launches per step and no contiguous one; a
    traced shared serve. The entry-point path also drives the paged
-   post-append decode on the 18 layers' caches.
+   post-append decode on the 18 layers' caches. Then the same model over
+   fp8 tiers (kv_fp8): grouped generate 6 x (32 + 96) with tokens, prefill
+   and first-step logits and the cache bytes equal to the plain fp8 run,
+   18 fp8 decodes per step and no f32-tier form; the fp8 post-append forms
+   on its 18 layer caches, contiguous and paged; chunked (prefill_chunk
+   32) and paged with prefix sharing (the eight requests), each equal to
+   its plain fp8 run with 18 fp8 launches per wave and step; fp8 against
+   f32 tiers, chunked against grouped and shared against unshared under
+   fp8 printed (fp8 rounds cached keys, not a chunk's own).
 4. deepseek-v3-671b-l5: DeepSeek-V3 at full width, 3 dense + 2 MoE layers
    (the routed experts drawn and packed one at a time from seed 0), serving
    6 prompts x (32 + 32) tokens (hot_cap=32, max_len=128, 6 slots: rows
@@ -98,23 +115,30 @@
    no weight reloaded, one MLA prefill launch per layer per admission and
    one latent decode launch per layer per decode step;
    then its carried-scale run with the same checks;
+   then the same model over fp8 latent tiers (kv_fp8): tokens equal to
+   the plain fp8 run, 5 fp8 latent decodes per step, ledgers;
    then the same model packed in pack243 (wo K = 16384, dense down
    K = 18432), served with the same checks and the pack2 run's tokens on
    6/6 rows; prints peak device memory, each phase's time and, for each
    model, the ternary, prefill and latent kernels' device time per traced
    generate.
 5. mixtral-8x22b at full width and depth (56 layers, 8 experts top-2,
-   sliding window 4096 over a ring cold tier; capacity raised so that no
-   token is dropped), drawn from seed 0 and packed layer by layer, served
-   over 4 slots (max_len 4352): prompts of 1000 and 3000 tokens inside the
-   window, 4050 + 64 crossing it during decode, 4200 + 32 past it at
-   admission, by grouped admission (window prefill, ring realign) and by
-   chunk waves of 256 (the ring continuation): tokens equal on every
-   request, 56 ring decode launches per step, one window or ring-chunk
-   prefill per layer per admission or wave, ledgers at the reference's
-   rule, no weight reloaded; a traced decode; at the depth cut to 2 layers
-   each request served alone equals the batched serve and the kernel run
-   equals its plain run.
+   sliding window 4096 over a ring cold tier, the published capacity
+   1.25), drawn from seed 0 and packed layer by layer, served over 4 slots
+   (max_len 4352): prompts of 1000 and 3000 tokens inside the window,
+   4050 + 64 crossing it during decode, 4200 + 32 past it at admission,
+   by grouped admission (window prefill, ring realign): 56 ring decode
+   launches per step, one window prefill per layer per admission, ledgers
+   at the reference's rule, no weight reloaded; a traced decode; dropless
+   (capacity E / k) at the depth cut to 16 layers, grouped and by chunk
+   waves of 256 (the ring continuation, one ring-chunk prefill per layer
+   per wave): tokens equal on every request; the grouped serve again over
+   fp8 tiers (56 fp8 ring decodes and window prefills per step and
+   admission, ledgers; its tokens/s and peak memory beside the f32-tier
+   serve's); at the depth cut to 2 layers each request served alone
+   equals the batched serve, the kernel run equals its plain run, and
+   over fp8 tiers grouped and chunked admission each equal their plain
+   runs.
 6. Prints {"kernels": [...]} (each form's launches on its own path and on
    every path that counted it) and, last, {"ok": true, "device": {...}}.
 
@@ -406,7 +430,10 @@ def mixtral_2d(torch, gen):
 # ---------------------------------------------------------------------------
 
 
-def decode_case(torch, gen, lengths, dtype, b=6, h=8, g=4, d=256, hot=32, cold=96):
+def decode_case(torch, gen, lengths, dtype, b=6, h=8, g=4, d=256, hot=32, cold=96,
+                tier_dtype=None):
+    """q, the tiered cache (tiers in ``tier_dtype``, default ``dtype``; NaN
+    past each slot's length), k_new and v_new of a GQA decode case."""
     from repro_torch.core import kv_cache as kvc
 
     def tier(cap):
@@ -419,10 +446,8 @@ def decode_case(torch, gen, lengths, dtype, b=6, h=8, g=4, d=256, hot=32, cold=9
     hot_valid, cold_valid = kvc.valid_masks(cache)
     nan = float("nan")
     cache = kvc.TieredKVCache(
-        torch.where(hot_valid[:, :, None, None], cache.hot_k, nan).to(dtype),
-        torch.where(hot_valid[:, :, None, None], cache.hot_v, nan).to(dtype),
-        torch.where(cold_valid[:, :, None, None], cache.cold_k, nan).to(dtype),
-        torch.where(cold_valid[:, :, None, None], cache.cold_v, nan).to(dtype),
+        *(kvc.to_tier(torch.where(ok[:, :, None, None], t, nan).to(dtype), tier_dtype or dtype)
+          for t, ok in zip(cache[:4], (hot_valid, hot_valid, cold_valid, cold_valid))),
         cache.lengths)
     q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
     k_new = torch.randn((b, g, d), generator=gen, device="cuda").to(dtype)
@@ -563,17 +588,20 @@ def kernel3_phase(torch, gen, theta):
 CHUNK_OFFSETS = [0, 5, 31, 32, 33, 64, 96]
 
 
-def chunk_case(torch, gen, c, dtype, lengths, b=None, h=8, g=4, d=256, hot=32, cold=96):
+def chunk_case(torch, gen, c, dtype, lengths, b=None, h=8, g=4, d=256, hot=32, cold=96,
+               tier=None):
     """q / k / v (b, c, ·, d) and a hot / cold cache at ``lengths`` whose
-    rows at or past each slot's length hold NaN."""
+    rows at or past each slot's length hold NaN, its tiers in ``tier``
+    (default ``dtype``)."""
     from repro_torch.core import kv_cache as kvc
 
     b = b or len(lengths)
     cache = kvc.init_cache(b, hot, cold, (g, d), device="cuda")
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     hot_ok, cold_ok = kvc.valid_masks(cache._replace(lengths=lens))
-    tiers = [torch.where(ok[:, :, None, None],
-                         torch.randn(t.shape, generator=gen, device="cuda"), float("nan")).to(dtype)
+    tiers = [kvc.to_tier(torch.where(ok[:, :, None, None],
+                                     torch.randn(t.shape, generator=gen, device="cuda"),
+                                     float("nan")).to(dtype), tier or dtype)
              for t, ok in zip(cache[:4], (hot_ok, hot_ok, cold_ok, cold_ok))]
     cache = kvc.TieredKVCache(*tiers, lens)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -909,6 +937,8 @@ def kernel3_mla_phase(torch, gen, theta):
 
 
 def latent_case(torch, gen, lengths, dtype, b=6, h=128, d=576, hot=32, cold=96):
+    """q (f32) and a latent cache in ``dtype`` (f32, bf16 or fp8) whose
+    rows at or past each slot's length hold NaN."""
     from repro_torch.core import kv_cache as kvc
 
     cache = kvc.init_cache(b, hot, cold, (d,), v_shape=(0,), device="cuda")
@@ -918,8 +948,8 @@ def latent_case(torch, gen, lengths, dtype, b=6, h=128, d=576, hot=32, cold=96):
     # rows at or past each slot's length hold NaN: neither version may read them
     hot_valid, cold_valid = kvc.valid_masks(cache)
     cache = cache._replace(
-        hot_k=torch.where(hot_valid[..., None], cache.hot_k, float("nan")).to(dtype),
-        cold_k=torch.where(cold_valid[..., None], cache.cold_k, float("nan")).to(dtype))
+        hot_k=kvc.to_tier(torch.where(hot_valid[..., None], cache.hot_k, float("nan")), dtype),
+        cold_k=kvc.to_tier(torch.where(cold_valid[..., None], cache.cold_k, float("nan")), dtype))
     q = torch.randn((b, h, d), generator=gen, device="cuda")
     return q, cache
 
@@ -1441,12 +1471,12 @@ def paged_copy(torch, cache, ps, shuffle_seed=None):
     pps = -(-cold // ps)
     n_pages = b * pps + 1
     pools = []
-    for src in (cache.cold_k, cache.cold_v):
-        pool = torch.full((n_pages, ps) + tuple(src.shape[2:]), float("nan"), dtype=src.dtype,
-                          device=src.device)
-        pad = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, pps * ps - cold), value=float("nan"))
+    for src in (cache.cold_k, cache.cold_v):  # built in f32 (exact), then in the tier dtype
+        pool = torch.full((n_pages, ps) + tuple(src.shape[2:]), float("nan"), device=src.device)
+        pad = torch.nn.functional.pad(src.float(), (0, 0, 0, 0, 0, pps * ps - cold),
+                                      value=float("nan"))
         pool[: b * pps] = pad.reshape((b * pps, ps) + tuple(src.shape[2:]))
-        pools.append(pool)
+        pools.append(kvc.to_tier(pool, src.dtype))
     table = (torch.arange(b, device=src.device)[:, None] * pps
              + torch.arange(pps, device=src.device)[None]).to(torch.int32)
     if shuffle_seed is not None:
@@ -1893,6 +1923,383 @@ def ring_chunk_phase(torch, gen, theta, smi):
 
 
 # ---------------------------------------------------------------------------
+# fp8 (e4m3) tiers: the fp8 forms of kernels 2, 3, 6 and 8 (A1c, A3d, A4a)
+# ---------------------------------------------------------------------------
+
+# the emit's boundary values: 448, past it to 464 (the tie, to 448), past
+# that NaN; the infinities and NaN; a subnormal tie; -0.0
+FP8_SWEEP = (448.0, 449.0, 464.0, 464.01, 480.0, float("inf"), float("-inf"), float("nan"),
+             2.0 ** -10, 1.5 * 2.0 ** -9, -0.0)
+ACTS = ("float32", "bfloat16")  # the activation dtypes every fp8 form is held in
+
+
+def fp8_equal(torch, a, b):
+    """Equal, fp8 tensors by their bytes (NaN != NaN)."""
+    from repro_torch.core import kv_cache as kvc
+
+    return torch.equal(kvc.raw(a), kvc.raw(b))
+
+
+def fp8_matches_plain(torch, kern, run, label):
+    """``run(impl)`` once on the kernel, which launches ``kern`` exactly
+    once, and once on the plain version: every output equal (fp8 ones by
+    their bytes). Returns the first output's max |diff|."""
+    before = kern.launches
+    got = run("auto")
+    torch.cuda.synchronize()
+    check(kern.launches == before + 1, f"{kern.symbol}: not one launch ({label})")
+    want = run("plain")
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for i, (x, y) in enumerate(zip(got, want)):
+        check(fp8_equal(torch, x, y), f"{kern.symbol} output {i} not bit-identical to plain "
+                                      f"({label}): {max_err(x, y)}")
+    return max_err(got[0], want[0])
+
+
+def upcast(cache):
+    """A cache's tiers in f32: the keys SDPA reads (the library yardstick)."""
+    return type(cache)(*(t.float() for t in cache[:4]), *cache[4:])
+
+
+def with_sweep(torch, v):
+    """``v`` with its first elements replaced by FP8_SWEEP (in v's dtype)."""
+    out = v.clone()
+    flat = out.view(-1)
+    flat[: len(FP8_SWEEP)] = torch.tensor(FP8_SWEEP, device=v.device).to(v.dtype)
+    return out
+
+
+def emit_sweep(torch, kern, run, v, valid, label):
+    """The emitting form ``run(v)`` -> (o, k_cast, v_cast) with v rows
+    carrying FP8_SWEEP: v_cast's bytes equal the plain ``to_tier`` of v
+    (rows past ``valid`` zero)."""
+    from repro_torch.core import kv_cache as kvc
+
+    vs = with_sweep(torch, v)
+    before = kern.launches
+    got = run(vs)[2]
+    torch.cuda.synchronize()
+    check(kern.launches == before + 1, f"{kern.symbol}: not one launch (emit sweep, {label})")
+    keep = torch.arange(v.shape[1], device="cuda")[None, :, None, None] < valid[:, None, None, None]
+    want = kvc.to_tier(torch.where(keep, vs, torch.zeros_like(vs)), kvc.FP8)
+    check(fp8_equal(torch, got, want), f"{kern.symbol}: emitted v bytes differ from to_tier "
+                                       f"on the boundary sweep ({label})")
+
+
+def fp8_row(kern, source, replaces, worst, t):
+    return dict(name=kern.symbol, route="cuda", source=source, replaces=replaces,
+                max_abs_err=worst, **t)
+
+
+def fp8_decode_phase(torch, gen, theta, smi, form):
+    """The fp8-tier forms of the GQA decode: A1c (``form`` "fused", "fused
+    paged", "ring": kernel 2 over contiguous, paged and ring tiers) and
+    kernel 6 ("post", "post paged"). Each bit-identical to its plain
+    version, one launch of its own entry point, with f32 and bf16
+    activations at the cases of its f32 form's phase (falcon3-1b's heads
+    over hot 32 / cold 96, lengths 0-128 with NaN past each; paged: page
+    size 32 / 48, identity / shuffled; ring: mixtral-8x22b's and
+    falcon3-1b's heads, rings 64 / 4096 before, at and past the wrap,
+    inactive slots). Timed at its f32 form's case beside SDPA over the
+    upcast rows, the bound counting 1-byte tiers."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.layers import apply_rope
+
+    kern = {"fused": fd.FP8_KERNEL, "post": fd.FP8_GQA_KERNEL, "fused paged": fd.FP8_PAGED_KERNEL,
+            "post paged": fd.FP8_GQA_PAGED_KERNEL, "ring": fd.FP8_RING_KERNEL}[form]
+    fused, paged, ring = form != "post" and form != "post paged", "paged" in form, form == "ring"
+    entry = fd.flash_decode_attention_ring if ring else fd.flash_decode_attention
+    if ring:
+        cases = [(6, h, g, d, 0, cold, [0, cold - 1, cold, cold + 1, 3 * cold + 5, cold + 2])
+                 for h, g, d in SWA_SHAPES for cold in (64, 4096)]
+        active = torch.tensor([False, True, True, True, True, False], device="cuda")
+    else:
+        cases = [(6, 8, 4, 256, 32, 96, [0, 1, 31, 32, 33, 127 if fused else 128])]
+        active = torch.tensor([False] + [True] * 5, device="cuda")
+    worst, n = 0.0, 0
+    for b, h, g, d, hot, cold, lengths in cases:
+        for dt in ACTS:
+            q, cache, k_new, v_new = decode_case(torch, gen, lengths, getattr(torch, dt), b=b, h=h,
+                                                 g=g, d=d, hot=hot, cold=cold,
+                                                 tier_dtype=kvc.FP8)
+            kw = dict(k_new=k_new, v_new=v_new, active=active, rope_theta=theta) if fused else {}
+            variants = paged_variants(torch, cache) if paged else [("contiguous", cache)]
+            for label, c in variants:
+                worst = max(worst, fp8_matches_plain(
+                    torch, kern, lambda impl: entry(q, c, impl=impl, **kw),
+                    f"h {h}, d {d}, tiers {hot} / {cold}, {label}, {dt} activations"))
+                n += 1
+    print(f"{kern.symbol}: bit-identical to plain on {n} cases (fp8 tiers, f32 / bf16 "
+          f"activations), one launch of its own entry point each")
+
+    # the timed case of the f32 form: falcon3-1b's b 6, length 80 (paged:
+    # 32-row pages, shuffled); ring: b 4, h 48, g 8, d 128, a wrapped 4096 ring
+    if ring:
+        b, (h, g, d), hot, cold, length = 4, SWA_SHAPES[0], 0, 4096, 4096 + 80
+    else:
+        b, h, g, d, hot, cold, length = 6, 8, 4, 256, 32, 96, 80
+    q, cache, k_new, v_new = decode_case(torch, gen, [length] * b, torch.float32, b=b, h=h, g=g,
+                                         d=d, hot=hot, cold=cold, tier_dtype=kvc.FP8)
+    kw = dict(k_new=k_new, v_new=v_new, active=torch.ones(b, dtype=torch.bool, device="cuda"),
+              rope_theta=theta) if fused else {}
+    up = upcast(cache)
+    if ring:
+        _, k_rot = entry(q, cache, **kw)
+        q_rot = apply_rope(q[:, None], cache.lengths.long()[:, None], theta)[:, 0]
+        kh = torch.cat([up.cold_k, k_rot[:, None]], 1).permute(0, 2, 1, 3).repeat_interleave(
+            h // g, dim=1).contiguous()
+        vh = torch.cat([up.cold_v, v_new[:, None]], 1).permute(0, 2, 1, 3).repeat_interleave(
+            h // g, dim=1).contiguous()
+        mask = torch.ones((b, 1, 1, cold + 1), dtype=torch.bool, device="cuda")
+        mask[:, :, :, length % cold] = False
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q_rot[:, :, None], kh, vh, attn_mask=mask)
+        rows = cold - 1
+    else:
+        library = decode_sdpa(torch, q, up, length, (k_new, v_new) if fused else None)
+        rows = length
+    # q, the rows read (1-byte tiers), lengths, the output; fused also k_new,
+    # v_new, active, the cos / sin tables and k_rot; paged the page table
+    n_bytes = b * h * d * 4 + b * rows * g * d * 2 + 4 * b + b * h * d * 4
+    if fused:
+        n_bytes += 2 * b * g * d * 4 + 4 * b + b * d * 4 + b * g * d * 4
+    ops = 4 * b * h * (rows + int(fused)) * d
+    name = f"{kern.symbol} (b {b}, length {length}, fp8 tiers, f32 activations)"
+    if paged:
+        pc = paged_copy(torch, cache, 32, shuffle_seed=1)
+        t = paged_timing(torch, name + ", page size 32, shuffled",
+                         lambda: entry(q, pc, **kw), lambda: entry(q, cache, **kw),
+                         lambda: entry(q, pc, impl="plain", **kw), library,
+                         PAGED_DECODE, GQA_DECODE, n_bytes + b * 3 * 4, ops, smi)
+    else:
+        print(f"{name}:")
+        ms, _ = timed("kernel", lambda: entry(q, cache, **kw),
+                      only=RING_DECODE if ring else GQA_DECODE)
+        plain_ms, _ = timed("plain", lambda: entry(q, cache, impl="plain", **kw),
+                            iters=3 if ring else 20)
+        library_ms, _ = timed("SDPA (f32 over the upcast rows)", library)
+        b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+        print(f"{name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, "
+              f"bound {b_ms:.6f} ms by {b_by} ({n_bytes} B, {ops} FLOP) on {smi}")
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    return fp8_row(kern, "src/repro_torch/csrc/flash_decode.cuh",
+                   "src/repro/kernels/flash_decode.py:" + ("481" if fused else "402"), worst, t)
+
+
+def fp8_latent_phase(torch, gen, smi):
+    """A4a, the latent decode over fp8 tiers: bit-identical to its plain
+    version (q in f32 and in bf16, hot only, hot + cold, length 0; NaN
+    past each length), one launch of its own entry point each; timed at
+    b 6, h 128, length 80 beside SDPA over the upcast rows."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_decode as fd
+
+    kern, scale, dv = fd.LATENT_FP8_KERNEL, 192 ** -0.5, 512
+    worst, n = 0.0, 0
+    for dt in ACTS:
+        for lengths in ([0, 1, 17, 31, 32, 20], [33, 64, 80, 100, 127, 128], [0] * 6):
+            q, cache = latent_case(torch, gen, lengths, kvc.FP8)
+            q = q.to(getattr(torch, dt))
+            worst = max(worst, fp8_matches_plain(
+                torch, kern, lambda impl: fd.flash_decode_attention_latent(
+                    q, cache, dv, scale, impl=impl), f"{dt} q, lengths {lengths}"))
+            n += 1
+    print(f"{kern.symbol}: bit-identical to plain on {n} cases (fp8 latent tiers), one launch each")
+    b, h, d, length = 6, 128, 576, 80
+    q, cache = latent_case(torch, gen, [length] * b, kvc.FP8)
+    name = f"{kern.symbol} (b 6, h 128, length {length}, fp8 tiers)"
+    print(f"{name}:")
+    ms, _ = timed("kernel", lambda: fd.flash_decode_attention_latent(q, cache, dv, scale),
+                  only="latent_kernel")
+    plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention_latent(q, cache, dv, scale,
+                                                                          impl="plain"))
+    rows = torch.cat([cache.hot_k.float(), cache.cold_k[:, : length - 32].float()], 1)
+    kh = rows[:, None].expand(b, h, length, d).contiguous()
+    vh = rows[:, None, :, :dv].expand(b, h, length, dv).contiguous()
+    library_ms, _ = timed("SDPA (f32 over the upcast rows)", lambda:
+                          torch.nn.functional.scaled_dot_product_attention(q[:, :, None], kh, vh,
+                                                                           scale=scale))
+    n_bytes = b * h * d * 4 + b * length * d + 4 * b + b * h * dv * 4
+    ops = 2 * b * h * length * (d + dv)
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"{name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
+          f"{b_ms:.6f} ms by {b_by} ({n_bytes} B, {ops} FLOP) on {smi}")
+    return fp8_row(kern, "src/repro_torch/csrc/flash_latent.cu",
+                   "src/repro/kernels/flash_decode.py:579", worst,
+                   dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                        bound_by=b_by))
+
+
+def fp8_prefill_phase(torch, gen, theta, swa_theta, smi, form):
+    """A3d, kernel 3's GQA forms with fp8 tiers and an fp8 emit: ``form``
+    "fresh", "window", "chunk", "paged" (chunked over a paged cold tier)
+    or "ring" (chunked over the ring). o, k_cast and v_cast (fp8, by their
+    bytes) bit-identical to the plain version with f32 and bf16
+    activations at the cases of the f32 form's phase (falcon3-1b's heads:
+    s 32 / 77, or C 32 waves at offsets 0-96 over hot 32 / cold 96 with
+    NaN past each length, paged at page size 32 / 48 identity / shuffled;
+    the window forms at mixtral-8x22b's and falcon3-1b's heads, windows 8 /
+    256 and rings 64 / 4096 past the wrap), valid 0 / partial / full; then
+    the emit sweep (v rows carrying FP8_SWEEP: bytes equal to the plain
+    ``to_tier``). Timed at the f32 form's case beside SDPA over the upcast
+    keys, the bound counting 1-byte tiers and emit."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models.layers import apply_rope
+
+    kern = {"fresh": fp.FP8_KERNEL, "window": fp.FP8_WINDOW_KERNEL, "chunk": fp.FP8_CHUNK_KERNEL,
+            "paged": fp.FP8_CHUNK_PAGED_KERNEL, "ring": fp.FP8_CHUNK_RING_KERNEL}[form]
+    swa = form in ("window", "ring")
+    th = swa_theta if swa else theta
+    F8 = kvc.FP8
+    worst, n = 0.0, 0
+
+    def run_on(q, k, cache, kw):
+        return lambda v, impl="auto": fp.flash_prefill_attention(q, k, v, cache, rope_theta=th,
+                                                                 kv_dtype=F8, impl=impl, **kw)
+
+    cases = []  # (q, k, v, cache, kw, label)
+    for dt in ACTS:
+        dtype = getattr(torch, dt)
+        if form == "fresh":
+            for s in (32, 77):
+                q, k, v = qkv_case(torch, gen, 6, s, 8, 4, 256, dtype)
+                valid = torch.tensor([s, s - 5, 0, s, 1, s], dtype=torch.int32, device="cuda")
+                cases.append((q, k, v, None, dict(valid=valid), f"s {s}, {dt}"))
+        elif form == "window":
+            for h, g, d in SWA_SHAPES:
+                for s, window in ((40, 8), (300, 256)):
+                    q, k, v = qkv_case(torch, gen, 3, s, h, g, d, dtype)
+                    valid = torch.tensor([s, s // 2 + 3, 0], dtype=torch.int32, device="cuda")
+                    cases.append((q, k, v, None, dict(valid=valid, window=window),
+                                  f"h {h}, d {d}, s {s}, window {window}, {dt}"))
+        elif form == "ring":
+            for h, g, d in SWA_SHAPES:
+                for cold, c in ((64, 16), (64, 48), (4096, 256)):
+                    lens = [0, cold - 5, cold + 3, 3 * cold + 1]
+                    _, cache, _, _ = decode_case(torch, gen, lens, dtype, b=4, h=h, g=g, d=d,
+                                                 hot=0, cold=cold, tier_dtype=F8)
+                    q, k, v = qkv_case(torch, gen, 4, c, h, g, d, dtype)
+                    valid = torch.tensor([c, c - 5, 0, c // 2], dtype=torch.int32, device="cuda")
+                    cases.append((q, k, v, cache, dict(valid=valid, window=cold, ring=True),
+                                  f"h {h}, d {d}, ring {cold}, C {c}, {dt}"))
+        else:
+            offs = [0, 5, 31, 32, 33, 64, 70, 96]
+            valid = torch.tensor([32, 1, 27, 0, 32, 32, 26, 32], dtype=torch.int32, device="cuda")
+            q, k, v, cache = chunk_case(torch, gen, 32, dtype, offs, tier=F8)
+            variants = paged_variants(torch, cache) if form == "paged" else [("contiguous", cache)]
+            for label, c in variants:
+                cases.append((q, k, v, c, dict(valid=valid),
+                              f"C 32, offsets {offs}, {label}, {dt}"))
+    for q, k, v, cache, kw, label in cases:
+        run = run_on(q, k, cache, kw)
+        valid = kw["valid"]
+        got = run(v)
+        torch.cuda.synchronize()
+        want = run(v, "plain")
+        for i, nv in enumerate(valid.tolist()):  # o on the valid rows (the rest is don't-care)
+            worst = max(worst, max_err(got[0][i, :nv], want[0][i, :nv]))
+            check(torch.equal(got[0][i, :nv], want[0][i, :nv]),
+                  f"{kern.symbol} o not bit-identical to plain ({label}, slot {i})")
+        check(fp8_equal(torch, got[1], want[1]) and fp8_equal(torch, got[2], want[2]),
+              f"{kern.symbol} k_cast / v_cast bytes differ from plain ({label})")
+        emit_sweep(torch, kern, run, v, valid, label)
+        n += 1
+    print(f"{kern.symbol}: o (valid rows), k_cast and v_cast (bytes) bit-identical to plain on "
+          f"{n} cases, and the emit sweep {FP8_SWEEP} byte-equal to to_tier on each (fp8 tiers "
+          f"and emit, f32 / bf16 activations)")
+
+    # the timed case of the f32 form, f32 activations
+    if form == "fresh":
+        b, s, h, g, d = 6, 32, 8, 4, 256
+        q, k, v = qkv_case(torch, gen, b, s, h, g, d, torch.float32)
+        run, its = run_on(q, k, None, {}), 20
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        kh = k.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+        vh = v.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, is_causal=True)
+        n_bytes = 4 * (2 * b * s * h * d + 2 * b * s * g * d) + 2 * b * s * g * d + 4 * b
+        ops, only, case = 4 * b * h * d * s * (s + 1) // 2, "prefill_kernel", f"b {b}, s {s}"
+    elif form == "window":
+        b, (h, g, d), s, window = 1, SWA_SHAPES[0], 4200, 4096
+        q, k, v = qkv_case(torch, gen, b, s, h, g, d, torch.float32)
+        run, its = run_on(q, k, None, dict(window=window)), 5
+        pos = torch.arange(s, device="cuda")[None]
+        k_c = apply_rope(k, pos, th)
+        library = window_sdpa(torch, q, k_c, v, pos, pos,
+                              torch.ones((b, s), dtype=torch.bool, device="cuda"), window, th, h, g)
+        n_bytes = 4 * (b * s * h * d * 2 + 2 * b * s * g * d + s * d) + 2 * b * s * g * d + 4 * b
+        ops = 4 * h * d * b * window_live(range(s), 0, s, window)
+        only, case = WINDOW_PREFILL, f"b {b}, s {s}, window {window}, h {h}"
+    elif form == "ring":
+        b, (h, g, d), c, cold = 4, SWA_SHAPES[0], 256, 4096
+        offs = [cold + 104, cold + 1000, 2 * cold + 7, 3 * cold + 300]
+        _, cache, _, _ = decode_case(torch, gen, offs, torch.float32, b=b, h=h, g=g, d=d, hot=0,
+                                     cold=cold, tier_dtype=F8)
+        q, k, v = qkv_case(torch, gen, b, c, h, g, d, torch.float32)
+        run, its = run_on(q, k, cache, dict(window=cold, ring=True)), 5
+        off = cache.lengths.long()
+        k_pos = torch.cat([kvc.ring_slot_positions(off, cold).long(),
+                           off[:, None] + torch.arange(c, device="cuda")[None]], 1)
+        q_pos = off[:, None] + torch.arange(c, device="cuda")[None]
+        keys = torch.cat([cache.cold_k.float(), apply_rope(k, q_pos, th)], 1)
+        vals = torch.cat([cache.cold_v.float(), v], 1)
+        library = window_sdpa(torch, q, keys, vals, q_pos, k_pos, k_pos >= 0, cold, th, h, g)
+        n_bytes = (4 * (b * c * h * d * 2 + 2 * b * c * g * d + b * c * d) + 2 * b * c * g * d
+                   + 8 * b + 2 * g * d * b * (cold - 1))
+        ops = 4 * h * d * sum(window_live(range(o, o + c), o - cold, o + c, cold) for o in offs)
+        only, case = CHUNK_RING, f"b {b}, C {c}, ring {cold}"
+    else:
+        b, c, off, h, g, d = 6, 32, 96, 8, 4, 256
+        q, k, v, cache = chunk_case(torch, gen, c, torch.float32, [off] * b, tier=F8)
+        pos = off + torch.arange(c, device="cuda")[None].expand(b, -1)
+        qh = apply_rope(q, pos, th).permute(0, 2, 1, 3).contiguous()
+        kk = torch.cat([cache.hot_k.float(), cache.cold_k[:, : off - 32].float(),
+                        apply_rope(k, pos, th)], 1)
+        vv = torch.cat([cache.hot_v.float(), cache.cold_v[:, : off - 32].float(), v], 1)
+        kh = kk.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+        vh = vv.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+        mask = (off + torch.arange(c, device="cuda"))[:, None] >= torch.arange(off + c,
+                                                                                 device="cuda")
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=mask)
+        n_bytes = 4 * (2 * b * c * h * d + 2 * b * c * g * d) + 2 * b * c * g * d \
+            + 2 * b * off * g * d + 8 * b
+        ops, its = 4 * b * h * d * (c * off + c * (c + 1) // 2), 5
+        run, only, case = run_on(q, k, cache, {}), "chunk_kernel", f"b {b}, C {c}, offset {off}"
+    name = f"{kern.symbol} ({case}, fp8 tiers and emit, f32 activations)"
+    if form == "paged":
+        pc = paged_copy(torch, cache, 32, shuffle_seed=2)
+        t = paged_timing(torch, name + ", page size 32, shuffled",
+                         lambda: run_on(q, k, pc, {})(v), lambda: run(v),
+                         lambda: run_on(q, k, pc, {})(v, "plain"), library, PAGED_CHUNK,
+                         "gqa_chunk_kernel", n_bytes + 4 * b * 3, ops, smi)
+    else:
+        got, want = run(v), run(v, "plain")  # bit for bit at the timed case (and warm-up)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and fp8_equal(torch, got[1], want[1])
+              and fp8_equal(torch, got[2], want[2]),
+              f"{kern.symbol} not bit-identical at the timed case")
+        del got, want
+        print(f"{name}: bit-identical to plain")
+        ms, _ = timed("kernel", lambda: run(v), only=only, iters=its)
+        if swa:  # one call of seconds: CUDA events, as the f32 window forms
+            plain_ms = time_ms(lambda: run(v, "plain"), iters=1, warmup=0)
+            print(f"  plain: CUDA events {plain_ms:.5f} ms per call")
+        else:
+            plain_ms, _ = timed("plain", lambda: run(v, "plain"), iters=5)
+        library_ms, _ = timed("SDPA (f32 over the upcast keys)", library, iters=its)
+        b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+        print(f"{name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, "
+              f"bound {b_ms:.6f} ms by {b_by} ({n_bytes} B, {ops} FLOP) on {smi}")
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    return fp8_row(kern, "src/repro_torch/csrc/flash_prefill.cuh",
+                   "src/repro/kernels/flash_prefill.py:258", worst, t)
+
+
+# ---------------------------------------------------------------------------
 # slice phase: falcon3-1b served end to end
 # ---------------------------------------------------------------------------
 
@@ -2327,6 +2734,158 @@ def paged_phase(torch, cfg, packed, kernels, smi):
     return launches
 
 
+def fp8_falcon_phase(torch, gen, cfg, packed, prompts, f32_tokens):
+    """falcon3-1b at full width and depth over fp8 tiers (``kv_fp8``; the
+    same packed weights): (a) grouped ``generate`` 6 x (32 + 96): tokens,
+    prefill and first-step logits equal to the plain fp8 run, ledgers at
+    the closed form, ``weight_loads == 0``, 18 fp8 fused decodes per step,
+    18 fp8-emit prefills per admission and no f32-tier form; the
+    post-append fp8 forms on the served caches (the entry-point path,
+    contiguous and paged); (b) chunked admission (``prefill_chunk`` 32):
+    generate 6 x (96 + 32) equal to the plain fp8 chunked run, 18 fp8 chunk
+    launches per wave; (c) paged with prefix sharing (the paged phase's
+    eight requests): equal to the plain fp8 shared run, 18 fp8 paged chunk
+    launches per wave and 18 fp8 paged decodes per step. fp8 against f32
+    tiers, chunked against grouped and shared against unshared under fp8
+    are printed, not checked: the kernels attend to a chunk's own keys at
+    full precision and to cached keys fp8-rounded, so admission changes
+    the key values read (as in the reference). Returns the launch counts
+    of the four paths."""
+    import numpy as np
+
+    from repro_torch.core import dr_edram
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+
+    cfg8 = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, kv_fp8=True))
+    plain8 = dataclasses.replace(cfg8, bitnet=dataclasses.replace(cfg8.bitnet, impl="plain"))
+    label, L = "falcon3-1b fp8", cfg.n_layers
+    kw = dict(hot_cap=32, max_len=128, slots=6)
+    common = [tm.KERNEL, kl.KERNEL, krms.KERNEL]
+    eng = Engine(cfg8, packed, **kw)
+    eng.generate(prompts[:, :8], max_new_tokens=4)  # warm-up
+    res, launches, wall = counted(common + [fd.FP8_KERNEL, fd.KERNEL, fp.FP8_KERNEL, fp.KERNEL],
+                                  lambda: eng.generate(prompts, max_new_tokens=96))
+    print(f"{label} generate 6 x (32 + 96): {wall:.3f} s, {6 * 96 / wall:.1f} tokens/s, "
+          f"launches {launches}")
+    check_served(res, cfg8, eng, 128, label)
+    check(launches[fd.FP8_KERNEL.symbol] == L * 96 and launches[fp.FP8_KERNEL.symbol] == L
+          and launches[fd.KERNEL.symbol] == 0 and launches[fp.KERNEL.symbol] == 0,
+          f"{label}: not {L} fp8 decodes per step and {L} fp8 prefills per admission with no "
+          f"f32-tier form: {launches}")
+    check(all(launches[k.symbol] > 0 for k in common), f"{label}: a kernel never launched")
+    tokens = res.tokens.numpy()
+    res_p = Engine(plain8, packed, **kw).generate(prompts, max_new_tokens=96)
+    same = int((res_p.tokens.numpy() == tokens).all(axis=1).sum())
+    check(same == 6, f"{label}: greedy tokens differ from the plain fp8 run ({same}/6 rows)")
+    toks = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        lg, cache = T.prefill(packed, cfg8, toks, hot_cap=32, max_len=128)
+        lg_p, cache_p = T.prefill(packed, plain8, toks, hot_cap=32, max_len=128)
+        first = lg.argmax(-1).to(torch.int32)
+        s1, _ = T.decode_step(packed, cfg8, first, cache)
+        s1_p, _ = T.decode_step(packed, plain8, first, cache_p)
+    check(all(t.dtype == kvc.FP8 for t in cache["attn"][:4]), f"{label}: tiers not fp8")
+    check(torch.equal(lg, lg_p) and torch.equal(s1, s1_p),
+          f"{label}: prefill / first-step logits differ from the plain run: "
+          f"{max_err(lg, lg_p)}, {max_err(s1, s1_p)}")
+    check(all(fp8_equal(torch, a, b_) for a, b_ in zip(cache["attn"][:4], cache_p["attn"][:4])),
+          f"{label}: the fp8 cache after a step differs from the plain run's")
+    f32_rows = int((f32_tokens == tokens).all(axis=1).sum())
+    print(f"{label}: tokens equal to the plain fp8 run (6/6 rows); prefill and first-step logits "
+          f"and the fp8 cache bytes equal too; 18 fp8 decodes per step; against the f32-tier run "
+          f"{f32_rows}/6 rows equal (printed, not checked)")
+
+    def entry_run():  # kernel 6 over fp8 tiers: every layer's post-append cache, then paged
+        pairs, stack = [], cache["attn"]
+        for i in range(L):
+            layer = kvc.layer(stack, i)
+            q = torch.randn((6, 8, 256), generator=gen, device="cuda")
+            pairs.append((fd.flash_decode_attention(q, layer),
+                          fd.flash_decode_attention(q, layer, impl="plain")))
+            paged = paged_copy(torch, layer, 32, shuffle_seed=i)
+            pairs.append((fd.flash_decode_attention(q, paged),
+                          fd.flash_decode_attention(q, paged, impl="plain")))
+        return pairs
+
+    with torch.inference_mode():
+        pairs, entry, _ = counted([fd.FP8_GQA_KERNEL, fd.FP8_GQA_PAGED_KERNEL, fd.GQA_KERNEL],
+                                  entry_run)
+    check(all(torch.equal(a, b_) for a, b_ in pairs), f"{label} entry points: kernel != plain")
+    check(entry[fd.FP8_GQA_KERNEL.symbol] == L and entry[fd.FP8_GQA_PAGED_KERNEL.symbol] == L
+          and entry[fd.GQA_KERNEL.symbol] == 0, f"{label} entry points: launches {entry}")
+    print(f"{label} entry points: the post-append decode over the 18 fp8 layer caches, "
+          f"contiguous and in shuffled pages, bit-identical to plain; launches {entry}")
+    del cache, cache_p
+
+    kwc = dict(kw, prefill_chunk=32)
+    p96 = np.random.default_rng(5).integers(0, cfg.vocab_size, (6, 96)).astype(np.int32)
+    eng_c = Engine(cfg8, packed, **kwc)
+    waves = counting_waves(eng_c)
+    res_c, chunked, wall_c = counted(common + [fp.FP8_CHUNK_KERNEL, fp.CHUNK_KERNEL, fp.FP8_KERNEL,
+                                               fd.FP8_KERNEL, fd.KERNEL],
+                                     lambda: eng_c.generate(p96, max_new_tokens=32))
+    print(f"{label} chunked generate 6 x (96 + 32): {wall_c:.3f} s, {len(waves)} waves, "
+          f"launches {chunked}")
+    check_served(res_c, cfg8, eng_c, 128, f"{label} chunked", prompt_len=96)
+    check(chunked[fp.FP8_CHUNK_KERNEL.symbol] == L * len(waves) == L * 3
+          and chunked[fp.CHUNK_KERNEL.symbol] == 0 and chunked[fp.FP8_KERNEL.symbol] == 0
+          and chunked[fd.KERNEL.symbol] == 0, f"{label} chunked: launches {chunked}")
+    ct = res_c.tokens.numpy()
+    same = int((Engine(plain8, packed, **kwc).generate(p96, max_new_tokens=32).tokens.numpy()
+                == ct).all(axis=1).sum())
+    check(same == 6, f"{label} chunked: tokens differ from the plain fp8 chunked run ({same}/6)")
+    grouped = Engine(cfg8, packed, **kw).generate(p96, max_new_tokens=32).tokens.numpy()
+    print(f"{label} chunked: tokens equal to the plain fp8 chunked run (6/6 rows); against "
+          f"grouped admission under fp8 {int((grouped == ct).all(axis=1).sum())}/6 rows equal "
+          f"(printed, not checked)")
+
+    specs = paged_requests(cfg.vocab_size)
+
+    def reqs():
+        return [Request(rid, t, n) for rid, t, n in specs]
+
+    pkw = dict(hot_cap=32, max_len=192, prefill_chunk=32, slots=4, sync_every=8, paged=True,
+               page_size=32)
+    eng_p = Engine(cfg8, packed, **pkw)
+    waves, steps = counting_waves(eng_p), counting_steps(eng_p)
+    fin, paged, wall_p = counted(common + [fp.FP8_CHUNK_PAGED_KERNEL, fd.FP8_PAGED_KERNEL,
+                                           fp.CHUNK_PAGED_KERNEL, fd.PAGED_KERNEL,
+                                           fp.FP8_CHUNK_KERNEL, fd.FP8_KERNEL],
+                                 lambda: eng_p.serve(reqs()))
+    print(f"{label} paged shared serve: {wall_p:.3f} s, {len(waves)} waves, {len(steps)} steps, "
+          f"launches {paged}")
+    check(paged[fp.FP8_CHUNK_PAGED_KERNEL.symbol] == L * len(waves)
+          and paged[fd.FP8_PAGED_KERNEL.symbol] == L * len(steps)
+          and paged[fp.CHUNK_PAGED_KERNEL.symbol] == paged[fd.PAGED_KERNEL.symbol] == 0
+          and paged[fp.FP8_CHUNK_KERNEL.symbol] == paged[fd.FP8_KERNEL.symbol] == 0,
+          f"{label} paged: not {L} fp8 paged launches per wave and step alone: {paged}")
+    check(eng_p.weight_loads == 0, f"{label} paged: weights were reloaded")
+    fin = {f.rid: f for f in fin}
+    plain = {f.rid: f for f in Engine(plain8, packed, **pkw).serve(reqs())}
+    same = sum(np.array_equal(fin[r].tokens, plain[r].tokens) for r in fin)
+    check(same == 8, f"{label} paged: tokens differ from the plain fp8 shared run ({same}/8)")
+    unshared = {f.rid: f for f in Engine(cfg8, packed, **pkw, prefix_sharing=False).serve(reqs())}
+    for f in unshared.values():
+        closed = dr_edram.closed_form_reduction(f.seq_len, 32)
+        check(abs(f.external_reduction - closed) <= 1e-12,
+              f"{label} unshared: request {f.rid} reduction {f.external_reduction} != {closed}")
+    print(f"{label} paged: tokens equal to the plain fp8 shared run (8/8 requests), prefix tokens "
+          f"reused {[fin[r].prefix_tokens_reused for r in sorted(fin)]}; unshared ledgers at the "
+          f"closed form; shared against unshared under fp8 "
+          f"{sum(np.array_equal(fin[r].tokens, unshared[r].tokens) for r in fin)}/8 requests "
+          f"equal (printed, not checked)")
+    return {label: launches, f"{label} entry points": entry, f"{label} chunked": chunked,
+            f"{label} paged": paged}, 6 * 96 / wall
+
+
 def slice_phase(torch, gen, smi):
     """falcon3-1b served end to end: the fused kernel run, its plain run,
     the entry-point path, the carried-scale run, the chunked runs and the
@@ -2422,14 +2981,54 @@ def slice_phase(torch, gen, smi):
                         [tm.KERNEL, fd.KERNEL, fd.PAGED_KERNEL, fp.KERNEL, fp.CHUNK_KERNEL,
                          fp.CHUNK_PAGED_KERNEL, kl.KERNEL, krms.KERNEL], smi)
     print(f"[falcon3-1b paged phase: {time.perf_counter() - t0:.2f} s]")
+    t0 = time.perf_counter()
+    fp8_paths, fp8_tok_s = fp8_falcon_phase(torch, gen, cfg, packed, prompts, tokens)
+    print(f"[falcon3-1b fp8 phase: {time.perf_counter() - t0:.2f} s]")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     breakdown(torch, eng, prompts, before="57.693 ms in 1224 launches on an H100")
     decode_glue_per_step(torch, cfg, kw, cfg.rope_theta)
     return {"falcon3-1b": launches, "falcon3-1b entry points": entry,
             "falcon3-1b carried-scale": carried, "falcon3-1b chunked": chunked,
-            "falcon3-1b chunked serve": chunked_serve, "falcon3-1b paged": paged}, {
-                "falcon3-1b": 6 * 96 / wall,
-                                                         "falcon3-1b carried-scale": carried_tok_s}
+            "falcon3-1b chunked serve": chunked_serve, "falcon3-1b paged": paged, **fp8_paths}, {
+                "falcon3-1b": 6 * 96 / wall, "falcon3-1b carried-scale": carried_tok_s,
+                "falcon3-1b fp8": fp8_tok_s}
+
+
+def fp8_deepseek_run(torch, cfg, packed, prompts, kw, f32_tokens):
+    """deepseek-v3-671b-l5 over fp8 latent tiers (``kv_fp8``; the same
+    weights): generate 6 x (32 + 32) equal to the plain fp8 run, ledgers
+    at the closed form, ``weight_loads == 0``, 5 fp8 latent decodes per
+    step and no f32-tier one; fp8 against f32 tiers printed. Returns the
+    launches and tokens/s."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.serving.engine import Engine
+
+    label = f"{cfg.name} fp8"
+    cfg8 = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, kv_fp8=True))
+    plain8 = dataclasses.replace(cfg8, bitnet=dataclasses.replace(cfg8.bitnet, impl="plain"))
+    eng = Engine(cfg8, packed, **kw)
+    eng.generate(prompts[:, :8], max_new_tokens=2)  # warm-up
+    kernels = [tm.KERNEL, tm.EXPERT_KERNEL, fp.MLA_KERNEL, fd.LATENT_FP8_KERNEL, fd.LATENT_KERNEL,
+               krms.KERNEL]
+    res, launches, wall = counted(kernels, lambda: eng.generate(prompts, max_new_tokens=32))
+    print(f"{label} generate 6 x (32 + 32): {wall:.3f} s, {6 * 32 / wall:.1f} tokens/s, "
+          f"launches {launches}")
+    check_served(res, cfg8, eng, 64, label)
+    check(launches[fd.LATENT_FP8_KERNEL.symbol] == cfg.n_layers * 32
+          and launches[fd.LATENT_KERNEL.symbol] == 0
+          and all(launches[k.symbol] > 0 for k in kernels if k is not fd.LATENT_KERNEL),
+          f"{label}: not {cfg.n_layers} fp8 latent decodes per step alone: {launches}")
+    tokens = res.tokens.numpy()
+    same = int((Engine(plain8, packed, **kw).generate(prompts, max_new_tokens=32).tokens.numpy()
+                == tokens).all(axis=1).sum())
+    check(same == 6, f"{label}: greedy tokens differ from the plain fp8 run ({same}/6 rows)")
+    print(f"{label}: tokens equal to the plain fp8 run (6/6 rows), 5 fp8 latent decodes per "
+          f"step; against the f32-tier run {int((f32_tokens == tokens).all(axis=1).sum())}/6 "
+          f"rows equal (printed, not checked)")
+    return launches, 6 * 32 / wall
 
 
 def deepseek_phase(torch):
@@ -2504,6 +3103,7 @@ def deepseek_phase(torch):
           f"{admit[fp.MLA_KERNEL.symbol]}, GQA form {admit[fp.KERNEL.symbol]}")
     check(admit == {fp.KERNEL.symbol: 0, fp.MLA_KERNEL.symbol: cfg.n_layers},
           f"MLA prefill launches per admission: {admit}")
+    fp8, fp8_tok_s = fp8_deepseek_run(torch, cfg, packed, prompts, kw, tokens)
     carried, carried_tok_s = carried_scale_run(
         torch, cfg, packed, prompts, kw, 32,
         [tm.KERNEL, tm.EXPERT_KERNEL, tm.KNOWN_KERNEL, tm.KNOWN_EXPERT_KERNEL, fp.MLA_KERNEL,
@@ -2515,9 +3115,10 @@ def deepseek_phase(torch):
     del eng, packed
     torch.cuda.empty_cache()
     pack243, pack243_tok_s = pack243_run(torch, cfg, prompts, kw, kernels, tokens)
-    return ({name: launches, f"{name} carried-scale": carried, f"{name} pack243": pack243},
+    return ({name: launches, f"{name} carried-scale": carried, f"{name} pack243": pack243,
+             f"{name} fp8": fp8},
             {name: 6 * 32 / wall, f"{name} carried-scale": carried_tok_s,
-             f"{name} pack243": pack243_tok_s})
+             f"{name} pack243": pack243_tok_s, f"{name} fp8": fp8_tok_s})
 
 
 # ---------------------------------------------------------------------------
@@ -2628,8 +3229,9 @@ def mixtral_phase(torch, smi):
     the path, one ring decode and one router launch per layer per step,
     ledgers, a traced decode. Dropless (capacity factor E / k, every expert
     takes every token, so a token's output does not depend on the tokens
-    batched with it): grouped and chunked admission (prefill_chunk 256: the
-    chunked ring form), tokens equal on every request. At the depth cut to
+    batched with it), at the depth cut to 16 layers: grouped and chunked
+    admission (prefill_chunk 256: the chunked ring form), tokens equal on
+    every request. At the depth cut to
     2 layers: the published run equal to its plain run (the same batching),
     and each request served alone equal to the dropless batched serve."""
     from repro_torch.configs import get_config
@@ -2678,10 +3280,10 @@ def mixtral_phase(torch, smi):
     torch.cuda.reset_peak_memory_stats()
     fin, launches, wall = counted(kernels, lambda: eng.serve(reqs()))
     tok_s = n_new / wall
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} grouped serve of {MIXTRAL_SPECS} over 4 slots, capacity factor "
           f"{cfg.moe.capacity_factor}: {wall:.3f} s, {tok_s:.2f} tokens/s, {len(steps)} decode "
-          f"steps, launches {launches}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"steps, launches {launches}, peak device memory {peak:.2f} GiB")
     check_requests(fin, cfg, eng, label)
     L, n_adm = cfg.n_layers, len(MIXTRAL_SPECS)
     check(all(launches[k.symbol] > 0 for k in (tm.KERNEL, tm.EXPERT_KERNEL, fd.RING_KERNEL,
@@ -2700,36 +3302,68 @@ def mixtral_phase(torch, smi):
           f"rule; weight_loads = 0")
     swa_decode_breakdown(torch, eng, label)
 
-    # dropless: grouped against chunked admission
+    # fp8 tiers (kv_fp8), the same grouped serve at the published capacity
+    cfg8 = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, kv_fp8=True))
+    kernels8 = kernels + [fd.FP8_RING_KERNEL, fp.FP8_WINDOW_KERNEL, fp.FP8_CHUNK_RING_KERNEL]
+    eng8 = Engine(cfg8, packed, **MIXTRAL_KW)
+    eng8.serve([Request(99, reqs()[0].tokens[:40], 2)])  # warm-up
+    steps8 = counting_steps(eng8)
     torch.cuda.reset_peak_memory_stats()
-    eng_d = Engine(cfg_d, packed, **MIXTRAL_KW)
+    fin8, launches8, wall8 = counted(kernels8, lambda: eng8.serve(reqs()))
+    peak8 = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label} fp8 grouped serve (capacity factor {cfg.moe.capacity_factor}): {wall8:.3f} "
+          f"s, {len(steps8)} decode steps, launches {launches8}")
+    check_requests(fin8, cfg8, eng8, f"{label} fp8")
+    check(launches8[fd.FP8_RING_KERNEL.symbol] == L * len(steps8)
+          and launches8[fp.FP8_WINDOW_KERNEL.symbol] == L * n_adm
+          and launches8[fd.RING_KERNEL.symbol] == launches8[fp.WINDOW_KERNEL.symbol] == 0
+          and launches8[fd.KERNEL.symbol] == launches8[fp.KERNEL.symbol] == 0
+          and all(launches8[k.symbol] > 0 for k in (tm.KERNEL, tm.EXPERT_KERNEL, kl.KERNEL,
+                                                    krms.KERNEL)),
+          f"{label} fp8: not {L} fp8 ring decodes per step and {L} fp8 window prefills per "
+          f"admission alone: {launches8}")
+    same8 = sum(bool((f.tokens == g.tokens).all()) for f, g in zip(
+        sorted(fin, key=lambda f: f.rid), sorted(fin8, key=lambda f: f.rid)))
+    print(f"{label} f32 tiers against fp8 tiers, the same grouped serve in this call: "
+          f"{tok_s:.2f} against {n_new / wall8:.2f} tokens/s, peak device memory {peak:.2f} "
+          f"against {peak8:.2f} GiB; {L} fp8 ring decodes per step; tokens equal on "
+          f"{same8}/{len(fin8)} requests (printed, not checked) on {smi}")
+    del eng8
+
+    # dropless: grouped against chunked admission, at the depth cut to 16
+    # layers (the run's time; the first 16 layers' weights, full width)
+    L16 = 16
+    cfg_d = dataclasses.replace(cfg_d, name="mixtral-8x22b-l16", n_layers=L16)
+    packed16 = dict(packed, moe_blocks=packed["moe_blocks"][:L16])
+    torch.cuda.reset_peak_memory_stats()
+    eng_d = Engine(cfg_d, packed16, **MIXTRAL_KW)
     t0 = time.perf_counter()
     fin_d = eng_d.serve(reqs())
     torch.cuda.synchronize()
     wall_d = time.perf_counter() - t0
     check_requests(fin_d, cfg_d, eng_d, f"{label} dropless")
     grouped = {f.rid: f.tokens for f in fin_d}
-    eng_c = Engine(cfg_d, packed, **MIXTRAL_KW, prefill_chunk=256)
+    eng_c = Engine(cfg_d, packed16, **MIXTRAL_KW, prefill_chunk=256)
     waves, steps_c = counting_waves(eng_c), counting_steps(eng_c)
     fin_c, launches_c, wall_c = counted(kernels, lambda: eng_c.serve(reqs()))
-    print(f"{label} dropless (capacity factor {cfg_d.moe.capacity_factor}): grouped serve "
+    print(f"{cfg_d.name} dropless (capacity factor {cfg_d.moe.capacity_factor}): grouped serve "
           f"{wall_d:.3f} s, {n_new / wall_d:.2f} tokens/s; chunked serve (prefill_chunk 256) "
           f"{wall_c:.3f} s, {n_new / wall_c:.2f} tokens/s ({wall_d / wall_c:.3f} x the dropless "
           f"grouped serve's rate), {len(waves)} chunk waves, {len(steps_c)} decode steps, "
           f"launches {launches_c}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_requests(fin_c, cfg_d, eng_c, f"{label} chunked")
-    check(launches_c[fp.CHUNK_RING_KERNEL.symbol] == L * len(waves)
+    check(launches_c[fp.CHUNK_RING_KERNEL.symbol] == L16 * len(waves)
           and launches_c[fp.WINDOW_KERNEL.symbol] == 0
-          and launches_c[fd.RING_KERNEL.symbol] == L * len(steps_c)
-          and launches_c[kl.KERNEL.symbol] == L * (len(steps_c) + len(waves)),
-          f"{label} chunked: not {L} ring chunk and router launches per wave and {L} ring "
+          and launches_c[fd.RING_KERNEL.symbol] == L16 * len(steps_c)
+          and launches_c[kl.KERNEL.symbol] == L16 * (len(steps_c) + len(waves)),
+          f"{label} chunked: not {L16} ring chunk and router launches per wave and {L16} ring "
           f"decodes and router launches per step: {launches_c}")
     same = [bool((grouped[f.rid] == f.tokens).all()) for f in sorted(fin_c, key=lambda f: f.rid)]
-    print(f"{label} dropless: chunked against grouped admission, tokens equal on {sum(same)}/"
-          f"{len(same)} requests")
+    print(f"{cfg_d.name} dropless: chunked against grouped admission, tokens equal on "
+          f"{sum(same)}/{len(same)} requests")
     check(all(same), f"{label}: chunked and grouped admission differ: {same}")
-    del eng_d, eng_c
+    del eng_d, eng_c, packed16
 
     # the depth cut to 2 layers (the run's time; the weights are the first
     # two layers'): the published run against its plain run, and dropless,
@@ -2756,12 +3390,36 @@ def mixtral_phase(torch, smi):
           f"tokens equal to the batched serve on {sum(same)}/{len(same)}")
     check(all(same), f"{cfg2.name}: a request served alone differs from the batched serve: "
                      f"{same}")
+    # fp8 tiers at the depth cut: grouped and chunked admission, each kernel
+    # run against its plain run (the same batching, the published capacity)
+    cfg2_8 = dataclasses.replace(cfg2, bitnet=dataclasses.replace(cfg2.bitnet, kv_fp8=True))
+    plain2_8 = dataclasses.replace(cfg2_8, bitnet=dataclasses.replace(cfg2_8.bitnet, impl="plain"))
+    for chunk in (0, 256):
+        eng_8 = Engine(cfg2_8, packed2, **MIXTRAL_KW, prefill_chunk=chunk)
+        waves8 = counting_waves(eng_8)
+        fin_8, launches_8, _ = counted(kernels8, lambda: eng_8.serve(reqs()))
+        want = {f.rid: f.tokens for f in Engine(plain2_8, packed2, **MIXTRAL_KW,
+                                                prefill_chunk=chunk).serve(reqs())}
+        same = [bool((want[f.rid] == f.tokens).all()) for f in fin_8]
+        how = f"chunked (prefill_chunk {chunk})" if chunk else "grouped"
+        print(f"{cfg2.name} fp8 {how}: kernel run against its plain run: tokens equal on "
+              f"{sum(same)}/{len(same)} requests; launches {launches_8}")
+        check(all(same), f"{cfg2.name} fp8 {how}: the kernel run differs from the plain run")
+        check_requests(fin_8, cfg2_8, eng_8, f"{cfg2.name} fp8 {how}")
+        if chunk:
+            launches8_c = launches_8
+            check(launches_8[fp.FP8_CHUNK_RING_KERNEL.symbol] == 2 * len(waves8)
+                  and launches_8[fp.CHUNK_RING_KERNEL.symbol] == 0
+                  and launches_8[fp.FP8_WINDOW_KERNEL.symbol] == 0,
+                  f"{cfg2.name} fp8 chunked: not 2 fp8 ring chunks per wave: {launches_8}")
     print(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"on {smi}")
-    del eng, eng2, packed, packed2
+    del eng, eng2, eng_8, packed, packed2
     torch.cuda.empty_cache()
-    return {label: launches, f"{label} chunked": launches_c}, {
-        label: tok_s, f"{label} dropless": n_new / wall_d, f"{label} chunked": n_new / wall_c}
+    return {label: launches, f"{label} chunked (16 layers)": launches_c, f"{label} fp8": launches8,
+            f"{label} fp8 chunked (2 layers)": launches8_c}, {
+        label: tok_s, f"{label} dropless (16 layers)": n_new / wall_d,
+        f"{label} chunked (16 layers)": n_new / wall_c, f"{label} fp8": n_new / wall8}
 
 
 def decode_glue_per_step(torch, cfg, kw, theta):
@@ -2935,7 +3593,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"kernels built in {time.perf_counter() - t0:.2f} s")
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s; each source's nvcc: "
+          + ", ".join(f"{n} {t:.1f} s" for n, t in sorted(build.BUILD_SECONDS.items(),
+                                                           key=lambda kv: -kv[1])))
     for name in build.KERNEL_SOURCES:
         if build.log_path(name).exists():
             for line in build.log_path(name).read_text().splitlines():
@@ -2981,7 +3641,32 @@ def main() -> int:
               ("kernel 3 window form", lambda: window_prefill_phase(torch, gen, swa_theta, smi),
                fp.WINDOW_KERNEL, "mixtral-8x22b"),
               ("kernel 3 ring chunked form", lambda: ring_chunk_phase(torch, gen, swa_theta, smi),
-               fp.CHUNK_RING_KERNEL, "mixtral-8x22b chunked")]
+               fp.CHUNK_RING_KERNEL, "mixtral-8x22b chunked (16 layers)")]
+    # the fp8-tier forms (A1c, A3d, A4a): (label, form, theta, kernel, path)
+    fp8_decode = [("kernel 2 fp8 form", "fused", theta, fd.FP8_KERNEL, "falcon3-1b fp8"),
+                  ("kernel 6 fp8 form", "post", theta, fd.FP8_GQA_KERNEL,
+                   "falcon3-1b fp8 entry points"),
+                  ("kernel 2 fp8 paged form", "fused paged", theta, fd.FP8_PAGED_KERNEL,
+                   "falcon3-1b fp8 paged"),
+                  ("kernel 6 fp8 paged form", "post paged", theta, fd.FP8_GQA_PAGED_KERNEL,
+                   "falcon3-1b fp8 entry points"),
+                  ("kernel 2 fp8 ring form", "ring", swa_theta, fd.FP8_RING_KERNEL,
+                   "mixtral-8x22b fp8")]
+    fp8_prefill = [("kernel 3 fp8 form", "fresh", fp.FP8_KERNEL, "falcon3-1b fp8"),
+                   ("kernel 3 fp8 chunked form", "chunk", fp.FP8_CHUNK_KERNEL,
+                    "falcon3-1b fp8 chunked"),
+                   ("kernel 3 fp8 paged chunked form", "paged", fp.FP8_CHUNK_PAGED_KERNEL,
+                    "falcon3-1b fp8 paged"),
+                   ("kernel 3 fp8 window form", "window", fp.FP8_WINDOW_KERNEL,
+                    "mixtral-8x22b fp8"),
+                   ("kernel 3 fp8 ring chunked form", "ring", fp.FP8_CHUNK_RING_KERNEL,
+                    "mixtral-8x22b fp8 chunked (2 layers)")]
+    phases += [(label, lambda f=form, t=th: fp8_decode_phase(torch, gen, t, smi, f), kern, path)
+               for label, form, th, kern, path in fp8_decode]
+    phases += [(label, lambda f=form: fp8_prefill_phase(torch, gen, theta, swa_theta, smi, f),
+                kern, path) for label, form, kern, path in fp8_prefill]
+    phases.append(("kernel 8 fp8 form", lambda: fp8_latent_phase(torch, gen, smi),
+                   fd.LATENT_FP8_KERNEL, "deepseek-v3-671b-l5 fp8"))
     rows = []
     for label, fn, _, _ in phases:
         t0 = time.perf_counter()

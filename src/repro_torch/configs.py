@@ -60,6 +60,9 @@ class BitNetConfig:
     lora_rank: int = 0  # 0 disables adapters
     lora_targets: Tuple[str, ...] = ("v", "o", "down")
     lora_bits: int = 6
+    # fp8 (e4m3) KV-cache tiers at inference: every attention cache
+    # (contiguous, paged, ring) stores one byte a value
+    kv_fp8: bool = False
 
 
 @dataclass(frozen=True)

@@ -32,6 +32,12 @@ arrays are immutable, the appends here write the tier buffers and
 ``lengths`` IN PLACE: a decode step then moves one row per slot instead
 of copying the cache.
 
+Tiers are f32, bf16 or fp8 (e4m3, ``FP8``; ``BitNetConfig.kv_fp8``).
+Every write into a tier goes through ``to_tier``, the reference's cast,
+and fp8 tiers are indexed and written through their bytes (``raw``), so
+no fp8 arithmetic or indexing kernel is needed on either device. The
+plain reads upcast a tier row to f32, which is exact for all three.
+
 The traffic ledger (``step_traffic_tokens``, ``prompt_traffic_tokens``)
 counts KV accesses in token units per slot; summed over a sequence it
 reconciles exactly with ``dr_edram.closed_form_reduction``.
@@ -44,6 +50,42 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 NEG_INF = torch.finfo(torch.float32).min
+FP8 = torch.float8_e4m3fn
+FP8_OVERFLOW = 464.0  # |x| above it (or non-finite) casts to NaN
+
+
+def raw(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor as its bytes (a uint8 view), any other as it is."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
+
+def to_tier(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` in a tier's dtype: ``.to(dtype)`` for f32 and bf16 tiers; for
+    an fp8 tier the reference's cast (jax's ``astype(float8_e4m3fn)``):
+    round to nearest even, and NaN with the sign kept where |x| > 464 or x
+    is not finite (torch's own cast saturates to 448 there). Inputs in
+    bf16 give what the reference gives them too, since the reference's
+    bf16 -> fp8 cast equals its f32 -> fp8 cast of the same value. Built
+    from integer ops, so the result does not depend on the device's cast;
+    the CUDA kernels' emit (``to_e4m3`` in ``csrc/fp8.cuh``) repeats it."""
+    if dtype != FP8:
+        return x.to(dtype)
+    if x.dtype == FP8:
+        return x
+    x32 = x.float().contiguous()
+    bits = x32.view(torch.int32)
+    sign = (bits >> 24) & 0x80
+    a = x32.abs()
+    # normal range (|x| >= 2^-6): rebias the exponent (127 -> 7) and round
+    # the 23-bit mantissa to 3 bits, half to even; the carry moves into the
+    # exponent as it should
+    r = (bits & 0x7FFFFFFF) - (120 << 23)
+    normal = (r + 0x7FFFF + ((r >> 20) & 1)) >> 20
+    # subnormals: whole multiples of 2^-9, half to even (an exact product)
+    sub = torch.round(a * 512.0).to(torch.int32)
+    mag = torch.where(a < 2.0 ** -6, sub, normal)
+    byte = torch.where(a <= FP8_OVERFLOW, mag, torch.full_like(mag, 0x7F)) | sign
+    return byte.to(torch.uint8).view(FP8)
 
 
 class TieredKVCache(NamedTuple):
@@ -78,7 +120,7 @@ def init_cache(batch: int, hot_cap: int, cold_cap: int, kv_shape: Sequence[int],
     v_shape = tuple(kv_shape) if v_shape is None else tuple(v_shape)
 
     def zeros(cap, shape):
-        return torch.zeros(lead + (batch, cap) + shape, dtype=dtype, device=device)
+        return _zeros(lead + (batch, cap) + shape, dtype, device)
 
     return TieredKVCache(
         hot_k=zeros(hot_cap, tuple(kv_shape)),
@@ -149,7 +191,7 @@ def init_paged_cache(batch: int, hot_cap: int, cold_cap: int, kv_shape: Sequence
              + torch.arange(pps, dtype=torch.int32, device=device)[None]).clamp(max=n_pages - 1)
 
     def zeros(*shape):
-        return torch.zeros(lead + shape, dtype=dtype, device=device)
+        return _zeros(lead + shape, dtype, device)
 
     return PagedKVCache(
         hot_k=zeros(batch, hot_cap, *kv_shape),
@@ -168,8 +210,8 @@ def cold_view(cache: PagedKVCache) -> tuple:
     b = cache.page_table.shape[0]
     table = cache.page_table.long()
     tail = cache.pool_k.shape[2:]
-    return (cache.pool_k[table].reshape((b, cache.cold_cap) + tail),
-            cache.pool_v[table].reshape((b, cache.cold_cap) + cache.pool_v.shape[2:]))
+    return (rows_of(cache.pool_k, table).reshape((b, cache.cold_cap) + tail),
+            rows_of(cache.pool_v, table).reshape((b, cache.cold_cap) + cache.pool_v.shape[2:]))
 
 
 def as_tiered(cache: PagedKVCache) -> TieredKVCache:
@@ -184,6 +226,18 @@ def layer(stack, i: int):
     return type(stack)(*(t[i] for t in stack))
 
 
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    """Zeroed tier; an fp8 one as zero bytes (+0.0)."""
+    if dtype == FP8:
+        return torch.zeros(shape, dtype=torch.uint8, device=device).view(FP8)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def rows_of(t: torch.Tensor, *idx) -> torch.Tensor:
+    """``t[idx]`` (advanced indexing), an fp8 tier through its bytes."""
+    return raw(t)[idx].view(t.dtype)
+
+
 def _put_rows(flat: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
               write: torch.Tensor) -> None:
     """``flat[rows[i]] = vals[i]`` where ``write[i]``, in place, with no
@@ -195,7 +249,8 @@ def _put_rows(flat: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
     write = write.reshape(-1)
     if rows.numel() == 0 or flat.numel() == 0:
         return
-    vals = vals.reshape((rows.shape[0],) + flat.shape[1:]).to(flat.dtype)
+    vals = raw(to_tier(vals.reshape((rows.shape[0],) + flat.shape[1:]), flat.dtype))
+    flat = raw(flat)
     first = torch.argmax(write.to(torch.int32))  # first writer, or 0
     r0 = rows[first]
     bshape = (-1,) + (1,) * (flat.ndim - 1)
@@ -287,7 +342,8 @@ def _append_one(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
             return
         idx = tier_pos % cap if ring else tier_pos.clamp(0, cap - 1)
         mask = (write & act).reshape((b,) + (1,) * (tier.ndim - 2))
-        tier[rows, idx] = torch.where(mask, new.to(tier.dtype), tier[rows, idx])
+        t = raw(tier)
+        t[rows, idx] = torch.where(mask, raw(to_tier(new, tier.dtype)), t[rows, idx])
 
     upd(cache.hot_k, k_new, pos, in_hot)
     upd(cache.hot_v, v_new, pos, in_hot)
@@ -316,9 +372,20 @@ def append_decode_ring(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.T
     return _append_one(cache, k_new, v_new, active, ring=True)
 
 
+def _scattered(x: torch.Tensor) -> torch.Tensor:
+    """A value as the reference's bulk scatter writes it: that scatter is a
+    one-hot product summed from +0.0, so a -0.0 arrives as +0.0 (fp8:
+    byte 0x80 as 0x00); every other value as it is."""
+    if x.dtype == FP8:
+        b = raw(x)
+        return torch.where(b == 0x80, torch.zeros_like(b), b).view(FP8)
+    return x + 0.0
+
+
 def _write_rows(tier: torch.Tensor, new: torch.Tensor, tier_pos: torch.Tensor,
                 write: torch.Tensor) -> None:
-    """Row ``tier_pos[b, t]`` of slot b takes ``new[b, t]`` where ``write``,
+    """Row ``tier_pos[b, t]`` of slot b takes ``new[b, t]`` (as the
+    reference's bulk scatter writes it, ``_scattered``) where ``write``,
     in place. Consecutive positions of a slot are distinct modulo the
     capacity, so each write goes in groups of at most ``cap`` rows to the
     indices ``tier_pos % cap``; the rows not written take back their own
@@ -327,10 +394,11 @@ def _write_rows(tier: torch.Tensor, new: torch.Tensor, tier_pos: torch.Tensor,
     if tier.numel() == 0:  # zero-capacity tier or the empty latent v-slot
         return
     rows = torch.arange(b, device=tier.device)[:, None]
+    new, tier = raw(_scattered(to_tier(new, tier.dtype))), raw(tier)
     for s0 in range(0, new.shape[1], cap):
         idx = tier_pos[:, s0:s0 + cap] % cap
         mask = write[:, s0:s0 + cap].reshape(idx.shape + (1,) * (tier.ndim - 2))
-        tier[rows, idx] = torch.where(mask, new[:, s0:s0 + cap].to(tier.dtype), tier[rows, idx])
+        tier[rows, idx] = torch.where(mask, new[:, s0:s0 + cap], tier[rows, idx])
 
 
 def append(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -385,18 +453,18 @@ def fill_fresh(cache: TieredKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     if ring and s > cache.cold_cap:
         w = cache.cold_cap
         order = torch.argsort(torch.arange(s - w, s, device=k_new.device) % w)
-        cache.cold_k.copy_(k_new[:, s - w:][:, order].to(cache.cold_k.dtype))
-        cache.cold_v.copy_(v_new[:, s - w:][:, order].to(cache.cold_v.dtype))
+        for tier, new in ((cache.cold_k, k_new), (cache.cold_v, v_new)):
+            raw(tier).copy_(raw(to_tier(new[:, s - w:], tier.dtype))[:, order])
         cache.lengths.fill_(s)
         return cache
     n_h = min(s, cache.hot_cap)
     n_c = min(s - n_h, cache.cold_cap)
-    if n_h:
-        cache.hot_k[:, :n_h] = k_new[:, :n_h].to(cache.hot_k.dtype)
-        cache.hot_v[:, :n_h] = v_new[:, :n_h].to(cache.hot_v.dtype)
-    if n_c:
-        cache.cold_k[:, :n_c] = k_new[:, n_h:n_h + n_c].to(cache.cold_k.dtype)
-        cache.cold_v[:, :n_c] = v_new[:, n_h:n_h + n_c].to(cache.cold_v.dtype)
+    for tier, new in ((cache.hot_k, k_new), (cache.hot_v, v_new)):
+        if n_h:
+            raw(tier)[:, :n_h] = raw(to_tier(new[:, :n_h], tier.dtype))
+    for tier, new in ((cache.cold_k, k_new), (cache.cold_v, v_new)):
+        if n_c:
+            raw(tier)[:, :n_c] = raw(to_tier(new[:, n_h:n_h + n_c], tier.dtype))
     cache.lengths.fill_(s)
     return cache
 
@@ -429,7 +497,7 @@ def paged_admit(cache: PagedKVCache, reset: torch.Tensor, new_lengths: torch.Ten
     src_rows = (cow_src.clamp(min=0)[:, None] * ps + j).clamp(max=pk.shape[0] - 1)
     dst_rows = cow_dst.clamp(min=0)[:, None] * ps + j
     for flat in (pk, pv):
-        _put_rows(flat, dst_rows, flat[src_rows.reshape(-1)], cow_ok)
+        _put_rows(flat, dst_rows, rows_of(flat, src_rows.reshape(-1)), cow_ok)
     if cache.hot_cap:
         i = torch.arange(cache.hot_cap, device=reset.device)[None]  # (1, hc)
         pg = (i // ps).clamp(max=hot_src.shape[1] - 1).expand(hot_src.shape[0], -1)
@@ -440,7 +508,8 @@ def paged_admit(cache: PagedKVCache, reset: torch.Tensor, new_lengths: torch.Ten
         for hot, flat in ((cache.hot_k, pk), (cache.hot_v, pv)):
             if hot.numel():
                 m = ok.reshape(ok.shape + (1,) * (hot.ndim - 2))
-                hot.copy_(torch.where(m, flat[rows].to(hot.dtype), hot))
+                raw(hot).copy_(torch.where(m, raw(to_tier(rows_of(flat, rows), hot.dtype)),
+                                           raw(hot)))
     return cache
 
 

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.kv_cache import to_tier
+
 EPS = 1e-5
 
 
@@ -74,10 +76,12 @@ def act_dequant(q: QuantizedActivation) -> torch.Tensor:
 
 def act_quant_ste(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """Fake-quantized activation; the forward value of the reference's
-    straight-through form ``x + stop_gradient(dequant - x)``."""
+    straight-through form ``x + stop_gradient(dequant - x)``, cast back to
+    x's dtype as the reference casts (an fp8 latent tier's rows round back
+    to fp8 through ``kv_cache.to_tier``)."""
     x32 = x.float()
     xdq = act_dequant(act_quant(x, bits=bits))
-    return (x32 + (xdq - x32)).to(x.dtype)
+    return to_tier(x32 + (xdq - x32), x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -113,17 +113,28 @@
 //    compiles into a kernel of its own name. At mixtral-8x22b's shape (b 4,
 //    h 48, g 8, d 128, a 4096-row ring, f32) the form moves 134 MB, 0.040
 //    ms at 3.35 TB/s, over a grid of only 2 x 8 x 4 = 64 blocks.
-//  * fp8 layouts are not handled here (the wrapper raises).
+//  * fp8 (e4m3) tiers (the reference's kv_fp8 caches, which its kernels
+//    upcast tile by tile to f32): the tiers have a type of their own, TT,
+//    either T or __nv_fp8_e4m3 (fp8.cuh), while q, k_new, v_new, out and
+//    k_rot keep the activation type T. A row element is upcast as it is
+//    loaded (to_f32, exact), so the tiles, their order and every sum are
+//    the f32 forms'; an fp8 form reads a quarter of an f32 form's tier
+//    bytes. Every form has an fp8 instance (entry points in
+//    flash_decode_fp8.cu and flash_decode_paged_fp8.cu).
 //
-// This header holds the kernels; their C entry points are in three sources,
+// This header holds the kernels; their C entry points are in five sources,
 // one library each, so that they build in parallel: flash_decode.cu (the
-// contiguous forms), flash_decode_paged.cu (the paged forms) and
-// flash_decode_ring.cu (the ring form).
+// contiguous forms), flash_decode_paged.cu (the paged forms),
+// flash_decode_ring.cu (the ring form), flash_decode_fp8.cu (the contiguous
+// and ring forms over fp8 tiers) and flash_decode_paged_fp8.cu (the paged
+// forms over fp8 tiers).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fp8.cuh"
 
 namespace {
 
@@ -261,13 +272,15 @@ __device__ __forceinline__ void rope(float (&x)[TL], const float (&c)[(TL + 1) /
   }
 }
 
-template <typename T>
+// T: the activations' type (q, k_new, v_new, out, k_rot); TT: the tiers'
+// (T, or __nv_fp8_e4m3).
+template <typename T, typename TT = T>
 struct DecodeArgs {
   const T* q;       // (B, H, D)
-  const T* hot_k;   // (B, HC, G, D)
-  const T* hot_v;
-  const T* cold_k;  // (B, CC, G, D); paged: the pool (n_pages, ps, G, D)
-  const T* cold_v;
+  const TT* hot_k;  // (B, HC, G, D)
+  const TT* hot_v;
+  const TT* cold_k;  // (B, CC, G, D); paged: the pool (n_pages, ps, G, D)
+  const TT* cold_v;
   const T* k_new;   // (B, G, D); fused form only, like active, cos, sin, k_rot
   const T* v_new;
   const int* lengths;  // (B,)
@@ -282,8 +295,8 @@ struct DecodeArgs {
   int ps = 0, pps = 0;
 };
 
-template <typename T, int D, bool FUSED, bool PAGED, bool RING = false>
-__device__ __forceinline__ void decode_body(const DecodeArgs<T>& a) {
+template <typename T, typename TT, int D, bool FUSED, bool PAGED, bool RING = false>
+__device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
   constexpr int TL = D >= 32 ? D / 32 : 1;  // head dims per lane
   constexpr int DVS = slice_dims(D);        // value dims per block
   constexpr int S = D / DVS;                // slice blocks of a cluster
@@ -356,8 +369,8 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T>& a) {
   float kx[KPW][TL];
   float v[kChunk][KPT];
   auto fetch = [&](int c0) {
-    const T* kt[kChunk];
-    const T* vt[kChunk];
+    const TT* kt[kChunk];
+    const TT* vt[kChunk];
     bool hot[kChunk];
     int start[kChunk];
 #pragma unroll
@@ -389,7 +402,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T>& a) {
 #pragma unroll
     for (int i = 0; i < KPW; ++i) {
       const int k = i / kSpan, j = gw + CW * (i % kSpan);
-      const T* row = kt[k] + at(k, j);
+      const TT* row = kt[k] + at(k, j);
 #pragma unroll
       for (int t = 0; t < TL; ++t) {
         const int idx = lane + 32 * t;
@@ -574,23 +587,23 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T>& a) {
   }
 }
 
-template <typename T, int D, bool FUSED>
-__global__ void __launch_bounds__(kThreads, 1) gqa_decode_kernel(DecodeArgs<T> a) {
-  decode_body<T, D, FUSED, false>(a);
+template <typename T, typename TT, int D, bool FUSED>
+__global__ void __launch_bounds__(kThreads, 1) gqa_decode_kernel(DecodeArgs<T, TT> a) {
+  decode_body<T, TT, D, FUSED, false>(a);
 }
 
-template <typename T, int D, bool FUSED>
-__global__ void __launch_bounds__(kThreads, 1) gqa_decode_paged_kernel(DecodeArgs<T> a) {
-  decode_body<T, D, FUSED, true>(a);
+template <typename T, typename TT, int D, bool FUSED>
+__global__ void __launch_bounds__(kThreads, 1) gqa_decode_paged_kernel(DecodeArgs<T, TT> a) {
+  decode_body<T, TT, D, FUSED, true>(a);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1) gqa_decode_ring_kernel(DecodeArgs<T> a) {
-  decode_body<T, D, true, false, true>(a);
+template <typename T, typename TT, int D>
+__global__ void __launch_bounds__(kThreads, 1) gqa_decode_ring_kernel(DecodeArgs<T, TT> a) {
+  decode_body<T, TT, D, true, false, true>(a);
 }
 
-template <typename T, int D, bool FUSED, bool PAGED, bool RING>
-cudaError_t launch_d(const DecodeArgs<T>& a, int B, cudaStream_t stream) {
+template <typename T, typename TT, int D, bool FUSED, bool PAGED, bool RING>
+cudaError_t launch_d(const DecodeArgs<T, TT>& a, int B, cudaStream_t stream) {
   constexpr int S = D / slice_dims(D);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S, a.G, B);
@@ -607,23 +620,23 @@ cudaError_t launch_d(const DecodeArgs<T>& a, int B, cudaStream_t stream) {
   cudaError_t err;
   if constexpr (RING) {
     static_assert(FUSED && !PAGED, "the ring form is the fused form over a contiguous ring");
-    err = cudaLaunchKernelEx(&cfg, gqa_decode_ring_kernel<T, D>, a);
+    err = cudaLaunchKernelEx(&cfg, gqa_decode_ring_kernel<T, TT, D>, a);
   } else if constexpr (PAGED) {
-    err = cudaLaunchKernelEx(&cfg, gqa_decode_paged_kernel<T, D, FUSED>, a);
+    err = cudaLaunchKernelEx(&cfg, gqa_decode_paged_kernel<T, TT, D, FUSED>, a);
   } else {
-    err = cudaLaunchKernelEx(&cfg, gqa_decode_kernel<T, D, FUSED>, a);
+    err = cudaLaunchKernelEx(&cfg, gqa_decode_kernel<T, TT, D, FUSED>, a);
   }
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T, bool FUSED, bool PAGED = false, bool RING = false>
-cudaError_t launch(const DecodeArgs<T>& a, int B, int D, cudaStream_t stream) {
+template <typename T, bool FUSED, bool PAGED = false, bool RING = false, typename TT>
+cudaError_t launch(const DecodeArgs<T, TT>& a, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_d<T, 16, FUSED, PAGED, RING>(a, B, stream);
-    case 32: return launch_d<T, 32, FUSED, PAGED, RING>(a, B, stream);
-    case 64: return launch_d<T, 64, FUSED, PAGED, RING>(a, B, stream);
-    case 128: return launch_d<T, 128, FUSED, PAGED, RING>(a, B, stream);
-    case 256: return launch_d<T, 256, FUSED, PAGED, RING>(a, B, stream);
+    case 16: return launch_d<T, TT, 16, FUSED, PAGED, RING>(a, B, stream);
+    case 32: return launch_d<T, TT, 32, FUSED, PAGED, RING>(a, B, stream);
+    case 64: return launch_d<T, TT, 64, FUSED, PAGED, RING>(a, B, stream);
+    case 128: return launch_d<T, TT, 128, FUSED, PAGED, RING>(a, B, stream);
+    case 256: return launch_d<T, TT, 256, FUSED, PAGED, RING>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

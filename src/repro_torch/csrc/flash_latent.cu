@@ -56,10 +56,17 @@
 //    butterfly, as in the plain version. The sums over a tile's 32 keys
 //    are halving trees unrolled level by level (halve, tile_dot), so no
 //    array goes to local memory.
+//  * fp8 (e4m3) latent tiers (the reference's kv_fp8 cache, whose latent
+//    rows the caller fake-quantizes and rounds back to fp8): the tier type T
+//    is then __nv_fp8_e4m3 (fp8.cuh, entry point flash_decode_latent_fp8),
+//    each element upcast to f32 as it is loaded (exact), so the tiles and
+//    sums are the f32 form's; q and the output stay f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fp8.cuh"
 
 namespace {
 
@@ -283,4 +290,11 @@ extern "C" int flash_decode_latent(int is_bf16, const void* q, const void* hot, 
                                    int D, int DV, float scale, void* stream) {
   return is_bf16 ? run<__nv_bfloat16>(q, hot, cold, lengths, out, B, H, HC, CC, D, DV, scale, stream)
                  : run<float>(q, hot, cold, lengths, out, B, H, HC, CC, D, DV, scale, stream);
+}
+
+// The same over fp8 (e4m3) latent tiers.
+extern "C" int flash_decode_latent_fp8(const void* q, const void* hot, const void* cold,
+                                       const void* lengths, void* out, int B, int H, int HC,
+                                       int CC, int D, int DV, float scale, void* stream) {
+  return run<__nv_fp8_e4m3>(q, hot, cold, lengths, out, B, H, HC, CC, D, DV, scale, stream);
 }

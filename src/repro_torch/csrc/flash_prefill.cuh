@@ -134,14 +134,28 @@
 //    s = 32 its blocks then spend a third of their time loading q and the
 //    first tile, in waves that load and compute in step.
 //
-// This header holds the kernels; their C entry points are in two sources,
+//  * fp8 (e4m3) tiers (the reference's kv_fp8 caches): every GQA form has an
+//    instance whose emit and tiers have the type TT = __nv_fp8_e4m3
+//    (fp8.cuh) while q, k, v and the output keep T. The emit writes each
+//    value's e4m3 byte (to_e4m3: the reference's cast, NaN past 464) of its
+//    value in T (a k row's rotated f32 values round to T first, as the
+//    reference's .astype(k_in_dtype).astype(fp8) does), 4 bytes a store. A
+//    chunked form stages an fp8 tier row by loads of CH bytes, upcast into
+//    the raw staging rows in T (exact), where its f32 / bf16 form copies the
+//    row by cp.async; everything after is the same, so the tiles, their
+//    order and every sum are unchanged.
+//
+// This header holds the kernels; their C entry points are in three sources,
 // one library each, so that they build in parallel: flash_prefill.cu (the
-// fresh, chunked, paged chunked and MLA forms) and flash_prefill_swa.cu (the
-// sliding-window forms).
+// fresh, chunked, paged chunked and MLA forms), flash_prefill_swa.cu (the
+// sliding-window forms) and flash_prefill_fp8.cu (the GQA forms over fp8
+// tiers).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fp8.cuh"
 
 namespace {
 
@@ -193,6 +207,48 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const F4& x) {
   raw.x = *reinterpret_cast<const uint32_t*>(&lo);
   raw.y = *reinterpret_cast<const uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// CH = 16 / sizeof(T) elements of an fp8 tier row, loaded (4 or 8 bytes)
+// and upcast into a raw staging row of T: exact, as every e4m3 value is an
+// f32 and a bf16 value.
+__device__ __forceinline__ void stage_fp8(float* dst, const __nv_fp8_e4m3* src) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(src);
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(e4m3_to_f32(w & 0xffu), e4m3_to_f32((w >> 8) & 0xffu),
+                  e4m3_to_f32((w >> 16) & 0xffu), e4m3_to_f32(w >> 24));
+}
+__device__ __forceinline__ void stage_fp8(__nv_bfloat16* dst, const __nv_fp8_e4m3* src) {
+  const uint2 w = *reinterpret_cast<const uint2*>(src);
+  uint32_t out[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t half = (i < 2 ? w.x : w.y) >> (16 * (i % 2));
+    const __nv_bfloat162 two =
+        __floats2bfloat162_rn(e4m3_to_f32(half & 0xffu), e4m3_to_f32((half >> 8) & 0xffu));
+    out[i] = *reinterpret_cast<const uint32_t*>(&two);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// Four values (dims i .. i + 3 of an emitted k or v row) into the emit
+// buffer: as T, or as the e4m3 bytes of their values in T. K: the values
+// are a k row's rotated f32 values, which round to T first; a v row's
+// values are T's already.
+template <typename T, bool K>
+__device__ __forceinline__ void emit4(T* p, const F4& x) {
+  store4(p, x);
+}
+template <typename T, bool K>
+__device__ __forceinline__ void emit4(__nv_fp8_e4m3* p, const F4& x) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float v = x.v[e];
+    if constexpr (K && sizeof(T) == 2) v = __bfloat162float(__float2bfloat16(v));
+    w |= to_e4m3(v) << (8 * e);
+  }
+  *reinterpret_cast<uint32_t*>(p) = w;
 }
 
 // The halving tree over a tile's 32 values with each level a loop of
@@ -316,7 +372,9 @@ __device__ __forceinline__ void dot_rows(const float* q, const float* k, float (
                        __fadd_rn(ost[r][1][Sh::LBO], ost[r][3][Sh::LBO]));
 }
 
-template <typename T>
+// T: the type of q, k, v and the output; TT: that of the emit (and of the
+// tiers), T or __nv_fp8_e4m3.
+template <typename T, typename TT = T>
 struct PrefillArgs {
   const T* q;  // (B, S, H, D)
   const T* k;  // (B, S, G, D)
@@ -324,22 +382,22 @@ struct PrefillArgs {
   const int* valid;  // (B,)
   const float* cos;  // (S, rope_dims/2)
   const float* sin;
-  T* out;     // (B, S, H, DV)
-  T* k_cast;  // (B, S, G, D), or null: nothing emitted
-  T* v_cast;  // (B, S, G, DV)
+  T* out;      // (B, S, H, DV)
+  TT* k_cast;  // (B, S, G, D), or null: nothing emitted
+  TT* v_cast;  // (B, S, G, DV)
   int S, G, rep;
   float scale;
   int window = 0;  // SWA forms: a row sees the keys less than window behind it (0: all)
 };
 
 // The live cache of the chunked GQA form: tiers (B, cap, G, D) holding
-// rotated keys and values in T, and each slot's cached token count.
-template <typename T>
+// rotated keys and values in TT, and each slot's cached token count.
+template <typename TT>
 struct TierArgs {
-  const T* hot_k = nullptr;
-  const T* hot_v = nullptr;
-  const T* cold_k = nullptr;
-  const T* cold_v = nullptr;
+  const TT* hot_k = nullptr;
+  const TT* hot_v = nullptr;
+  const TT* cold_k = nullptr;
+  const TT* cold_v = nullptr;
   const int* lengths = nullptr;  // (B,): the slot's offset
   int hot_cap = 0, cold_cap = 0;    // paged: cold_cap = pps * ps
   const int* page_table = nullptr;  // (B, pps): paged form only; cold_k / v are the pool
@@ -364,9 +422,9 @@ constexpr size_t smem_bytes() {
 // are folded before the chunk's own, for every row and without rotation.
 // PAGED (chunked form only): the cold tier's rows come through the page
 // table. SWA: the window mask a.window and, chunked, the ring tr.ring.
-template <typename T, int D, int DV, int RD, bool EMIT, bool CHUNK, bool PAGED = false,
-          bool SWA = false>
-__device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const TierArgs<T>& tr,
+template <typename T, typename TT, int D, int DV, int RD, bool EMIT, bool CHUNK,
+          bool PAGED = false, bool SWA = false>
+__device__ __forceinline__ void prefill_body(const PrefillArgs<T, TT>& a, const TierArgs<TT>& tr,
                                              int n_qb, float* smem) {
   constexpr int KS = D + kKeyPad;  // staged key row stride (words)
   constexpr bool kF32 = sizeof(T) == sizeof(float);
@@ -468,8 +526,15 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const Tier
           if (!hot) slot_row = (int64_t)tr.page_table[(int64_t)b * tr.pps + tp / tr.ps] * tr.ps + tp % tr.ps;
         }
         const int64_t row = slot_row * G + g;
-        cp_async16(kr_s + j * KRS + c, (hot ? tr.hot_k : tr.cold_k) + row * D + c);
-        cp_async16(v_s + j * DV + c, (hot ? tr.hot_v : tr.cold_v) + row * DV + c);
+        const TT* ks = (hot ? tr.hot_k : tr.cold_k) + row * D + c;
+        const TT* vs = (hot ? tr.hot_v : tr.cold_v) + row * DV + c;
+        if constexpr (sizeof(TT) == sizeof(T)) {
+          cp_async16(kr_s + j * KRS + c, ks);
+          cp_async16(v_s + j * DV + c, vs);
+        } else {  // fp8 tiers: loaded and upcast here, in place of the copy
+          stage_fp8(kr_s + j * KRS + c, ks);
+          stage_fp8(v_s + j * DV + c, vs);
+        }
       } else {
         const int ci = pos - offset;
         if (ci < kv_end) cp_async16(kr_s + j * KRS + c, a.k + kv_row(ci) * D + c);
@@ -509,8 +574,8 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const Tier
     for (int e = tid; e < (t1 - max(t0, nv)) * VQ; e += kThreads) {
       const int tok = max(t0, nv) + e / VQ, i = 4 * (e % VQ);
       const F4 zero = {};
-      store4(a.k_cast + kv_row(tok) * D + i, zero);
-      store4(a.v_cast + kv_row(tok) * DV + i, zero);
+      emit4<T, true>(a.k_cast + kv_row(tok) * D + i, zero);
+      emit4<T, false>(a.v_cast + kv_row(tok) * DV + i, zero);
     }
   }
   if (tid < kRows) l_s[tid] = 0.f;
@@ -616,8 +681,8 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const Tier
       const int e0 = max(t0, c0), e1 = min(min(t1, nv), c0 + kTile);
       for (int e = tid; e < (e1 - e0) * VQ; e += kThreads) {
         const int tok = e0 + e / VQ, j = tok - c0, i = 4 * (e % VQ);
-        store4(a.k_cast + kv_row(tok) * D + i, load4(k_s + j * KS + i));
-        store4(a.v_cast + kv_row(tok) * DV + i, load4(v_s + j * DV + i));
+        emit4<T, true>(a.k_cast + kv_row(tok) * D + i, load4(k_s + j * KS + i));
+        emit4<T, false>(a.v_cast + kv_row(tok) * DV + i, load4(v_s + j * DV + i));
       }
     }
     fold_staged([&](int key, int tok) {
@@ -661,8 +726,8 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const Tier
       const int e0 = max(t0, start), e1 = min(t1, start + n_load);
       for (int e = tid; e < (e1 - e0) * VQ; e += kThreads) {
         const int tok = e0 + e / VQ, j = tok - start, i = 4 * (e % VQ);
-        store4(a.k_cast + kv_row(tok) * D + i, load4(k_s + j * KS + i));
-        store4(a.v_cast + kv_row(tok) * DV + i, load4(v_s + j * DV + i));
+        emit4<T, true>(a.k_cast + kv_row(tok) * D + i, load4(k_s + j * KS + i));
+        emit4<T, false>(a.v_cast + kv_row(tok) * DV + i, load4(v_s + j * DV + i));
       }
     }
     fold_staged([&](int key, int tok) {
@@ -683,50 +748,52 @@ __device__ __forceinline__ void prefill_body(const PrefillArgs<T>& a, const Tier
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) gqa_prefill_kernel(PrefillArgs<T> a, int n_qb) {
-  extern __shared__ __align__(16) float smem[];
-  prefill_body<T, D, D, D, true, false>(a, TierArgs<T>{}, n_qb, smem);
-}
-
-template <typename T, int D>
+template <typename T, typename TT, int D>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    gqa_chunk_kernel(PrefillArgs<T> a, TierArgs<T> tr, int n_qb) {
+    gqa_prefill_kernel(PrefillArgs<T, TT> a, int n_qb) {
   extern __shared__ __align__(16) float smem[];
-  prefill_body<T, D, D, D, true, true>(a, tr, n_qb, smem);
+  prefill_body<T, TT, D, D, D, true, false>(a, TierArgs<TT>{}, n_qb, smem);
 }
 
-template <typename T, int D>
+template <typename T, typename TT, int D>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    gqa_chunk_paged_kernel(PrefillArgs<T> a, TierArgs<T> tr, int n_qb) {
+    gqa_chunk_kernel(PrefillArgs<T, TT> a, TierArgs<TT> tr, int n_qb) {
   extern __shared__ __align__(16) float smem[];
-  prefill_body<T, D, D, D, true, true, true>(a, tr, n_qb, smem);
+  prefill_body<T, TT, D, D, D, true, true>(a, tr, n_qb, smem);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) gqa_window_kernel(PrefillArgs<T> a, int n_qb) {
-  extern __shared__ __align__(16) float smem[];
-  prefill_body<T, D, D, D, true, false, false, true>(a, TierArgs<T>{}, n_qb, smem);
-}
-
-template <typename T, int D>
+template <typename T, typename TT, int D>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    gqa_chunk_ring_kernel(PrefillArgs<T> a, TierArgs<T> tr, int n_qb) {
+    gqa_chunk_paged_kernel(PrefillArgs<T, TT> a, TierArgs<TT> tr, int n_qb) {
   extern __shared__ __align__(16) float smem[];
-  prefill_body<T, D, D, D, true, true, false, true>(a, tr, n_qb, smem);
+  prefill_body<T, TT, D, D, D, true, true, true>(a, tr, n_qb, smem);
+}
+
+template <typename T, typename TT, int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    gqa_window_kernel(PrefillArgs<T, TT> a, int n_qb) {
+  extern __shared__ __align__(16) float smem[];
+  prefill_body<T, TT, D, D, D, true, false, false, true>(a, TierArgs<TT>{}, n_qb, smem);
+}
+
+template <typename T, typename TT, int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    gqa_chunk_ring_kernel(PrefillArgs<T, TT> a, TierArgs<TT> tr, int n_qb) {
+  extern __shared__ __align__(16) float smem[];
+  prefill_body<T, TT, D, D, D, true, true, false, true>(a, tr, n_qb, smem);
 }
 
 template <typename T, int D, int DV, int RD>
 __global__ void __launch_bounds__(kThreads, kMlaMinBlocks) mla_prefill_kernel(PrefillArgs<T> a, int n_qb) {
   extern __shared__ __align__(16) float smem[];
-  prefill_body<T, D, DV, RD, false, false>(a, TierArgs<T>{}, n_qb, smem);
+  prefill_body<T, T, D, DV, RD, false, false>(a, TierArgs<T>{}, n_qb, smem);
 }
 
 // One kernel instance K over (q block, group, slot), called with a, the
 // extra arguments and n_qb; its shared-memory attribute is set once per
 // device.
-template <typename T, int D, int DV, auto K, typename... Extra>
-cudaError_t launch_blocks(const PrefillArgs<T>& a, int B, cudaStream_t stream,
+template <typename T, int D, int DV, auto K, typename TT = T, typename... Extra>
+cudaError_t launch_blocks(const PrefillArgs<T, TT>& a, int B, cudaStream_t stream,
                           const Extra&... extra) {
   constexpr size_t smem = smem_bytes<T, D, DV>();
   static unsigned long long attribute_set = 0;  // bit per device
@@ -747,50 +814,50 @@ cudaError_t launch_blocks(const PrefillArgs<T>& a, int B, cudaStream_t stream,
 
 // GQA heads (DV = D = RD) on gqa_prefill_kernel, or on gqa_window_kernel
 // with a window.
-template <typename T, int D, bool SWA>
-cudaError_t launch_gqa_d(const PrefillArgs<T>& a, int B, cudaStream_t stream) {
+template <typename T, typename TT, int D, bool SWA>
+cudaError_t launch_gqa_d(const PrefillArgs<T, TT>& a, int B, cudaStream_t stream) {
   if constexpr (SWA) {
-    return launch_blocks<T, D, D, gqa_window_kernel<T, D>>(a, B, stream);
+    return launch_blocks<T, D, D, gqa_window_kernel<T, TT, D>>(a, B, stream);
   } else {
-    return launch_blocks<T, D, D, gqa_prefill_kernel<T, D>>(a, B, stream);
+    return launch_blocks<T, D, D, gqa_prefill_kernel<T, TT, D>>(a, B, stream);
   }
 }
 
-template <typename T, bool SWA = false>
-cudaError_t launch_gqa(const PrefillArgs<T>& a, int B, int D, cudaStream_t stream) {
+template <typename T, bool SWA = false, typename TT>
+cudaError_t launch_gqa(const PrefillArgs<T, TT>& a, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_gqa_d<T, 16, SWA>(a, B, stream);
-    case 32: return launch_gqa_d<T, 32, SWA>(a, B, stream);
-    case 64: return launch_gqa_d<T, 64, SWA>(a, B, stream);
-    case 128: return launch_gqa_d<T, 128, SWA>(a, B, stream);
-    case 256: return launch_gqa_d<T, 256, SWA>(a, B, stream);
+    case 16: return launch_gqa_d<T, TT, 16, SWA>(a, B, stream);
+    case 32: return launch_gqa_d<T, TT, 32, SWA>(a, B, stream);
+    case 64: return launch_gqa_d<T, TT, 64, SWA>(a, B, stream);
+    case 128: return launch_gqa_d<T, TT, 128, SWA>(a, B, stream);
+    case 256: return launch_gqa_d<T, TT, 256, SWA>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The chunked GQA form on gqa_chunk_kernel, on gqa_chunk_paged_kernel over
 // a paged cold tier, or on gqa_chunk_ring_kernel with a window or ring.
-template <typename T, int D, bool PAGED, bool SWA>
-cudaError_t launch_chunk_d(const PrefillArgs<T>& a, const TierArgs<T>& tr, int B,
+template <typename T, typename TT, int D, bool PAGED, bool SWA>
+cudaError_t launch_chunk_d(const PrefillArgs<T, TT>& a, const TierArgs<TT>& tr, int B,
                            cudaStream_t stream) {
   if constexpr (SWA) {
-    return launch_blocks<T, D, D, gqa_chunk_ring_kernel<T, D>>(a, B, stream, tr);
+    return launch_blocks<T, D, D, gqa_chunk_ring_kernel<T, TT, D>>(a, B, stream, tr);
   } else if constexpr (PAGED) {
-    return launch_blocks<T, D, D, gqa_chunk_paged_kernel<T, D>>(a, B, stream, tr);
+    return launch_blocks<T, D, D, gqa_chunk_paged_kernel<T, TT, D>>(a, B, stream, tr);
   } else {
-    return launch_blocks<T, D, D, gqa_chunk_kernel<T, D>>(a, B, stream, tr);
+    return launch_blocks<T, D, D, gqa_chunk_kernel<T, TT, D>>(a, B, stream, tr);
   }
 }
 
-template <typename T, bool PAGED = false, bool SWA = false>
-cudaError_t launch_chunk(const PrefillArgs<T>& a, const TierArgs<T>& tr, int B, int D,
+template <typename T, bool PAGED = false, bool SWA = false, typename TT>
+cudaError_t launch_chunk(const PrefillArgs<T, TT>& a, const TierArgs<TT>& tr, int B, int D,
                          cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_chunk_d<T, 16, PAGED, SWA>(a, tr, B, stream);
-    case 32: return launch_chunk_d<T, 32, PAGED, SWA>(a, tr, B, stream);
-    case 64: return launch_chunk_d<T, 64, PAGED, SWA>(a, tr, B, stream);
-    case 128: return launch_chunk_d<T, 128, PAGED, SWA>(a, tr, B, stream);
-    case 256: return launch_chunk_d<T, 256, PAGED, SWA>(a, tr, B, stream);
+    case 16: return launch_chunk_d<T, TT, 16, PAGED, SWA>(a, tr, B, stream);
+    case 32: return launch_chunk_d<T, TT, 32, PAGED, SWA>(a, tr, B, stream);
+    case 64: return launch_chunk_d<T, TT, 64, PAGED, SWA>(a, tr, B, stream);
+    case 128: return launch_chunk_d<T, TT, 128, PAGED, SWA>(a, tr, B, stream);
+    case 256: return launch_chunk_d<T, TT, 256, PAGED, SWA>(a, tr, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -42,10 +42,15 @@ def _packed_fields(node):
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
-    """numpy -> torch; bfloat16 arrays cross through their uint16 bits."""
+    """numpy -> torch; bfloat16 and float8_e4m3fn arrays (the reference's
+    fp8 KV tiers) cross through their bits, found by dtype name and item
+    size (their numpy dtypes come from an extension this module does not
+    import)."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e4m3fn" and a.dtype.itemsize == 1:
+        return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 

@@ -6,8 +6,8 @@ headers: a build takes seconds). Sources that share kernels include them
 from a ``csrc/*.cuh`` header and hold only their own entry points, so that
 one big template file does not serialise the build. Libraries land in
 ``_build/`` beside this package, named by a hash of the source, the
-headers it includes and the flags, so an edited source rebuilds and an unchanged one
-loads from disk. ``build_all``
+headers it includes (and those they include) and the flags, so an edited
+source rebuilds and an unchanged one loads from disk. ``build_all``
 starts one ``nvcc`` per source, all at once.
 
 Nothing is built or loaded at import time: the CPU tests import every
@@ -22,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -32,8 +33,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
+BUILD_SECONDS: Dict[str, float] = {}  # each source's nvcc wall time, in this process
 KERNEL_SOURCES = ("ternary_matmul", "flash_decode", "flash_decode_paged", "flash_decode_ring",
-                  "flash_prefill", "flash_prefill_swa", "flash_latent", "lora", "rms_norm")
+                  "flash_decode_fp8", "flash_decode_paged_fp8", "flash_prefill",
+                  "flash_prefill_swa", "flash_prefill_fp8",
+                  "flash_latent", "lora", "rms_norm")
 
 
 def nvcc_path() -> str:
@@ -46,10 +50,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _headers(text: bytes, seen: set) -> set:
+    """The csrc headers ``text`` includes, and those they include."""
+    for h in re.findall(rb'#include\s+"([^"]+)"', text):
+        if h not in seen:
+            seen.add(h)
+            _headers((CSRC_DIR / h.decode()).read_bytes(), seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    # the headers the source includes from csrc/ are part of what it builds from
+    # the headers the source includes from csrc/ (at any depth) are part of
+    # what it builds from
     text = (CSRC_DIR / f"{name}.cu").read_bytes()
-    headers = sorted(set(re.findall(rb'#include\s+"([^"]+)"', text)))
+    headers = sorted(_headers(text, set()))
     src = text + b"".join((CSRC_DIR / h.decode()).read_bytes() for h in headers)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -74,14 +88,19 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs.append((name, lib, tmp, log,
                       subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
-    for name, lib, tmp, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, lib)
-        else:
-            failed.append(f"{name} (nvcc exit {rc}):\n{log_path(name).read_text()}")
+    failed, t0, pending = [], time.perf_counter(), list(procs)
+    while pending:  # poll, so each source's build time is its own
+        for item in [p for p in pending if p[4].poll() is not None]:
+            name, lib, tmp, log, proc = item
+            pending.remove(item)
+            log.close()
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            if proc.returncode == 0:
+                os.replace(tmp, lib)
+            else:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n"
+                              f"{log_path(name).read_text()}")
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out

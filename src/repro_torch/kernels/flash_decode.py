@@ -53,7 +53,19 @@ same bits. Without ``k_new`` the ring entry point is the post-append form
 (kernel 6) as it is: over a wrapped ring the length clip marks every row
 valid, as the reference's clamp does.
 
-The reference's fp8 tiers are not ported: they raise.
+fp8 (e4m3) tiers (``BitNetConfig.kv_fp8``; the reference upcasts each
+fp8 tile to f32 in all three kernel functions): every form above also
+takes tiers of ``kv_cache.FP8`` beside f32 or bf16 activations (q, k_new,
+v_new, o and k_rot keep the activation dtype). The CUDA template reads
+its tiers as a type of their own (``DecodeArgs<T, TT>``), and the fp8
+forms are separate entry points of ``csrc/flash_decode_fp8.cu`` (the
+paged ones of ``flash_decode_paged_fp8.cu``) with counters of their own
+(``FP8_KERNEL``, ``FP8_GQA_KERNEL``, ``FP8_PAGED_KERNEL``,
+``FP8_GQA_PAGED_KERNEL``, ``FP8_RING_KERNEL``; the latent form's
+``LATENT_FP8_KERNEL`` in ``csrc/flash_latent.cu``). fp8 ->
+f32 is exact, so the tiles, the sums and their order stay those of the
+f32 forms, and the plain versions read an fp8 tier through the same
+``.float()`` upcast.
 """
 
 from __future__ import annotations
@@ -93,6 +105,15 @@ GQA_PAGED_KERNEL = CudaKernel(
     [ctypes.c_int] + [ctypes.c_void_p] * 8
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 )
+# the fp8-tier forms: the same arguments, entry points of their own
+FP8_KERNEL = CudaKernel("flash_decode_fp8", "flash_decode_gqa_fused_fp8", KERNEL.argtypes)
+FP8_GQA_KERNEL = CudaKernel("flash_decode_fp8", "flash_decode_gqa_fp8", GQA_KERNEL.argtypes)
+FP8_RING_KERNEL = CudaKernel("flash_decode_fp8", "flash_decode_gqa_fused_ring_fp8",
+                             RING_KERNEL.argtypes)
+FP8_PAGED_KERNEL = CudaKernel("flash_decode_paged_fp8", "flash_decode_gqa_fused_paged_fp8",
+                              PAGED_KERNEL.argtypes)
+FP8_GQA_PAGED_KERNEL = CudaKernel("flash_decode_paged_fp8", "flash_decode_gqa_paged_fp8",
+                                  GQA_PAGED_KERNEL.argtypes)
 MAX_REP = 8
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
 LATENT_KERNEL = CudaKernel(
@@ -100,6 +121,9 @@ LATENT_KERNEL = CudaKernel(
     [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
 )
+# fp8 latent tiers: the same arguments but the tier flag
+LATENT_FP8_KERNEL = CudaKernel("flash_latent", "flash_decode_latent_fp8",
+                               LATENT_KERNEL.argtypes[1:])
 # (row width, value width) pairs of the latent kernel's instantiations:
 # DeepSeek-V3 and its smoke config
 LATENT_DIMS = ((576, 512), (24, 16))
@@ -127,8 +151,9 @@ def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def tile_of(t: torch.Tensor, start: int, dim: int = 1) -> torch.Tensor:
-    """Rows [start, start + TILE) of ``t`` along ``dim``, zero-padded to TILE."""
-    part = t.narrow(dim, start, min(TILE, t.shape[dim] - start))
+    """Rows [start, start + TILE) of ``t`` along ``dim`` in f32 (exact for
+    every tier dtype), zero-padded to TILE."""
+    part = t.narrow(dim, start, min(TILE, t.shape[dim] - start)).float()
     if part.shape[dim] == TILE:
         return part
     pad = list(part.shape)
@@ -146,10 +171,10 @@ def tier_rows(cache, hot: bool, rel: torch.Tensor):
     if hot or not isinstance(cache, kvc.PagedKVCache):
         kt, vt = (cache.hot_k, cache.hot_v) if hot else (cache.cold_k, cache.cold_v)
         slots = torch.arange(b, device=rel.device)[:, None]
-        return kt[slots, rel], vt[slots, rel]
+        return kvc.rows_of(kt, slots, rel), kvc.rows_of(vt, slots, rel)
     rows = kvc.paged_cold_rows(cache, rel)  # (b, n)
     pk, pv = kvc.pool_flat(cache)
-    return pk[rows], pv[rows]
+    return kvc.rows_of(pk, rows), kvc.rows_of(pv, rows)
 
 
 def fold_tile(state, logits, valid, v):
@@ -276,10 +301,12 @@ def _check_gqa(q, cache, extra=()):
     tensors = (q, cache.hot_k, cache.hot_v, cold_k, cold_v) + tuple(extra)
     if not all(t.is_cuda for t in tensors + (cache.lengths,)):
         raise ValueError("flash_decode_attention: all operands must be CUDA tensors")
-    if q.dtype not in (torch.float32, torch.bfloat16) or any(
-            t.dtype != q.dtype for t in tensors):
-        raise TypeError("flash_decode_attention: q, tiers and k/v_new must share "
-                        "one dtype, f32 or bf16 (fp8 tiers are not ported)")
+    tier_dt = cache.hot_k.dtype
+    if (q.dtype not in (torch.float32, torch.bfloat16) or tier_dt not in (q.dtype, kvc.FP8)
+            or any(t.dtype != q.dtype for t in extra)
+            or any(t.dtype != tier_dt for t in (cache.hot_v, cold_k, cold_v))):
+        raise TypeError("flash_decode_attention: q and k/v_new must share one dtype, f32 or "
+                        "bf16, and the four tiers that dtype or fp8 (e4m3)")
     if rep * g != h or rep > MAX_REP or d not in HEAD_DIMS:
         raise ValueError(f"flash_decode_attention: h={h}, g={g}, d={d} unsupported "
                          f"(rep <= {MAX_REP}, d in {HEAD_DIMS})")
@@ -303,6 +330,10 @@ def _paged_args(cache):
     return table, cache.page_size, cache.pages_per_slot
 
 
+def _fp8(cache) -> bool:
+    return cache.hot_k.dtype == kvc.FP8
+
+
 def _launch(q, cache, k_new, v_new, active, scale, theta, ring=False):
     b, h, d = q.shape
     g = cache.hot_k.shape[2]
@@ -318,15 +349,18 @@ def _launch(q, cache, k_new, v_new, active, scale, theta, ring=False):
     if b == 0:
         return out, k_rot
     bf16 = int(q.dtype == torch.bfloat16)
+    fp8 = _fp8(cache)
     if isinstance(cache, kvc.PagedKVCache):
         table, ps, pps = _paged_args(cache)
-        PAGED_KERNEL.launch(
+        (FP8_PAGED_KERNEL if fp8 else PAGED_KERNEL).launch(
             bf16, *(ptr(t) for t in tensors), ptr(lengths), ptr(act), ptr(cos), ptr(sin),
             ptr(out), ptr(k_rot), ptr(table), b, g, h // g, d, cache.hot_cap, ps, pps,
             float(scale), stream_of(q),
         )
         return out, k_rot
-    (RING_KERNEL if ring else KERNEL).launch(
+    kernel = (FP8_RING_KERNEL if fp8 else RING_KERNEL) if ring else (
+        FP8_KERNEL if fp8 else KERNEL)
+    kernel.launch(
         bf16, *(ptr(t) for t in tensors), ptr(lengths),
         ptr(act), ptr(cos), ptr(sin), ptr(out), ptr(k_rot),
         b, g, h // g, d, cache.hot_cap, cache.cold_cap, float(scale), stream_of(q),
@@ -342,14 +376,15 @@ def _launch_gqa(q, cache, scale):
     if not out.numel():
         return out
     bf16 = int(q.dtype == torch.bfloat16)
+    fp8 = _fp8(cache)
     if isinstance(cache, kvc.PagedKVCache):
         table, ps, pps = _paged_args(cache)
-        GQA_PAGED_KERNEL.launch(
+        (FP8_GQA_PAGED_KERNEL if fp8 else GQA_PAGED_KERNEL).launch(
             bf16, *(ptr(t) for t in tensors), ptr(lengths), ptr(out), ptr(table), b, g, h // g,
             d, cache.hot_cap, ps, pps, float(scale), stream_of(q),
         )
         return out
-    GQA_KERNEL.launch(
+    (FP8_GQA_KERNEL if fp8 else GQA_KERNEL).launch(
         bf16, *(ptr(t) for t in tensors), ptr(lengths),
         ptr(out), b, g, h // g, d, cache.hot_cap, cache.cold_cap, float(scale),
         stream_of(q),
@@ -439,7 +474,7 @@ def flash_decode_latent_plain(q, cache: kvc.TieredKVCache, value_dim: int, scale
     for buf, n_valid in tiers:
         for start in range(0, buf.shape[1], TILE):
             valid = (start + keys)[None] < n_valid[:, None]  # (b, TILE)
-            k_t = tile_of(buf, start).float()  # (b, TILE, D)
+            k_t = tile_of(buf, start)  # (b, TILE, D) f32
             v_t = torch.where(valid[:, :, None], k_t[..., :value_dim], 0.0)
             logits = tree_sum(qf * k_t[:, None], -1) * scale  # (b, h, TILE)
             state = fold_tile(state, logits, valid[:, None, :], v_t[:, None])
@@ -452,9 +487,9 @@ def _launch_latent(q, cache, value_dim, scale):
     if not all(t.is_cuda for t in (q, cache.hot_k, cache.cold_k, cache.lengths)):
         raise ValueError("flash_decode_attention_latent: all operands must be CUDA tensors")
     dt = cache.hot_k.dtype
-    if dt not in (torch.float32, torch.bfloat16) or cache.cold_k.dtype != dt:
+    if dt not in (torch.float32, torch.bfloat16, kvc.FP8) or cache.cold_k.dtype != dt:
         raise TypeError("flash_decode_attention_latent: the latent tiers must share one "
-                        "dtype, f32 or bf16 (fp8 tiers are not ported)")
+                        "dtype, f32, bf16 or fp8 (e4m3)")
     if (d, value_dim) not in LATENT_DIMS:
         raise ValueError(f"flash_decode_attention_latent: D={d}, value_dim={value_dim} "
                          f"unsupported (one of {LATENT_DIMS})")
@@ -469,10 +504,12 @@ def _launch_latent(q, cache, value_dim, scale):
     out = torch.empty((b, h, value_dim), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    LATENT_KERNEL.launch(
-        int(dt == torch.bfloat16), ptr(q), ptr(hot), ptr(cold), ptr(lengths), ptr(out),
-        b, h, cache.hot_cap, cache.cold_cap, d, value_dim, float(scale), stream_of(q),
-    )
+    args = (ptr(q), ptr(hot), ptr(cold), ptr(lengths), ptr(out),
+            b, h, cache.hot_cap, cache.cold_cap, d, value_dim, float(scale), stream_of(q))
+    if dt == kvc.FP8:
+        LATENT_FP8_KERNEL.launch(*args)
+    else:
+        LATENT_KERNEL.launch(int(dt == torch.bfloat16), *args)
     return out
 
 

@@ -57,9 +57,21 @@ hot_cap) % cold_cap while p >= offset - cold_cap (the reference's
 chunked form still folds absolute tiles, so a prompt admitted in chunks
 over the ring gives the fresh windowed form's output bit for bit.
 
-Not ported, and raising here: an emit dtype other than the input's (fp8
-tiers), and a window or ring over a paged cache (the reference has
-neither).
+fp8 (e4m3) tiers (``BitNetConfig.kv_fp8``): every GQA form emits k_cast /
+v_cast in the tier dtype, ``kv_dtype`` (default the cache's, else the
+input's), as the reference does: each row rounds to the input dtype, then
+through the reference's fp8 cast (``kv_cache.to_tier``; round to nearest
+even, NaN past 464). The chunked forms (contiguous, paged, ring) read fp8
+tiers, upcast exactly to f32. A GQA form with fp8 tiers or an fp8 emit is
+an entry point of ``csrc/flash_prefill_fp8.cu`` with a counter of its own
+(``FP8_KERNEL``, ``FP8_CHUNK_KERNEL``, ``FP8_CHUNK_PAGED_KERNEL``,
+``FP8_WINDOW_KERNEL``, ``FP8_CHUNK_RING_KERNEL``); the kernels' emit
+rounds by hand (``to_e4m3`` in ``csrc/fp8.cuh``), bit for bit with
+``to_tier``. Tiers and emit share one dtype: the input's or fp8. The MLA
+form emits nothing and takes no tiers.
+
+Not ported, and raising here: a window or ring over a paged cache (the
+reference has neither).
 """
 
 from __future__ import annotations
@@ -105,6 +117,16 @@ MLA_KERNEL = CudaKernel(
     [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
 )
+# the fp8 forms (fp8 tiers and emit): the same arguments, entry points of their own
+FP8_KERNEL = CudaKernel("flash_prefill_fp8", "flash_prefill_fresh_fp8", KERNEL.argtypes)
+FP8_CHUNK_KERNEL = CudaKernel("flash_prefill_fp8", "flash_prefill_chunk_fp8",
+                              CHUNK_KERNEL.argtypes)
+FP8_CHUNK_PAGED_KERNEL = CudaKernel("flash_prefill_fp8", "flash_prefill_chunk_paged_fp8",
+                                    CHUNK_PAGED_KERNEL.argtypes)
+FP8_WINDOW_KERNEL = CudaKernel("flash_prefill_fp8", "flash_prefill_window_fp8",
+                               WINDOW_KERNEL.argtypes)
+FP8_CHUNK_RING_KERNEL = CudaKernel("flash_prefill_fp8", "flash_prefill_chunk_ring_fp8",
+                                   CHUNK_RING_KERNEL.argtypes)
 MAX_REP = 32
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
 # (key width, value width, rotated dims) of the MLA form's instantiations:
@@ -128,14 +150,15 @@ PLAIN_ROWS = 256  # query rows per pass of the plain version (rows are independe
 
 def flash_prefill_plain(q, k_new, v_new, valid, scale: float, theta: float,
                         rope_dims: Optional[int] = None, cache=None, window: int = 0,
-                        ring: bool = False):
+                        ring: bool = False, kv_dtype=None):
     """Plain version of every form, in the kernels' arithmetic: rotate q
     and k (the trailing ``rope_dims``, default all, in f32) at the slot's
     offset (``cache.lengths``, 0 without a cache) and fold the 32-key tiles
     of the slot's key sequence under the causal, valid and window masks,
     skipping a tile that holds no key any of the rows sees; emit the
-    rotated k / v zeroed at rows past ``valid``. Without a cache the
-    sequence is the chunk's own keys; with one it is [cached prefix ‖
+    rotated k / v zeroed at rows past ``valid``, in the input dtype and
+    then in ``kv_dtype`` (default the input's) through ``to_tier``.
+    Without a cache the sequence is the chunk's own keys; with one it is [cached prefix ‖
     chunk], tiled at ABSOLUTE positions (tile i holds positions 32 i .. 32
     i + 31, whichever tier or the chunk each comes from), so a prompt
     streamed in chunks folds exactly the fresh form's tiles, whatever the
@@ -214,8 +237,9 @@ def flash_prefill_plain(q, k_new, v_new, valid, scale: float, theta: float,
     out = torch.cat(outs, dim=3) if outs else q.new_zeros((b, g, rep, 0, dv), dtype=torch.float32)
     o = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)
     keep = (tok[None] < nv[:, None])[:, :, None, None]
-    k_cast = torch.where(keep, k_rot, 0.0).to(k_new.dtype)
-    v_cast = torch.where(keep, v_new, torch.zeros_like(v_new))
+    kv_dtype = kv_dtype or k_new.dtype
+    k_cast = kvc.to_tier(torch.where(keep, k_rot, 0.0).to(k_new.dtype), kv_dtype)
+    v_cast = kvc.to_tier(torch.where(keep, v_new, torch.zeros_like(v_new)), kv_dtype)
     return o, k_cast, v_cast
 
 
@@ -225,9 +249,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(q, k_new, v_new, valid, scale, theta, cache=None, window=0, ring=False):
+def _launch(q, k_new, v_new, valid, scale, theta, cache=None, window=0, ring=False,
+            kv_dtype=None):
     """The GQA forms: fresh without ``cache``, chunked with it; the
-    sliding-window forms when ``window`` or ``ring`` is set."""
+    sliding-window forms when ``window`` or ``ring`` is set; the fp8 forms
+    when the emit dtype ``kv_dtype`` (that of the tiers) is fp8."""
     b, s, h, d = q.shape
     g = k_new.shape[2]
     rep = h // g
@@ -235,10 +261,12 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None, window=0, ring=Fal
     extra = () if cache is None else tiers + (cache.lengths,)
     if not all(t.is_cuda for t in (q, k_new, v_new, valid) + extra):
         raise ValueError("flash_prefill_attention: all operands must be CUDA tensors")
-    if q.dtype not in (torch.float32, torch.bfloat16) or any(
-            t.dtype != q.dtype for t in (k_new, v_new) + tiers):
-        raise TypeError("flash_prefill_attention: q, k, v and the tiers must share one "
-                        "dtype, f32 or bf16")
+    fp8 = kv_dtype == kvc.FP8
+    if (q.dtype not in (torch.float32, torch.bfloat16) or kv_dtype not in (q.dtype, kvc.FP8)
+            or any(t.dtype != q.dtype for t in (k_new, v_new))
+            or any(t.dtype != kv_dtype for t in tiers)):
+        raise TypeError("flash_prefill_attention: q, k and v must share one dtype, f32 or "
+                        "bf16, and the tiers and the emit that dtype or fp8 (e4m3)")
     if rep * g != h or rep > MAX_REP or d not in HEAD_DIMS:
         raise ValueError(f"flash_prefill_attention: h={h}, g={g}, d={d} unsupported "
                          f"(rep <= {MAX_REP}, d in {HEAD_DIMS})")
@@ -247,8 +275,8 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None, window=0, ring=Fal
     q, k_new, v_new = (_aligned(t.contiguous()) for t in (q, k_new, v_new))
     valid = valid.to(torch.int32).contiguous()
     o = torch.empty_like(q)
-    k_cast = torch.empty_like(k_new)
-    v_cast = torch.empty_like(v_new)
+    k_cast = torch.empty_like(k_new, dtype=kv_dtype)
+    v_cast = torch.empty_like(v_new, dtype=kv_dtype)
     if b == 0 or s == 0:
         return o, k_cast, v_cast
     bf16 = int(q.dtype == torch.bfloat16)
@@ -257,9 +285,10 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None, window=0, ring=Fal
         args = (bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin), ptr(o),
                 ptr(k_cast), ptr(v_cast), b, s, g, rep, d)
         if window:
-            WINDOW_KERNEL.launch(*args, window, float(scale), stream_of(q))
+            (FP8_WINDOW_KERNEL if fp8 else WINDOW_KERNEL).launch(*args, window, float(scale),
+                                                                 stream_of(q))
         else:
-            KERNEL.launch(*args, float(scale), stream_of(q))
+            (FP8_KERNEL if fp8 else KERNEL).launch(*args, float(scale), stream_of(q))
         return o, k_cast, v_cast
     paged = isinstance(cache, kvc.PagedKVCache)
     cold_shape = (cache.n_pages, cache.page_size, g, d) if paged else (b, cache.cold_cap, g, d)
@@ -280,7 +309,7 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None, window=0, ring=Fal
                              f"{tuple(cache.page_table.shape)} != {(b, cache.pages_per_slot)} "
                              "on the card")
         table = cache.page_table.to(torch.int32).contiguous()
-        CHUNK_PAGED_KERNEL.launch(
+        (FP8_CHUNK_PAGED_KERNEL if fp8 else CHUNK_PAGED_KERNEL).launch(
             bf16, ptr(q), ptr(k_new), ptr(v_new), ptr(valid), ptr(cos), ptr(sin),
             ptr(o), ptr(k_cast), ptr(v_cast), *(ptr(t) for t in tiers), ptr(lengths),
             ptr(table), b, s, g, rep, d, cache.hot_cap, cache.page_size, cache.pages_per_slot,
@@ -291,9 +320,10 @@ def _launch(q, k_new, v_new, valid, scale, theta, cache=None, window=0, ring=Fal
             ptr(o), ptr(k_cast), ptr(v_cast), *(ptr(t) for t in tiers),
             ptr(lengths), b, s, g, rep, d, cache.hot_cap, cache.cold_cap)
     if window or ring:
-        CHUNK_RING_KERNEL.launch(*args, window, int(ring), float(scale), stream_of(q))
+        (FP8_CHUNK_RING_KERNEL if fp8 else CHUNK_RING_KERNEL).launch(
+            *args, window, int(ring), float(scale), stream_of(q))
     else:
-        CHUNK_KERNEL.launch(*args, float(scale), stream_of(q))
+        (FP8_CHUNK_KERNEL if fp8 else CHUNK_KERNEL).launch(*args, float(scale), stream_of(q))
     return o, k_cast, v_cast
 
 
@@ -352,9 +382,11 @@ def flash_prefill_attention(
     plain version for CPU tensors; ``impl="plain"`` runs the plain version."""
     if cache is not None and not isinstance(cache, (kvc.TieredKVCache, kvc.PagedKVCache)):
         raise TypeError(f"flash_prefill_attention: unknown cache type {type(cache).__name__}")
-    tier_dt = cache.hot_k.dtype if cache is not None else k_new.dtype
-    if (kv_dtype or tier_dt) != k_new.dtype:
-        raise NotImplementedError("the emitted k/v and the tiers keep the input dtype")
+    kv_dtype = kv_dtype or (cache.hot_k.dtype if cache is not None else k_new.dtype)
+    if kv_dtype not in (k_new.dtype, kvc.FP8) or (cache is not None
+                                                  and cache.hot_k.dtype != kv_dtype):
+        raise NotImplementedError("the emitted k/v are in the input dtype or fp8 (e4m3), "
+                                  "and in the tiers' dtype")
     b, s, _, d = q.shape
     mla = not emit_kv
     if mla != (rope_dims is not None and rope_dims < d):
@@ -374,10 +406,11 @@ def flash_prefill_attention(
         valid = torch.full((b,), s, dtype=torch.int32, device=q.device)
     if impl == "plain" or (impl == "auto" and not q.is_cuda):
         out = flash_prefill_plain(q, k_new, v_new, valid, scale, float(rope_theta), rope_dims,
-                                  cache, int(window), ring)
+                                  cache, int(window), ring, kv_dtype)
         return out[0] if mla else out
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
     if mla:
         return _launch_mla(q, k_new, v_new, valid, scale, float(rope_theta), rope_dims)
-    return _launch(q, k_new, v_new, valid, scale, float(rope_theta), cache, int(window), ring)
+    return _launch(q, k_new, v_new, valid, scale, float(rope_theta), cache, int(window), ring,
+                   kv_dtype)

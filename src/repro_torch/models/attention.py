@@ -2,8 +2,9 @@
 ``repro/models/attention.py``, GQA and MLA serving forms).
 
 Prefill runs the flash-prefill kernel (``kernels/flash_prefill.py``): q
-and k rotate inside it, and it emits the rotated k / v that
-``kv_cache.fill_fresh`` places into the fresh cache; a prompt chunk over
+and k rotate inside it, and it emits the rotated k / v in the tier dtype
+(f32, bf16 or fp8) that ``kv_cache.fill_fresh`` places into the fresh
+cache; a prompt chunk over
 the live cache (chunked admission) runs its chunked form and
 ``kv_cache.append`` places the rows at each slot's offset. Decode runs the
 fused-RoPE flash-decode kernel (``kernels/flash_decode.py``) against the
@@ -132,7 +133,8 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     window, ring = _window(cfg)
     q, k, v = _project_qkv(p, x, cfg)
     o, k_c, v_c = flash_prefill_attention(
-        q, k, v, window=window, rope_theta=cfg.rope_theta, emit_kv=True, impl=cfg.bitnet.impl)
+        q, k, v, window=window, rope_theta=cfg.rope_theta, emit_kv=True,
+        kv_dtype=cache.hot_k.dtype, impl=cfg.bitnet.impl)
     kvc.fill_fresh(cache, k_c, v_c, ring=ring)
     y = qops.linear(p["wo"], o.reshape(b, s, h * hd), cfg, lora_leaf=p.get("lora_o"))
     return y, cache
@@ -277,11 +279,12 @@ def mla_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: kvc.TieredKVC
 def _fake_quant_latent(buf: torch.Tensor, kv_lora_rank: int, bits: int) -> torch.Tensor:
     """Cached rows with the latent part fake-quantized per row (the rope
     dims are never quantized), as the non-absorbed path feeds c_kv through
-    the w_uk / w_uv fake-quant linears."""
+    the w_uk / w_uv fake-quant linears (reference: ``mla_decode``'s ``_q``).
+    An fp8 tier's rows upcast, quantize and round back to fp8."""
     if buf.shape[1] == 0:
         return buf
-    ckv = act_quant_ste(buf[..., :kv_lora_rank], bits=bits)
-    return torch.cat([ckv, buf[..., kv_lora_rank:]], dim=-1)
+    ckv = act_quant_ste(buf[..., :kv_lora_rank], bits=bits)  # in buf's dtype
+    return torch.cat([kvc.raw(ckv), kvc.raw(buf[..., kv_lora_rank:])], dim=-1).view(buf.dtype)
 
 
 def mla_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: kvc.TieredKVCache,

@@ -127,7 +127,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     min(swa_window, max_len) rows. With ``paged`` the cold tier is a pool
     of ``n_pages`` pages of ``page_size`` rows per layer
     (``kv_cache.PagedKVCache``); a page id names the same pool page in
-    every layer, so the engine keeps one host-side page account."""
+    every layer, so the engine keeps one host-side page account. The
+    tiers are in ``dtype``, or fp8 (e4m3) under ``cfg.bitnet.kv_fp8``
+    whatever the layout (reference: ``init_decode_cache``)."""
+    if cfg.bitnet.kv_fp8:
+        dtype = kvc.FP8
     hc = min(hot_cap, max_len)
     cc = max_len - hc
     if cfg.attn_type == "swa":

@@ -44,6 +44,11 @@ recorded in the tree (``_record_prefix``), and a retired slot drops its
 page references. The decode and chunk steps read the pool through the
 paged forms of the attention kernels; nothing gathers it back.
 
+``BitNetConfig.kv_fp8`` (the reference's ``launch/serve.py --kv-fp8``)
+makes every cache of all three admission paths fp8 (e4m3): the kernels'
+fp8-tier forms read it, the prefill forms emit into it, and activations
+and queries stay in the params' dtype. The ledger is unchanged.
+
 Not ported: speculation, SDC scrubbing, sessions and overload control
 (preempting a slot when the page pool runs dry raises instead).
 """
@@ -193,7 +198,9 @@ class Engine:
     def _kv_token_bytes(self) -> int:
         """Ledger bytes per token, at 2 bytes a value, over the attention
         layers: GQA caches k and v of every kv head; MLA one latent row
-        (kv_lora_rank + rope dims)."""
+        (kv_lora_rank + rope dims). The reference's rule charges 2 bytes a
+        value whatever ``kv_fp8`` says (``Engine._kv_token_bytes``), so
+        fp8 tiers leave the ledger as it is."""
         cfg = self.cfg
         if cfg.attn_type == "mla":
             per_layer = cfg.mla.kv_cache_dim * 2
@@ -271,7 +278,7 @@ class Engine:
         idx = torch.as_tensor(slots_idx, dtype=torch.long, device=self.device)
         for name, stack in state.cache.items():
             for live, new in zip(stack, fresh[name]):
-                live[:, idx] = new.to(live.dtype)
+                kv_cache.raw(live)[:, idx] = kv_cache.raw(new)  # one tier dtype
         max_new = torch.as_tensor([r.max_new_tokens for r in group], dtype=torch.int32,
                                   device=self.device)
         state.tok[idx] = self._sample_fn(logits)

@@ -381,48 +381,58 @@ def test_gqa_decode_schedule_model_bit_identical_to_plain(d, rep, form):
     assert torch.isfinite(want).all() and torch.equal(got, want)
 
 
-def _card_case(d, rep, tiers, dtype, seed, device):
+def _card_case(d, rep, tiers, dtype, seed, device, tier="same"):
+    """A card case; ``tier`` "fp8" casts the tiers to fp8 (e4m3) through
+    ``to_tier``, the activations keeping ``dtype``."""
     hot, cold, lens = {"hot32-cold96": (32, 96, list(range(129))),
                        "hot32-cold480": (32, 480, [500, 0, 1, 257, 33, 480, 31])}[tiers]
     g = 3
     cache = _poisoned_cache(lens, hot, cold, g, d, seed, getattr(torch, dtype), device)
+    if tier == "fp8":
+        cache = kvc.TieredKVCache(*(kvc.to_tier(t, kvc.FP8) for t in cache[:4]), cache.lengths)
     return (cache,) + _decode_inputs(len(lens), rep, g, d, seed + 1, getattr(torch, dtype), device)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["same", "fp8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tiers", ["hot32-cold96", "hot32-cold480"])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("d", fd.HEAD_DIMS)
-def test_cuda_kernel_bit_identical_to_plain(cuda, d, rep, tiers, dtype):
+def test_cuda_kernel_bit_identical_to_plain(cuda, d, rep, tiers, dtype, tier):
     """Fused form: o and k_rot torch.equal to the plain version and one
     launch, at every head dim and rep, every length 0-128 (hot 32 / cold
     96) or up to 500 (hot 32 / cold 480), NaN past each length, inactive
-    slots and a q row of -0.0."""
-    cache, q, kn, vn, act = _card_case(d, rep, tiers, dtype, d + rep, cuda)
+    slots and a q row of -0.0; tiers in the activations' dtype or fp8
+    (A1c, its own entry point)."""
+    cache, q, kn, vn, act = _card_case(d, rep, tiers, dtype, d + rep, cuda, tier)
     kw = dict(k_new=kn, v_new=vn, active=act, rope_theta=THETA)
-    before = fd.KERNEL.launches
+    kern = fd.FP8_KERNEL if tier == "fp8" else fd.KERNEL
+    before = kern.launches
     o, k_rot = fd.flash_decode_attention(q, cache, **kw)
     torch.cuda.synchronize()
-    assert fd.KERNEL.launches == before + 1
+    assert kern.launches == before + 1
     o_p, k_rot_p = fd.flash_decode_attention(q, cache, impl="plain", **kw)
     assert torch.equal(k_rot, k_rot_p) and torch.equal(o, o_p)
     assert torch.isfinite(o).all() and not o[cache.lengths.eq(0) & ~act].any()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["same", "fp8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tiers", ["hot32-cold96", "hot32-cold480"])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("d", fd.HEAD_DIMS)
-def test_cuda_post_append_kernel_bit_identical_to_plain(cuda, d, rep, tiers, dtype):
+def test_cuda_post_append_kernel_bit_identical_to_plain(cuda, d, rep, tiers, dtype, tier):
     """Post-append form: torch.equal to the plain version and one launch,
-    over the same grid; length-0 slots give zeros."""
-    cache, q, _, _, _ = _card_case(d, rep, tiers, dtype, 2 * d + rep, cuda)
-    before = fd.GQA_KERNEL.launches
+    over the same grid, tiers in the activations' dtype or fp8; length-0
+    slots give zeros."""
+    cache, q, _, _, _ = _card_case(d, rep, tiers, dtype, 2 * d + rep, cuda, tier)
+    kern = fd.FP8_GQA_KERNEL if tier == "fp8" else fd.GQA_KERNEL
+    before = kern.launches
     o = fd.flash_decode_attention(q, cache)
     torch.cuda.synchronize()
-    assert fd.GQA_KERNEL.launches == before + 1
+    assert kern.launches == before + 1
     o_p = fd.flash_decode_attention(q, cache, impl="plain")
     assert torch.equal(o, o_p)
     assert torch.isfinite(o).all() and not o[cache.lengths.eq(0)].any()

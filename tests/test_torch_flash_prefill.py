@@ -147,8 +147,9 @@ def test_forms_not_ported_raise(form):
     window, the ring cold tier, or both over a paged cache (the window and
     ring forms themselves, A3c, are ported; the reference has no paged
     window or ring: tests/test_torch_swa.py holds the ported forms), an
-    emit dtype other than the input's (fp8, A3d), and the MLA form over a
-    cache (the reference never chunks MLA) or with whole-head emits."""
+    emit dtype other than the cache tiers' (the fp8 emit and tiers, A3d,
+    are ported: tests/test_torch_fp8.py), and the MLA form over a cache
+    (the reference never chunks MLA) or with whole-head emits."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 4, 2, 1, 16))
     cache = kvc.init_cache(1, 2, 2, (1, 16))
     paged = kvc.init_paged_cache(1, 2, 2, (1, 16), page_size=2)

@@ -184,8 +184,10 @@ def _poisoned_latent_cache(lens, hot, cold, d, seed, dtype=torch.float32, device
         lengths=torch.tensor(lens, dtype=torch.int32))
     hot_valid, cold_valid = kvc.valid_masks(cache)
     return cache._replace(
-        hot_k=torch.where(hot_valid[..., None], cache.hot_k, float("nan")).to(device, dtype),
-        cold_k=torch.where(cold_valid[..., None], cache.cold_k, float("nan")).to(device, dtype),
+        hot_k=kvc.to_tier(torch.where(hot_valid[..., None], cache.hot_k, float("nan")),
+                          dtype).to(device),
+        cold_k=kvc.to_tier(torch.where(cold_valid[..., None], cache.cold_k, float("nan")),
+                           dtype).to(device),
         lengths=cache.lengths.to(device))
 
 
@@ -452,7 +454,7 @@ def test_fake_quantized_factors_match_reference(jref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float8_e4m3fn"])
 @pytest.mark.parametrize("h", [1, 3, 5, 128])
 @pytest.mark.parametrize("lens,hot,cold", [
     ([0, 1, 31, 32, 33, 64, 80, 127, 128], 32, 96),  # serving's tiers
@@ -462,17 +464,19 @@ def test_fake_quantized_factors_match_reference(jref):
 @pytest.mark.parametrize("d,dv", [(24, 16), (576, 512)])
 def test_cuda_latent_kernel_bit_identical_to_plain(cuda, d, dv, lens, hot, cold, h, dtype):
     """Ragged, empty and full slots over both tiers, head counts below, at
-    and off the block's head group, a q row of -0.0, masked rows of NaN:
-    one launch, equal to the plain version bit for bit."""
+    and off the block's head group, a q row of -0.0, masked rows of NaN,
+    tiers in f32, bf16 or fp8 (A4a, its own entry point): one launch,
+    equal to the plain version bit for bit."""
     cache = _poisoned_latent_cache(lens, hot, cold, d, seed=h + d, dtype=getattr(torch, dtype),
                                    device=cuda)
     q = torch.from_numpy(np.random.default_rng(h).standard_normal(
         (len(lens), h, d)).astype(np.float32)).to(cuda)
     q[2, h // 2] = -0.0
-    before = fd.LATENT_KERNEL.launches
+    kern = fd.LATENT_FP8_KERNEL if dtype == "float8_e4m3fn" else fd.LATENT_KERNEL
+    before = kern.launches
     got = fd.flash_decode_attention_latent(q, cache, dv, 192 ** -0.5)
     torch.cuda.synchronize()
-    assert fd.LATENT_KERNEL.launches == before + 1
+    assert kern.launches == before + 1
     want = fd.flash_decode_attention_latent(q, cache, dv, 192 ** -0.5, impl="plain")
     assert torch.isfinite(got).all() and torch.equal(got, want)
     assert not got[torch.tensor(lens) == 0].any()

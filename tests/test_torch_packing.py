@@ -158,5 +158,5 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     bad = [(str(p.relative_to(REPO)), name) for p in files for name in _imports(p)
-           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, bad

@@ -615,8 +615,9 @@ def test_kernel_sources_cover_every_entry_point():
 
 def test_a_header_edit_rebuilds_only_the_sources_that_include_it(tmp_path, monkeypatch):
     """A library's name hashes its source and the csrc headers that source
-    includes: an edit to ``flash_prefill.cuh`` renames the two prefill
-    libraries and no other."""
+    includes: an edit to ``flash_prefill.cuh`` renames the three prefill
+    libraries and no other, and an edit to ``fp8.cuh``, which the attention
+    headers include, renames every attention library."""
     import shutil
 
     from repro_torch.kernels import build
@@ -628,7 +629,12 @@ def test_a_header_edit_rebuilds_only_the_sources_that_include_it(tmp_path, monke
     with open(csrc / "flash_prefill.cuh", "a") as f:
         f.write("\n// edited\n")
     changed = {n for n in build.KERNEL_SOURCES if build._lib_path(n) != before[n]}
-    assert changed == {"flash_prefill", "flash_prefill_swa"}
+    assert changed == {"flash_prefill", "flash_prefill_swa", "flash_prefill_fp8"}
+    before = {n: build._lib_path(n) for n in build.KERNEL_SOURCES}
+    with open(csrc / "fp8.cuh", "a") as f:
+        f.write("\n// edited\n")
+    changed = {n for n in build.KERNEL_SOURCES if build._lib_path(n) != before[n]}
+    assert changed == {n for n in build.KERNEL_SOURCES if n.startswith("flash_")}
 
 
 def test_init_params_packs_as_drawn():
