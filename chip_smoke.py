@@ -32,8 +32,8 @@
    K = 25600, in pack2) and its expert form, the int32
    ternary matmul (also equal to ref.ternary_matmul_ref, quickstart's
    shape included) and the post-append GQA decode (f32 and bf16, length 0,
-   kernel_bench's case, and within 1e-5 of the fused decode; timed at
-   lengths 80 and 128); the LoRA kernel (the adapter delta in a sum order
+   kernel_bench's case, and after the append equal to the fused decode bit
+   for bit; timed at lengths 80 and 128); the LoRA kernel (the adapter delta in a sum order
    fixed per row: bit-identical to its plain version at falcon3-1b's three
    adapter shapes, M = 1 / 6 / 192 / 576, f32 and bf16, and row i of an
    M = 576 launch equal to the row launched alone; one decode step's 54
@@ -65,7 +65,13 @@
    byte-equal to kv_cache.to_tier on v rows carrying the cast's boundary
    values (448, 449, 464, 464.01, 480, +-inf, NaN, 2^-10, -0.0), each
    timed at its f32 form's case beside SDPA over the upcast keys and its
-   bound with 1-byte tiers.
+   bound with 1-byte tiers. Then decode = prefill: the GQA decode folds
+   absolute 32-key tiles as the chunked prefill does, so at falcon3-1b's
+   heads (lengths 1-127 across tile edges, f32 and bf16 activations, tiers
+   in that dtype or fp8, hot 32 and hot 4, contiguous and paged) the fused
+   decode kernel equals its plain version and the one-row chunk kernel,
+   and with f32 tiers the fresh prefill's row p and the post-append kernel
+   after the append, bit for bit.
 3. falcon3-1b: full width and depth from a seeded generator (LoRA B
    factors filled with small seeded values), packed, serving 6 prompts x
    32 tokens with max_new_tokens=96 through Engine.generate (hot_cap=32,
@@ -91,10 +97,19 @@
    five sharing a 96-token prefix (one of them copy-on-write inside a
    page, one growing its pages mid-decode), served shared, unshared,
    contiguous, grouped and by the plain versions: tokens equal on 8/8
-   requests, prefix reuse as the prefix tree's rule gives, the ledger
-   deltas equal to the skipped prompt work, 18 paged chunk launches per
-   wave and 18 paged decode launches per step and no contiguous one; a
-   traced shared serve. The entry-point path also drives the paged
+   requests (plain at the depth cut to 4 layers, against the shared run
+   at that depth), prefix reuse as the prefix tree's rule gives, the
+   ledger deltas equal to the skipped prompt work, 18 paged chunk launches
+   per wave and 18 paged decode launches per step and no contiguous one; a
+   traced shared serve. Then the overload control plane (paged, 4 slots,
+   eight requests of 40-104 prompt tokens + 64): the default pool, then a
+   6-page pool with the invariant checker after every iteration (19
+   preemptions with recompute-from-prefix): tokens equal on 8/8 requests,
+   the counters the reference engine gives the same geometry; at 2 layers
+   the pressured serve against its plain run, a priority request
+   preempting a weaker one, deadlines expiring a queued and an active
+   request, cancels mid-decode and mid-prefill, a bounded queue shedding,
+   and the pressured serve over fp8 tiers against its plain run. The entry-point path also drives the paged
    post-append decode on the 18 layers' caches. Then the same model over
    fp8 tiers (kv_fp8): grouped generate 6 x (32 + 96) with tokens, prefill
    and first-step logits and the cache bytes equal to the plain fp8 run,
@@ -103,7 +118,8 @@
    32) and paged with prefix sharing (the eight requests), each equal to
    its plain fp8 run with 18 fp8 launches per wave and step; fp8 against
    f32 tiers, chunked against grouped and shared against unshared under
-   fp8 printed (fp8 rounds cached keys, not a chunk's own).
+   fp8 printed (fp8 rounds cached keys, not a chunk's own); the fp8
+   chunked and paged serves at the depth cut to 4 layers.
 4. deepseek-v3-671b-l5: DeepSeek-V3 at full width, 3 dense + 2 MoE layers
    (the routed experts drawn and packed one at a time from seed 0), serving
    6 prompts x (32 + 32) tokens (hot_cap=32, max_len=128, 6 slots: rows
@@ -149,6 +165,7 @@ repository root with no arguments: python3 chip_smoke.py
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -160,7 +177,6 @@ from pathlib import Path
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 F32_FLOPS = 67e12
-TOL = dict(rtol=1e-5, atol=1e-5)  # f32 post-append decode vs the fused form's other order
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)  # whole-model logits, kernel vs plain run
 TERNARY = "ternary_"  # in the names of the ternary matmul's kernels (profiler keys)
 
@@ -1241,10 +1257,10 @@ def kernel6_phase(torch, gen, theta, smi):
     o6 = fd.flash_decode_attention(q_rot, post)
     torch.cuda.synchronize()
     err2 = max_err(o6, o2)
-    check(torch.allclose(o6, o2, **TOL), f"post-append decode off the fused kernel: {err2}")
-    print(f"flash_decode_gqa: bit-identical to plain (f32 + bf16, lengths 0-128 with NaN past "
-          f"each, all-zero lengths, kernel_bench's b=4 d=128 cap 512 bf16 case); against "
-          f"flash_decode_gqa_fused on the pre-append cache max |diff| {err2} (tolerance {TOL})")
+    check(torch.equal(o6, o2), f"post-append decode off the fused kernel: {err2}")
+    print("flash_decode_gqa: bit-identical to plain (f32 + bf16, lengths 0-128 with NaN past "
+          "each, all-zero lengths, kernel_bench's b=4 d=128 cap 512 bf16 case) and, after the "
+          "append, to flash_decode_gqa_fused on the pre-append cache (both fold absolute tiles)")
 
     # the main path's middle state (every slot at length 80 after the
     # append) and a full cache
@@ -1253,6 +1269,92 @@ def kernel6_phase(torch, gen, theta, smi):
                 source="src/repro_torch/csrc/flash_decode.cuh",
                 replaces="src/repro/kernels/flash_decode.py:402", max_abs_err=worst,
                 **t80, len128=t128)
+
+
+# ---------------------------------------------------------------------------
+# fault 4: a decoded row equals the prefill's row at its position
+# ---------------------------------------------------------------------------
+
+DP_LENGTHS = [1, 31, 32, 33, 40, 63, 80, 127]
+
+
+def decode_prefill_phase(torch, gen, theta):
+    """Recompute-from-prefix needs the decode to fold a slot's keys as the
+    chunked prefill does: absolute 32-key tiles, the pending token at lane
+    p % 32 of tile p // 32. At falcon3-1b's heads (h 8, g 4, d 256), slots
+    at lengths 1 / 31 / 32 / 33 / 40 / 63 / 80 / 127 (every fourth one
+    inactive, NaN past each length), f32 and bf16 activations, tiers in the
+    activations' dtype or fp8, hot 32 and hot 4 (tiles straddling the
+    tiers), contiguous and paged (page size 32, shuffled): the fused decode
+    kernel (its own entry point, one launch) equals its plain version, and
+    the one-row chunk kernel over the same cache; with f32 tiers also the
+    fresh prefill kernel's row p (the cache made from its own emit) and
+    the post-append kernel after the append (and its plain version); all
+    bit for bit."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models.layers import apply_rope
+
+    b, h, g, d, s = len(DP_LENGTHS), 8, 4, 256, 128
+    lens = torch.tensor(DP_LENGTHS, dtype=torch.int32, device="cuda")
+    pos, slots = lens.long(), torch.arange(b, device="cuda")
+    active = torch.tensor([i % 4 != 3 for i in range(b)], device="cuda")
+    n = 0
+    for act in (torch.float32, torch.bfloat16):
+        seq = [torch.randn((b, s, k, d), generator=gen, device="cuda").to(act) for k in (h, g, g)]
+        fresh, k_cast, v_cast = fp.flash_prefill_attention(*seq, rope_theta=theta)
+        q, kn, vn = (t[slots, pos] for t in seq)  # each slot's row at its length
+        for tier in ("same", "fp8"):
+            for hot in (32, 4):
+                full = kvc.init_cache(b, hot, s - hot, (g, d), act, device="cuda")
+                kvc.fill_fresh(full, k_cast, v_cast)
+                full.lengths.copy_(lens)
+                oks = kvc.valid_masks(full)
+                cache = kvc.TieredKVCache(
+                    *(kvc.to_tier(torch.where(ok[:, :, None, None], t.float(), float("nan")),
+                                  kvc.FP8 if tier == "fp8" else act)
+                      for t, ok in zip(full[:4], (oks[0], oks[0], oks[1], oks[1]))), lens)
+                for paged in (False, True):
+                    c = paged_copy(torch, cache, 32, shuffle_seed=hot) if paged else cache
+                    kern = {(False, False): fd.KERNEL, (True, False): fd.PAGED_KERNEL,
+                            (False, True): fd.FP8_KERNEL,
+                            (True, True): fd.FP8_PAGED_KERNEL}[(paged, tier == "fp8")]
+                    label = (f"{kern.symbol}, {str(act)[6:]} activations, {tier} tiers, hot "
+                             f"{hot}, {'paged' if paged else 'contiguous'}")
+                    kw = dict(k_new=kn, v_new=vn, active=active, rope_theta=theta)
+                    before = kern.launches
+                    o, k_rot = fd.flash_decode_attention(q, c, **kw)
+                    torch.cuda.synchronize()
+                    check(kern.launches == before + 1, f"{label}: not one launch of its own")
+                    o_p, k_rot_p = fd.flash_decode_attention(q, c, impl="plain", **kw)
+                    chunk, _, _ = fp.flash_prefill_attention(
+                        q[:, None], kn[:, None], vn[:, None], c, active.int(), rope_theta=theta)
+                    check(torch.isfinite(o).all(), f"{label}: output not finite")
+                    check(torch.equal(o, o_p) and torch.equal(k_rot, k_rot_p),
+                          f"{label}: not bit-identical to plain: {max_err(o, o_p)}")
+                    check(torch.equal(o, chunk[:, 0]),
+                          f"{label}: differs from the one-row chunk kernel: "
+                          f"{max_err(o, chunk[:, 0])}")
+                    if act == torch.float32 and tier == "same":
+                        row = fresh[slots, pos]
+                        check(torch.equal(o[active], row[active]),
+                              f"{label}: differs from the fresh prefill's row p: "
+                              f"{max_err(o[active], row[active])}")
+                        post = type(c)(*(t.clone() for t in c))
+                        kvc.append_decode(post, k_rot, vn, active=active)
+                        q_rot = apply_rope(q[:, None], pos[:, None], theta)[:, 0]
+                        o6 = fd.flash_decode_attention(q_rot, post)
+                        o6_p = fd.flash_decode_attention(q_rot, post, impl="plain")
+                        check(torch.equal(o6, o6_p) and torch.equal(o6[active], o[active]),
+                              f"{label}: the post-append kernel after the append differs: "
+                              f"{max_err(o6[active], o[active])}")
+                    n += 1
+    print(f"decode = prefill: on {n} cases (f32 / bf16 activations x same / fp8 tiers x hot "
+          f"32 / 4 x contiguous / paged shuffled; lengths {DP_LENGTHS}, every fourth slot "
+          f"inactive, NaN past each length) the fused decode kernel equals its plain version "
+          f"and the one-row chunk kernel, and with f32 tiers the fresh prefill kernel's row p "
+          f"and the post-append kernel after the append, bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -2631,8 +2733,10 @@ def paged_phase(torch, cfg, packed, kernels, smi):
     (``Engine(..., paged=True, page_size=32, prefix_sharing=True)``, hot 32,
     max_len 192, ``prefill_chunk`` 32, 4 slots, ``sync_every`` 8, the
     default pool) on ``paged_requests``, then unshared paged, contiguous
-    chunked, grouped and the plain run of the shared engine. Checks: tokens
-    equal on 8/8 requests across all five; ``prefix_tokens_reused`` 0 for
+    chunked and grouped, and at the depth cut to PAGED_PLAIN_CUT layers the
+    shared run and its plain run. Checks: tokens equal on 8/8 requests
+    across the four full-depth runs and across the two cut ones;
+    ``prefix_tokens_reused`` 0 for
     r0-r3 and the ``PrefixCache`` rule's for r4-r7 (capped at len - 1,
     copy-on-write rows for r6); per request and traffic key the unshared
     ledger minus the shared one equals (full - resumed) x token bytes; the
@@ -2691,12 +2795,10 @@ def paged_phase(torch, cfg, packed, kernels, smi):
     check(pool.available() == pool.n_pages - len(tree.tree_pages()),
           f"{label}: pages still held after every slot retired")
 
-    cfg_plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
     runs = {}
     for name, c, extra in (("unshared paged", cfg, dict(pkw, prefix_sharing=False)),
                            ("contiguous chunked", cfg, {}),
-                           ("grouped", cfg, dict(prefill_chunk=0)),
-                           ("plain shared paged", cfg_plain, pkw)):
+                           ("grouped", cfg, dict(prefill_chunk=0))):
         e = Engine(c, packed, **{**kw, **extra})
         t0 = time.perf_counter()
         runs[name] = {f.rid: f for f in e.serve(reqs())}
@@ -2726,12 +2828,281 @@ def paged_phase(torch, cfg, packed, kernels, smi):
                   f"{r.external_reduction} != {closed}")
     saved = {k: sum(unshared[r].traffic[k] - fin[r].traffic[k] for r in fin)
              for k in kvc.TRAFFIC_KEYS}
-    print(f"{label}: tokens equal on 8/8 requests across shared, unshared, contiguous, grouped "
-          f"and plain runs; ledger bytes the sharing saved {saved} (each request's delta = "
+    # the plain run at the depth cut to PAGED_PLAIN_CUT layers (the run's
+    # time), against the shared kernel run at that depth
+    cut = PAGED_PLAIN_CUT
+    c_cut = dataclasses.replace(cfg, n_layers=cut)
+    p_cut = dict(packed, blocks=packed["blocks"][:cut])
+    t0 = time.perf_counter()
+    shared_cut, plain_cut = (
+        {f.rid: f for f in Engine(c, p_cut, **kw, **pkw).serve(reqs())}
+        for c in (c_cut, dataclasses.replace(c_cut, bitnet=dataclasses.replace(c_cut.bitnet,
+                                                                               impl="plain"))))
+    same = sum(np.array_equal(shared_cut[rid].tokens, plain_cut[rid].tokens)
+               for rid, _, _ in specs)
+    print(f"{label} at {cut} layers: shared run against its plain run ({time.perf_counter() - t0:.2f}"
+          f" s): greedy tokens equal on {same}/8 requests")
+    check(same == 8, f"{label} at {cut} layers: tokens differ from the plain run ({same}/8)")
+    print(f"{label}: tokens equal on 8/8 requests across shared, unshared, contiguous and "
+          f"grouped runs (and plain at {cut} layers); ledger bytes the sharing saved {saved} (each "
+          f"request's delta = "
           f"(full - resumed prompt ledger) x {tb} B); unshared and contiguous ledgers at the "
           f"closed form; weight_loads = 0")
     traced_serve(torch, eng, reqs, label)
     return launches
+
+
+OVERLOAD_LENGTHS = (40, 56, 72, 88, 104, 64, 48, 96)
+# The reference engine's control-plane counters for this geometry (hot 32,
+# max_len 192, prefill_chunk 32, page size 32, 4 slots, sync_every 8,
+# 64 new tokens each, no stop token): (preemptions, recompute_tokens,
+# grown_pages, iterations, each request's n_preemptions), by pool size
+# (None: the default pool). The control plane reads no token value, so
+# they hold for any weights and prompts; tests/test_torch_overload.py
+# holds the port's control plane against the reference engine's.
+OVERLOAD_WANT = {None: (0, 0, 16, 16, [0] * 8), 6: (19, 1256, 16, 38, [0, 0, 3, 2, 1, 7, 4, 2])}
+OVERLOAD_CUT = 2  # the depth of the overload phase's checks past (a) and (b)
+
+
+def overload_requests(vocab):
+    """(rid, prompt) of the overload phase: prompts of OVERLOAD_LENGTHS
+    tokens drawn in order from one seeded generator; no two share a
+    prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    return [(rid, rng.integers(0, vocab, (n,)).astype(np.int32))
+            for rid, n in enumerate(OVERLOAD_LENGTHS)]
+
+
+def overload_counters(eng, fin):
+    st = eng.last_stats
+    return (st.preemptions, st.recompute_tokens, st.grown_pages, st.iterations,
+            [fin[rid].n_preemptions for rid in sorted(fin)])
+
+
+def tree_only(eng, label):
+    """Only prefix-tree pages are held once every slot has retired."""
+    pool, tree = eng._last_pool, eng._last_ptree
+    tp = set(tree.tree_pages())
+    check(all(pool.refs[p] == (1 if p in tp else 0) for p in range(pool.n_pages))
+          and pool.available() == pool.n_pages - len(tp),
+          f"{label}: pages other than the tree's still held after the serve")
+
+
+def overload_phase(torch, cfg, packed, kernels, smi):
+    """falcon3-1b under page pressure (the overload control plane): paged,
+    page size 32, hot 32, max_len 192, ``prefill_chunk`` 32, 4 slots,
+    ``sync_every`` 8, eight requests of OVERLOAD_LENGTHS prompt tokens and
+    64 new tokens each.
+
+    At full width and depth: (a) the default pool, no preemption; (b)
+    ``n_pages=6`` (each request's peak of 3-5 pages fits alone) with
+    ``check_serving_invariants`` after every iteration: every outcome
+    finished, preemptions and recompute tokens > 0, the requests'
+    ``n_preemptions`` summing to the stats, tokens equal to (a) on 8/8
+    requests, only tree pages held at the end, 18 paged chunk launches per
+    wave and 18 paged decode launches per step; the counters of (a) and (b)
+    equal to the reference engine's (OVERLOAD_WANT).
+
+    At the depth cut to OVERLOAD_CUT layers (the run's time: the plain
+    versions take ~0.6 s a step at full depth): (b) equal to its plain run,
+    with the same
+    counters; (c) a priority-1 request submitted last preempts a weaker
+    slot, and every request equals the unpressured serve; (d) an injected
+    clock expires one queued and one active request (partial tokens, a
+    prefix of the unpressured serve's), ``Engine.cancel`` from the hook
+    ends one request mid-decode and one mid-prefill (``sync_every`` 2, so
+    a 72-token prompt spans iterations), pages return; ``max_queue=2``
+    sheds six requests as ``rejected``; (e) (b) over fp8 tiers equals its
+    own plain run, fp8 (b) against fp8 (a) printed (a chunk reads its own
+    keys at full precision and the cache at fp8, so recompute legitimately
+    differs there). Returns the launches of (b) at full depth."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.serving.chaos import check_serving_invariants
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+
+    label = "falcon3-1b overload"
+    specs = overload_requests(cfg.vocab_size)
+    kw = dict(hot_cap=32, max_len=192, prefill_chunk=32, slots=4, sync_every=8, paged=True,
+              page_size=32)
+
+    def reqs(per_rid=None):
+        return [Request(rid, t, 64, **(per_rid or {}).get(rid, {})) for rid, t in specs]
+
+    def stats_line(eng):
+        st = eng.last_stats
+        return (f"preemptions {st.preemptions}, recompute_tokens {st.recompute_tokens}, "
+                f"grown_pages {st.grown_pages}, iterations {st.iterations}, iter_p50 "
+                f"{st.iter_p50 * 1e3:.2f} ms, iter_max {st.iter_max * 1e3:.2f} ms")
+
+    def same_tokens(fin, other, rids=range(len(specs))):
+        return sum(np.array_equal(fin[rid].tokens, other[rid].tokens) for rid in rids)
+
+    def serve(c, p, per_rid=None, **extra):
+        eng = Engine(c, p, **{**kw, **extra})
+        t0 = time.perf_counter()
+        fin = {f.rid: f for f in eng.serve(reqs(per_rid), on_iteration=check_serving_invariants)}
+        torch.cuda.synchronize()
+        return eng, fin, time.perf_counter() - t0
+
+    def want_counters(eng, fin, n_pages, what):
+        got = overload_counters(eng, fin)
+        check(got == OVERLOAD_WANT[n_pages],
+              f"{label} {what}: counters {got} != the reference's {OVERLOAD_WANT[n_pages]}")
+
+    # (a) the default pool, full depth
+    eng_a = Engine(cfg, packed, **kw)
+    fin_a, _, wall = counted(kernels, lambda: eng_a.serve(reqs()))
+    fin_a = {f.rid: f for f in fin_a}
+    print(f"{label} (a) default pool ({eng_a._last_pool.n_pages} pages), prompts "
+          f"{list(OVERLOAD_LENGTHS)} + 64: {wall:.2f} s; {stats_line(eng_a)}")
+    want_counters(eng_a, fin_a, None, "(a)")
+    check(all(f.outcome == "finished" and len(f.tokens) == 64 for f in fin_a.values()),
+          f"{label} (a): a request did not finish")
+
+    # (b) six pages, full depth: eviction, preemption, recompute
+    eng_b = Engine(cfg, packed, n_pages=6, **kw)
+    waves, steps = counting_waves(eng_b), counting_steps(eng_b)
+    checked = []
+
+    def invariants(ctx):
+        check_serving_invariants(ctx)
+        checked.append(ctx.iteration)
+
+    fin_b, launches, wall = counted(kernels, lambda: eng_b.serve(reqs(), on_iteration=invariants))
+    fin_b = {f.rid: f for f in fin_b}
+    st = eng_b.last_stats
+    print(f"{label} (b) n_pages=6: {wall:.2f} s, {len(waves)} chunk waves, {len(steps)} decode "
+          f"steps; {stats_line(eng_b)}; per-request n_preemptions "
+          f"{[fin_b[r].n_preemptions for r, _ in specs]}; invariants green after "
+          f"{len(checked)} iterations; launches {launches}")
+    check(all(f.outcome == "finished" and len(f.tokens) == 64 for f in fin_b.values()),
+          f"{label} (b): outcomes {[f.outcome for f in fin_b.values()]}")
+    check(st.preemptions > 0 and st.recompute_tokens > 0, f"{label} (b): no preemption")
+    check(sum(f.n_preemptions for f in fin_b.values()) == st.preemptions,
+          f"{label} (b): per-request preemptions do not sum to the stats")
+    check(len(checked) == st.iterations, f"{label} (b): the hook missed an iteration")
+    same = same_tokens(fin_b, fin_a)
+    print(f"{label}: (b) against (a): greedy tokens equal on {same}/8 requests")
+    check(same == 8, f"{label}: preempted run differs from the unpressured one ({same}/8)")
+    tree_only(eng_b, f"{label} (b)")
+    want_counters(eng_b, fin_b, 6, "(b)")
+    n_l = cfg.n_layers
+    check(launches[fp.CHUNK_PAGED_KERNEL.symbol] == n_l * len(waves)
+          and launches[fd.PAGED_KERNEL.symbol] == n_l * len(steps),
+          f"{label} (b): paged launches {launches} for {len(waves)} waves / {len(steps)} steps")
+    check(all(n > 0 for sym, n in launches.items()
+              if sym not in (fp.CHUNK_KERNEL.symbol, fd.KERNEL.symbol, fp.KERNEL.symbol)),
+          f"{label} (b): a kernel of the path never launched: {launches}")
+
+    # the depth cut
+    cut = OVERLOAD_CUT
+    c4 = dataclasses.replace(cfg, n_layers=cut)
+    p4 = dict(packed, blocks=packed["blocks"][:cut])
+    plain4 = dataclasses.replace(c4, bitnet=dataclasses.replace(c4.bitnet, impl="plain"))
+    e_a4, f_a4, t_a4 = serve(c4, p4)
+    e_b4, f_b4, t_b4 = serve(c4, p4, n_pages=6)
+    e_p4, f_p4, t_p4 = serve(plain4, p4, n_pages=6)
+    same, vs_a = same_tokens(f_b4, f_p4), same_tokens(f_b4, f_a4)
+    print(f"{label} at {cut} layers: (a) {t_a4:.2f} s, (b) {t_b4:.2f} s, plain (b) {t_p4:.2f} s; "
+          f"(b) against its plain run: tokens equal on {same}/8, against (a) {vs_a}/8")
+    check(same == 8 and vs_a == 8, f"{label} at {cut} layers: (b) differs ({same}, {vs_a} of 8)")
+    for e, f, n_pages, what in ((e_a4, f_a4, None, f"(a) at {cut} layers"),
+                                (e_b4, f_b4, 6, f"(b) at {cut} layers"),
+                                (e_p4, f_p4, 6, f"plain (b) at {cut} layers")):
+        want_counters(e, f, n_pages, what)
+
+    # (c) a priority-1 request submitted last
+    eng_c = Engine(c4, p4, n_pages=6, **kw)
+    beneficiaries = []
+    alloc = eng_c._paged_alloc
+
+    def spy(ctx, n, beneficiary, exclude=()):
+        before = ctx.stats.preemptions
+        out = alloc(ctx, n, beneficiary, exclude)
+        if ctx.stats.preemptions > before:
+            beneficiaries.append(beneficiary.rid)
+        return out
+
+    eng_c._paged_alloc = spy
+    t0 = time.perf_counter()
+    fin_c = {f.rid: f for f in eng_c.serve(reqs({7: dict(priority=1)}),
+                                           on_iteration=check_serving_invariants)}
+    same = same_tokens(fin_c, f_a4)
+    print(f"{label} (c) rid 7 at priority 1, {cut} layers: {time.perf_counter() - t0:.2f} s; "
+          f"{stats_line(eng_c)}; per-request n_preemptions "
+          f"{[fin_c[r].n_preemptions for r, _ in specs]}; rids whose claims preempted "
+          f"{beneficiaries}; tokens equal to the unpressured serve on {same}/8")
+    check(7 in beneficiaries and fin_c[7].n_preemptions == 0 and same == 8
+          and all(f.outcome == "finished" for f in fin_c.values()),
+          f"{label} (c): the priority request did not preempt a weaker slot, or tokens differ")
+
+    # (d) deadlines and cancellation (sync_every 2), then the bounded queue
+    clock = [0.0]
+    eng_d = Engine(c4, p4, clock=lambda: clock[0], **{**kw, "sync_every": 2})
+    mid_prefill = []
+
+    def hook(ctx):
+        if ctx.iteration == 0:
+            mid_prefill.extend(ctx.sched.slot_req[s].rid for s in ctx.prefilling)
+            eng_d.cancel(1)  # decoding since this iteration
+            eng_d.cancel(2)  # its 72-token prompt still streams
+        if ctx.iteration == 3:
+            clock[0] = 2.0  # past rid 0's (active) and rid 7's (queued) deadlines
+        check_serving_invariants(ctx)
+
+    t0 = time.perf_counter()
+    fin_d = {f.rid: f for f in eng_d.serve(
+        reqs({0: dict(deadline=1.0), 7: dict(deadline=1.0)}), on_iteration=hook)}
+    outcomes = {rid: (f.outcome, len(f.tokens)) for rid, f in sorted(fin_d.items())}
+    print(f"{label} (d) deadlines and cancels, {cut} layers: {time.perf_counter() - t0:.2f} s; "
+          f"(outcome, tokens) {outcomes}; mid-prefill at the cancel {mid_prefill}; "
+          f"{stats_line(eng_d)}")
+    check(2 in mid_prefill and 1 not in mid_prefill, f"{label} (d): rid 2 not mid-prefill")
+    want = {0: "expired", 1: "cancelled", 2: "cancelled", 7: "expired"}
+    for rid, f in fin_d.items():
+        check(f.outcome == want.get(rid, "finished"), f"{label} (d): rid {rid} {f.outcome}")
+        check(np.array_equal(f.tokens, f_a4[rid].tokens[: len(f.tokens)]),
+              f"{label} (d): rid {rid}'s tokens are not a prefix of the unpressured serve's")
+    check(0 < len(fin_d[0].tokens) < 64 and 0 < len(fin_d[1].tokens) < 64
+          and len(fin_d[2].tokens) == 0 and len(fin_d[7].tokens) == 0
+          and all(len(fin_d[r].tokens) == 64 for r in (3, 4, 5, 6)),
+          f"{label} (d): partial tokens {outcomes}")
+    check((eng_d.last_stats.expired, eng_d.last_stats.cancelled) == (2, 2),
+          f"{label} (d): stats {eng_d.last_stats}")
+    tree_only(eng_d, f"{label} (d)")
+    eng_q, fin_q, _ = serve(c4, p4, max_queue=2)
+    shed = sorted(r for r, f in fin_q.items() if f.outcome == "rejected")
+    print(f"{label} (d) max_queue=2: rejected {shed}, rids 0 and 1 finished")
+    check(shed == [2, 3, 4, 5, 6, 7] and eng_q.last_stats.rejected == 6
+          and all(fin_q[r].outcome == "finished" for r in (0, 1))
+          and same_tokens(fin_q, f_a4, (0, 1)) == 2
+          and all(len(fin_q[r].tokens) == 0 for r in shed), f"{label} (d): shedding {fin_q}")
+
+    # (e) over fp8 tiers
+    c8 = dataclasses.replace(c4, bitnet=dataclasses.replace(c4.bitnet, kv_fp8=True))
+    plain8 = dataclasses.replace(c8, bitnet=dataclasses.replace(c8.bitnet, impl="plain"))
+    e_b8, f_b8, t_b8 = serve(c8, p4, n_pages=6)
+    e_p8, f_p8, t_p8 = serve(plain8, p4, n_pages=6)
+    e_a8, f_a8, _ = serve(c8, p4)
+    same, vs_a = same_tokens(f_b8, f_p8), same_tokens(f_b8, f_a8)
+    print(f"{label} (e) fp8 tiers, {cut} layers: (b) {t_b8:.2f} s, its plain run {t_p8:.2f} s: "
+          f"tokens equal on {same}/8; against fp8 (a): {vs_a}/8 (printed only: under fp8 a "
+          f"recompute reads its own keys at full precision); {stats_line(e_b8)}")
+    check(same == 8, f"{label} (e): fp8 (b) differs from its plain run ({same}/8)")
+    for e, f, n_pages, what in ((e_b8, f_b8, 6, "fp8 (b)"), (e_p8, f_p8, 6, "plain fp8 (b)"),
+                                (e_a8, f_a8, None, "fp8 (a)")):
+        want_counters(e, f, n_pages, what)
+    return launches
+
+
+FP8_CUT = 4  # the depth of the fp8 phase's chunked and paged serves
+PAGED_PLAIN_CUT = 4  # the depth of the paged phase's plain comparison
 
 
 def fp8_falcon_phase(torch, gen, cfg, packed, prompts, f32_tokens):
@@ -2749,8 +3120,9 @@ def fp8_falcon_phase(torch, gen, cfg, packed, prompts, f32_tokens):
     tiers, chunked against grouped and shared against unshared under fp8
     are printed, not checked: the kernels attend to a chunk's own keys at
     full precision and to cached keys fp8-rounded, so admission changes
-    the key values read (as in the reference). Returns the launch counts
-    of the four paths."""
+    the key values read (as in the reference). (b) and (c) run at the
+    depth cut to FP8_CUT layers. Returns the launch counts of the four
+    paths."""
     import numpy as np
 
     from repro_torch.core import dr_edram
@@ -2825,6 +3197,11 @@ def fp8_falcon_phase(torch, gen, cfg, packed, prompts, f32_tokens):
           f"contiguous and in shuffled pages, bit-identical to plain; launches {entry}")
     del cache, cache_p
 
+    # the chunked and paged serves at the depth cut to FP8_CUT layers (the
+    # run's time: their plain runs cost ~0.6 s a step at full depth)
+    cfg8, plain8 = (dataclasses.replace(c, n_layers=FP8_CUT) for c in (cfg8, plain8))
+    packed, L = dict(packed, blocks=packed["blocks"][:FP8_CUT]), FP8_CUT
+    label = f"{label} ({FP8_CUT} layers)"
     kwc = dict(kw, prefill_chunk=32)
     p96 = np.random.default_rng(5).integers(0, cfg.vocab_size, (6, 96)).astype(np.int32)
     eng_c = Engine(cfg8, packed, **kwc)
@@ -2882,6 +3259,7 @@ def fp8_falcon_phase(torch, gen, cfg, packed, prompts, f32_tokens):
           f"closed form; shared against unshared under fp8 "
           f"{sum(np.array_equal(fin[r].tokens, unshared[r].tokens) for r in fin)}/8 requests "
           f"equal (printed, not checked)")
+    label = "falcon3-1b fp8"
     return {label: launches, f"{label} entry points": entry, f"{label} chunked": chunked,
             f"{label} paged": paged}, 6 * 96 / wall
 
@@ -2982,6 +3360,11 @@ def slice_phase(torch, gen, smi):
                          fp.CHUNK_PAGED_KERNEL, kl.KERNEL, krms.KERNEL], smi)
     print(f"[falcon3-1b paged phase: {time.perf_counter() - t0:.2f} s]")
     t0 = time.perf_counter()
+    overload = overload_phase(torch, cfg, packed,
+                              [tm.KERNEL, fd.KERNEL, fd.PAGED_KERNEL, fp.KERNEL, fp.CHUNK_KERNEL,
+                               fp.CHUNK_PAGED_KERNEL, kl.KERNEL, krms.KERNEL], smi)
+    print(f"[falcon3-1b overload phase: {time.perf_counter() - t0:.2f} s]")
+    t0 = time.perf_counter()
     fp8_paths, fp8_tok_s = fp8_falcon_phase(torch, gen, cfg, packed, prompts, tokens)
     print(f"[falcon3-1b fp8 phase: {time.perf_counter() - t0:.2f} s]")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2989,7 +3372,8 @@ def slice_phase(torch, gen, smi):
     decode_glue_per_step(torch, cfg, kw, cfg.rope_theta)
     return {"falcon3-1b": launches, "falcon3-1b entry points": entry,
             "falcon3-1b carried-scale": carried, "falcon3-1b chunked": chunked,
-            "falcon3-1b chunked serve": chunked_serve, "falcon3-1b paged": paged, **fp8_paths}, {
+            "falcon3-1b chunked serve": chunked_serve, "falcon3-1b paged": paged,
+            "falcon3-1b overload": overload, **fp8_paths}, {
                 "falcon3-1b": 6 * 96 / wall, "falcon3-1b carried-scale": carried_tok_s,
                 "falcon3-1b fp8": fp8_tok_s}
 
@@ -3673,14 +4057,19 @@ def main() -> int:
         rows.append(fn())
         print(f"[{label} phase: {time.perf_counter() - t0:.2f} s]")
     t0 = time.perf_counter()
+    decode_prefill_phase(torch, gen, theta)
+    print(f"[decode = prefill phase: {time.perf_counter() - t0:.2f} s]")
+    t0 = time.perf_counter()
     paths, tok_s = slice_phase(torch, gen, smi)
     print(f"[falcon3-1b phase: {time.perf_counter() - t0:.2f} s]")
+    gc.collect()  # engines whose methods a phase wrapped hold their weights in a cycle
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ds_paths, ds_tok_s = deepseek_phase(torch)
     print(f"[deepseek-v3-671b-l5 phase: {time.perf_counter() - t0:.2f} s]")
     paths.update(ds_paths)
     tok_s.update(ds_tok_s)
+    gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mx_paths, mx_tok_s = mixtral_phase(torch, smi)

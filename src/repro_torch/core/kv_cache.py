@@ -526,6 +526,18 @@ def save_hot(cache: PagedKVCache, slot: int, page_ids: torch.Tensor) -> PagedKVC
     return cache
 
 
+def release_slots(cache, released: torch.Tensor):
+    """Truncate the ``released`` slots ((b,) bool) to length 0, in place
+    (reference: ``release_slots``): slot retirement without
+    reinitialisation, when serving preempts or cancels a request
+    mid-flight. Tiered and paged caches alike, stacked or not (the mask
+    broadcasts against the trailing batch axis). Rows and page-table
+    entries stay: a zero-length slot reads nothing, and the freed pool
+    pages belong to the host-side ``PagePool`` refcounts."""
+    cache.lengths.masked_fill_(released.bool().expand_as(cache.lengths), 0)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Plain tiered attention read: per-tier partials + streaming-softmax merge
 # ---------------------------------------------------------------------------

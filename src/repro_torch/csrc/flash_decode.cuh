@@ -15,6 +15,14 @@
 //    rotated and the cache already holds the new token (the post-append
 //    state), so there is no RoPE prologue and no pending token. A length-0
 //    slot gives zeros (acc / max(l, 1e-30) with acc = l = 0).
+// Both fold the slot's keys in ABSOLUTE 32-key tiles, as the chunked
+// prefill forms do (flash_prefill.cuh): tile i holds positions 32 i ..
+// 32 i + 31, position p < HC from hot row p and the rest from cold row p -
+// HC, so a tile may hold rows of both tiers, and the fused form's pending
+// token is the key at lane p % 32 of tile p // 32 (p = lengths[b]), inside
+// that tile's max, sums and P.V. A decoded row then equals the prefill's
+// row at its position bit for bit, so a request preempted and recomputed
+// from its prefix decodes the tokens it would have decoded unpreempted.
 //
 // What bounds it on this card: the bytes of the valid KV rows, one read of
 // each. At falcon3-1b's shape (b 6, h 8, g 4, d 256, f32) the fused form
@@ -31,10 +39,10 @@
 //    slice of DVS = 64, kv group, slot), grid (D / DVS, G, B), and the D /
 //    DVS slice blocks of a (slot, group) form one thread-block cluster: at
 //    falcon3-1b's shape 24 clusters of 4 blocks, 96 blocks in one wave.
-//  * The block walks the 32-key tiles of the slot's valid rows (the hot
-//    tier's, then the cold tier's) in chunks of kChunk = 4 tiles; no row at
-//    or past the slot's length is read, so a masked row may hold anything,
-//    and a length-0 inactive slot writes zeros. A chunk's key rows and
+//  * The block walks the 32-key tiles of the slot's keys in chunks of
+//    kChunk = 4 tiles; each key's row is resolved from its position
+//    (row_at); no row at or past the slot's length is read, so a masked row
+//    may hold anything, and a length-0 inactive slot writes zeros. A chunk's key rows and
 //    values are loaded into registers before they are needed: the first
 //    chunk's as soon as the length is known (the queries, the pending k and
 //    v and the RoPE table load before it), the next one's after a fold.
@@ -62,10 +70,12 @@
 //  * Fused form: q and k_new rotate in registers in the prologue. For d >=
 //    64 the RoPE partner of dim L + 32 t is L + 32 (t + TL / 2), in the
 //    same lane; for d 16 and 32 it is lane L ^ (d / 2), one shuffle. The
-//    pending token's logits are computed there too, and it joins after the
-//    last chunk as a one-key tile; slice 0 writes k_rot.
+//    pending token's logits are computed there too (the warp of each head
+//    holds them in registers, in the lane dot order of every other logit),
+//    and its softmax step puts them at the pending lane of their tile;
+//    its value is the P.V thread's value of that key. Slice 0 writes k_rot.
 //  * The two forms are one template (FUSED): the post-append form drops the
-//    RoPE prologue and the pending-token step at compile time, so the tier
+//    RoPE prologue and the pending token at compile time, so the tile
 //    loop, the one the plain versions share too, exists once.
 //  * Reproducible arithmetic. At full width a one-ulp difference in the
 //    attention output flips int8 activation codes downstream and, within a
@@ -94,10 +104,10 @@
 //    flash_decode_gqa_fused_paged and flash_decode_gqa_paged, kernel
 //    gqa_decode_paged_kernel): the cold tier is a pool of pages shared by
 //    the slots, and cold row r of slot b is pool row page_table[b, r / ps]
-//    * ps + r % ps. The address is resolved per row (fetch), so a 32-key
-//    tile may span pages when ps is not a multiple of 32; the tiles, their
-//    order (hot, cold, pending) and every sum are the contiguous form's,
-//    so over the same content the two forms agree bit for bit. The same
+//    * ps + r % ps. The address is resolved per row (row_at), so a 32-key
+//    tile may span pages when ps is not a multiple of 32; the tiles and
+//    every sum are the contiguous form's, so over the same content the two
+//    forms agree bit for bit. The same
 //    body (PAGED flag) compiles into a kernel of its own name.
 //  * Ring cold tier (the reference's _flash_gqa_fused with ring=True, entry
 //    point flash_decode_gqa_fused_ring, kernel gqa_decode_ring_kernel; the
@@ -107,8 +117,11 @@
 //    window has wrapped (length - HC >= CC) the position that row holds has
 //    left the window of the token being decoded; for an active slot that
 //    one key is masked (its logit skipped, its p and value 0), nothing else
-//    changes: the tiles are the ring's rows in ring order, then the pending
-//    token, with every sum as in the contiguous form. An inactive slot
+//    changes. The ring form keeps the fold by tiers (the hot tier's tiles,
+//    the ring's rows in ring order, then the pending token as a last
+//    one-key tile, its p and alpha through pend_s), since ring order is not
+//    position order; every path over a ring decodes through this one form,
+//    and a ring serve never preempts. An inactive slot
 //    appends nothing and keeps every row. The same body (RING flag)
 //    compiles into a kernel of its own name. At mixtral-8x22b's shape (b 4,
 //    h 48, g 8, d 128, a 4096-row ring, f32) the form moves 134 MB, 0.040
@@ -313,7 +326,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
   __shared__ __align__(16) float p_s[2][kMaxRep][kChunk * kTile];
   __shared__ float alpha_s[kMaxRep][kChunk];
   __shared__ float l_s[kMaxRep];
-  __shared__ float pend_s[2][kMaxRep];  // the pending token's p and alpha
+  __shared__ float pend_s[2][kMaxRep];  // RING: the pending token's p and alpha
 
   cg::cluster_group cluster = cg::this_cluster();
   const int slice = blockIdx.x, g = blockIdx.y, b = blockIdx.z;  // slice = cluster rank
@@ -339,7 +352,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
     }
   }
   const bool active = FUSED && a.active[b] != 0;
-  float kr[TL], vn, cos_l[(TL + 1) / 2], sin_l[(TL + 1) / 2];
+  float kr[TL], vn = 0.f, cos_l[(TL + 1) / 2], sin_l[(TL + 1) / 2];
   if constexpr (FUSED) {
     load_table<D, TL>(a.cos + (int64_t)b * (D / 2), lane, cos_l);
     load_table<D, TL>(a.sin + (int64_t)b * (D / 2), lane, sin_l);
@@ -353,76 +366,97 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
   }
 
   const int length = a.lengths[b];
+  // Absolute tiles (every form but the ring): the slot's keys are the
+  // positions 0 .. n_keys - 1, tier rows below n_tier and, for an active
+  // slot of the fused form, the pending token at position pend = n_tier
+  // (-1: none); tile i holds positions 32 i .. 32 i + 31.
+  const int n_tier = min(length, a.HC + a.CC);
+  const int pend = !RING && active ? n_tier : -1;
+  // RING: the hot tier's tiles, then the cold tier's in ring order
   const int n_hot = min(length, a.HC);
   const int n_cold = min(max(length - a.HC, 0), a.CC);
   const int t_hot = (n_hot + kTile - 1) / kTile;
-  const int n_tiles = t_hot + (n_cold + kTile - 1) / kTile;
+  const int n_tiles = RING ? t_hot + (n_cold + kTile - 1) / kTile
+                           : (n_tier + (pend >= 0) + kTile - 1) / kTile;
   // RING: the cold row the coming append evicts, for an active slot whose
   // window has wrapped; -1 otherwise
   const int evict = RING && active && a.CC > 0 && length - a.HC >= a.CC ? (length - a.HC) % a.CC : -1;
 
-  // A chunk in registers: its tiles' valid keys (0 past the last tile),
-  // the evictee's key index in each tile (RING; -1: none), this warp's key
-  // rows for the logits (slot gw + CW i of the chunk: tile i / kSpan) and
-  // this thread's values for the fold.
-  int n[kChunk], ev[kChunk];
+  // A chunk in registers: its tiles' keys (valid keys first, 0 past the
+  // last tile), the evictee's key index in each tile (RING; -1: none), the
+  // pending token's (-1: none), the position of each tile's key 0, this
+  // warp's key rows for the logits (slot gw + CW i of the chunk: tile i /
+  // kSpan) and this thread's values for the fold.
+  int n[kChunk], ev[kChunk], pl[kChunk], start[kChunk];
+  int64_t hbase[kChunk], cbase[kChunk];  // contiguous: tile k's row 0 in either tier
   float kx[KPW][TL];
   float v[kChunk][KPT];
+  // The row of this slot's group at position start[k] + j, as an offset
+  // from the hot tier (position < HC) or the cold tier: contiguous, from
+  // the tile's bases; paged, a cold row through the page table (read only
+  // for a key a tier holds). No branch, so the loads it feeds stay
+  // predicated and are in flight together.
+  auto row_at = [&](int k, int j, bool held) -> int64_t {
+    const int pos = start[k] + j;
+    if constexpr (PAGED) {
+      const int r = held ? max(pos - a.HC, 0) : 0;
+      const int64_t cold = (int64_t)a.page_table[(int64_t)b * a.pps + r / a.ps] * a.ps + r % a.ps;
+      return (pos < a.HC ? (int64_t)b * a.HC + pos : cold) * gd + (int64_t)g * D;
+    } else {
+      return (pos < a.HC ? hbase[k] : cbase[k]) + j * gd;
+    }
+  };
   auto fetch = [&](int c0) {
-    const TT* kt[kChunk];
-    const TT* vt[kChunk];
-    bool hot[kChunk];
-    int start[kChunk];
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       const int tk = c0 + k;
-      hot[k] = tk < t_hot;
-      start[k] = (hot[k] ? tk : tk - t_hot) * kTile;
-      n[k] = tk < n_tiles ? min(kTile, (hot[k] ? n_hot : n_cold) - start[k]) : 0;
-      ev[k] = RING && !hot[k] && evict >= start[k] && evict < start[k] + kTile ? evict - start[k] : -1;
-      const int64_t row0 = ((int64_t)b * (hot[k] ? a.HC : a.CC) + start[k]) * gd + (int64_t)g * D;
-      kt[k] = (hot[k] ? a.hot_k : a.cold_k) + (PAGED ? (int64_t)g * D : row0);
-      vt[k] = (hot[k] ? a.hot_v : a.cold_v) + (PAGED ? (int64_t)g * D + dv : row0 + part * gd + dv);
-    }
-    // key j of tile k: its row's offset from kt[k] / vt[k], in elements.
-    // Paged: a hot row at its place in the slot's hot tier, a cold one
-    // through the page table (only for a key the slot holds: j < n[k])
-    auto at = [&](int k, int j) -> int64_t {
-      if constexpr (PAGED) {
-        if (j >= n[k]) return 0;
-        const int pos = start[k] + j;
-        const int64_t r = hot[k] ? (int64_t)b * a.HC + pos
-                                 : (int64_t)a.page_table[(int64_t)b * a.pps + pos / a.ps] * a.ps +
-                                       pos % a.ps;
-        return r * gd;
+      if constexpr (RING) {
+        const bool hot = tk < t_hot;
+        start[k] = (hot ? tk : tk - t_hot) * kTile;
+        n[k] = tk < n_tiles ? min(kTile, (hot ? n_hot : n_cold) - start[k]) : 0;
+        ev[k] = !hot && evict >= start[k] && evict < start[k] + kTile ? evict - start[k] : -1;
+        pl[k] = -1;
+        // row positions of the ring form: a hot tile's at position start + j,
+        // a cold one's at HC + start + j (ring row start + j)
+        if (!hot) start[k] += a.HC;
       } else {
-        return j * gd;
+        start[k] = tk * kTile;
+        n[k] = tk < n_tiles ? min(kTile, n_tier + (pend >= 0) - start[k]) : 0;
+        ev[k] = -1;
+        pl[k] = pend >= start[k] && pend < start[k] + kTile ? pend - start[k] : -1;
       }
-    };
+      hbase[k] = ((int64_t)b * a.HC + start[k]) * gd + (int64_t)g * D;
+      cbase[k] = ((int64_t)b * a.CC + start[k] - a.HC) * gd + (int64_t)g * D;
+    }
+    // key j of tile k is held in a tier when it is a key and not the pending token
 #pragma unroll
     for (int i = 0; i < KPW; ++i) {
-      const int k = i / kSpan, j = gw + CW * (i % kSpan);
-      const TT* row = kt[k] + at(k, j);
+      const int k = i / kSpan, j = gw + CW * (i % kSpan), pos = start[k] + j;
+      const bool held = j < n[k] && j != pl[k];
+      const TT* row = (pos < a.HC ? a.hot_k : a.cold_k) + row_at(k, j, held);
 #pragma unroll
       for (int t = 0; t < TL; ++t) {
         const int idx = lane + 32 * t;
-        kx[i][t] = j < n[k] && idx < D ? to_f32(row[idx]) : 0.f;
+        kx[i][t] = held && idx < D ? to_f32(row[idx]) : 0.f;
       }
     }
 #pragma unroll
     for (int k = 0; k < kChunk; ++k)
 #pragma unroll
-      for (int u = 0; u < KPT; ++u)
-        v[k][u] = part + SPLIT * u < n[k] && part + SPLIT * u != ev[k]
-                      ? to_f32(vt[k][PAGED ? at(k, part + SPLIT * u) : SPLIT * u * gd])
-                      : 0.f;
+      for (int u = 0; u < KPT; ++u) {
+        const int j = part + SPLIT * u, pos = start[k] + j;
+        const bool held = j < n[k] && j != ev[k] && j != pl[k];
+        const TT* row = (pos < a.HC ? a.hot_v : a.cold_v) + row_at(k, j, held) + dv;
+        const float x = held ? to_f32(*row) : 0.f;
+        v[k][u] = j == pl[k] ? vn : x;
+      }
   };
   fetch(0);  // the first chunk's rows load while the queries rotate
 
   // ---- prologue: rotate the heads (fused), store them; fused: every warp
   // also rotates the pending k, so the pending logits of its heads come
   // here, and slice 0's warp 0 writes k_rot ----
-  float lg_pend[kHeadsPerWarp];
+  float lg_pend[kHeadsPerWarp] = {};
   if constexpr (FUSED) {
     rope<D>(kr, cos_l, sin_l, lane);
     if (slice == 0 && warp == 0)
@@ -490,7 +524,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
 #pragma unroll
       for (int i = 0; i < KPW; ++i) {
         const int k = i / kSpan, j = gw + CW * (i % kSpan);
-        if (j >= n[k] || j == ev[k]) continue;
+        if (j >= n[k] || j == ev[k] || j == pl[k]) continue;
         const float logit = __fmul_rn(dot[i], a.scale);
         float* dst = lg_s + r * (kChunk * kTile) + k * kTile + j;
         if constexpr (S == 1) {
@@ -513,7 +547,9 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
       float x[kChunk], p[kChunk], alpha[kChunk], tmax[kChunk];
 #pragma unroll
       for (int k = 0; k < kChunk; ++k)
-        tmax[k] = x[k] = lane < n[k] && lane != ev[k] ? lg[k * kTile + lane] : kNegInf;
+        tmax[k] = x[k] = lane >= n[k] || lane == ev[k] ? kNegInf
+                         : lane == pl[k]              ? lg_pend[h]
+                                                      : lg[k * kTile + lane];
       warp_maxes(tmax);
 #pragma unroll
       for (int k = 0; k < kChunk; ++k) {
@@ -556,13 +592,13 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
     if (c0 + kChunk < n_tiles) fetch(c0 + kChunk);
   }
 
-  // ---- fused form, active slots: the pending token joins as a last
-  // one-key tile ----
+  // ---- ring form, active slots: the pending token joins as a last
+  // one-key tile (the other forms folded it inside its tile) ----
 #pragma unroll
   for (int h = 0; h < kHeadsPerWarp; ++h) {
     const int r = warp + kWarps * h;
     if (r >= rep) break;
-    if (active) {
+    if (RING && active) {
       const float m_new = fmaxf(m[h], lg_pend[h]);
       const float alpha = expf(m[h] - m_new);
       const float p = expf(lg_pend[h] - m_new);
@@ -581,7 +617,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
       if (r >= rep) break;
       T* orow = a.out + ((int64_t)b * G * rep + g * rep + r) * D;
       float o = acc[r];
-      if (active) o = __fadd_rn(__fmul_rn(o, pend_s[1][r]), __fmul_rn(pend_s[0][r], vn));
+      if (RING && active) o = __fadd_rn(__fmul_rn(o, pend_s[1][r]), __fmul_rn(pend_s[0][r], vn));
       store(orow + dv, o / fmaxf(l_s[r], 1e-30f));
     }
   }

@@ -7,10 +7,10 @@ the paged and ring forms' in ``flash_decode_paged.cu`` and
 - fused RoPE (``_flash_gqa_fused`` through ``flash_decode_attention(
   k_new=..., rope_theta=...)``): q (b, h, d) and the pending token's k
   (b, g, d) arrive UNROTATED; both rotate at position ``cache.lengths[b]``.
-  Each slot attends over its hot tier, then its cold tier, then — when
-  ``active`` — the pending (k, v) as the last element. The cache is the
-  PRE-append state; the call returns ``(o, k_rot)`` and the caller
-  appends. Plain version ``flash_decode_fused_plain``.
+  Each slot attends over its cached keys and — when ``active`` — the
+  pending (k, v) at position ``lengths[b]``. The cache is the PRE-append
+  state; the call returns ``(o, k_rot)`` and the caller appends. Plain
+  version ``flash_decode_fused_plain``.
 - post-append (``_flash_gqa`` through ``flash_decode_attention(q,
   cache)``): q is already rotated and the cache already holds the new
   token; returns ``o`` alone, zeros for a length-0 slot. Plain version
@@ -19,7 +19,12 @@ the paged and ring forms' in ``flash_decode_paged.cu`` and
 The plain versions repeat the kernel's arithmetic — the same 32-key
 tiles, halving-tree sums and separately rounded products — so the two agree
 bit for bit, which keeps greedy tokens of the kernel and plain runs equal
-at full width. Both fold the tiers through one loop, ``fold_tiers``.
+at full width. Both fold ABSOLUTE tiles (``fold_positions``): tile i holds
+positions 32 i .. 32 i + 31, whichever tier each row comes from, and the
+pending token sits at lane p % 32 of tile p // 32, inside that tile's max
+and sums. That is the chunked prefill form's fold of a one-row chunk, so a
+decoded row equals the prefill's row at its position bit for bit, and
+recompute-from-prefix after a preemption gives the same greedy tokens.
 
 ``flash_decode_attention_latent`` is the MLA absorbed form (reference:
 ``_flash_latent`` through ``flash_decode_attention_latent``): q (b, h, D)
@@ -44,12 +49,12 @@ is the sliding-window ring of ``kv_cache.append_decode_ring``. Over the
 pre-append cache the fused form masks cold row ``(length - hot_cap) %
 cold_cap`` of an active slot whose window has wrapped (``length - hot_cap
 >= cold_cap``): the append that follows overwrites it, and the position it
-holds has left the window of the token being decoded. The tiles, their
-order (hot, then the cold rows in ring order, then the pending token) and
-every sum are the contiguous form's; only that one key is masked. Ring
-order is not position order, but every path that decodes a row reads the
-ring through this one form, so grouped and chunked admission give the
-same bits. Without ``k_new`` the ring entry point is the post-append form
+holds has left the window of the token being decoded. It keeps the fold
+the GQA forms had before absolute tiles (``fold_tiers``): the hot tier's
+tiles, the cold rows' in ring order, then the pending token as a one-key
+tile. Ring order is not position order, but every path that decodes a row
+reads the ring through this one form, so grouped and chunked admission
+give the same bits (a ring serve never preempts, so it never recomputes). Without ``k_new`` the ring entry point is the post-append form
 (kernel 6) as it is: over a wrapped ring the length clip marks every row
 valid, as the reference's clamp does.
 
@@ -223,12 +228,12 @@ def fold_tiles(state, logits, valid, v):
 
 def fold_tiers(qg: torch.Tensor, cache: kvc.TieredKVCache, scale: float,
                evict: Optional[torch.Tensor] = None):
-    """Online-softmax state after the hot tier's and then the cold tier's
-    32-key tiles, valid rows only, folded as ``fold_tile`` would one by
-    one (``fold_tiles``, ``FOLD_TILES`` at a time). qg: (b, g, rep, 1, d)
-    f32 (rotated) queries; ``evict`` (b,): a cold row to mask per slot
-    (-1: none, the ring form); returns (m, l, acc) of shapes (b, g, rep)
-    and (b, g, rep, d)."""
+    """The ring form's fold: online-softmax state after the hot tier's and
+    then the cold tier's 32-key tiles (the cold rows in ring order), valid
+    rows only, without the cold row ``evict`` (b,) of each slot (-1:
+    none), folded as ``fold_tile`` would one by one (``fold_tiles``,
+    ``FOLD_TILES`` at a time). qg: (b, g, rep, 1, d) f32 (rotated) queries;
+    returns (m, l, acc) of shapes (b, g, rep) and (b, g, rep, d)."""
     b, g, rep, _, d = qg.shape
     lengths = cache.lengths.long()
     state = (qg.new_full((b, g, rep), NEG_INF), qg.new_zeros((b, g, rep)),
@@ -244,14 +249,60 @@ def fold_tiers(qg: torch.Tensor, cache: kvc.TieredKVCache, scale: float,
                 valid = valid & (pos[None] != evict[:, None])
             # rows past the tier repeat its last one: masked, as every invalid key
             kt, vt = tier_rows(cache, hot, pos.clamp(max=cap - 1))  # (b, n T, g, d)
-            vt = torch.where(valid[:, :, None, None], vt.float(), 0.0)
+            state = _fold_keys(state, qg, kt, vt, valid, scale)
+    return state
 
-            def tiles(x):  # (b, n T, g, d) -> (b, g, 1, n, T, d)
-                return x.float().reshape(b, n, TILE, g, d).permute(0, 3, 1, 2, 4)[:, :, None]
 
-            logits = tree_sum(qg[:, :, :, :, None] * tiles(kt), -1) * scale  # (b, g, rep, n, T)
-            state = fold_tiles(state, logits, valid.reshape(b, n, TILE)[:, None, None],
-                               tiles(vt))
+def _fold_keys(state, qg, kt, vt, valid, scale):
+    """Fold n consecutive 32-key tiles of keys kt / values vt (b, n T, g, d)
+    under ``valid`` (b, n T) into ``state`` (``fold_tiles``)."""
+    b, g, _, _, d = qg.shape
+    n = kt.shape[1] // TILE
+    vt = torch.where(valid[:, :, None, None], vt.float(), 0.0)
+
+    def tiles(x):  # (b, n T, g, d) -> (b, g, 1, n, T, d)
+        return x.float().reshape(b, n, TILE, g, d).permute(0, 3, 1, 2, 4)[:, :, None]
+
+    logits = tree_sum(qg[:, :, :, :, None] * tiles(kt), -1) * scale  # (b, g, rep, n, T)
+    return fold_tiles(state, logits, valid.reshape(b, n, TILE)[:, None, None], tiles(vt))
+
+
+def fold_positions(qg: torch.Tensor, cache, scale: float, pending=None):
+    """Online-softmax state after the slot's keys in ABSOLUTE 32-key tiles,
+    as the chunked prefill forms fold them: tile i holds positions 32 i ..
+    32 i + 31, position p < hot_cap from hot row p and the rest from cold
+    row p - hot_cap (through the page table when paged), so a tile may
+    hold rows of both tiers. ``pending`` = (k (b, g, d), v (b, g, d) f32,
+    active (b,)): an active slot's pending token is the key at position
+    ``lengths[b]``, inside its tile. qg: (b, g, rep, 1, d) f32 (rotated)
+    queries; returns (m, l, acc) of shapes (b, g, rep) and (b, g, rep, d).
+    A decoded row is then the one-row chunk's row bit for bit."""
+    b, g, rep, _, d = qg.shape
+    hc, cc = cache.hot_cap, cache.cold_cap
+    n_tier = cache.lengths.long().clamp(max=hc + cc)
+    state = (qg.new_full((b, g, rep), NEG_INF), qg.new_zeros((b, g, rep)),
+             qg.new_zeros((b, g, rep, d)))
+    n_pos = hc + cc + (pending is not None)
+    for start in range(0, n_pos, TILE * FOLD_TILES):
+        n = min(FOLD_TILES, -(-(n_pos - start) // TILE))
+        pos = start + torch.arange(n * TILE, device=qg.device)
+        valid = pos[None] < n_tier[:, None]  # (b, n T)
+        # rows past a tier repeat its last one: masked, as every invalid key
+        rows = [(pos < hc, tier_rows(cache, True, pos.clamp(max=hc - 1)))] if hc else []
+        if cc:
+            rows.append((pos >= hc, tier_rows(cache, False, (pos - hc).clamp(0, cc - 1))))
+        kt, vt = (x.float() for x in rows[-1][1])  # (b, n T, g, d)
+        if len(rows) == 2:
+            sel = rows[0][0][None, :, None, None]
+            kt = torch.where(sel, rows[0][1][0].float(), kt)
+            vt = torch.where(sel, rows[0][1][1].float(), vt)
+        if pending is not None:
+            k_p, v_p, act = pending
+            at = act[:, None] & (pos[None] == n_tier[:, None])  # (b, n T)
+            kt = torch.where(at[:, :, None, None], k_p[:, None], kt)
+            vt = torch.where(at[:, :, None, None], v_p[:, None], vt)
+            valid = valid | at
+        state = _fold_keys(state, qg, kt, vt, valid, scale)
     return state
 
 
@@ -262,31 +313,37 @@ def _finish(state):
 
 def flash_decode_plain(q, cache: kvc.TieredKVCache, scale: float):
     """Plain post-append version, in the kernel's arithmetic: fold the
-    tiers (which already hold the new token) for the rotated q."""
+    absolute tiles of the tiers (which already hold the new token) for the
+    rotated q."""
     b, h, d = q.shape
     g = cache.hot_k.shape[2]
     qg = q.float().reshape(b, g, h // g, 1, d)
-    return _finish(fold_tiers(qg, cache, scale)).reshape(b, h, d).to(q.dtype)
+    return _finish(fold_positions(qg, cache, scale)).reshape(b, h, d).to(q.dtype)
 
 
 def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
                              active, scale: float, theta: float, ring: bool = False):
     """Plain fused version, in the kernel's arithmetic: rotate q and k_new
-    at ``lengths`` (in f32), fold the tiers (``ring``: without each active
-    wrapped slot's evictee, ``ring_evictee``) and, for active slots, the
-    pending token."""
+    at ``lengths`` (in f32) and fold the absolute tiles with, for active
+    slots, the pending token at its position (``fold_positions``). The
+    ring form folds the tiers instead (``fold_tiers``, without each active
+    wrapped slot's evictee, ``ring_evictee``), then the pending token as a
+    last one-key tile."""
     b, h, d = q.shape
     g = k_new.shape[1]
     pos = cache.lengths.long()[:, None]  # (b, 1)
     q_rot = apply_rope(q.float()[:, None], pos, theta)[:, 0]
     k_rot = apply_rope(k_new.float()[:, None], pos, theta)[:, 0]  # (b, g, d) f32
     qg = q_rot.reshape(b, g, h // g, 1, d)
-    state = fold_tiers(qg, cache, scale, ring_evictee(cache, active) if ring else None)
     act = (torch.ones(b, dtype=torch.bool, device=q.device) if active is None
            else active.bool())
-    logit = tree_sum(qg[:, :, :, 0] * k_rot[:, :, None], -1) * scale  # (b, g, rep)
-    v_p = torch.where(act[:, None, None], v_new.float(), 0.0)[:, :, None, None]
-    state = fold_tile(state, logit[..., None], act[:, None, None, None], v_p)
+    if ring:
+        state = fold_tiers(qg, cache, scale, ring_evictee(cache, active))
+        logit = tree_sum(qg[:, :, :, 0] * k_rot[:, :, None], -1) * scale  # (b, g, rep)
+        v_p = torch.where(act[:, None, None], v_new.float(), 0.0)[:, :, None, None]
+        state = fold_tile(state, logit[..., None], act[:, None, None, None], v_p)
+    else:
+        state = fold_positions(qg, cache, scale, (k_rot, v_new.float(), act))
     return _finish(state).reshape(b, h, d).to(q.dtype), k_rot.to(k_new.dtype)
 
 

@@ -49,15 +49,34 @@ makes every cache of all three admission paths fp8 (e4m3): the kernels'
 fp8-tier forms read it, the prefill forms emit into it, and activations
 and queries stay in the params' dtype. The ledger is unchanged.
 
-Not ported: speculation, SDC scrubbing, sessions and overload control
-(preempting a slot when the page pool runs dry raises instead).
+Overload control (reference: "Graceful degradation"). The page pool is a
+fixed KV budget, and overload degrades against it: admission funds only
+the prompt's pages and decode growth is funded chunk by chunk; when the
+pool cannot fund a claim the engine evicts cached prefixes (leaf-only
+LRU), then preempts strictly weaker slots one at a time
+(``SlotScheduler.preempt_victims``). A preempted request's emitted tokens
+fold into its prompt and it requeues with its claim; re-admission rides
+the prefix match and the chunked prefill, and since a decoded row equals
+the prefill's row at its position bit for bit (both fold absolute 32-key
+tiles), greedy tokens stay those of an unpressured run. Requests carry a
+``deadline`` (on the engine's ``clock``) and a ``priority``;
+``Engine.cancel(rid)`` retires a slot or drops a queued request at the
+next sync point; ``max_queue`` sheds overflow as ``rejected``. Every end
+is a ``FinishedRequest.outcome``, and ``ServeStats`` (``last_stats``)
+counts them. ``serve`` composes ``start_session``, a ``run_iteration``
+loop and ``finish_session``; ``on_iteration(ctx)`` runs after every
+iteration (``serving/chaos.py``: the invariant checker and the fault
+injector).
+
+Not ported: speculation, SDC scrubbing, and the drain / handoff of
+sessions between replicas.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -65,11 +84,14 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core import dr_edram, kv_cache
 from repro_torch.device import resolve_device
+from repro_torch.distributed.fault import StragglerMonitor
 from repro_torch.kernels.flash_decode import TILE
 from repro_torch.models import transformer as T
 from repro_torch.models.pack import pack_params, tree_to
-from repro_torch.serving.paging import PagePool, PrefixCache, PrefixMatch, pages_needed
-from repro_torch.serving.scheduler import FinishedRequest, Request, SlotScheduler
+from repro_torch.serving.paging import (PagePool, PagePoolError, PrefixCache, PrefixMatch,
+                                        pages_needed)
+from repro_torch.serving.scheduler import (FinishedRequest, Request, SlotScheduler,
+                                           terminal_record)
 
 TRAFFIC_KEYS = kv_cache.TRAFFIC_KEYS
 # One page is one 32-key tile of the attention kernels, so a page never
@@ -88,6 +110,10 @@ def _n_attn_layers(cfg: ModelConfig) -> int:
 # `generate` pads rows that stopped early with this sentinel (outside every
 # vocabulary, so a sampled stop token stays distinguishable from padding)
 PAD_TOKEN = -1
+# consecutive serving-loop iterations without progress before the engine
+# declares the pool unreclaimable (PagePoolError); a transient hold (the
+# chaos injector pinning pages for a few iterations) rides through
+_STALL_LIMIT = 32
 
 
 @dataclasses.dataclass
@@ -106,15 +132,62 @@ class DecodeState:
 
 
 @dataclasses.dataclass
-class _PagedServe:
-    """Host side of one ``serve`` call's paged cold tier."""
+class ServeStats:
+    """Control-plane counters of one session (``Engine.last_stats``).
+    ``recompute_tokens`` counts the prompt tokens a re-admission prefilled
+    again (its prompt minus the prefix match): the price of preemption.
+    ``iter_p50`` / ``iter_max`` (seconds) and ``straggler_flags`` summarize
+    the iterations' wall times through a ``StragglerMonitor``. The
+    speculation and SDC counters of the reference stay 0 (not ported)."""
 
-    pool: PagePool
-    ptree: PrefixCache
-    host_table: np.ndarray  # (slots, pages_per_slot) int32: the device tables' mirror
-    slot_pages: List[List[int]]  # pool pages each slot's table maps, in order
-    prefix_used: List[int]  # prompt tokens each slot took from the prefix tree
+    preemptions: int = 0
+    rejected: int = 0
+    cancelled: int = 0
+    expired: int = 0
+    recompute_tokens: int = 0
+    grown_pages: int = 0
+    iterations: int = 0
+    iter_p50: float = 0.0
+    iter_max: float = 0.0
+    straggler_flags: int = 0
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
+    sdc_detected: int = 0
+    pages_scrubbed: int = 0
+    weight_reloads: int = 0
+    slots_quarantined: int = 0
+
+
+@dataclasses.dataclass
+class _ServeCtx:
+    """Mutable state of one session, threaded through admission, growth,
+    preemption and harvest, and handed to the ``on_iteration`` hook after
+    every iteration (``serving/chaos.py`` reads ``pool`` / ``ptree`` /
+    ``host_table`` / ``slot_pages`` / ``sched`` through it; a hook may
+    take free pages from the pool or call ``Engine.cancel``, nothing
+    else)."""
+
+    state: DecodeState
+    sched: SlotScheduler
+    finished: List[FinishedRequest]
+    stats: ServeStats
+    token_bytes: int
+    chunked: bool
+    remaining: List[int]  # each slot's budget, mirrored on the host (no sync)
     seq_mirror: List[int]  # upper bound of each slot's cache length
+    prefix_used: List[int]  # prompt tokens each slot took from the prefix tree
+    prefilling: Dict[int, list]  # slot -> [request, next prompt offset]
+    slot_pages: List[List[int]]  # pool pages each slot's table maps, in order
+    out_cap: int
+    stop_token: Optional[int]
+    chunk: int  # decode steps between sync points
+    pool: Optional[PagePool] = None
+    ptree: Optional[PrefixCache] = None
+    host_table: Optional[np.ndarray] = None  # (slots, pps) int32: the device tables' mirror
+    iteration: int = 0
+    on_iteration: Optional[Callable[["_ServeCtx"], None]] = None
+    monitor: Optional[StragglerMonitor] = None
+    stall: int = 0  # consecutive iterations without progress
 
 
 @dataclasses.dataclass
@@ -142,7 +215,8 @@ class Engine:
                  pack: bool = True, sample: str = "greedy", temperature: float = 1.0,
                  seed: int = 0, slots: int = 8, sync_every: int = 8, device=None,
                  prefill_chunk: int = 0, paged: bool = False, page_size: Optional[int] = None,
-                 n_pages: Optional[int] = None, prefix_sharing: bool = True):
+                 n_pages: Optional[int] = None, prefix_sharing: bool = True,
+                 max_queue: Optional[int] = None, clock: Optional[Callable[[], float]] = None):
         if not pack:
             raise NotImplementedError("QAT (unpacked) serving is not part of this port")
         if sample not in ("greedy", "temperature"):
@@ -185,6 +259,14 @@ class Engine:
         # the refcount ledger and prefix tree of the last paged serve()
         self._last_pool: Optional[PagePool] = None
         self._last_ptree: Optional[PrefixCache] = None
+        # bound of the admission queue (None: unbounded); overflow is shed
+        # as "rejected". serve(max_queue=...) overrides it per call
+        self.max_queue = max_queue
+        # the clock of Request.deadline (tests inject a fake one)
+        self._clock = clock or time.monotonic
+        self._cancel_requested: Set[int] = set()
+        self.last_stats: Optional[ServeStats] = None
+        self._last_ctx: Optional[_ServeCtx] = None
 
     def _chunked_capable(self) -> bool:
         """Chunked prefill needs a pure attention-token path: a dense / MoE
@@ -367,18 +449,87 @@ class Engine:
             for i in range(stack.lengths.shape[0]):
                 yield kv_cache.layer(stack, i)
 
-    def _paged_alloc(self, pg: _PagedServe, n: int) -> List[int]:
-        """``n`` free pages, evicting cached prefixes (leaf-only LRU) first
-        (reference: ``_paged_alloc``). Where the reference would then
-        preempt a weaker slot, the port raises: its overload control is
-        not ported, and the default pool never runs dry."""
-        pg.ptree.evict_for(n)
-        pages = pg.pool.alloc(n)
-        if pages is None:
-            raise NotImplementedError(
-                f"page pool exhausted: {n} pages needed, {pg.pool.available()} of "
-                f"{pg.pool.n_pages} free after eviction; preempting a slot to fund them "
-                "(the reference's overload control) is not ported; raise n_pages")
+    # ------------------------------------------------------------------
+    # page pressure: reclaim, preemption, release
+    # ------------------------------------------------------------------
+    def _release_slot_state(self, state: DecodeState, s: int, truncate: bool = True) -> None:
+        """Release slot ``s``'s device row mid-flight (preemption or
+        cancellation): clear its allocated / done flags and, when
+        ``truncate``, its cache length in every stack
+        (``kv_cache.release_slots``), so the slot is inert until
+        re-admitted. Grouped admission skips the truncation: it writes a
+        whole fresh row, lengths included."""
+        state.allocated[s] = False
+        state.done[s] = False
+        if truncate:
+            mask = torch.zeros(state.allocated.shape, dtype=torch.bool, device=self.device)
+            mask[s] = True
+            for stack in state.cache.values():
+                kv_cache.release_slots(stack, mask)
+
+    def _preempt_slot(self, ctx: _ServeCtx, s: int) -> None:
+        """Evict slot ``s`` mid-flight to reclaim its pages (reference:
+        ``_preempt_slot``): fold the tokens it emitted into its request's
+        prompt, carry this attempt's ledger, release its pages and device
+        row, and requeue it with its claim. The pending token t_k is sampled
+        but neither emitted nor cached, so re-prefilling prompt ‖ t_0 ..
+        t_{k-1} samples t_k again from the same last row, bit for bit: the
+        decode and the chunked prefill fold the same absolute tiles."""
+        req = ctx.sched.slot_req[s]
+        tb = ctx.token_bytes
+        carry = dict(req.carry_traffic) if req.carry_traffic else {k: 0 for k in TRAFFIC_KEYS}
+        if s in ctx.prefilling:
+            off = ctx.prefilling.pop(s)[1]
+            if off:  # the partial prefill the device already did
+                prompt = kv_cache.prompt_traffic_tokens_resumed(
+                    off, min(ctx.prefix_used[s], off), self.hot_cap)
+                for k in TRAFFIC_KEYS:
+                    carry[k] += prompt[k] * tb
+        else:
+            st = ctx.state
+            p_attempt = req.prompt_len
+            n_gen = int(st.n_gen[s])
+            if n_gen:
+                out_row = st.out[s, :n_gen].cpu().numpy().astype(np.int32)
+                if req.orig_prompt_len is None:
+                    req.orig_prompt_len = req.prompt_len
+                req.tokens = np.concatenate([np.asarray(req.tokens, np.int32), out_row])
+                req.max_new_tokens -= n_gen
+            prompt = kv_cache.prompt_traffic_tokens_resumed(p_attempt, ctx.prefix_used[s],
+                                                            self.hot_cap)
+            for k in TRAFFIC_KEYS:
+                carry[k] += (prompt[k] + int(st.ledger[k][s])) * tb
+        req.carry_traffic = carry
+        req.carry_reused += ctx.prefix_used[s]
+        req.n_preemptions += 1
+        ctx.stats.preemptions += 1
+        if ctx.slot_pages[s]:
+            ctx.pool.decref(ctx.slot_pages[s])
+            ctx.slot_pages[s] = []
+        ctx.prefix_used[s] = ctx.remaining[s] = ctx.seq_mirror[s] = 0
+        ctx.sched.requeue(s)
+        self._release_slot_state(ctx.state, s, truncate=ctx.chunked)
+
+    def _paged_alloc(self, ctx: _ServeCtx, n: int, beneficiary: Request,
+                     exclude: Sequence[int] = ()) -> Optional[List[int]]:
+        """``n`` pages for ``beneficiary`` (reference: ``_paged_alloc``):
+        leaf-only LRU eviction of cached prefixes first, then preemption of
+        strictly weaker slots, one victim at a time (a victim's pages may be
+        shared with the tree, so each preemption may unlock more eviction).
+        None when the claim cannot be funded: the caller requeues
+        (admission) or preempts itself (growth)."""
+        ctx.ptree.evict_for(n)
+        pages = ctx.pool.alloc(n)
+        while pages is None:
+            emitted = {s: ctx.sched.slot_req[s].max_new_tokens - ctx.remaining[s]
+                       for s in ctx.sched.active_slots() if s not in ctx.prefilling}
+            victims = [v for v in ctx.sched.preempt_victims(beneficiary, emitted, exclude)
+                       if ctx.slot_pages[v]]  # a pageless victim funds nothing
+            if not victims:
+                return None
+            self._preempt_slot(ctx, victims[0])
+            ctx.ptree.evict_for(n)
+            pages = ctx.pool.alloc(n)
         return pages
 
     def _set_tables(self, state: DecodeState, table: np.ndarray) -> None:
@@ -388,36 +539,51 @@ class Engine:
         for stack in state.cache.values():
             stack.page_table.copy_(t.expand_as(stack.page_table))
 
-    def _admit_paged(self, state: DecodeState, pg: _PagedServe, fills,
-                     prefilling: Dict[int, list]) -> None:
+    def _admit_paged(self, ctx: _ServeCtx, fills) -> bool:
         """Page bookkeeping for every slot paired this round, then one
         ``paged_admit`` pass over the layers (reference: ``_admit_paged``).
         A fill adopts its matched cold pages, gets fresh pages for the rest
         of its prompt (decode growth comes later, ``_ensure_pages``) and
-        streams from the matched offset. Matched pages are increfed for
-        the round, so the eviction that funds the fresh pages cannot free
-        them before the admission reads them."""
-        n_slots = pg.host_table.shape[0]
+        streams from the matched offset. Matched pages are increfed for the
+        round, so the eviction or preemption that funds the fresh pages
+        cannot free them before the admission reads them. A fill the pool
+        cannot fund unwinds its own increfs and requeues. True when a fill
+        was admitted."""
+        state = ctx.state
+        n_slots = ctx.host_table.shape[0]
         ps, hc, pps = self._page_size, self.hot_cap, self._pps
         reset = np.zeros((n_slots,), bool)
         new_len = np.zeros((n_slots,), np.int32)
-        new_table = pg.host_table.copy()
+        new_table = ctx.host_table.copy()
         hot_src = np.full((n_slots, max(self._n_hot_pages, 1)), -1, np.int32)
         cow_src = np.full((n_slots,), -1, np.int32)
         cow_dst = np.full((n_slots,), -1, np.int32)
         transient: List[int] = []
+        # this round's fills are never victims: a processed one has its
+        # bookkeeping in flight, a pending one has no pages yet
+        fill_slots = [s for s, _ in fills]
         for s, req in fills:
-            m = pg.ptree.match(req.tokens) if self.prefix_sharing else PrefixMatch()
+            m = ctx.ptree.match(req.tokens) if self.prefix_sharing else PrefixMatch()
+            mine: List[int] = []  # this fill's transient increfs
             if m.length:
-                pg.pool.incref(m.hot_pages)
-                transient.extend(m.hot_pages)
+                ctx.pool.incref(m.hot_pages)
+                mine.extend(m.hot_pages)
                 if m.cow_src >= 0:
-                    pg.pool.incref([m.cow_src])
-                    transient.append(m.cow_src)
-                pg.pool.incref(m.shared_pages)  # the slot's own reader refs
+                    ctx.pool.incref([m.cow_src])
+                    mine.append(m.cow_src)
+                ctx.pool.incref(m.shared_pages)  # the slot's own reader refs
             shared = list(m.shared_pages)
-            fresh = self._paged_alloc(pg, min(pages_needed(req.prompt_len, hc, ps), pps)
-                                      - len(shared))
+            fresh = self._paged_alloc(ctx, min(pages_needed(req.prompt_len, hc, ps), pps)
+                                      - len(shared), req, exclude=fill_slots)
+            if fresh is None:  # unwind this fill, retry at a later sync point
+                if mine:
+                    ctx.pool.decref(mine)
+                if m.length:
+                    ctx.pool.decref(shared)
+                ctx.sched.requeue(s)
+                ctx.remaining[s] = ctx.seq_mirror[s] = 0
+                continue
+            transient.extend(mine)
             row = shared + fresh
             if m.cow_src >= 0 and fresh:
                 cow_src[s] = m.cow_src
@@ -426,61 +592,175 @@ class Engine:
             new_len[s] = m.length
             hot_src[s, : len(m.hot_pages)] = m.hot_pages
             new_table[s] = row + [0] * (pps - len(row))
-            pg.slot_pages[s] = row
-            pg.prefix_used[s] = m.length
-            pg.seq_mirror[s] = req.prompt_len
-            prefilling[s] = [req, m.length]  # only the prompt past the match streams
-        dev = self.device
-        args = [torch.as_tensor(a, device=dev)
-                for a in (reset, new_len, new_table, hot_src, cow_src, cow_dst)]
-        for cache in self._layers(state):
-            kv_cache.paged_admit(cache, *args)
-        r = args[0]
-        state.tok = torch.where(r, 0, state.tok)
-        state.allocated = state.allocated & ~r  # decodes after its last chunk
-        state.done = state.done & ~r
-        state.seq_len = torch.where(r, args[1], state.seq_len)
-        state.n_gen = torch.where(r, 0, state.n_gen)
-        state.out = torch.where(r[:, None], 0, state.out)
-        state.ledger = {k: torch.where(r, 0, v) for k, v in state.ledger.items()}
-        pg.host_table[:] = new_table
+            ctx.slot_pages[s] = row
+            ctx.prefix_used[s] = m.length
+            ctx.seq_mirror[s] = req.prompt_len
+            if req.orig_prompt_len is not None:
+                # a re-admission prefills again what an earlier attempt
+                # computed, less what the prefix tree kept
+                ctx.stats.recompute_tokens += req.prompt_len - m.length
+            ctx.prefilling[s] = [req, m.length]  # only the prompt past the match streams
+        admitted = bool(reset.any())
+        if admitted:
+            dev = self.device
+            args = [torch.as_tensor(a, device=dev)
+                    for a in (reset, new_len, new_table, hot_src, cow_src, cow_dst)]
+            for cache in self._layers(state):
+                kv_cache.paged_admit(cache, *args)
+            r = args[0]
+            state.tok = torch.where(r, 0, state.tok)
+            state.allocated = state.allocated & ~r  # decodes after its last chunk
+            state.done = state.done & ~r
+            state.seq_len = torch.where(r, args[1], state.seq_len)
+            state.n_gen = torch.where(r, 0, state.n_gen)
+            state.out = torch.where(r[:, None], 0, state.out)
+            state.ledger = {k: torch.where(r, 0, v) for k, v in state.ledger.items()}
+            ctx.host_table[:] = new_table
         if transient:
-            pg.pool.decref(transient)
+            ctx.pool.decref(transient)
+        return admitted
 
-    def _ensure_pages(self, state: DecodeState, pg: _PagedServe, sched: SlotScheduler,
-                      decoding: List[int], remaining: List[int], chunk: int) -> None:
+    def _ensure_pages(self, ctx: _ServeCtx, chunk: int) -> None:
         """Fund each decoding slot's cold growth for the next decode chunk
         (reference: ``_ensure_pages``): its pages must cover the furthest
         position the chunk can append, bounded by the host budget mirror
-        (no device read). Oldest requests first."""
+        (no device read). Strongest claims first, so under pressure the
+        weak are preempted before they ask; a slot whose own growth cannot
+        be funded preempts itself rather than stall the batch."""
         hc, ps = self.hot_cap, self._page_size
+        decoding = [s for s in ctx.sched.active_slots() if s not in ctx.prefilling]
         dirty = False
-        for s in sorted(decoding, key=lambda i: sched.slot_req[i].arrival):
-            target = min(pg.seq_mirror[s] + min(chunk, remaining[s]), self.max_len)
-            need = pages_needed(target, hc, ps) - len(pg.slot_pages[s])
+        for s in sorted(decoding, key=lambda i: ctx.sched.slot_req[i].claim):
+            req = ctx.sched.slot_req[s]
+            if req is None:  # preempted by a stronger claim this round
+                continue
+            target = min(ctx.seq_mirror[s] + min(chunk, ctx.remaining[s]), self.max_len)
+            need = pages_needed(target, hc, ps) - len(ctx.slot_pages[s])
             if need <= 0:
                 continue
-            pages = self._paged_alloc(pg, need)
-            k0 = len(pg.slot_pages[s])
-            pg.slot_pages[s].extend(pages)
-            pg.host_table[s, k0: k0 + len(pages)] = pages
+            pages = self._paged_alloc(ctx, need, req, exclude=(s,))
+            if pages is None:
+                self._preempt_slot(ctx, s)
+                continue
+            k0 = len(ctx.slot_pages[s])
+            ctx.slot_pages[s].extend(pages)
+            ctx.host_table[s, k0: k0 + len(pages)] = pages
+            ctx.stats.grown_pages += len(pages)
             dirty = True
         if dirty:
-            self._set_tables(state, pg.host_table)
+            self._set_tables(ctx.state, ctx.host_table)
 
-    def _record_prefix(self, state: DecodeState, pg: _PagedServe, s: int, req: Request) -> None:
+    def _record_prefix(self, ctx: _ServeCtx, s: int, req: Request) -> None:
         """Insert a fully prefilled prompt into the prefix tree (reference:
         ``_record_prefix``); its cold pages are adopted by reference, and
         ``save_hot`` snapshots the slot's hot tier only when the tree needs
         a new hot node."""
         def save(ids):
-            arr = np.full((max(pg.ptree.n_hot_pages, 1),), -1, np.int32)
+            arr = np.full((max(ctx.ptree.n_hot_pages, 1),), -1, np.int32)
             arr[: len(ids)] = ids
             page_ids = torch.as_tensor(arr, device=self.device)
-            for cache in self._layers(state):
+            for cache in self._layers(ctx.state):
                 kv_cache.save_hot(cache, s, page_ids)
 
-        pg.ptree.insert(np.asarray(req.tokens, np.int32), pg.host_table[s], save)
+        ctx.ptree.insert(np.asarray(req.tokens, np.int32), ctx.host_table[s], save)
+
+    # ------------------------------------------------------------------
+    # outcomes: finish / cancel / expire / reject
+    # ------------------------------------------------------------------
+    def cancel(self, rid: int) -> None:
+        """Cancel request ``rid`` at the next sync point of the running
+        session: an active slot retires (its tokens so far surface with
+        outcome ``cancelled``), its pages return and its device row is
+        released; a queued request is dropped without running. Unknown or
+        finished rids are no-ops."""
+        self._cancel_requested.add(rid)
+
+    def _terminal_outcome(self, req: Request, now: float) -> Optional[str]:
+        if req.rid in self._cancel_requested:
+            self._cancel_requested.discard(req.rid)
+            return "cancelled"
+        if req.deadline is not None and now >= req.deadline:
+            return "expired"
+        return None
+
+    def _build_finished(self, req: Request, out_row: np.ndarray, seq_len: int,
+                        decode_ledger: Dict[str, int], prefilled_len: int, prefix_used: int,
+                        outcome: str, token_bytes: int) -> FinishedRequest:
+        """The request's record from one slot's harvest (reference:
+        ``_build_finished``). The prompt ledger leaves out the
+        ``prefix_used`` tokens restored from the prefix tree (and charges
+        the reload of their hot part). A preempted request's earlier
+        tokens are stitched back in front of this attempt's, the ORIGINAL
+        prompt length is reported, and the ledger adds every earlier
+        attempt's work (``carry_traffic``)."""
+        traffic = {k: int(decode_ledger[k]) * token_bytes for k in TRAFFIC_KEYS}
+        if prefilled_len:
+            prompt = kv_cache.prompt_traffic_tokens_resumed(
+                prefilled_len, min(prefix_used, prefilled_len), self.hot_cap)
+            for k in TRAFFIC_KEYS:
+                traffic[k] += prompt[k] * token_bytes
+        if req.carry_traffic:
+            for k in TRAFFIC_KEYS:
+                traffic[k] += req.carry_traffic[k]
+        if req.orig_prompt_len is not None:
+            prior = np.asarray(req.tokens, np.int32)[req.orig_prompt_len:]
+            tokens, prompt_len = np.concatenate([prior, out_row]), req.orig_prompt_len
+        else:
+            tokens, prompt_len = out_row, req.prompt_len
+        return FinishedRequest(rid=req.rid, prompt_len=prompt_len, tokens=tokens,
+                               seq_len=seq_len, steps=len(tokens), traffic=traffic,
+                               prefix_tokens_reused=prefix_used + req.carry_reused,
+                               outcome=outcome, n_preemptions=req.n_preemptions)
+
+    def _finish_queued(self, req: Request, outcome: str) -> FinishedRequest:
+        """Terminal record of a request that holds no slot at its end."""
+        return terminal_record(req, outcome)
+
+    def _cancel_slot(self, ctx: _ServeCtx, s: int, outcome: str) -> None:
+        """End an active slot mid-flight (cancel / deadline): harvest what
+        it emitted, retire it, return its pages, release its device row."""
+        req = ctx.sched.retire(s)
+        st = ctx.state
+        if s in ctx.prefilling:
+            off = ctx.prefilling.pop(s)[1]
+            fin = self._build_finished(req, np.zeros((0,), np.int32), off,
+                                       {k: 0 for k in TRAFFIC_KEYS}, off, ctx.prefix_used[s],
+                                       outcome, ctx.token_bytes)
+        else:
+            n_gen = int(st.n_gen[s])
+            fin = self._build_finished(
+                req, st.out[s, :n_gen].cpu().numpy().astype(np.int32), int(st.seq_len[s]),
+                {k: int(st.ledger[k][s]) for k in TRAFFIC_KEYS}, req.prompt_len,
+                ctx.prefix_used[s], outcome, ctx.token_bytes)
+        ctx.finished.append(fin)
+        if ctx.slot_pages[s]:
+            ctx.pool.decref(ctx.slot_pages[s])
+            ctx.slot_pages[s] = []
+        ctx.prefix_used[s] = ctx.remaining[s] = ctx.seq_mirror[s] = 0
+        self._release_slot_state(st, s, truncate=ctx.chunked)
+
+    def _sweep_cancel_expire(self, ctx: _ServeCtx) -> int:
+        """Apply cancellations and deadlines at a sync point, to queued and
+        active requests alike; returns how many ended (progress, for the
+        stall guard)."""
+        now = self._clock()
+        events = 0
+        for req in list(ctx.sched.queue):
+            outcome = self._terminal_outcome(req, now)
+            if outcome:
+                ctx.sched.drop(req)
+                ctx.finished.append(self._finish_queued(req, outcome))
+                setattr(ctx.stats, outcome, getattr(ctx.stats, outcome) + 1)
+                events += 1
+        for s, req in enumerate(ctx.sched.slot_req):
+            if req is None:
+                continue
+            outcome = self._terminal_outcome(req, now)
+            if outcome:
+                self._cancel_slot(ctx, s, outcome)
+                setattr(ctx.stats, outcome, getattr(ctx.stats, outcome) + 1)
+                events += 1
+        return events
 
     def _validate_request(self, r: Request, n_slots: int) -> None:
         if r.prompt_len == 0:
@@ -489,114 +769,181 @@ class Engine:
             raise ValueError(f"request {r.rid}: prompt {r.prompt_len} + max_new "
                              f"{r.max_new_tokens} exceeds max_len {self.max_len}")
         if self.paged:
-            # a request whose peak page set cannot fit the pool alone can
-            # never be served
+            # feasibility, not headroom: with lazy growth and preemption a
+            # request whose peak page set fits the pool completes (the
+            # strongest claim can reclaim every other page); one that
+            # cannot fit alone never can
             peak = pages_needed(min(r.prompt_len + r.max_new_tokens, self.max_len),
                                 self.hot_cap, self._page_size)
             if peak > self._pool_pages(n_slots):
                 raise ValueError(f"request {r.rid}: needs {peak} cold pages at its peak but "
-                                 f"the pool holds {self._pool_pages(n_slots)}; raise n_pages")
-
-    def _build_finished(self, req: Request, out_row: np.ndarray, seq_len: int,
-                        decode_ledger: Dict[str, int], token_bytes: int,
-                        prefix_used: int = 0) -> FinishedRequest:
-        """The request's record; its prompt ledger leaves out the
-        ``prefix_used`` tokens restored from the prefix tree (and charges
-        the reload of their hot part)."""
-        prompt = kv_cache.prompt_traffic_tokens_resumed(
-            req.prompt_len, min(prefix_used, req.prompt_len), self.hot_cap)
-        traffic = {k: (int(decode_ledger[k]) + prompt[k]) * token_bytes for k in TRAFFIC_KEYS}
-        return FinishedRequest(rid=req.rid, prompt_len=req.prompt_len, tokens=out_row,
-                               seq_len=seq_len, steps=len(out_row), traffic=traffic,
-                               prefix_tokens_reused=prefix_used)
+                                 f"the pool holds {self._pool_pages(n_slots)}: unservable "
+                                 "even with every other slot preempted; raise n_pages")
 
     # ------------------------------------------------------------------
+    # the serving loop, as a resumable session
+    # ------------------------------------------------------------------
     @torch.inference_mode()
-    def serve(self, requests: Sequence[Request], slots: Optional[int] = None,
-              stop_token: Optional[int] = None,
-              sync_every: Optional[int] = None) -> List[FinishedRequest]:
-        """Serve ``requests`` through continuous batching; one
-        ``FinishedRequest`` per request, in completion order."""
+    def start_session(self, requests: Sequence[Request], slots: Optional[int] = None,
+                      stop_token: Optional[int] = None, sync_every: Optional[int] = None,
+                      max_queue: Optional[int] = None,
+                      on_iteration: Optional[Callable[[_ServeCtx], None]] = None) -> _ServeCtx:
+        """Validate ``requests`` and build the session that ``run_iteration``
+        advances (reference: ``start_session``); a request the bounded queue
+        sheds ends at once as ``rejected``."""
         n_slots = slots or self.slots
-        chunk = sync_every or self.sync_every
         for r in requests:
             self._validate_request(r, n_slots)
-        out_cap = self.max_len  # fixed: any budget fits, no per-batch shapes
-        sched = SlotScheduler(n_slots)
-        for r in requests:
-            sched.submit(r)
-        state = self._init_state(n_slots, out_cap)
-        token_bytes = self._kv_token_bytes()
-        remaining = [0] * n_slots  # host mirror of each slot's budget (no sync)
+        # a new session owes nothing to the rids of earlier ones
+        self._cancel_requested.clear()
+        sched = SlotScheduler(n_slots, max_queue=self.max_queue if max_queue is None
+                              else max_queue)
+        stats = ServeStats()
         finished: List[FinishedRequest] = []
-        chunked = self.prefill_chunk > 0 and self._chunked_capable()
-        prefilling: Dict[int, list] = {}  # slot -> [request, next prompt offset]
-        pg = None
+        for r in requests:
+            if not sched.submit(r):
+                stats.rejected += 1
+                finished.append(self._finish_queued(r, "rejected"))
+        out_cap = self.max_len  # fixed: any budget fits, no per-batch shapes
+        ctx = _ServeCtx(
+            state=self._init_state(n_slots, out_cap), sched=sched, finished=finished,
+            stats=stats, token_bytes=self._kv_token_bytes(),
+            chunked=self.prefill_chunk > 0 and self._chunked_capable(),
+            remaining=[0] * n_slots, seq_mirror=[0] * n_slots, prefix_used=[0] * n_slots,
+            prefilling={}, slot_pages=[[] for _ in range(n_slots)], out_cap=out_cap,
+            stop_token=stop_token, chunk=sync_every or self.sync_every, on_iteration=on_iteration, monitor=StragglerMonitor(window=16, factor=4.0),
+        )
         if self.paged:
-            pool = PagePool(self._pool_pages(n_slots))
-            pg = _PagedServe(pool=pool, ptree=PrefixCache(pool, self.hot_cap, self._page_size),
-                             host_table=np.zeros((n_slots, self._pps), np.int32),
-                             slot_pages=[[] for _ in range(n_slots)],
-                             prefix_used=[0] * n_slots, seq_mirror=[0] * n_slots)
-            self._last_pool, self._last_ptree = pg.pool, pg.ptree
-        on_last = None
-        if self.prefix_sharing:
-            on_last = lambda s, req: self._record_prefix(state, pg, s, req)  # noqa: E731
-        while not sched.idle():
-            if chunked:
-                fills = sched.next_fills()
+            ctx.pool = PagePool(self._pool_pages(n_slots))
+            ctx.ptree = PrefixCache(ctx.pool, self.hot_cap, self._page_size)
+            ctx.host_table = np.zeros((n_slots, self._pps), np.int32)
+            self._last_pool, self._last_ptree = ctx.pool, ctx.ptree
+        self._last_ctx = ctx
+        return ctx
+
+    def submit_to_session(self, ctx: _ServeCtx, req: Request) -> bool:
+        """Admit ``req`` into a live session: the same validation, and
+        False when the bounded queue sheds it (the caller owns its end)."""
+        self._validate_request(req, len(ctx.sched.slot_req))
+        return ctx.sched.submit(req)
+
+    @torch.inference_mode()
+    def run_iteration(self, ctx: _ServeCtx) -> bool:
+        """One serving-loop iteration (reference: ``run_iteration``): sweep
+        cancellations and deadlines, admit into free slots, fund page
+        growth (which may preempt), run one decode chunk, harvest finished
+        slots, run the hook, count the stall guard. True when it made
+        progress. Call only while ``not ctx.sched.idle()``."""
+        t0 = time.perf_counter()
+        sched, chunk, state = ctx.sched, ctx.chunk, ctx.state
+        n_slots = len(sched.slot_req)
+        progress = self._sweep_cancel_expire(ctx) > 0
+        if ctx.chunked:
+            fills = sched.next_fills()
+            for s, req in fills:
+                ctx.remaining[s] = req.max_new_tokens
+            if self.paged and fills:
+                progress |= self._admit_paged(ctx, fills)
+            elif fills:
                 for s, req in fills:
-                    remaining[s] = req.max_new_tokens
-                if pg is not None and fills:
-                    self._admit_paged(state, pg, fills, prefilling)
-                else:
-                    for s, req in fills:
-                        prefilling[s] = [req, 0]
-                self._stream_chunks(state, n_slots, prefilling, max_waves=chunk,
-                                    on_last=on_last)
-            else:
-                while True:
-                    slots_idx, group = sched.next_group()
-                    if not group:
-                        break
-                    self._admit(state, slots_idx, group)
-                    for s, req in zip(slots_idx, group):
-                        remaining[s] = req.max_new_tokens
-            # slots still mid-prefill ride through the decode steps inactive:
-            # they neither bound the step count nor burn budget
-            decoding = [s for s in sched.active_slots() if s not in prefilling]
-            if pg is not None:
-                self._ensure_pages(state, pg, sched, decoding, remaining, chunk)
-            budgets = [remaining[s] for s in decoding if remaining[s] > 0]
-            n_steps = min([chunk] + budgets) if budgets else 0
-            for _ in range(n_steps):
-                self._step(state, out_cap, stop_token)
-            for s in decoding:
-                remaining[s] = max(remaining[s] - n_steps, 0)
-                if pg is not None:
-                    pg.seq_mirror[s] = min(pg.seq_mirror[s] + n_steps, self.max_len)
-            # sync point: only the small done mask crosses to the host
-            done = state.done.cpu().numpy()
-            ripe = [s for s in decoding if done[s]]
-            if not ripe:
-                continue
+                    ctx.prefilling[s] = [req, 0]
+                    ctx.seq_mirror[s] = req.prompt_len
+                progress = True
+            on_last = None
+            if self.prefix_sharing:
+                on_last = lambda s, req: self._record_prefix(ctx, s, req)  # noqa: E731
+            progress |= bool(ctx.prefilling)
+            self._stream_chunks(state, n_slots, ctx.prefilling, max_waves=chunk,
+                                on_last=on_last)
+        else:
+            while True:
+                slots_idx, group = sched.next_group()
+                if not group:
+                    break
+                self._admit(state, slots_idx, group)
+                for s, req in zip(slots_idx, group):
+                    ctx.remaining[s] = req.max_new_tokens
+                    ctx.seq_mirror[s] = req.prompt_len
+                progress = True
+        if self.paged:
+            self._ensure_pages(ctx, chunk)
+        # slots still mid-prefill ride through the decode steps inactive:
+        # they neither bound the step count nor burn budget
+        decoding = [s for s in sched.active_slots() if s not in ctx.prefilling]
+        budgets = [ctx.remaining[s] for s in decoding if ctx.remaining[s] > 0]
+        n_steps = min([chunk] + budgets) if budgets else 0
+        for _ in range(n_steps):
+            self._step(state, ctx.out_cap, ctx.stop_token)
+        for s in decoding:
+            ctx.remaining[s] = max(ctx.remaining[s] - n_steps, 0)
+            ctx.seq_mirror[s] = min(ctx.seq_mirror[s] + n_steps, self.max_len)
+        progress |= n_steps > 0
+        # sync point: only the small done mask crosses to the host
+        done = state.done.cpu().numpy()
+        ripe = [s for s in decoding if done[s]]
+        if ripe:
+            progress = True
             n_gen = state.n_gen.cpu().numpy()
             seq_len = state.seq_len.cpu().numpy()
             out = state.out.cpu().numpy()
             ledger = {k: state.ledger[k].cpu().numpy() for k in TRAFFIC_KEYS}
             for s in ripe:
                 req = sched.retire(s)
-                finished.append(self._build_finished(
+                ctx.finished.append(self._build_finished(
                     req, out[s, : n_gen[s]].copy(), int(seq_len[s]),
-                    {k: ledger[k][s] for k in TRAFFIC_KEYS}, token_bytes,
-                    pg.prefix_used[s] if pg is not None else 0))
-                remaining[s] = 0
-                if pg is not None:  # pages free when their last reader leaves
-                    pg.pool.decref(pg.slot_pages[s])
-                    pg.slot_pages[s] = []
-                    pg.prefix_used[s] = pg.seq_mirror[s] = 0
+                    {k: ledger[k][s] for k in TRAFFIC_KEYS}, req.prompt_len,
+                    ctx.prefix_used[s], "finished", ctx.token_bytes))
+                self._cancel_requested.discard(req.rid)
+                ctx.prefix_used[s] = ctx.remaining[s] = ctx.seq_mirror[s] = 0
+                if self.paged:  # pages free when their last reader leaves
+                    ctx.pool.decref(ctx.slot_pages[s])
+                    ctx.slot_pages[s] = []
             state.allocated[torch.as_tensor(ripe, device=self.device)] = False
-        return finished
+        # the hook sees the 0-based index of the iteration just completed
+        if ctx.on_iteration is not None:
+            ctx.on_iteration(ctx)
+        ctx.stats.iterations += 1
+        ctx.iteration += 1
+        # time a hook spends (a chaos straggler's sleep) counts on purpose
+        ctx.monitor.record(ctx.iteration - 1, time.perf_counter() - t0)
+        ctx.stall = 0 if progress else ctx.stall + 1
+        if ctx.stall >= _STALL_LIMIT and not sched.idle():
+            head = min(sched.queue, key=lambda r: r.claim) if sched.queue else None
+            raise PagePoolError(
+                f"page pool exhausted and unreclaimable: {len(sched.queue)} queued (head "
+                f"rid={getattr(head, 'rid', None)}), {ctx.pool.available() if ctx.pool else 0} "
+                f"pages free of {ctx.pool.n_pages if ctx.pool else 0}; raise n_pages")
+        return progress
+
+    def finish_session(self, ctx: _ServeCtx) -> List[FinishedRequest]:
+        """Seal a session: summarize its iteration times into its
+        ``ServeStats``, publish them as ``last_stats`` and return its
+        terminal records."""
+        if ctx.monitor.times:
+            ctx.stats.iter_p50 = float(np.median(ctx.monitor.times))
+            ctx.stats.iter_max = float(max(ctx.monitor.times))
+            ctx.stats.straggler_flags = len(ctx.monitor.flagged)
+        self.last_stats = ctx.stats
+        return ctx.finished
+
+    def serve(self, requests: Sequence[Request], slots: Optional[int] = None,
+              stop_token: Optional[int] = None, sync_every: Optional[int] = None,
+              max_queue: Optional[int] = None,
+              on_iteration: Optional[Callable[[_ServeCtx], None]] = None
+              ) -> List[FinishedRequest]:
+        """Serve ``requests`` through continuous batching: one terminal
+        ``FinishedRequest`` per request, in completion order, its
+        ``outcome`` telling completion from cancellation, expiry and
+        shedding. Under paged serving page pressure degrades (eviction,
+        then preemption with recompute-from-prefix) instead of failing;
+        ``max_queue`` bounds the admission queue and ``on_iteration(ctx)``
+        runs after every loop iteration."""
+        ctx = self.start_session(requests, slots=slots, stop_token=stop_token,
+                                 sync_every=sync_every, max_queue=max_queue,
+                                 on_iteration=on_iteration)
+        while not ctx.sched.idle():
+            self.run_iteration(ctx)
+        return self.finish_session(ctx)
 
     def generate(self, prompts, max_new_tokens: int = 32,
                  stop_token: Optional[int] = None) -> GenerationResult:

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import kv_cache as kvc
 from repro_torch.core.kv_cache import NEG_INF
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import flash_prefill as fp
 from repro_torch.models.layers import apply_rope, rope_cos_sin
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -207,8 +208,9 @@ def test_post_append_plain_skips_rows_past_length():
 
 def test_fused_form_is_post_append_form_after_the_append():
     """The fused form over the pre-append cache and the post-append form
-    over the cache after the append see the same keys; they fold the new
-    token in another order, so they agree to TOL, not bit for bit."""
+    over the cache after the append (f32 tiers, so the appended key is the
+    fused form's rotated k) see the same keys in the same absolute tiles,
+    the pending token at its position: they agree bit for bit."""
     lens = [0, 3, 31, 40]
     cache, _ = _build(lens, 8, 56, seed=9)
     rng = np.random.default_rng(10)
@@ -217,7 +219,68 @@ def test_fused_form_is_post_append_form_after_the_append():
     o, k_rot = fd.flash_decode_attention(q, cache, k_new=kn, v_new=vn, rope_theta=THETA)
     q_rot = apply_rope(q[:, None], cache.lengths.long()[:, None], THETA)[:, 0]
     kvc.append_decode(cache, k_rot, vn)
-    np.testing.assert_allclose(fd.flash_decode_attention(q_rot, cache).numpy(), o.numpy(), **TOL)
+    assert torch.equal(fd.flash_decode_attention(q_rot, cache), o)
+
+
+def _paged_copy(cache, ps, seed):
+    """The contiguous cache's content over a paged cold tier of page size
+    ``ps``, its pages shuffled through a random permutation."""
+    b, cold = cache.lengths.shape[0], cache.cold_cap
+    pps = -(-cold // ps)
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(b * pps), dtype=torch.int32)
+    pools = []
+    for src in (cache.cold_k, cache.cold_v):
+        full = torch.cat([src, src.new_zeros((b, pps * ps - cold) + src.shape[2:])], 1)
+        pool = torch.empty_like(full.reshape((b * pps, ps) + src.shape[2:]))
+        pool[perm.long()] = full.reshape(pool.shape)  # logical page p at pool page perm[p]
+        pools.append(pool)
+    table = perm.reshape(b, pps)
+    return kvc.PagedKVCache(cache.hot_k, cache.hot_v, *pools, table, cache.lengths)
+
+
+DP_LENGTHS = [1, 31, 32, 33, 40, 63, 80, 127]
+
+
+@pytest.mark.parametrize("tier", ["f32", "fp8"])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("hot", [4, 32])
+def test_decode_row_equals_prefill_row_bit_for_bit(hot, paged, tier):
+    """Recompute-from-prefix needs a decoded row to equal the prefill's row
+    at its position. Both fold absolute 32-key tiles, the pending token at
+    lane p % 32 of tile p // 32, so at falcon3-1b's heads (h 8, g 4, d 256),
+    at lengths across tile edges, hot 4 (tiles straddling the tiers) and 32,
+    contiguous and paged (page size 32, shuffled), f32 and fp8 tiers: the
+    fused decode equals the one-row chunk prefill over the same cache bit
+    for bit; with f32 tiers also the fresh prefill's row p (the cache made
+    from that prefill's own emit) and the post-append decode after the
+    append. Inactive slots equal the chunk form with valid 0."""
+    b, h, g, d, cold = len(DP_LENGTHS), 8, 4, 256, 128 - hot
+    rng = np.random.default_rng(hot + 2 * paged)
+    seq = [torch.from_numpy(rng.standard_normal((b, 128, n, d)).astype(np.float32))
+           for n in (h, g, g)]  # q, k, v of every position, unrotated
+    fresh, k_cast, v_cast = fp.flash_prefill_attention(*seq, rope_theta=THETA)
+    cache = kvc.init_cache(b, hot, cold, (g, d))
+    lens = torch.tensor(DP_LENGTHS, dtype=torch.int32)
+    kvc.fill_fresh(cache, k_cast, v_cast)
+    cache.lengths.copy_(lens)  # rows past each length stay, masked
+    if tier == "fp8":
+        cache = kvc.TieredKVCache(*(kvc.to_tier(t, kvc.FP8) for t in cache[:4]), cache.lengths)
+    if paged:
+        cache = _paged_copy(cache, 32, seed=hot)
+    slots = torch.arange(b)
+    q, kn, vn = (t[slots, lens.long()] for t in seq)  # each slot's row at its length
+    act = torch.tensor([i % 4 != 3 for i in range(b)])
+    o, k_rot = fd.flash_decode_attention(q, cache, k_new=kn, v_new=vn, active=act,
+                                         rope_theta=THETA)
+    chunk, k_c, _ = fp.flash_prefill_attention(q[:, None], kn[:, None], vn[:, None], cache,
+                                               act.int(), rope_theta=THETA)
+    assert torch.equal(o, chunk[:, 0]) and torch.isfinite(o).all()
+    assert torch.equal(kvc.raw(kvc.to_tier(k_rot, k_c.dtype))[act], kvc.raw(k_c[:, 0])[act])
+    if tier == "f32":
+        assert torch.equal(o[act], fresh[slots, lens.long()][act])
+        q_rot = apply_rope(q[:, None], lens.long()[:, None], THETA)[:, 0]
+        kvc.append_decode(cache, k_rot, vn, active=act)
+        assert torch.equal(fd.flash_decode_attention(q_rot, cache)[act], o[act])
 
 
 # ---------------------------------------------------------------------------
@@ -262,12 +325,14 @@ def _lane_rope(x, cos, sin):
 def _decode_schedule_model(q, cache, scale, k_new=None, v_new=None, active=None, theta=None):
     """The kernel's schedule, block by block: for each (value-dim slice,
     kv group, slot) the rotated rows (``_lane_rope``), then per chunk of
-    KERNEL_CHUNK tiles of the valid rows (hot tier, then cold tier) every
-    logit in the lane dot order, then per tile and head m_new, alpha, p and
-    l, then P.V: the thread of value dim dv and part c holds keys j = c +
-    SPLIT u, sums their products as a halving tree over u, and the SPLIT
-    parts by an xor butterfly. The pending token (fused form, active slots)
-    comes last as a one-key tile. Returns o, or (o, k_rot) with k_new."""
+    KERNEL_CHUNK absolute tiles of the slot's keys (positions 32 i .. 32 i
+    + 31: hot rows below hot_cap, cold rows above, so a tile may hold both;
+    the pending token of an active slot of the fused form at position
+    ``length``, in the last tile) every logit in the lane dot order, then
+    per tile and head m_new, alpha, p and l, then P.V: the thread of value
+    dim dv and part c holds keys j = c + SPLIT u, sums their products as a
+    halving tree over u, and the SPLIT parts by an xor butterfly. Returns
+    o, or (o, k_rot) with k_new."""
     b, h, d = q.shape
     g = cache.hot_k.shape[2]
     rep, dvs = h // g, _slice_dims(d)
@@ -275,12 +340,9 @@ def _decode_schedule_model(q, cache, scale, k_new=None, v_new=None, active=None,
     out = torch.zeros(b, h, d)
     k_rot = torch.zeros(b, g, d)
     for s, length in enumerate(cache.lengths.tolist()):
-        n_hot = min(length, cache.hot_cap)
-        n_cold = min(max(length - cache.hot_cap, 0), cache.cold_cap)
-        tiles = ([(cache.hot_k[s, i: min(i + 32, n_hot)], cache.hot_v[s, i: min(i + 32, n_hot)])
-                  for i in range(0, n_hot, 32)]
-                 + [(cache.cold_k[s, i: min(i + 32, n_cold)],
-                     cache.cold_v[s, i: min(i + 32, n_cold)]) for i in range(0, n_cold, 32)])
+        n_tier = min(length, cache.hot_cap + cache.cold_cap)
+        n_hot = min(n_tier, cache.hot_cap)
+        pend = k_new is not None and (active is None or bool(active[s]))
         for gi in range(g):
             heads = slice(gi * rep, (gi + 1) * rep)
             qg = q[s, heads].float()
@@ -288,29 +350,27 @@ def _decode_schedule_model(q, cache, scale, k_new=None, v_new=None, active=None,
                 cos, sin = rope_cos_sin(cache.lengths[s:s + 1].long(), d, theta)
                 qg = _lane_rope(qg, cos, sin)
                 k_rot[s, gi] = _lane_rope(k_new[s, gi].float()[None], cos, sin)[0]
+            keys = torch.cat([cache.hot_k[s, :n_hot, gi], cache.cold_k[s, :n_tier - n_hot, gi]]
+                             + ([k_rot[s, gi][None]] if pend else [])).float()
+            vals = torch.cat([cache.hot_v[s, :n_hot, gi], cache.cold_v[s, :n_tier - n_hot, gi]]
+                             + ([v_new[s, gi][None]] if pend else [])).float()
+            tiles = [(keys[i: i + 32], vals[i: i + 32]) for i in range(0, keys.shape[0], 32)]
             for d0 in range(0, d, dvs):
                 dims = slice(d0, d0 + dvs)
                 m, l, acc = torch.full((rep,), NEG_INF), torch.zeros(rep), torch.zeros(rep, dvs)
                 for c0 in range(0, len(tiles), KERNEL_CHUNK):
                     chunk = tiles[c0: c0 + KERNEL_CHUNK]
-                    logits = [_lane_dot(qg[:, None] * kt[:, gi].float()[None]) * scale
-                              for kt, _ in chunk]
+                    logits = [_lane_dot(qg[:, None] * kt[None]) * scale for kt, _ in chunk]
                     for (_, vt), lg in zip(chunk, logits):
                         n = vt.shape[0]
                         m_new = torch.maximum(m, lg.amax(-1))
                         alpha = torch.exp(m - m_new)
                         p, v = torch.zeros(rep, 32), torch.zeros(32, dvs)
-                        p[:, :n], v[:n] = torch.exp(lg - m_new[:, None]), vt[:, gi, dims].float()
+                        p[:, :n], v[:n] = torch.exp(lg - m_new[:, None]), vt[:, dims]
                         l = l * alpha + fd.tree_sum(p, -1)
                         parts = (p[:, :, None] * v[None]).reshape(rep, 32 // split, split, dvs)
                         acc = acc * alpha[:, None] + fd.tree_sum(fd.tree_sum(parts, 1), 1)
                         m = m_new
-                if k_new is not None and (active is None or bool(active[s])):
-                    lg = _lane_dot(qg * k_rot[s, gi][None]) * scale
-                    m_new = torch.maximum(m, lg)
-                    alpha, p = torch.exp(m - m_new), torch.exp(lg - m_new)
-                    l = l * alpha + p
-                    acc = acc * alpha[:, None] + p[:, None] * v_new[s, gi, dims].float()[None]
                 out[s, heads, dims] = acc / torch.clamp(l, min=1e-30)[:, None]
     if k_new is None:
         return out.to(q.dtype)
@@ -360,12 +420,13 @@ def test_lane_local_rope_equals_apply_rope(d, seed):
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("d", [16, 32, 64, 256])
 def test_gqa_decode_schedule_model_bit_identical_to_plain(d, rep, form):
-    """The kernel's schedule (value-dim slices, logits of a chunk first in
-    the lane dot order, per-head max / alpha / p, the P.V tile tree split
-    over SPLIT threads, the pending token last) gives the unchanged plain
-    version's output bit for bit: slots at lengths 0, 1, 31, 32, 33, the
-    hot / cold edge (a partial hot tile before the cold tiles) and 127, NaN
-    past each length, inactive slots and a q row of -0.0."""
+    """The kernel's schedule (value-dim slices, absolute tiles, logits of a
+    chunk first in the lane dot order, per-head max / alpha / p, the P.V
+    tile tree split over SPLIT threads, the pending token inside its tile)
+    gives the plain version's output bit for bit: slots at lengths 0, 1,
+    31, 32, 33, the hot / cold edge (hot 40: a tile holding hot and cold
+    rows) and 127, NaN past each length, inactive slots and a q row of
+    -0.0."""
     lens, g = [0, 1, 31, 32, 33, 40, 41, 127], 2
     cache = _poisoned_cache(lens, 40, 88, g, d, seed=d + rep)
     q, kn, vn, act = _decode_inputs(len(lens), rep, g, d, seed=d * rep)

@@ -711,17 +711,31 @@ def test_paged_engine_validates_construction(models):
         eng.serve([Request(0, np.zeros((0,), np.int32), 4)], slots=1)
 
 
-def test_page_pool_exhaustion_raises_where_the_reference_preempts(models):
+def test_page_pool_exhaustion_raises_where_the_reference_preempts(jref, models):
     """A pool that fits each request alone but not both at once: where the
-    reference would preempt the weaker slot, the port raises (overload
-    control is not ported) rather than serve a wrong answer."""
+    port raised, it now degrades as the reference does (overload control,
+    ``serving/engine.py``): the fill the pool cannot fund goes back to the
+    queue and is admitted once the first request's pages return. Both
+    requests finish with the reference engine's tokens, counters and
+    ledgers, and the pool ends with only the tree's pages held."""
     m = models
     v = m.cfg.vocab_size
-    eng = Engine(m.cfg, m.params, hot_cap=4, max_len=64, prefill_chunk=4, paged=True,
-                 page_size=8, n_pages=5, device="cpu")
-    reqs = [Request(0, _prompt(1, 30, v), 4), Request(1, _prompt(2, 30, v), 4)]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.serve(reqs, slots=2)
+    kw = dict(hot_cap=4, max_len=64, prefill_chunk=4, paged=True, page_size=8, n_pages=5)
+    specs = [(0, _prompt(1, 30, v), 4), (1, _prompt(2, 30, v), 4)]
+    eng = Engine(m.cfg, m.params, device="cpu", **kw)
+    fin = {f.rid: f for f in eng.serve(_reqs(specs), slots=2)}
+    jeng = jref.engine.Engine(m.jcfg, m.jpacked, **kw)
+    want = {f.rid: f for f in jeng.serve(_reqs(specs, jref.sched.Request), slots=2)}
+    for k in ("preemptions", "recompute_tokens", "grown_pages", "iterations"):
+        assert getattr(eng.last_stats, k) == getattr(jeng.last_stats, k)
+    for rid, _, n in specs:
+        f, w = fin[rid], want[rid]
+        np.testing.assert_array_equal(f.tokens, w.tokens)
+        assert (f.outcome, f.n_preemptions, f.traffic, f.prefix_tokens_reused) == (
+            w.outcome, w.n_preemptions, w.traffic, w.prefix_tokens_reused)
+        assert f.outcome == "finished" and len(f.tokens) == n
+    assert eng._last_pool.available() == eng._last_pool.n_pages - len(
+        eng._last_ptree.tree_pages())
 
 
 # ---------------------------------------------------------------------------

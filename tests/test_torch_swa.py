@@ -251,9 +251,14 @@ def test_fused_ring_decode_matches_reference(jref, impl, hot, cold, lens, active
 
 
 def test_fused_ring_decode_masks_only_the_evictee():
-    """The ring form equals the contiguous fused form with the evictee's
-    row made invalid, and differs from it where a wrapped active slot
-    would otherwise read the position that has left its window."""
+    """The ring form masks only the evictee: with no pending token (no
+    slot active) it folds the contiguous fused form's tiles bit for bit
+    (hot 0, so the ring rows are the absolute tiles), and with one it
+    differs from that form where a wrapped active slot would otherwise read
+    the position that has left its window, and equals the f64 softmax over
+    the ring rows but the evictee, then the pending token. (With a pending
+    token the ring form folds it as its own tile, the contiguous form
+    inside its absolute tile.)"""
     b, h, g, d, cold = 3, 4, 2, 16, 8
     tc = kvc.init_cache(b, 0, cold, (g, d))
     for t in range(11):
@@ -264,9 +269,15 @@ def test_fused_ring_decode_masks_only_the_evictee():
                                                 _rand(3, b, g, d)))
     ev = fd.ring_evictee(tc, None)
     assert ev.tolist() == [11 % cold, 0, -1]  # wrapped slots only
+    idle = torch.zeros(b, dtype=torch.bool)
+    o_ring, _ = fd.flash_decode_attention_ring(q, tc, k_new=kn, v_new=vn, active=idle,
+                                               rope_theta=THETA)
+    o_flat, _ = fd.flash_decode_attention(q, tc, k_new=kn, v_new=vn, active=idle,
+                                          rope_theta=THETA)
+    assert torch.equal(o_ring, o_flat)
     o_ring, _ = fd.flash_decode_attention_ring(q, tc, k_new=kn, v_new=vn, rope_theta=THETA)
     o_flat, _ = fd.flash_decode_attention(q, tc, k_new=kn, v_new=vn, rope_theta=THETA)
-    assert torch.equal(o_ring[2], o_flat[2]) and not torch.equal(o_ring[0], o_flat[0])
+    assert not torch.equal(o_ring[0], o_flat[0])
     # oracle in f64: softmax over the ring rows but the evictee, then the
     # pending token, all rotated at the slot's length
     pos = tc.lengths.long()[:, None]
