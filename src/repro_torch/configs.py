@@ -3,7 +3,8 @@
 ``repro/configs/mixtral_8x22b.py``).
 
 A copy of the fields the ported paths read — the dense family (falcon3-1b:
-untied, SwiGLU, full GQA attention), the MoE family with MLA attention
+untied, SwiGLU, full GQA attention; its speculative draft falcon3-draft,
+tied embeddings), the MoE family with MLA attention
 (deepseek-v3-671b: latent KV cache, shared + routed experts) and the MoE
 family with sliding-window GQA attention (mixtral-8x22b: a ring-buffer
 cold tier of ``swa_window`` rows, no hot tier) — so the port imports
@@ -81,6 +82,7 @@ class ModelConfig:
     rope_theta: float = 1_000_000.0
     norm_eps: float = 1e-6
     decode_headroom: int = 128
+    tie_embeddings: bool = False  # the lm_head is embed.T (no lm_head leaf)
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     bitnet: BitNetConfig = field(default_factory=BitNetConfig)
@@ -141,6 +143,26 @@ FALCON3_1B = ModelConfig(
     source="hf:tiiuae/Falcon3-1B-Instruct; hf",
 )
 
+# falcon3-draft — the draft model of speculative serving
+# (``serving/engine.py``, ``spec_k > 0``): 4 ternary layers on falcon3-1b's
+# vocabulary, the only hard coupling between draft and target, with tied
+# embeddings and no LoRA (reference: ``configs/falcon3_1b.py::DRAFT``)
+FALCON3_DRAFT = ModelConfig(
+    name="falcon3-draft",
+    family="dense",
+    n_layers=4,
+    d_model=1024,
+    n_heads=8,
+    n_kv_heads=4,
+    head_dim=128,
+    d_ff=4096,
+    vocab_size=131072,
+    rope_theta=1_000_042.0,
+    tie_embeddings=True,
+    bitnet=BitNetConfig(),
+    source="derived; speculative draft for falcon3-1b",
+)
+
 # deepseek-v3-671b — MLA, 1 shared + 256 routed top-8 experts, 3 leading
 # dense layers (FFN 18432) [arXiv:2412.19437; hf]. The MTP head is omitted.
 DEEPSEEK_V3_671B = ModelConfig(
@@ -189,9 +211,10 @@ MIXTRAL_8X22B = ModelConfig(
 )
 
 _REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (FALCON3_1B, DEEPSEEK_V3_671B, DEEPSEEK_V3_671B_L5, MIXTRAL_8X22B)}
+    c.name: c for c in (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, DEEPSEEK_V3_671B_L5,
+                        MIXTRAL_8X22B)}
 _SMOKE: Dict[str, ModelConfig] = {
-    c.name: shrink(c) for c in (FALCON3_1B, DEEPSEEK_V3_671B, MIXTRAL_8X22B)}
+    c.name: shrink(c) for c in (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, MIXTRAL_8X22B)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -538,6 +538,21 @@ def release_slots(cache, released: torch.Tensor):
     return cache
 
 
+def truncate(cache, new_lengths: torch.Tensor):
+    """Roll each slot back to ``min(lengths, new_lengths)`` tokens, in place
+    (reference: ``truncate``): the speculative reject path, which commits a
+    whole verified chunk and then drops the rejected suffix. Tiered and
+    paged caches alike, stacked or not (``new_lengths`` (b,) broadcasts
+    against the stacked (L, b) lengths); a slot already at or below its
+    target keeps its length. Rows past the new length stay (reads are
+    bounded by ``lengths`` and the next append overwrites them), and so do
+    page-table entries: the host decides which pages the rollback strands
+    and decrefs them. Not valid on a ring that has wrapped, whose append
+    overwrote the window's oldest rows."""
+    torch.minimum(cache.lengths, new_lengths.to(cache.lengths.dtype), out=cache.lengths)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Plain tiered attention read: per-tier partials + streaming-softmax merge
 # ---------------------------------------------------------------------------
@@ -730,6 +745,26 @@ def step_traffic_tokens(lengths: torch.Tensor, hot_cap: int) -> dict:
         "ext_read": torch.clamp(lengths - hot_cap, min=0),
         "ondie_write": 1 - ext_w,
         "ext_write": ext_w,
+    }
+
+
+def spec_traffic_tokens(lengths: torch.Tensor, chunk_valid: torch.Tensor,
+                        committed: torch.Tensor, hot_cap: int) -> dict:
+    """Per-slot ledger of one speculative draft-verify round (reference:
+    ``spec_traffic_tokens``): ``lengths`` before the round, ``chunk_valid``
+    rows verified, ``committed`` rows appended. The cached prefix streams
+    once per round, and chunk row i also reads rows 0..i-1 of the chunk
+    on-die; the draft's own cache is outside this ledger. A speculative
+    serve therefore undercuts the sequential closed form when it accepts."""
+    lengths = lengths.to(torch.int32)
+    m = chunk_valid.to(torch.int32)
+    w = committed.to(torch.int32)
+    ondie_w = torch.minimum((hot_cap - lengths).clamp(min=0), w)
+    return {
+        "ondie_read": torch.clamp(lengths, max=hot_cap) + m * (m - 1) // 2,
+        "ext_read": torch.clamp(lengths - hot_cap, min=0),
+        "ondie_write": ondie_w,
+        "ext_write": w - ondie_w,
     }
 
 

@@ -14,7 +14,8 @@ stack (``blocks``; ``dense_blocks`` and ``moe_blocks`` for the MoE
 family); the port keeps one dict per layer, so the stacks are unstacked
 here. Expert-stacked packed leaves keep their expert dimension (packed
 (E, K/g, N), scale (E,) or per-column (E, N) for a fused w_gu). LoRA
-factors, norms, the embedding, the lm_head and the float dict leaves
+factors, norms, the embedding, the lm_head (none in a model that ties
+its embeddings, such as a speculative draft) and the float dict leaves
 (``router``; MLA's ``w_uk`` / ``w_uv``, as ``{"w"}`` or already
 fake-quantized ``{"fq"}``) come across unchanged.
 """

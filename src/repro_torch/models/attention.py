@@ -141,14 +141,21 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attention_prefill_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                            cache: kvc.TieredKVCache, n_valid: torch.Tensor):
+                            cache: kvc.TieredKVCache, n_valid: torch.Tensor,
+                            append: bool = True):
     """Chunked-prefill continuation of one layer (reference:
-    ``attention_prefill_chunk``, ``append=True``): the C chunk rows of each
-    slot attend to the slot's cached prefix (``cache.lengths`` tokens, both
-    tiers) and to the causally earlier chunk rows, then their rotated k / v
-    are appended at the slot's offset, in place, for the first
-    ``n_valid[b]`` rows (0: the slot is not prefilling and keeps its
-    rows). x: (b, C, d_model) -> (y, cache)."""
+    ``attention_prefill_chunk``): the C chunk rows of each slot attend to
+    the slot's cached prefix (``cache.lengths`` tokens, both tiers) and to
+    the causally earlier chunk rows, then their rotated k / v are appended
+    at the slot's offset, in place, for the first ``n_valid[b]`` rows (0:
+    the slot is not prefilling and keeps its rows). x: (b, C, d_model) ->
+    (y, cache).
+
+    ``append=False`` is the speculative verify form: the cache is left as
+    it is and the kernel's emitted k / v come back instead, ``(y, (k_c,
+    v_c))``, for ``transformer.spec_commit_chunk``. The kernel reads a
+    chunk's own rows from its inputs, never through the cache, so the
+    deferred append changes no value."""
     b, c, _ = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     window, ring = _window(cfg)
@@ -156,9 +163,10 @@ def attention_prefill_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
     o, k_c, v_c = flash_prefill_attention(
         q, k, v, cache, valid=n_valid, window=window, ring=ring, rope_theta=cfg.rope_theta,
         emit_kv=True, impl=cfg.bitnet.impl)
-    kvc.append(cache, k_c, v_c, valid=n_valid, ring=ring)
+    if append:
+        kvc.append(cache, k_c, v_c, valid=n_valid, ring=ring)
     y = qops.linear(p["wo"], o.reshape(b, c, h * hd), cfg, lora_leaf=p.get("lora_o"))
-    return y, cache
+    return y, (cache if append else (k_c, v_c))
 
 
 def attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -1,7 +1,8 @@
 """Decoder LM: init / prefill / decode with the tiered DR cache
 (reference: ``repro/models/transformer.py``, dense and moe families).
 
-Parameters are a plain dict: ``embed``, ``final_ln``, ``lm_head`` and the
+Parameters are a plain dict: ``embed``, ``final_ln``, ``lm_head`` (absent
+under ``cfg.tie_embeddings``, where the lm_head is ``embed.T``) and the
 layer stacks, lists with one dict per layer (the reference stacks layers
 and scans them; here a Python loop walks the list):
   * dense: ``blocks``, each ``{"attn": ..., "mlp": ...}``;
@@ -16,6 +17,11 @@ hd), or a ``PagedKVCache`` with pools (L, n_pages, page_size, g, hd)) or
 layers; under MLA the k-slot tiers are (L, b, cap, 576) latent rows and
 the v-slot is empty). Under SWA the cache has no hot tier and a ring cold
 tier of ``min(swa_window, max_len)`` rows, as in the reference.
+
+Speculative decoding (``serving/engine.py``) verifies a K-token chunk with
+``spec_verify_chunk`` (the chunk step's layers over the no-append form of
+attention, the lm_head once per chunk position) and appends what it keeps
+with ``spec_commit_chunk``.
 """
 
 from __future__ import annotations
@@ -55,8 +61,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     params = {
         "embed": {"w": torch.randn((cfg.vocab_size, d), **kw) * 0.02},
         "final_ln": torch.ones((d,), dtype=dtype, device=device),
-        "lm_head": qops.init_linear(d, cfg.vocab_size, **kw),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = qops.init_linear(d, cfg.vocab_size, **kw)
     init_attn = attn.init_mla if cfg.attn_type == "mla" else attn.init_attention
 
     def done(block: dict) -> dict:
@@ -107,14 +114,17 @@ def _embed_tokens(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor,
                rows: Optional[int] = None) -> torch.Tensor:
-    """The untied float lm_head: a plain matmul (outside any kernel in the
-    reference too). ``rows`` pads x (M, d) with zero rows to that many
+    """The float lm_head: a plain matmul (outside any kernel in the
+    reference too), ``x @ embed.T`` in x's dtype when the config ties its
+    embeddings. ``rows`` pads x (M, d) with zero rows to that many
     first: a GEMM library picks its algorithm, and so a row's sum order,
     by M (on the H100 every M >= 2 gave other logits than M = 1), so the
     engine runs every lm_head of a serve at its slot count."""
     m = x.shape[0]
     if rows is not None and rows > m:
         x = torch.cat([x, x.new_zeros((rows - m,) + tuple(x.shape[1:]))])
+    if cfg.tie_embeddings:
+        return (x @ params["embed"]["w"].T.to(x.dtype)).float()[:m]
     return qops.linear(params["lm_head"], x, cfg).float()[:m]
 
 
@@ -161,7 +171,11 @@ def _attn_block_prefill(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         f = attn.mla_prefill if cfg.attn_type == "mla" else attn.attention_prefill
         y, _ = f(bp["attn"], x, cfg, cache)
-    x = x + y
+    return _ffn(bp, x + y, cfg)
+
+
+def _ffn(bp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block's residual MLP or MoE over (b, s, d_model)."""
     if "moe" in bp:
         return x + moe_lib.apply_moe(bp["moe"], x, cfg)[0]
     return x + apply_mlp(bp["mlp"], x, cfg)
@@ -215,6 +229,50 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cac
     x_last = x[torch.arange(x.shape[0], device=x.device), idx]
     x_last = rms_norm(x_last, params["final_ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     return _lm_logits(params, cfg, x_last), cache
+
+
+def spec_verify_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+                      n_valid: torch.Tensor):
+    """Speculative verification (reference: ``spec_verify_chunk``): score a
+    K-token chunk (slots, K), the pending token then the draft's
+    proposals, against the live cache without appending. Each layer runs
+    the chunk step's attention in its no-append form and keeps the rotated
+    k / v. Returns ``(logits, kvs)``: the target's logits after every
+    chunk position (slots, K, V) f32, and per cache stack a list of one
+    ``(k, v)`` (slots, K, g, hd) per layer, for ``spec_commit_chunk``.
+
+    The lm_head runs once per chunk position over the slots' rows, as in
+    the decode step: a GEMM's rows change with M on the card, and a single
+    lm_head over slots x K rows would give logits other than the decode
+    step's. Every other op is per row (the ternary projections' int32
+    accumulators and per-row act-quant, the fixed-order LoRA and rms_norm
+    kernels, attention over absolute 32-key tiles), so row j equals the
+    decode step's logits for the same token bit for bit."""
+    x = _embed_tokens(params, tokens, params["final_ln"].dtype)  # (slots, K, d)
+    kvs = {}
+    for pname, cname, _ in layer_stacks(cfg):
+        kvs[cname] = []
+        for i, bp in enumerate(params[pname]):
+            y, kv = attn.attention_prefill_chunk(bp["attn"], x, cfg, kvc.layer(cache[cname], i),
+                                                 n_valid, append=False)
+            x = _ffn(bp, x + y, cfg)
+            kvs[cname].append(kv)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
+    logits = torch.stack([_lm_logits(params, cfg, x[:, j].contiguous())
+                          for j in range(x.shape[1])], dim=1)
+    return logits, kvs
+
+
+def spec_commit_chunk(cfg: ModelConfig, cache: dict, kvs: dict, n_commit: torch.Tensor) -> dict:
+    """Append the first ``n_commit[b]`` verified rows of each slot to every
+    layer's cache, in place (reference: ``spec_commit_chunk``), tiered or
+    paged. A linear layout may commit the whole chunk and roll back with
+    ``kv_cache.truncate``; a ring must commit only what it keeps."""
+    ring = cfg.attn_type == "swa"
+    for cname, layers in kvs.items():
+        for i, (k, v) in enumerate(layers):
+            kvc.append(kvc.layer(cache[cname], i), k, v, valid=n_commit, ring=ring)
+    return cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,

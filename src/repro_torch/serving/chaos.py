@@ -14,8 +14,8 @@
 
 The injector uses public calls only (``PagePool.alloc`` / ``decref``,
 ``Engine.cancel``): it is a hostile client, so what it breaks is a real
-protocol hole. Not ported: check 7 (speculation), check 9 and the SDC
-injectors (the SDC plane), and the fleet chaos (sessions, router).
+protocol hole. Not ported: check 9 and the SDC injectors (the SDC plane),
+and the fleet chaos (sessions, router).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.distributed.fault import FaultSchedule, StragglerMonitor
+from repro_torch.serving.paging import pages_needed
 
 
 class InvariantViolation(RuntimeError):
@@ -49,11 +50,19 @@ def check_serving_invariants(ctx, extra_refs: Optional[Dict[int, int]] = None) -
        increfs);
     6. the host page-table mirror's live rows equal the slots' page lists
        and hold only ids in range;
+    7. (speculative engines, ``ctx.spec``) the accept ledger is sane
+       (``accepted_tokens <= drafted_tokens``, in the stats and per
+       finished request) and, when paged, every decoding slot holds
+       exactly the pages its mirrored length needs: the rollback returned
+       every page the rejected suffix held;
     8. quarantined pages are dead: never free, in the tree or mapped by a
        live slot (nothing quarantines a page yet, so this passes
        vacuously).
 
-    A context without a pool (non-paged serving) passes vacuously."""
+    A context without a pool (non-paged serving) passes the page checks
+    vacuously; check 7's ledger part still runs."""
+    if getattr(ctx, "spec", False):
+        _check_speculation(ctx)
     pool = ctx.pool
     if pool is None:
         return
@@ -109,6 +118,31 @@ def check_serving_invariants(ctx, extra_refs: Optional[Dict[int, int]] = None) -
         for s in live:
             if p in ctx.slot_pages[s]:
                 raise InvariantViolation(f"quarantined page {p} is still mapped by slot {s}")
+
+
+def _check_speculation(ctx) -> None:
+    """Check 7 (reference: ``_check_speculation``): the draft / accept
+    ledger, and no page stranded by a rollback. Valid at iteration
+    boundaries only: mid-round the cache holds the whole unverified
+    chunk."""
+    st = ctx.stats
+    if st.accepted_tokens > st.drafted_tokens:
+        raise InvariantViolation(f"speculation ledger: accepted {st.accepted_tokens} > "
+                                 f"drafted {st.drafted_tokens}")
+    for fin in ctx.finished:
+        if fin.accepted_tokens > fin.drafted_tokens:
+            raise InvariantViolation(f"rid {fin.rid}: accepted {fin.accepted_tokens} > "
+                                     f"drafted {fin.drafted_tokens}")
+    if ctx.pool is None:
+        return
+    for s, req in enumerate(ctx.sched.slot_req):
+        if req is None or s in ctx.prefilling or s in ctx.draft_prefilling:
+            continue
+        want = pages_needed(ctx.seq_mirror[s], ctx.hot_cap, ctx.page_size)
+        if len(ctx.slot_pages[s]) != want:
+            raise InvariantViolation(
+                f"speculative rollback stranded pages: slot {s} holds "
+                f"{len(ctx.slot_pages[s])} pages but its length {ctx.seq_mirror[s]} needs {want}")
 
 
 @dataclasses.dataclass

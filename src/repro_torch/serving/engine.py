@@ -68,14 +68,34 @@ loop and ``finish_session``; ``on_iteration(ctx)`` runs after every
 iteration (``serving/chaos.py``: the invariant checker and the fault
 injector).
 
-Not ported: speculation, SDC scrubbing, and the drain / handoff of
-sessions between replicas.
+Speculative decoding (reference: "Speculative decoding";
+``serving/speculative.py``). ``Engine(draft_cfg=..., draft_params=...,
+spec_k=K)`` replaces the one-token decode step by a draft-verify round
+(``_spec_step``): K greedy draft ``decode_step``s against a per-slot
+contiguous draft cache propose a K-token chunk, one
+``transformer.spec_verify_chunk`` (kernel 3's chunked or paged chunked
+form with its emit and without the append) scores it against the target's
+cache, the accept rule keeps the longest prefix the target itself would
+have emitted, and the round commits the whole chunk and truncates both
+caches to it. The draft prefills from offset 0 in its own chunk waves
+beside the target's (``draft_prefilling``), never sharing a prefix; the
+target's last chunk waits for the draft. A round emits a data-dependent
+1..K tokens, so the host mirrors are read back once per iteration, where
+a paged slot also returns the pages its rollback stranded. Greedy tokens
+equal the non-speculative serve's for every accept / reject mix. Unlike
+the reference, a ring (SWA) layout refuses speculation: the ring decode
+(A1d) folds hot, then ring order, then the pending token, so a ring
+verify would agree with a ring decode to rounding only.
+
+Not ported: SDC scrubbing, and the drain / handoff of sessions between
+replicas.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Set
 
 import numpy as np
@@ -88,6 +108,7 @@ from repro_torch.distributed.fault import StragglerMonitor
 from repro_torch.kernels.flash_decode import TILE
 from repro_torch.models import transformer as T
 from repro_torch.models.pack import pack_params, tree_to
+from repro_torch.serving import speculative as spec_lib
 from repro_torch.serving.paging import (PagePool, PagePoolError, PrefixCache, PrefixMatch,
                                         pages_needed)
 from repro_torch.serving.scheduler import (FinishedRequest, Request, SlotScheduler,
@@ -129,6 +150,11 @@ class DecodeState:
     max_new: torch.Tensor  # (slots,) int32 — per-slot budget
     out: torch.Tensor  # (slots, out_cap) int32 — emitted tokens
     ledger: Dict[str, torch.Tensor]  # 4 x (slots,) int32 decode token counts
+    # speculative decoding: the draft model's per-slot cache (None on a
+    # non-speculative engine), the proposals scored and those accepted
+    draft_cache: Optional[dict] = None
+    drafted: Optional[torch.Tensor] = None  # (slots,) int32
+    accepted: Optional[torch.Tensor] = None  # (slots,) int32
 
 
 @dataclasses.dataclass
@@ -137,8 +163,9 @@ class ServeStats:
     ``recompute_tokens`` counts the prompt tokens a re-admission prefilled
     again (its prompt minus the prefix match): the price of preemption.
     ``iter_p50`` / ``iter_max`` (seconds) and ``straggler_flags`` summarize
-    the iterations' wall times through a ``StragglerMonitor``. The
-    speculation and SDC counters of the reference stay 0 (not ported)."""
+    the iterations' wall times through a ``StragglerMonitor``.
+    ``drafted_tokens`` / ``accepted_tokens`` sum the requests' speculation
+    ledgers. The SDC counters of the reference stay 0 (not ported)."""
 
     preemptions: int = 0
     rejected: int = 0
@@ -156,6 +183,10 @@ class ServeStats:
     pages_scrubbed: int = 0
     weight_reloads: int = 0
     slots_quarantined: int = 0
+
+    def record_spec(self, fin: FinishedRequest) -> None:
+        self.drafted_tokens += fin.drafted_tokens
+        self.accepted_tokens += fin.accepted_tokens
 
 
 @dataclasses.dataclass
@@ -188,6 +219,13 @@ class _ServeCtx:
     on_iteration: Optional[Callable[["_ServeCtx"], None]] = None
     monitor: Optional[StragglerMonitor] = None
     stall: int = 0  # consecutive iterations without progress
+    # speculative decoding: slot -> [request, offset] of the draft cache's
+    # own prefill (a slot decodes once both caches hold its prompt), and
+    # the geometry the invariant checker's check 7 reads
+    draft_prefilling: Dict[int, list] = dataclasses.field(default_factory=dict)
+    spec: bool = False
+    hot_cap: int = 0
+    page_size: int = 0
 
 
 @dataclasses.dataclass
@@ -216,7 +254,9 @@ class Engine:
                  seed: int = 0, slots: int = 8, sync_every: int = 8, device=None,
                  prefill_chunk: int = 0, paged: bool = False, page_size: Optional[int] = None,
                  n_pages: Optional[int] = None, prefix_sharing: bool = True,
-                 max_queue: Optional[int] = None, clock: Optional[Callable[[], float]] = None):
+                 max_queue: Optional[int] = None, clock: Optional[Callable[[], float]] = None,
+                 draft_cfg: Optional[ModelConfig] = None, draft_params=None, spec_k: int = 0,
+                 spec_force: Optional[str] = None):
         if not pack:
             raise NotImplementedError("QAT (unpacked) serving is not part of this port")
         if sample not in ("greedy", "temperature"):
@@ -267,6 +307,41 @@ class Engine:
         self._cancel_requested: Set[int] = set()
         self.last_stats: Optional[ServeStats] = None
         self._last_ctx: Optional[_ServeCtx] = None
+        # speculative decoding: a draft model and a chunk width K turn the
+        # decode step into a draft-verify round (reference gates, in order)
+        self.draft_cfg = draft_cfg
+        self.spec_k = int(spec_k)
+        if spec_force not in (None, "reject"):
+            raise ValueError(f"spec_force must be None or 'reject': {spec_force!r}")
+        self.spec_force = spec_force
+        spec = draft_params is not None and self.spec_k > 0
+        if spec:
+            if draft_cfg is None:
+                raise ValueError("draft_params requires draft_cfg")
+            if sample != "greedy":
+                spec_lib.rejection_sample()
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab {cfg.vocab_size}: "
+                    "draft proposals are token ids scored by the target — the vocabularies "
+                    "must match")
+            if not (prefill_chunk > 0 and self._chunked_capable()):
+                warnings.warn(
+                    f"speculative decoding needs chunked prefill on an attention-cache "
+                    f"family; {cfg.name} (family={cfg.family}, attn={cfg.attn_type}, "
+                    f"prefill_chunk={prefill_chunk}) falls back to non-speculative decode",
+                    RuntimeWarning, stacklevel=2)
+                spec = False
+            elif cfg.attn_type == "swa":
+                raise NotImplementedError(
+                    "speculative decoding on a ring (SWA) layout is not ported: the ring "
+                    "decode (A1d, kernels/flash_decode.py fold_tiers) folds the hot tier, "
+                    "then the ring in ring order, then the pending token, so a verify "
+                    "chunk's row agrees with the decoded row to rounding only and greedy "
+                    "tokens could differ from the non-speculative serve's")
+        self.spec = spec
+        self.draft_params = (pack_params(tree_to(draft_params, self.device), draft_cfg)
+                             if spec else None)
 
     def _chunked_capable(self) -> bool:
         """Chunked prefill needs a pure attention-token path: a dense / MoE
@@ -309,6 +384,11 @@ class Engine:
         def z():
             return torch.zeros((n_slots,), dtype=torch.int32, device=dev)
 
+        # the draft's cache is always contiguous: private scratch, never
+        # paged or shared, its lengths kept equal to the target's by truncate
+        draft_cache = (T.init_decode_cache(self.draft_cfg, n_slots, self.max_len, self.hot_cap,
+                                           dtype=self.draft_params["final_ln"].dtype,
+                                           device=dev) if self.spec else None)
         return DecodeState(
             cache=T.init_decode_cache(self.cfg, n_slots, self.max_len, self.hot_cap,
                                       dtype=self.params["final_ln"].dtype, device=dev,
@@ -319,6 +399,7 @@ class Engine:
             seq_len=z(), n_gen=z(), max_new=z(),
             out=torch.zeros((n_slots, out_cap), dtype=torch.int32, device=dev),
             ledger={k: z() for k in TRAFFIC_KEYS},
+            draft_cache=draft_cache, drafted=z(), accepted=z(),
         )
 
     def _sample_fn(self, logits: torch.Tensor) -> torch.Tensor:
@@ -370,6 +451,8 @@ class Engine:
         state.n_gen[idx] = 0
         state.max_new[idx] = max_new
         state.out[idx] = 0
+        state.drafted[idx] = 0
+        state.accepted[idx] = 0
         for k in TRAFFIC_KEYS:
             state.ledger[k][idx] = 0
 
@@ -395,20 +478,93 @@ class Engine:
         state.max_new = torch.where(is_last, max_new, state.max_new)
         state.out = torch.where(is_first[:, None], 0, state.out)
         state.ledger = {k: torch.where(is_first, 0, v) for k, v in state.ledger.items()}
+        state.drafted = torch.where(is_first, 0, state.drafted)
+        state.accepted = torch.where(is_first, 0, state.accepted)
+
+    def _draft_chunk_step(self, state: DecodeState, tokens: torch.Tensor,
+                          n_valid: torch.Tensor, is_first: torch.Tensor) -> None:
+        """One chunk wave of the draft cache's prefill (reference:
+        ``_get_draft_chunk``): the target's wave protocol, idle slots
+        riding along with 0 rows; only the cache matters, since the target
+        samples every emitted token."""
+        for stack in state.draft_cache.values():
+            stack.lengths.masked_fill_(is_first[None, :], 0)
+        T.prefill_chunk_step(self.draft_params, self.draft_cfg, tokens, state.draft_cache,
+                             n_valid)
+
+    def _spec_step(self, state: DecodeState, out_cap: int, stop_token: Optional[int]) -> None:
+        """One draft-verify round over every slot, in place (reference:
+        ``_get_spec_step``): K gated draft decode steps propose a chunk
+        (the pending token, then K - 1 proposals; the K-th step only
+        appends row K - 1 to the draft cache), ``spec_verify_chunk``
+        scores it without appending, the accept rule picks ``n_emit``, the
+        whole chunk is committed and both caches are truncated to ``seq0
+        + n_emit``. Every emitted token is a target argmax. The ledger
+        charges ``spec_traffic_tokens``. Device work only."""
+        k_spec = self.spec_k
+        active = state.allocated & ~state.done
+        act32 = active.to(torch.int32)
+        seq0 = state.seq_len
+        chunk_valid = torch.where(active, (state.max_new - state.n_gen).clamp(0, k_spec), 0)
+        cols, tok_i = [state.tok], state.tok
+        for i in range(k_spec):
+            gate = active & (i < chunk_valid)
+            dlogits, _ = T.decode_step(self.draft_params, self.draft_cfg, tok_i,
+                                       state.draft_cache, active=gate)
+            tok_i = torch.where(gate, dlogits.argmax(dim=-1).to(torch.int32), tok_i)
+            if i + 1 < k_spec:
+                cols.append(tok_i)
+        chunk = torch.stack(cols, dim=1)  # (slots, K)
+        logits, kvs = T.spec_verify_chunk(self.params, self.cfg, chunk, state.cache, chunk_valid)
+        greedy = logits.argmax(dim=-1).to(torch.int32)
+        n_emit = spec_lib.longest_accepted_prefix(chunk, greedy, chunk_valid, stop_token,
+                                                  force_reject=self.spec_force == "reject")
+        T.spec_commit_chunk(self.cfg, state.cache, kvs, chunk_valid)
+        for caches in (state.cache, state.draft_cache):
+            for stack in caches.values():
+                kv_cache.truncate(stack, seq0 + n_emit)
+        pos = (torch.arange(out_cap, dtype=torch.int32, device=self.device)[None]
+               - state.n_gen[:, None])
+        emit = (pos >= 0) & (pos < n_emit[:, None])
+        vals = torch.gather(chunk, 1, pos.clamp(0, k_spec - 1).long())
+        state.out = torch.where(emit, vals, state.out)
+        state.n_gen = state.n_gen + n_emit
+        state.seq_len = seq0 + n_emit
+        # the pending token of the next round: the target's own
+        # continuation after the last emitted token
+        new_tok = torch.gather(greedy, 1, (n_emit - 1).clamp(0, k_spec - 1).long()[:, None])[:, 0]
+        state.tok = torch.where(active, new_tok, state.tok)
+        done = state.done | (active & (state.n_gen >= state.max_new))
+        if stop_token is not None:
+            done = done | (active & (state.tok == stop_token))
+        state.done = done
+        tr = kv_cache.spec_traffic_tokens(seq0, chunk_valid, chunk_valid, self.hot_cap)
+        state.ledger = {k: state.ledger[k] + tr[k] * act32 for k in TRAFFIC_KEYS}
+        state.drafted = state.drafted + (chunk_valid - 1).clamp(min=0)
+        state.accepted = state.accepted + (n_emit - 1).clamp(min=0)
 
     def _stream_chunks(self, state: DecodeState, n_slots: int, prefilling: Dict[int, list],
-                       max_waves: int, on_last=None) -> None:
-        """Stream pending prompt chunks (reference: ``_stream_chunks``, no
-        draft branch): one dispatch per wave, one C-token chunk per
-        prefilling slot. ``prefilling`` maps slot -> [request, offset]; after
-        ``max_waves`` waves it carries the remaining offsets into the next
-        serving-loop iteration, so a long prompt interleaves with decode
-        steps instead of stalling every active slot. ``on_last(slot, req)``
-        runs after the wave that completes a slot's prompt (paged serving
-        records the prefix there)."""
+                       max_waves: int, on_last=None,
+                       draft_prefilling: Optional[Dict[int, list]] = None) -> None:
+        """Stream pending prompt chunks (reference: ``_stream_chunks``): one
+        dispatch per wave, one C-token chunk per prefilling slot.
+        ``prefilling`` maps slot -> [request, offset]; after ``max_waves``
+        waves it carries the remaining offsets into the next serving-loop
+        iteration, so a long prompt interleaves with decode steps instead of
+        stalling every active slot. ``on_last(slot, req)`` runs after the
+        wave that completes a slot's prompt (paged serving records the
+        prefix there).
+
+        A speculative engine streams the draft cache's prefill beside it
+        (``draft_prefilling``, one more dispatch per wave), always from
+        offset 0, so it can lag a target that resumed at a prefix match;
+        the target's last chunk waits until the draft catches up, since the
+        slot enters the rounds as soon as its target prefill completes."""
         c = self.prefill_chunk
+        dp = draft_prefilling if draft_prefilling is not None else {}
+        dev = self.device
         waves = 0
-        while prefilling and waves < max_waves:
+        while (prefilling or dp) and waves < max_waves:
             toks = np.zeros((n_slots, c), np.int32)
             n_valid = np.zeros((n_slots,), np.int32)
             is_first = np.zeros((n_slots,), bool)
@@ -417,6 +573,9 @@ class Engine:
             done_slots = []
             for s, (req, off) in list(prefilling.items()):
                 part = np.asarray(req.tokens, np.int32)[off: off + c]
+                if (s in dp and off + len(part) >= req.prompt_len
+                        and dp[s][1] + c < req.prompt_len):
+                    continue  # the last chunk waits: the draft still lags
                 toks[s, : len(part)] = part
                 n_valid[s] = len(part)
                 # paged slots were reset by the paged admission and may
@@ -429,12 +588,28 @@ class Engine:
                     del prefilling[s]
                 else:
                     prefilling[s] = [req, off + len(part)]
-            dev = self.device
-            self._chunk_step(state, torch.as_tensor(toks, device=dev),
-                             torch.as_tensor(n_valid, device=dev),
-                             torch.as_tensor(is_first, device=dev),
-                             torch.as_tensor(is_last, device=dev),
-                             torch.as_tensor(max_new, device=dev))
+            if dp:
+                dtoks = np.zeros((n_slots, c), np.int32)
+                dn_valid = np.zeros((n_slots,), np.int32)
+                d_first = np.zeros((n_slots,), bool)
+                for s, (req, doff) in list(dp.items()):
+                    part = np.asarray(req.tokens, np.int32)[doff: doff + c]
+                    dtoks[s, : len(part)] = part
+                    dn_valid[s] = len(part)
+                    d_first[s] = doff == 0
+                    if doff + len(part) >= req.prompt_len:
+                        del dp[s]
+                    else:
+                        dp[s] = [req, doff + len(part)]
+                self._draft_chunk_step(state, torch.as_tensor(dtoks, device=dev),
+                                       torch.as_tensor(dn_valid, device=dev),
+                                       torch.as_tensor(d_first, device=dev))
+            if n_valid.any():  # every target chunk may be waiting for its draft
+                self._chunk_step(state, torch.as_tensor(toks, device=dev),
+                                 torch.as_tensor(n_valid, device=dev),
+                                 torch.as_tensor(is_first, device=dev),
+                                 torch.as_tensor(is_last, device=dev),
+                                 torch.as_tensor(max_new, device=dev))
             waves += 1
             if on_last is not None:
                 for s, req in done_slots:
@@ -457,14 +632,14 @@ class Engine:
         cancellation): clear its allocated / done flags and, when
         ``truncate``, its cache length in every stack
         (``kv_cache.release_slots``), so the slot is inert until
-        re-admitted. Grouped admission skips the truncation: it writes a
-        whole fresh row, lengths included."""
+        re-admitted; the draft cache's row too. Grouped admission skips the
+        truncation: it writes a whole fresh row, lengths included."""
         state.allocated[s] = False
         state.done[s] = False
         if truncate:
             mask = torch.zeros(state.allocated.shape, dtype=torch.bool, device=self.device)
             mask[s] = True
-            for stack in state.cache.values():
+            for stack in list(state.cache.values()) + list((state.draft_cache or {}).values()):
                 kv_cache.release_slots(stack, mask)
 
     def _preempt_slot(self, ctx: _ServeCtx, s: int) -> None:
@@ -474,7 +649,9 @@ class Engine:
         row, and requeue it with its claim. The pending token t_k is sampled
         but neither emitted nor cached, so re-prefilling prompt ‖ t_0 ..
         t_{k-1} samples t_k again from the same last row, bit for bit: the
-        decode and the chunked prefill fold the same absolute tiles."""
+        decode and the chunked prefill fold the same absolute tiles. A
+        speculative slot's drafted / accepted counts fold into the request
+        as its ledger does."""
         req = ctx.sched.slot_req[s]
         tb = ctx.token_bytes
         carry = dict(req.carry_traffic) if req.carry_traffic else {k: 0 for k in TRAFFIC_KEYS}
@@ -499,6 +676,9 @@ class Engine:
                                                             self.hot_cap)
             for k in TRAFFIC_KEYS:
                 carry[k] += (prompt[k] + int(st.ledger[k][s])) * tb
+            req.carry_drafted += int(st.drafted[s])
+            req.carry_accepted += int(st.accepted[s])
+        ctx.draft_prefilling.pop(s, None)
         req.carry_traffic = carry
         req.carry_reused += ctx.prefix_used[s]
         req.n_preemptions += 1
@@ -615,6 +795,8 @@ class Engine:
             state.n_gen = torch.where(r, 0, state.n_gen)
             state.out = torch.where(r[:, None], 0, state.out)
             state.ledger = {k: torch.where(r, 0, v) for k, v in state.ledger.items()}
+            state.drafted = torch.where(r, 0, state.drafted)
+            state.accepted = torch.where(r, 0, state.accepted)
             ctx.host_table[:] = new_table
         if transient:
             ctx.pool.decref(transient)
@@ -685,14 +867,15 @@ class Engine:
 
     def _build_finished(self, req: Request, out_row: np.ndarray, seq_len: int,
                         decode_ledger: Dict[str, int], prefilled_len: int, prefix_used: int,
-                        outcome: str, token_bytes: int) -> FinishedRequest:
+                        outcome: str, token_bytes: int, drafted: int = 0,
+                        accepted: int = 0) -> FinishedRequest:
         """The request's record from one slot's harvest (reference:
         ``_build_finished``). The prompt ledger leaves out the
         ``prefix_used`` tokens restored from the prefix tree (and charges
         the reload of their hot part). A preempted request's earlier
         tokens are stitched back in front of this attempt's, the ORIGINAL
         prompt length is reported, and the ledger adds every earlier
-        attempt's work (``carry_traffic``)."""
+        attempt's work (``carry_traffic``), its speculation counts too."""
         traffic = {k: int(decode_ledger[k]) * token_bytes for k in TRAFFIC_KEYS}
         if prefilled_len:
             prompt = kv_cache.prompt_traffic_tokens_resumed(
@@ -710,7 +893,9 @@ class Engine:
         return FinishedRequest(rid=req.rid, prompt_len=prompt_len, tokens=tokens,
                                seq_len=seq_len, steps=len(tokens), traffic=traffic,
                                prefix_tokens_reused=prefix_used + req.carry_reused,
-                               outcome=outcome, n_preemptions=req.n_preemptions)
+                               outcome=outcome, n_preemptions=req.n_preemptions,
+                               drafted_tokens=drafted + req.carry_drafted,
+                               accepted_tokens=accepted + req.carry_accepted)
 
     def _finish_queued(self, req: Request, outcome: str) -> FinishedRequest:
         """Terminal record of a request that holds no slot at its end."""
@@ -721,6 +906,7 @@ class Engine:
         it emitted, retire it, return its pages, release its device row."""
         req = ctx.sched.retire(s)
         st = ctx.state
+        ctx.draft_prefilling.pop(s, None)
         if s in ctx.prefilling:
             off = ctx.prefilling.pop(s)[1]
             fin = self._build_finished(req, np.zeros((0,), np.int32), off,
@@ -731,8 +917,10 @@ class Engine:
             fin = self._build_finished(
                 req, st.out[s, :n_gen].cpu().numpy().astype(np.int32), int(st.seq_len[s]),
                 {k: int(st.ledger[k][s]) for k in TRAFFIC_KEYS}, req.prompt_len,
-                ctx.prefix_used[s], outcome, ctx.token_bytes)
+                ctx.prefix_used[s], outcome, ctx.token_bytes, drafted=int(st.drafted[s]),
+                accepted=int(st.accepted[s]))
         ctx.finished.append(fin)
+        ctx.stats.record_spec(fin)
         if ctx.slot_pages[s]:
             ctx.pool.decref(ctx.slot_pages[s])
             ctx.slot_pages[s] = []
@@ -749,7 +937,9 @@ class Engine:
             outcome = self._terminal_outcome(req, now)
             if outcome:
                 ctx.sched.drop(req)
-                ctx.finished.append(self._finish_queued(req, outcome))
+                fin = self._finish_queued(req, outcome)
+                ctx.finished.append(fin)
+                ctx.stats.record_spec(fin)
                 setattr(ctx.stats, outcome, getattr(ctx.stats, outcome) + 1)
                 events += 1
         for s, req in enumerate(ctx.sched.slot_req):
@@ -811,7 +1001,10 @@ class Engine:
             chunked=self.prefill_chunk > 0 and self._chunked_capable(),
             remaining=[0] * n_slots, seq_mirror=[0] * n_slots, prefix_used=[0] * n_slots,
             prefilling={}, slot_pages=[[] for _ in range(n_slots)], out_cap=out_cap,
-            stop_token=stop_token, chunk=sync_every or self.sync_every, on_iteration=on_iteration, monitor=StragglerMonitor(window=16, factor=4.0),
+            stop_token=stop_token, chunk=sync_every or self.sync_every,
+            on_iteration=on_iteration, monitor=StragglerMonitor(window=16, factor=4.0),
+            spec=self.spec, hot_cap=self.hot_cap,
+            page_size=self._page_size if self.paged else 0,
         )
         if self.paged:
             ctx.pool = PagePool(self._pool_pages(n_slots))
@@ -852,9 +1045,14 @@ class Engine:
             on_last = None
             if self.prefix_sharing:
                 on_last = lambda s, req: self._record_prefix(ctx, s, req)  # noqa: E731
-            progress |= bool(ctx.prefilling)
+            if self.spec:
+                # every fresh slot prefills the draft cache too, from offset
+                # 0 (the draft never shares a prefix)
+                for s, (req, _) in ctx.prefilling.items():
+                    ctx.draft_prefilling.setdefault(s, [req, 0])
+            progress |= bool(ctx.prefilling) or bool(ctx.draft_prefilling)
             self._stream_chunks(state, n_slots, ctx.prefilling, max_waves=chunk,
-                                on_last=on_last)
+                                on_last=on_last, draft_prefilling=ctx.draft_prefilling)
         else:
             while True:
                 slots_idx, group = sched.next_group()
@@ -866,17 +1064,24 @@ class Engine:
                     ctx.seq_mirror[s] = req.prompt_len
                 progress = True
         if self.paged:
-            self._ensure_pages(ctx, chunk)
+            # a speculative round appends up to K rows before its rollback:
+            # fund the worst case, the decref below returns what it strands
+            self._ensure_pages(ctx, chunk * self.spec_k if self.spec else chunk)
         # slots still mid-prefill ride through the decode steps inactive:
         # they neither bound the step count nor burn budget
-        decoding = [s for s in sched.active_slots() if s not in ctx.prefilling]
+        decoding = [s for s in sched.active_slots()
+                    if s not in ctx.prefilling and s not in ctx.draft_prefilling]
         budgets = [ctx.remaining[s] for s in decoding if ctx.remaining[s] > 0]
         n_steps = min([chunk] + budgets) if budgets else 0
+        step = self._spec_step if self.spec else self._step
         for _ in range(n_steps):
-            self._step(state, ctx.out_cap, ctx.stop_token)
-        for s in decoding:
-            ctx.remaining[s] = max(ctx.remaining[s] - n_steps, 0)
-            ctx.seq_mirror[s] = min(ctx.seq_mirror[s] + n_steps, self.max_len)
+            step(state, ctx.out_cap, ctx.stop_token)
+        if self.spec and n_steps:
+            self._refresh_mirrors(ctx, decoding)
+        else:
+            for s in decoding:
+                ctx.remaining[s] = max(ctx.remaining[s] - n_steps, 0)
+                ctx.seq_mirror[s] = min(ctx.seq_mirror[s] + n_steps, self.max_len)
         progress |= n_steps > 0
         # sync point: only the small done mask crosses to the host
         done = state.done.cpu().numpy()
@@ -887,12 +1092,16 @@ class Engine:
             seq_len = state.seq_len.cpu().numpy()
             out = state.out.cpu().numpy()
             ledger = {k: state.ledger[k].cpu().numpy() for k in TRAFFIC_KEYS}
+            drafted, accepted = state.drafted.cpu().numpy(), state.accepted.cpu().numpy()
             for s in ripe:
                 req = sched.retire(s)
-                ctx.finished.append(self._build_finished(
+                fin = self._build_finished(
                     req, out[s, : n_gen[s]].copy(), int(seq_len[s]),
                     {k: ledger[k][s] for k in TRAFFIC_KEYS}, req.prompt_len,
-                    ctx.prefix_used[s], "finished", ctx.token_bytes))
+                    ctx.prefix_used[s], "finished", ctx.token_bytes,
+                    drafted=int(drafted[s]), accepted=int(accepted[s]))
+                ctx.finished.append(fin)
+                ctx.stats.record_spec(fin)
                 self._cancel_requested.discard(req.rid)
                 ctx.prefix_used[s] = ctx.remaining[s] = ctx.seq_mirror[s] = 0
                 if self.paged:  # pages free when their last reader leaves
@@ -914,6 +1123,32 @@ class Engine:
                 f"rid={getattr(head, 'rid', None)}), {ctx.pool.available() if ctx.pool else 0} "
                 f"pages free of {ctx.pool.n_pages if ctx.pool else 0}; raise n_pages")
         return progress
+
+    def _refresh_mirrors(self, ctx: _ServeCtx, decoding: List[int]) -> None:
+        """After speculative rounds (which emit a data-dependent 1..K tokens
+        each), read each decoding slot's budget and length back from the
+        device (one sync per iteration) and return the pages its rollback
+        stranded past its length (reference: run_iteration's spec branch).
+        A returned page's table entry goes back to 0 on the host; the
+        device may keep the stale entry, which is safe: a later round
+        writes there only after ``_ensure_pages`` funds the page again and
+        installs the table."""
+        n_gen = ctx.state.n_gen.cpu().numpy()
+        seq = ctx.state.seq_len.cpu().numpy()
+        for s in decoding:
+            req = ctx.sched.slot_req[s]
+            if req is None:
+                continue
+            ctx.remaining[s] = max(int(req.max_new_tokens) - int(n_gen[s]), 0)
+            ctx.seq_mirror[s] = int(seq[s])
+            if not self.paged or not ctx.slot_pages[s]:
+                continue
+            keep = pages_needed(ctx.seq_mirror[s], self.hot_cap, self._page_size)
+            extra = ctx.slot_pages[s][keep:]
+            if extra:
+                ctx.pool.decref(extra)
+                del ctx.slot_pages[s][keep:]
+                ctx.host_table[s, keep:] = 0
 
     def finish_session(self, ctx: _ServeCtx) -> List[FinishedRequest]:
         """Seal a session: summarize its iteration times into its

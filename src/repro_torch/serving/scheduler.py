@@ -65,8 +65,8 @@ class Request:
     orig_prompt_len: Optional[int] = None  # set when emitted tokens fold in
     carry_traffic: Optional[Dict[str, int]] = None  # bytes, earlier attempts
     carry_reused: int = 0  # prefix tokens reused by earlier attempts
-    # the reference's speculation ledger of earlier attempts; the port
-    # does not speculate yet, so they stay 0
+    # the speculation ledger of earlier attempts (a preempted speculative
+    # request folds its drafted / accepted counts here)
     carry_drafted: int = 0
     carry_accepted: int = 0
 
@@ -106,8 +106,17 @@ class FinishedRequest:
     prefix_tokens_reused: int = 0
     outcome: str = "finished"
     n_preemptions: int = 0
-    drafted_tokens: int = 0  # speculation (not ported): 0
+    # speculative decoding: draft proposals the target scored and accepted;
+    # every round emits 1 + its accepted proposals, so len(tokens) ==
+    # accepted_tokens + rounds; both 0 on non-speculative engines
+    drafted_tokens: int = 0
     accepted_tokens: int = 0
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals the target confirmed (0.0 when
+        nothing was drafted)."""
+        return self.accepted_tokens / self.drafted_tokens if self.drafted_tokens else 0.0
 
     @property
     def external_reduction(self) -> float:

@@ -567,6 +567,53 @@ def test_chunked_and_grouped_admission_differ_under_fp8(jref):
     assert not all(same)
 
 
+def test_preempted_and_speculative_serves_differ_under_fp8(jref):
+    """The same framework property for recompute and speculation: a
+    re-prefill after a preemption and a verify chunk read their own rows
+    at full precision where the sequential decode read them back from the
+    fp8 cache. falcon3-1b-smoke over fp8 tiers (hot 4, max_len 64,
+    prefill_chunk 4, page size 8; eight prompts of 10-17 tokens + 30, 4
+    slots): (a) a paged serve on 7 pages, which preempts, against the
+    default pool; (b) a speculative serve (K 4) against the sequential
+    one, with the target as its own draft: a verify row reads the chunk's
+    earlier rows at full precision only where proposals were accepted
+    (with none accepted every emitted row is the decode's own). Both
+    engines give the same tokens in every run, and each pressured or
+    speculative serve differs from its baseline in the same requests in
+    both, on at least one request."""
+    jcfg, jpacked, cfg, tparams = _models(jref, "falcon3-1b", seed=1)
+    rng = np.random.default_rng(9)
+    specs = [(10 + i, 30) for i in range(8)]
+    base = dict(hot_cap=4, max_len=64, prefill_chunk=4)
+    paged = dict(base, paged=True, page_size=8)
+    runs = {"unpressured": (paged, {}), "preempted": (paged, dict(n_pages=7)),
+            "sequential": (base, {}), "speculative": (base, dict(spec_k=4))}
+    reqs = _requests(Request, rng, specs, cfg.vocab_size)
+    got, want = {}, {}
+    for name, (kw, extra) in runs.items():
+        pkw, jkw = dict(kw, **extra), dict(kw, **extra)
+        if "spec_k" in extra:
+            pkw.update(draft_cfg=cfg, draft_params=tparams)
+            jkw.update(draft_cfg=jcfg, draft_params=jpacked)
+        eng = Engine(cfg, tparams, device="cpu", **pkw)
+        jeng = jref.engine.Engine(jcfg, jpacked, **jkw)
+        fresh = [Request(r.rid, r.tokens, r.max_new_tokens) for r in reqs]
+        jreqs = [jref.sched.Request(r.rid, r.tokens, r.max_new_tokens) for r in reqs]
+        got[name] = {f.rid: f.tokens for f in eng.serve(fresh, slots=4, sync_every=4)}
+        want[name] = {f.rid: np.asarray(f.tokens) for f in jeng.serve(jreqs, slots=4,
+                                                                        sync_every=4)}
+        for rid in got[name]:
+            np.testing.assert_array_equal(got[name][rid], want[name][rid])
+        if name == "preempted":
+            assert eng.last_stats.preemptions == jeng.last_stats.preemptions > 0
+        if name == "speculative":
+            assert eng.last_stats.accepted_tokens == jeng.last_stats.accepted_tokens > 0
+    for run, ref in (("preempted", "unpressured"), ("speculative", "sequential")):
+        same = [np.array_equal(got[run][r], got[ref][r]) for r in sorted(got[run])]
+        assert same == [np.array_equal(want[run][r], want[ref][r]) for r in sorted(want[run])]
+        assert not all(same), run
+
+
 # ---------------------------------------------------------------------------
 # on the card: the fp8 forms against their plain versions, bit for bit
 # ---------------------------------------------------------------------------
