@@ -77,7 +77,11 @@
    both sides of hot_cap and of a page boundary: bit-identical to its
    plain version, the cache unchanged; each verify row equal to the fused
    decode's row for the same token (f32 tiers, hot 32 / 4); kernel 2 at
-   the falcon3-draft's shape (d 128, rep 2).
+   the falcon3-draft's shape (d 128, rep 2), kernels 2 and 3 at the
+   derived draft's (d 16, rep 1). The ring decode (A1d and its fp8 form)
+   folds absolute tiles too: its row equals the one-row ring chunk
+   kernel's (A3c / A3d at C = 1) in every ring case, window starts
+   aligned and unaligned to 32.
 3. falcon3-1b: full width and depth from a seeded generator (LoRA B
    factors filled with small seeded values), packed, serving 6 prompts x
    32 tokens with max_new_tokens=96 through Engine.generate (hot_cap=32,
@@ -168,13 +172,20 @@
    at the reference's rule, no weight reloaded; a traced decode; dropless
    (capacity E / k) at the depth cut to 16 layers, grouped and by chunk
    waves of 256 (the ring continuation, one ring-chunk prefill per layer
-   per wave): tokens equal on every request; the grouped serve again over
-   fp8 tiers (56 fp8 ring decodes and window prefills per step and
-   admission, ledgers; its tokens/s and peak memory beside the f32-tier
-   serve's); at the depth cut to 2 layers each request served alone
-   equals the batched serve, the kernel run equals its plain run, and
-   over fp8 tiers grouped and chunked admission each equal their plain
-   runs.
+   per wave): tokens equal on every request; at that cut, speculative
+   decoding over the ring (K 4, the derived draft make_draft_config from
+   seed 7; forced reject, an oracle draft proposing the grouped serve's
+   tokens, and the oracle with a seeded third of its proposals corrupted):
+   tokens equal to the grouped serve on 4/4 in each mix, one ring-chunk
+   verify per layer per round and no ring decode, ledgers per round, a
+   verify's device ms against four ring decode steps', and at 2 layers
+   over fp8 tiers the speculative serve of 4200 + 16 equal to its plain
+   run; the grouped serve again over fp8 tiers (56 fp8 ring decodes and
+   window prefills per step and admission, ledgers; its tokens/s and peak
+   memory beside the f32-tier serve's); at the depth cut to 2 layers each
+   request served alone equals the batched serve and the kernel run
+   equals its plain run, and over fp8 tiers grouped and chunked admission
+   each equal their plain runs.
 6. Prints {"kernels": [...]} (each form's launches on its own path and on
    every path that counted it) and, last, {"ok": true, "device": {...}}.
 
@@ -1407,7 +1418,10 @@ def spec_kernel_phase(torch, gen, theta, smi):
     were appended (k_rot equal to the emitted k too), hot 32 and hot 4,
     contiguous and paged, bit for bit. (3) Kernel 2 at the draft's shape
     (falcon3-draft: h 8, g 4, d 128, rep 2) against its plain version,
-    f32 and bf16, and timed at b 6, length 80."""
+    f32 and bf16, and timed at b 6, length 80. (4) Kernels 2 (fused
+    decode) and 3 (chunked form) at the derived draft's shape of
+    mixtral-8x22b's speculative serve (``make_draft_config``: h 4, g 4, d
+    16, rep 1) against their plain versions, f32 and bf16."""
     from repro_torch.core import kv_cache as kvc
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
@@ -1490,6 +1504,30 @@ def spec_kernel_phase(torch, gen, theta, smi):
     print(f"flash_decode_gqa_fused at the draft's shape (h 8, g 4, d 128, rep 2; lengths "
           f"{lengths}, f32 / bf16): bit-identical to plain; {ms:.5f} ms at b 6, length 80 on "
           f"{smi}")
+
+    # (4) kernels 2 and 3 at the derived draft's shape (make_draft_config,
+    # the draft of mixtral-8x22b's speculative serve: 4 / 4 heads of 16)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, cache, k_new, v_new = decode_case(torch, gen, lengths, dtype, h=4, g=4, d=16)
+        kw = dict(k_new=k_new, v_new=v_new, active=act, rope_theta=theta)
+        n0 = fd.KERNEL.launches
+        o, k_rot = fd.flash_decode_attention(q, cache, **kw)
+        torch.cuda.synchronize()
+        o_p, k_rot_p = fd.flash_decode_attention(q, cache, impl="plain", **kw)
+        check(fd.KERNEL.launches == n0 + 1 and torch.isfinite(o).all()
+              and torch.equal(o, o_p) and torch.equal(k_rot, k_rot_p),
+              f"flash_decode_gqa_fused at d 16, rep 1 ({dtype}): {max_err(o, o_p)}")
+        for c in (SPEC_K, 32):  # a draft's verify-width chunk and a prefill wave
+            q, kk, vv, cache = chunk_case(torch, gen, c, dtype, CHUNK_OFFSETS, h=4, g=4, d=16)
+            valid = torch.tensor([c, c - 1, 0, c, 1, c, c][: len(CHUNK_OFFSETS)],
+                                 dtype=torch.int32, device="cuda")
+            chunk_matches_plain(torch, fp, q, kk, vv, cache, valid, theta,
+                                f"d 16, rep 1, C {c}, {dtype}")
+            n += 1
+    print(f"kernels 2 and 3 at the derived draft's shape (h 4, g 4, d 16, rep 1): the fused "
+          f"decode (lengths {lengths}) and {n} chunked-form cases (C {SPEC_K} / 32, offsets "
+          f"{CHUNK_OFFSETS}, f32 / bf16) bit-identical to plain, one launch each")
 
 
 # ---------------------------------------------------------------------------
@@ -1897,45 +1935,79 @@ def window_live(q_pos, k_lo, k_hi, window):
     return sum(max(min(k_hi, p + 1) - max(k_lo, p - window + 1), 0) for p in q_pos)
 
 
+def ring_lengths(cold):
+    """Slot lengths and activity of the ring cases: empty (inactive),
+    before, at and past the wrap, window starts (length - cold + 1)
+    unaligned (cold + 1, 3 cold + 5) and aligned to 32 (cold + 31, 2 cold
+    + 63), an inactive wrapped slot."""
+    import torch
+
+    lengths = [0, cold - 1, cold, cold + 1, cold + 31, 3 * cold + 5, cold + 2, 2 * cold + 63]
+    active = torch.tensor([False, True, True, True, True, True, False, True], device="cuda")
+    return lengths, active
+
+
+def one_row_ring_chunk(torch, fp, q, cache, k_new, v_new, active, theta):
+    """Each slot's row of the one-row ring chunk, on the kernel (kernel 3's
+    chunked ring form, A3c, at C = 1 with its emit and no append): an
+    active slot's at window = the ring's width, an inactive one's at valid
+    0 and no window (every ring row: the reference's rule for a slot that
+    appends nothing) -> (b, h, d)."""
+    args = (q[:, None], k_new[:, None], v_new[:, None], cache)
+    o_act = fp.flash_prefill_attention(*args, valid=active.to(torch.int32),
+                                       window=cache.cold_cap, ring=True, rope_theta=theta)[0]
+    o_idle = fp.flash_prefill_attention(*args, valid=torch.zeros_like(active, dtype=torch.int32),
+                                        ring=True, rope_theta=theta)[0]
+    return torch.where(active[:, None, None], o_act[:, 0], o_idle[:, 0])
+
+
 def ring_decode_phase(torch, gen, theta, smi):
-    """A1d, the ring form of the fused GQA decode: o and k_rot
-    bit-identical to its plain version at mixtral-8x22b's heads (rep 6, d
-    128) and falcon3-1b's (rep 2, d 256), rings of 64 and 4096 rows,
-    lengths before, at and past the wrap, an inactive wrapped slot and an
-    inactive empty one, f32 and bf16, NaN past each length; the
-    post-append form over the same rings too. Held bit for bit and timed
-    at b 4, h 48, g 8, d 128 over a wrapped 4096-row ring (f32) beside
-    SDPA with the evictee masked out."""
+    """A1d, the ring form of the fused GQA decode, which folds absolute
+    32-key tiles: o and k_rot bit-identical to its plain version, and o to
+    the one-row ring chunk kernel's row (``one_row_ring_chunk``), at
+    mixtral-8x22b's heads (rep 6, d 128) and falcon3-1b's (rep 2, d 256),
+    rings of 64 and 4096 rows, the lengths of ``ring_lengths`` (before, at
+    and past the wrap, window starts aligned and unaligned to 32, inactive
+    slots), f32 and bf16, NaN past each length; the post-append form over
+    the same rings too. Held bit for bit and timed at b 4, h 48, g 8, d 128
+    over a wrapped 4096-row ring (f32) beside SDPA with the evictee masked
+    out."""
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
 
     worst, n = 0.0, 0
     for h, g, d in SWA_SHAPES:
         for cold in (64, 4096):
-            lengths = [0, cold - 1, cold, cold + 1, 3 * cold + 5, cold + 2]
-            active = torch.tensor([False, True, True, True, True, False], device="cuda")
+            lengths, active = ring_lengths(cold)
             for dtype in (torch.float32, torch.bfloat16):
-                q, cache, k_new, v_new = decode_case(torch, gen, lengths, dtype, b=6, h=h, g=g,
-                                                     d=d, hot=0, cold=cold)
+                q, cache, k_new, v_new = decode_case(torch, gen, lengths, dtype, b=len(lengths),
+                                                     h=h, g=g, d=d, hot=0, cold=cold)
                 kw = dict(k_new=k_new, v_new=v_new, active=active, rope_theta=theta)
                 before = fd.RING_KERNEL.launches
                 o, k_rot = fd.flash_decode_attention_ring(q, cache, **kw)
+                torch.cuda.synchronize()
+                check(fd.RING_KERNEL.launches == before + 1, "ring decode: not one launch")
                 o_p, k_p = fd.flash_decode_attention_ring(q, cache, impl="plain", **kw)
                 post = fd.flash_decode_attention_ring(q, cache)
                 post_p = fd.flash_decode_attention_ring(q, cache, impl="plain")
+                row = one_row_ring_chunk(torch, fp, q, cache, k_new, v_new, active, theta)
                 torch.cuda.synchronize()
-                check(fd.RING_KERNEL.launches == before + 1, "ring decode: not one launch")
                 check(torch.isfinite(o).all() and torch.isfinite(post).all(),
                       "ring decode output not finite (read a masked row?)")
                 worst = max(worst, max_err(o, o_p), max_err(post, post_p))
                 check(torch.equal(o, o_p) and torch.equal(k_rot, k_p),
                       f"ring decode not bit-identical to plain (h {h}, d {d}, ring {cold}, "
                       f"{dtype}): {max_err(o, o_p)}")
+                check(torch.equal(o, row), f"ring decode row != the one-row ring chunk kernel's "
+                                           f"(h {h}, d {d}, ring {cold}, {dtype}): "
+                                           f"{max_err(o, row)}")
                 check(torch.equal(post, post_p), f"post-append decode over the ring (ring {cold})"
                       f" not bit-identical: {max_err(post, post_p)}")
                 n += 1
-    print(f"{fd.RING_KERNEL.symbol}: o and k_rot bit-identical to plain on {n} cases (h/g/d "
-          f"{SWA_SHAPES}, rings 64 / 4096, lengths before / at / past the wrap, inactive "
-          f"slots, f32 / bf16); the post-append form over the same rings too")
+    print(f"{fd.RING_KERNEL.symbol}: o and k_rot bit-identical to plain and o to the one-row "
+          f"ring chunk kernel's row on {n} cases (h/g/d {SWA_SHAPES}, rings 64 / 4096, lengths "
+          f"{ring_lengths(64)[0]} at ring 64, window starts aligned and not, inactive slots, "
+          f"f32 / bf16); the post-append form over the same rings too")
     b, (h, g, d), cold = 4, SWA_SHAPES[0], 4096
     length = cold + 80
     q, cache, k_new, v_new = decode_case(torch, gen, [length] * b, torch.float32, b=b, h=h, g=g,
@@ -2236,9 +2308,9 @@ def fp8_decode_phase(torch, gen, theta, smi, form):
     activations at the cases of its f32 form's phase (falcon3-1b's heads
     over hot 32 / cold 96, lengths 0-128 with NaN past each; paged: page
     size 32 / 48, identity / shuffled; ring: mixtral-8x22b's and
-    falcon3-1b's heads, rings 64 / 4096 before, at and past the wrap,
-    inactive slots). Timed at its f32 form's case beside SDPA over the
-    upcast rows, the bound counting 1-byte tiers."""
+    falcon3-1b's heads, rings 64 / 4096 at ``ring_lengths``, and o equal
+    to the one-row ring chunk kernel's row). Timed at its f32 form's case
+    beside SDPA over the upcast rows, the bound counting 1-byte tiers."""
     from repro_torch.core import kv_cache as kvc
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models.layers import apply_rope
@@ -2248,9 +2320,9 @@ def fp8_decode_phase(torch, gen, theta, smi, form):
     fused, paged, ring = form != "post" and form != "post paged", "paged" in form, form == "ring"
     entry = fd.flash_decode_attention_ring if ring else fd.flash_decode_attention
     if ring:
-        cases = [(6, h, g, d, 0, cold, [0, cold - 1, cold, cold + 1, 3 * cold + 5, cold + 2])
+        cases = [(8, h, g, d, 0, cold, ring_lengths(cold)[0])
                  for h, g, d in SWA_SHAPES for cold in (64, 4096)]
-        active = torch.tensor([False, True, True, True, True, False], device="cuda")
+        active = ring_lengths(64)[1]
     else:
         cases = [(6, 8, 4, 256, 32, 96, [0, 1, 31, 32, 33, 127 if fused else 128])]
         active = torch.tensor([False] + [True] * 5, device="cuda")
@@ -2267,8 +2339,17 @@ def fp8_decode_phase(torch, gen, theta, smi, form):
                     torch, kern, lambda impl: entry(q, c, impl=impl, **kw),
                     f"h {h}, d {d}, tiers {hot} / {cold}, {label}, {dt} activations"))
                 n += 1
+            if ring:  # the decoded row is the one-row ring chunk's (A3d's ring form)
+                from repro_torch.kernels import flash_prefill as fp
+
+                o = entry(q, cache, **kw)[0]
+                row = one_row_ring_chunk(torch, fp, q, cache, k_new, v_new, active, theta)
+                check(torch.equal(o, row), f"{kern.symbol} row != the one-row fp8 ring chunk "
+                                           f"kernel's (h {h}, ring {cold}, {dt}): "
+                                           f"{max_err(o, row)}")
     print(f"{kern.symbol}: bit-identical to plain on {n} cases (fp8 tiers, f32 / bf16 "
-          f"activations), one launch of its own entry point each")
+          f"activations), one launch of its own entry point each"
+          + ("; o equal to the one-row fp8 ring chunk kernel's row on each" if ring else ""))
 
     # the timed case of the f32 form: falcon3-1b's b 6, length 80 (paged:
     # 32-row pages, shuffled); ring: b 4, h 48, g 8, d 128, a wrapped 4096 ring
@@ -4033,6 +4114,242 @@ def swa_decode_breakdown(torch, eng, label, length=4180, n_steps=16):
               f"({100 * sel_ms / busy:.2f} % of device busy)")
 
 
+# (rid, new tokens) of the 2-layer fp8 speculative check: 4200 + 16, its
+# rounds committing into a ring wrapped at admission (4050 + 48 as well
+# took the script past 900 s; the 16-layer f32 mixes serve both)
+MIXTRAL_FP8_SPEC = ((3, 16),)
+
+
+def oracle_draft(torch, eng, want, bad=None):
+    """Make ``eng``'s draft propose a known continuation: each draft decode
+    step keeps its real forward pass (the draft cache advances as it
+    would) and replaces its logits by a one-hot at ``want[rid][i]``, the
+    token the non-speculative serve emitted after the one being drafted
+    (i = the draft's length before the step - prompt length + 1); where
+    ``bad[rid][i]``, the next token id instead, which the target rejects.
+    Returns a function that removes it. The oracle lives here only; the
+    package's draft is a model."""
+    from repro_torch.models import transformer as T
+
+    decode = T.decode_step
+
+    def step(params, cfg, tokens, cache, active=None):
+        if params is not eng.draft_params:
+            return decode(params, cfg, tokens, cache, active=active)
+        pos = next(iter(cache.values())).lengths[0].tolist()  # before the append
+        logits, cache = decode(params, cfg, tokens, cache, active=active)
+        prop = logits.argmax(-1).tolist()
+        for s, req in enumerate(eng._last_ctx.sched.slot_req):
+            i = -1 if req is None else pos[s] - req.prompt_len + 1
+            if 0 <= i < len(want[req.rid]):
+                tok = int(want[req.rid][i])
+                prop[s] = (tok + 1) % cfg.vocab_size if bad is not None and bad[req.rid][i] else tok
+        hot = torch.zeros_like(logits)
+        hot[torch.arange(len(prop), device=logits.device),
+            torch.tensor(prop, device=logits.device)] = 1.0
+        return hot, cache
+
+    T.decode_step = step
+
+    def remove():
+        T.decode_step = decode
+
+    return remove
+
+
+def recording_rounds():
+    """Record every speculative round's (seq0, chunk_valid, committed) as
+    the engine charges them (``kv_cache.spec_traffic_tokens``); returns the
+    list and a function that stops the recording."""
+    from repro_torch.core import kv_cache as kvc
+
+    charge, rounds = kvc.spec_traffic_tokens, []
+
+    def spy(lengths, chunk_valid, committed, hot_cap):
+        rounds.append((lengths.tolist(), chunk_valid.tolist(), committed.tolist()))
+        return charge(lengths, chunk_valid, committed, hot_cap)
+
+    kvc.spec_traffic_tokens = spy
+
+    def stop():
+        kvc.spec_traffic_tokens = charge
+
+    return rounds, stop
+
+
+def check_spec_requests(fin, eng, rounds, specs, label):
+    """A speculative serve's requests: each finished with its budget, no
+    weight reloaded, and its ledger the reference's rule for speculation:
+    the prompt in closed form plus ``spec_traffic_tokens`` of every round
+    its slot took part in (a ring charges the rows it committed). A slot's
+    request is the one whose prompt length its first round started at."""
+    from repro_torch.core import kv_cache as kvc
+
+    import torch
+
+    hot, token_bytes = eng.hot_cap, eng._kv_token_bytes()
+    check(eng.weight_loads == 0, f"{label}: weights were reloaded")
+    per_slot, committed = {}, {}
+    for seq0, valid, comm in rounds:
+        tr = kvc.spec_traffic_tokens(*(torch.tensor(x, dtype=torch.int32)
+                                       for x in (seq0, valid, comm)), hot)
+        for s, v in enumerate(valid):
+            if v > 0:
+                key = per_slot.setdefault(s, (seq0[s], {k: 0 for k in kvc.TRAFFIC_KEYS}))
+                for k in kvc.TRAFFIC_KEYS:
+                    key[1][k] += int(tr[k][s])
+                committed[s] = committed.get(s, 0) + comm[s]
+    by_prompt = {p: (s, led) for s, (p, led) in per_slot.items()}
+    for f in fin:
+        p, n = specs[f.rid]
+        check(f.outcome == "finished" and f.prompt_len == p and f.seq_len == p + n
+              and len(f.tokens) == n and p in by_prompt,
+              f"{label}: request {f.rid} finished as {f.prompt_len} + {len(f.tokens)}")
+        s, led = by_prompt[p]
+        prompt = kvc.prompt_traffic_tokens(p, hot)
+        want = {k: (prompt[k] + led[k]) * token_bytes for k in kvc.TRAFFIC_KEYS}
+        check(f.traffic == want and committed[s] == n,
+              f"{label}: request {f.rid} ledger {f.traffic} != {want}, or {committed[s]} rows "
+              f"committed for {n} tokens")
+
+
+def mixtral_speculative(torch, cfg, packed, reqs, base, kernels, smi):
+    """Speculative decoding over the sliding-window ring, at the dropless
+    cut ``cfg`` (16 layers, capacity E / k) of mixtral-8x22b: the draft is
+    ``make_draft_config(cfg)`` (2 dense layers, d_model 64, 4 / 4 heads of
+    16, the 32768 vocabulary, tied) from seed 7; K = SPEC_K, chunked
+    admission (``prefill_chunk`` 256). Three mixes over MIXTRAL_SPECS, each
+    with tokens equal to ``base`` (the non-speculative grouped serve's) on
+    4/4, including 4050 + 64 (the ring wraps inside a committed chunk) and
+    4200 + 32 (wrapped at admission): (a) reject: the seeded draft with
+    ``spec_force="reject"``, accepted 0; (b) full accept: ``oracle_draft``
+    proposing ``base``'s tokens, accepted == drafted; (c) mixed: the oracle
+    with a seeded third of its proposals corrupted. Each: one ring-chunk
+    launch per layer per round and per wave, no target ring decode, 2 x K
+    draft decodes per round, ledgers (``check_spec_requests``). Then over
+    fp8 tiers at 2 layers: the speculative serve of MIXTRAL_FP8_SPEC equals
+    its plain run. Prints acceptance rates and one verify's device ms
+    against K ring decode steps'. Returns the mixed run's launches."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import transformer as T
+    from repro_torch.models.pack import pack_params
+    from repro_torch.serving import speculative as spec_lib
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+
+    label, k, n_l = f"{cfg.name} speculative", SPEC_K, cfg.n_layers
+    dcfg = spec_lib.make_draft_config(cfg)
+    dparams = pack_params(T.init_params(dcfg, seed=7, device="cuda"), dcfg)
+    kw = dict(MIXTRAL_KW, prefill_chunk=256)
+    specs = dict(enumerate(MIXTRAL_SPECS))
+    rng = np.random.default_rng(27)
+    bad = {rid: rng.random(len(t)) < 1 / 3 for rid, t in base.items()}
+    kernels = kernels + [fd.KERNEL, fp.CHUNK_KERNEL]
+    kernels = list({kern.symbol: kern for kern in kernels}.values())
+    out = None
+    for mix, extra, oracle in (("reject", dict(spec_force="reject"), None),
+                               ("full accept", {}, {}), ("mixed", {}, bad)):
+        eng = Engine(cfg, packed, draft_cfg=dcfg, draft_params=dparams, spec_k=k, **kw, **extra)
+        rounds_n, waves = counting(eng, "_spec_step"), counting(eng, "_chunk_step")
+        dwaves = counting(eng, "_draft_chunk_step")
+        remove = (oracle_draft(torch, eng, base, oracle or None) if oracle is not None
+                  else (lambda: None))
+        rounds, stop = recording_rounds()
+        try:
+            fin, launches, wall = counted(kernels, lambda: eng.serve(reqs()))
+        finally:
+            stop()
+            remove()
+        st = eng.last_stats
+        same = sum(bool(np.array_equal(f.tokens, base[f.rid])) for f in fin)
+        rate = st.accepted_tokens / st.drafted_tokens if st.drafted_tokens else 0.0
+        print(f"{label} {mix} (K {k}): {wall:.3f} s, {len(rounds_n)} rounds, {len(waves)} target "
+              f"/ {len(dwaves)} draft chunk waves, drafted {st.drafted_tokens}, accepted "
+              f"{st.accepted_tokens} (acceptance rate {rate:.4f}); tokens equal to the "
+              f"non-speculative serve on {same}/{len(fin)}; launches {launches}")
+        check(same == len(MIXTRAL_SPECS) == len(fin),
+              f"{label} {mix}: tokens differ from the non-speculative serve ({same})")
+        check(launches[fp.CHUNK_RING_KERNEL.symbol] == n_l * (len(waves) + len(rounds_n))
+              and launches[fd.RING_KERNEL.symbol] == 0
+              and launches[fp.WINDOW_KERNEL.symbol] == 0
+              and launches[fd.KERNEL.symbol] == dcfg.n_layers * k * len(rounds_n)
+              and launches[fp.CHUNK_KERNEL.symbol] == dcfg.n_layers * len(dwaves),
+              f"{label} {mix}: not {n_l} ring chunks per round and wave, no ring decode, "
+              f"{dcfg.n_layers} x {k} draft decodes per round: {launches}")
+        check(len(rounds) == len(rounds_n), f"{label} {mix}: rounds not charged once each")
+        check_spec_requests(fin, eng, rounds, specs, f"{label} {mix}")
+        check(st.accepted_tokens <= st.drafted_tokens
+              and st.drafted_tokens == sum(f.drafted_tokens for f in fin)
+              and st.accepted_tokens == sum(f.accepted_tokens for f in fin),
+              f"{label} {mix}: drafted / accepted {st.drafted_tokens} / {st.accepted_tokens}")
+        if mix == "reject":
+            check(st.accepted_tokens == 0, f"{label} reject: accepted {st.accepted_tokens}")
+        elif mix == "full accept":
+            check(st.accepted_tokens == st.drafted_tokens > 0,
+                  f"{label} full accept: accepted {st.accepted_tokens} of {st.drafted_tokens}")
+        else:
+            check(0 < st.accepted_tokens < st.drafted_tokens,
+                  f"{label} mixed: accepted {st.accepted_tokens} of {st.drafted_tokens}")
+            out = launches
+        del eng
+
+    # one verify against K ring decode steps, every slot at length 4180
+    eng = Engine(cfg, packed, **MIXTRAL_KW)
+    state = eng._init_state(eng.slots, eng.max_len)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    length = 4180
+    for stack in state.cache.values():
+        for t in stack[:4]:
+            if t.numel():
+                t.normal_(generator=gen)
+        stack.lengths.fill_(length)
+    chunk = torch.randint(0, cfg.vocab_size, (eng.slots, k), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    full = torch.full((eng.slots,), k, dtype=torch.int32, device="cuda")
+
+    def decode_steps():
+        for j in range(k):
+            T.decode_step(packed, cfg, chunk[:, j], state.cache)
+        for stack in state.cache.values():
+            stack.lengths.fill_(length)
+
+    verify_ms, _ = timed(f"verify K {k} ({n_l} layers)", lambda: T.spec_verify_chunk(
+        packed, cfg, chunk, state.cache, full), iters=3)
+    decode_ms, _ = timed(f"{k} ring decode steps ({n_l} layers)", decode_steps, iters=3)
+    print(f"{label} device ms at length {length}, 4 slots: one verify of K {k} "
+          f"{verify_ms:.3f} against {k} decode steps {decode_ms:.3f} (ratio "
+          f"{verify_ms / decode_ms:.3f}) on {smi}")
+    del eng, state
+
+    # fp8 tiers at 2 layers: the speculative serve against its plain run
+    c8 = dataclasses.replace(cfg, name="mixtral-8x22b-l2", n_layers=2,
+                             bitnet=dataclasses.replace(cfg.bitnet, kv_fp8=True))
+    plain8 = dataclasses.replace(c8, bitnet=dataclasses.replace(c8.bitnet, impl="plain"))
+    p8 = dict(packed, moe_blocks=packed["moe_blocks"][:2])
+    subset = [Request(rid, reqs()[rid].tokens, n) for rid, n in MIXTRAL_FP8_SPEC]
+    runs = {}
+    t0 = time.perf_counter()
+    for name, c in (("kernel", c8), ("plain", plain8)):
+        e = Engine(c, p8, draft_cfg=dcfg, draft_params=dparams, spec_k=k,
+                   **dict(kw, slots=len(subset)))
+        fin8, l8, _ = counted(kernels + [fp.FP8_CHUNK_RING_KERNEL], lambda: e.serve(
+            [Request(r.rid, r.tokens, r.max_new_tokens) for r in subset]))
+        runs[name] = {f.rid: f.tokens for f in fin8}
+        if name == "kernel":
+            check(l8[fp.FP8_CHUNK_RING_KERNEL.symbol] > 0
+                  and l8[fp.CHUNK_RING_KERNEL.symbol] == l8[fd.RING_KERNEL.symbol] == 0,
+                  f"{label} fp8: launches {l8}")
+    same = sum(bool(np.array_equal(runs["kernel"][r], runs["plain"][r])) for r in runs["kernel"])
+    print(f"{c8.name} fp8 speculative (K {k}; requests (rid, new) {MIXTRAL_FP8_SPEC}, "
+          f"{len(subset)} slot(s)): kernel run against its plain run ({time.perf_counter() - t0:.2f} s): tokens "
+          f"equal on {same}/{len(subset)}")
+    check(same == len(subset), f"{label} fp8: the kernel run differs from its plain run")
+    return out
+
+
 def mixtral_phase(torch, smi):
     """mixtral-8x22b at full width and depth (56 layers, 48 / 8 heads of
     128, 8 experts top-2, window 4096), seeded, packed as drawn, served over
@@ -4045,9 +4362,11 @@ def mixtral_phase(torch, smi):
     takes every token, so a token's output does not depend on the tokens
     batched with it), at the depth cut to 16 layers: grouped and chunked
     admission (prefill_chunk 256: the chunked ring form), tokens equal on
-    every request. At the depth cut to
-    2 layers: the published run equal to its plain run (the same batching),
-    and each request served alone equal to the dropless batched serve."""
+    every request, and served speculatively (``mixtral_speculative``). At
+    the depth cut to 2 layers: the published run equal to its plain run
+    (the same batching), and each request served alone equal to the
+    dropless batched serve; over fp8 tiers, grouped and chunked admission
+    each equal to their plain runs."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
@@ -4177,6 +4496,9 @@ def mixtral_phase(torch, smi):
     print(f"{cfg_d.name} dropless: chunked against grouped admission, tokens equal on "
           f"{sum(same)}/{len(same)} requests")
     check(all(same), f"{label}: chunked and grouped admission differ: {same}")
+    t0 = time.perf_counter()
+    launches_s = mixtral_speculative(torch, cfg_d, packed16, reqs, grouped, kernels, smi)
+    print(f"[{cfg_d.name} speculative: {time.perf_counter() - t0:.2f} s]")
     del eng_d, eng_c, packed16
 
     # the depth cut to 2 layers (the run's time; the weights are the first
@@ -4231,7 +4553,8 @@ def mixtral_phase(torch, smi):
     del eng, eng2, eng_8, packed, packed2
     torch.cuda.empty_cache()
     return {label: launches, f"{label} chunked (16 layers)": launches_c, f"{label} fp8": launches8,
-            f"{label} fp8 chunked (2 layers)": launches8_c}, {
+            f"{label} fp8 chunked (2 layers)": launches8_c,
+            f"{label} speculative (16 layers)": launches_s}, {
         label: tok_s, f"{label} dropless (16 layers)": n_new / wall_d,
         f"{label} chunked (16 layers)": n_new / wall_c, f"{label} fp8": n_new / wall8}
 

@@ -111,21 +111,30 @@
 //    body (PAGED flag) compiles into a kernel of its own name.
 //  * Ring cold tier (the reference's _flash_gqa_fused with ring=True, entry
 //    point flash_decode_gqa_fused_ring, kernel gqa_decode_ring_kernel; the
-//    fused form over the sliding-window ring of mixtral-8x22b): cold row j
-//    holds the latest position p with p - HC = j (mod CC). The append that
-//    follows the kernel overwrites row (length - HC) % CC, and once the
-//    window has wrapped (length - HC >= CC) the position that row holds has
-//    left the window of the token being decoded; for an active slot that
-//    one key is masked (its logit skipped, its p and value 0), nothing else
-//    changes. The ring form keeps the fold by tiers (the hot tier's tiles,
-//    the ring's rows in ring order, then the pending token as a last
-//    one-key tile, its p and alpha through pend_s), since ring order is not
-//    position order; every path over a ring decodes through this one form,
-//    and a ring serve never preempts. An inactive slot
-//    appends nothing and keeps every row. The same body (RING flag)
-//    compiles into a kernel of its own name. At mixtral-8x22b's shape (b 4,
-//    h 48, g 8, d 128, a 4096-row ring, f32) the form moves 134 MB, 0.040
-//    ms at 3.35 TB/s, over a grid of only 2 x 8 x 4 = 64 blocks.
+//    fused form over the sliding-window ring of mixtral-8x22b): cold
+//    position p >= HC sits at ring row (p - HC) % CC while the ring still
+//    holds it (p >= length - CC). The form folds ABSOLUTE tiles too, over
+//    the positions the ring holds: the hot rows, the cold positions from
+//    max(HC, length - CC) to length - 1, and the pending token at lane
+//    length % 32 of tile length / 32. For an active slot the oldest of
+//    those cold positions, once the window has wrapped, is the evictee (the
+//    append that follows overwrites its row, and it has left the window of
+//    the token being decoded), so the cold keys start one later; an inactive
+//    slot appends nothing and keeps every row, as in the reference. Tiles
+//    wholly before the window are skipped, as the chunked ring form skips
+//    them (flash_prefill.cuh), so at hot_cap 0 (every SWA cache the
+//    engine builds) an active slot's decoded row is the one-row ring chunk's
+//    row at window = CC bit for bit, and an inactive one's the row of that
+//    chunk at valid 0 and no window: a speculative verify chunk over the
+//    ring gives the decode's rows. Once the window start is not 32-aligned,
+//    one tile's keys come from both ends of the ring (the window's oldest
+//    tile and the pending token's share a block of 32 ring rows); each
+//    lane resolves its row from the ring row of the first cold key by one
+//    select (row_at), so every load of a chunk stays in flight together.
+//    The same body (RING flag) compiles into a kernel of its own name. At
+//    mixtral-8x22b's shape (b 4, h 48, g 8, d 128, a 4096-row ring, f32)
+//    the form moves 134 MB, 0.040 ms at 3.35 TB/s, over a grid of only 2 x
+//    8 x 4 = 64 blocks.
 //  * fp8 (e4m3) tiers (the reference's kv_fp8 caches, which its kernels
 //    upcast tile by tile to f32): the tiers have a type of their own, TT,
 //    either T or __nv_fp8_e4m3 (fp8.cuh), while q, k_new, v_new, out and
@@ -326,7 +335,6 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
   __shared__ __align__(16) float p_s[2][kMaxRep][kChunk * kTile];
   __shared__ float alpha_s[kMaxRep][kChunk];
   __shared__ float l_s[kMaxRep];
-  __shared__ float pend_s[2][kMaxRep];  // RING: the pending token's p and alpha
 
   cg::cluster_group cluster = cg::this_cluster();
   const int slice = blockIdx.x, g = blockIdx.y, b = blockIdx.z;  // slice = cluster rank
@@ -366,42 +374,86 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
   }
 
   const int length = a.lengths[b];
-  // Absolute tiles (every form but the ring): the slot's keys are the
-  // positions 0 .. n_keys - 1, tier rows below n_tier and, for an active
-  // slot of the fused form, the pending token at position pend = n_tier
-  // (-1: none); tile i holds positions 32 i .. 32 i + 31.
+  // Absolute tiles: tile i holds positions 32 i .. 32 i + 31. Linear forms:
+  // the slot's keys are the positions 0 .. n_keys - 1, tier rows below
+  // n_tier and, for an active slot of the fused form, the pending token at
+  // position pend = n_tier (-1: none).
   const int n_tier = min(length, a.HC + a.CC);
-  const int pend = !RING && active ? n_tier : -1;
-  // RING: the hot tier's tiles, then the cold tier's in ring order
+  const int pend = !active ? -1 : RING ? length : n_tier;
+  // RING: n_hot = min(length, HC) hot rows; the cold positions from lo =
+  // max(HC, length - CC + active), clipped to length, which the ring still
+  // holds (an active slot's oldest one is the evictee: the coming append
+  // overwrites it, and its position has left the window of the token being
+  // decoded); then the pending token at position length, so the keys end
+  // at n_end. Tiles [0, t_hot) and [t_up, t_up + n_tiles - t_hot) hold
+  // every key; the tiles between hold none and are skipped.
   const int n_hot = min(length, a.HC);
-  const int n_cold = min(max(length - a.HC, 0), a.CC);
+  const int lo = min(max(a.HC, length - a.CC + (active ? 1 : 0)), length);
+  const int n_end = length + (active ? 1 : 0);
   const int t_hot = (n_hot + kTile - 1) / kTile;
-  const int n_tiles = RING ? t_hot + (n_cold + kTile - 1) / kTile
+  const int t_up = max(lo / kTile, t_hot);
+  const int n_tiles = RING ? t_hot + max((n_end + kTile - 1) / kTile - t_up, 0)
                            : (n_tier + (pend >= 0) + kTile - 1) / kTile;
-  // RING: the cold row the coming append evicts, for an active slot whose
-  // window has wrapped; -1 otherwise
-  const int evict = RING && active && a.CC > 0 && length - a.HC >= a.CC ? (length - a.HC) % a.CC : -1;
+  // RING: a cold key p (lo <= p < length, so p - lo < CC) sits at ring row
+  // rbase + p, less CC past the ring's end (rbase + lo is the ring row of
+  // position lo): one select, no branch, so a tile whose keys wrap the ring
+  // (its rows come from both ends of it) loads like any other. Keys and
+  // rows follow from the position and these scalars alone, so the ring
+  // form keeps no per-tile bases in registers. hslot / cslot: the slot's
+  // row 0 of this group in the hot tier / the ring.
+  const int rbase = (a.CC > 0 ? max(lo - a.HC, 0) % a.CC : 0) - lo;
+  const int64_t hslot = (int64_t)b * a.HC * gd + (int64_t)g * D;
+  const int64_t cslot = (int64_t)b * a.CC * gd + (int64_t)g * D;
 
-  // A chunk in registers: its tiles' keys (valid keys first, 0 past the
-  // last tile), the evictee's key index in each tile (RING; -1: none), the
-  // pending token's (-1: none), the position of each tile's key 0, this
-  // warp's key rows for the logits (slot gw + CW i of the chunk: tile i /
-  // kSpan) and this thread's values for the fold.
-  int n[kChunk], ev[kChunk], pl[kChunk], start[kChunk];
+  // A chunk in registers: its tiles' key counts from key 0 (0 past the
+  // last tile), the pending token's key index in each tile (-1: none), the
+  // position of each tile's key 0, this warp's key rows for the logits
+  // (slot gw + CW i of the chunk: tile i / kSpan) and this thread's values
+  // for the fold.
+  int n[kChunk], pl[kChunk], start[kChunk];
   int64_t hbase[kChunk], cbase[kChunk];  // contiguous: tile k's row 0 in either tier
   float kx[KPW][TL];
   float v[kChunk][KPT];
+  // key j of tile k is one of the slot's keys (the pending token included)
+  auto is_key = [&](int k, int j) -> bool {
+    if constexpr (RING) {
+      const int pos = start[k] + j;
+      // bitwise, not short-circuit: a branch here keeps a chunk's loads
+      // from issuing together
+      return (j < n[k]) & ((pos < n_hot) | (pos >= lo));
+    } else {
+      return j < n[k];
+    }
+  };
+  // ... and held in a tier: a key, not the pending token. One predicate,
+  // written per form as it compiled to its fastest code (SASS and times
+  // from time_decode_forms.py): bitwise for the ring and paged forms, whose
+  // row addresses depend on it, short-circuit for the contiguous ones.
+  auto held_at = [&](int k, int j) -> bool {
+    if constexpr (RING) {
+      return is_key(k, j) & (j != pl[k]);
+    } else if constexpr (PAGED) {
+      return (j < n[k]) & (j != pl[k]);
+    } else {
+      return j < n[k] && j != pl[k];
+    }
+  };
   // The row of this slot's group at position start[k] + j, as an offset
   // from the hot tier (position < HC) or the cold tier: contiguous, from
-  // the tile's bases; paged, a cold row through the page table (read only
-  // for a key a tier holds). No branch, so the loads it feeds stay
-  // predicated and are in flight together.
+  // the tile's bases; paged, a cold row through the page table; RING, a
+  // cold row of the ring from rbase (each read only for a key a tier
+  // holds). No branch, so the loads it feeds stay predicated and are in
+  // flight together.
   auto row_at = [&](int k, int j, bool held) -> int64_t {
     const int pos = start[k] + j;
     if constexpr (PAGED) {
       const int r = held ? max(pos - a.HC, 0) : 0;
       const int64_t cold = (int64_t)a.page_table[(int64_t)b * a.pps + r / a.ps] * a.ps + r % a.ps;
       return (pos < a.HC ? (int64_t)b * a.HC + pos : cold) * gd + (int64_t)g * D;
+    } else if constexpr (RING) {
+      int r = rbase + pos;
+      r = r >= a.CC ? r - a.CC : r;
+      return pos < a.HC ? hslot + (int64_t)pos * gd : cslot + (int64_t)(held ? r : 0) * gd;
     } else {
       return (pos < a.HC ? hbase[k] : cbase[k]) + j * gd;
     }
@@ -411,28 +463,20 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
     for (int k = 0; k < kChunk; ++k) {
       const int tk = c0 + k;
       if constexpr (RING) {
-        const bool hot = tk < t_hot;
-        start[k] = (hot ? tk : tk - t_hot) * kTile;
-        n[k] = tk < n_tiles ? min(kTile, (hot ? n_hot : n_cold) - start[k]) : 0;
-        ev[k] = !hot && evict >= start[k] && evict < start[k] + kTile ? evict - start[k] : -1;
-        pl[k] = -1;
-        // row positions of the ring form: a hot tile's at position start + j,
-        // a cold one's at HC + start + j (ring row start + j)
-        if (!hot) start[k] += a.HC;
+        start[k] = (tk < t_hot ? tk : tk - t_hot + t_up) * kTile;
+        n[k] = tk < n_tiles ? min(kTile, n_end - start[k]) : 0;
       } else {
         start[k] = tk * kTile;
         n[k] = tk < n_tiles ? min(kTile, n_tier + (pend >= 0) - start[k]) : 0;
-        ev[k] = -1;
-        pl[k] = pend >= start[k] && pend < start[k] + kTile ? pend - start[k] : -1;
       }
+      pl[k] = pend >= start[k] && pend < start[k] + kTile ? pend - start[k] : -1;
       hbase[k] = ((int64_t)b * a.HC + start[k]) * gd + (int64_t)g * D;
       cbase[k] = ((int64_t)b * a.CC + start[k] - a.HC) * gd + (int64_t)g * D;
     }
-    // key j of tile k is held in a tier when it is a key and not the pending token
 #pragma unroll
     for (int i = 0; i < KPW; ++i) {
       const int k = i / kSpan, j = gw + CW * (i % kSpan), pos = start[k] + j;
-      const bool held = j < n[k] && j != pl[k];
+      const bool held = held_at(k, j);
       const TT* row = (pos < a.HC ? a.hot_k : a.cold_k) + row_at(k, j, held);
 #pragma unroll
       for (int t = 0; t < TL; ++t) {
@@ -445,7 +489,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
 #pragma unroll
       for (int u = 0; u < KPT; ++u) {
         const int j = part + SPLIT * u, pos = start[k] + j;
-        const bool held = j < n[k] && j != ev[k] && j != pl[k];
+        const bool held = held_at(k, j);
         const TT* row = (pos < a.HC ? a.hot_v : a.cold_v) + row_at(k, j, held) + dv;
         const float x = held ? to_f32(*row) : 0.f;
         v[k][u] = j == pl[k] ? vn : x;
@@ -524,7 +568,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
 #pragma unroll
       for (int i = 0; i < KPW; ++i) {
         const int k = i / kSpan, j = gw + CW * (i % kSpan);
-        if (j >= n[k] || j == ev[k] || j == pl[k]) continue;
+        if (!held_at(k, j)) continue;
         const float logit = __fmul_rn(dot[i], a.scale);
         float* dst = lg_s + r * (kChunk * kTile) + k * kTile + j;
         if constexpr (S == 1) {
@@ -547,9 +591,9 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
       float x[kChunk], p[kChunk], alpha[kChunk], tmax[kChunk];
 #pragma unroll
       for (int k = 0; k < kChunk; ++k)
-        tmax[k] = x[k] = lane >= n[k] || lane == ev[k] ? kNegInf
-                         : lane == pl[k]              ? lg_pend[h]
-                                                      : lg[k * kTile + lane];
+        tmax[k] = x[k] = !is_key(k, lane) ? kNegInf
+                         : lane == pl[k]  ? lg_pend[h]
+                                          : lg[k * kTile + lane];
       warp_maxes(tmax);
 #pragma unroll
       for (int k = 0; k < kChunk; ++k) {
@@ -557,7 +601,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
         if (n[k] == 0) continue;
         const float m_new = fmaxf(m[h], tmax[k]);
         alpha[k] = expf(m[h] - m_new);
-        if (lane < n[k] && lane != ev[k]) p[k] = expf(x[k] - m_new);
+        if (is_key(k, lane)) p[k] = expf(x[k] - m_new);
         m[h] = m_new;
       }
       __syncwarp();
@@ -592,22 +636,10 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
     if (c0 + kChunk < n_tiles) fetch(c0 + kChunk);
   }
 
-  // ---- ring form, active slots: the pending token joins as a last
-  // one-key tile (the other forms folded it inside its tile) ----
 #pragma unroll
   for (int h = 0; h < kHeadsPerWarp; ++h) {
     const int r = warp + kWarps * h;
     if (r >= rep) break;
-    if (RING && active) {
-      const float m_new = fmaxf(m[h], lg_pend[h]);
-      const float alpha = expf(m[h] - m_new);
-      const float p = expf(lg_pend[h] - m_new);
-      l[h] = __fadd_rn(__fmul_rn(l[h], alpha), p);
-      if (lane == 0) {
-        pend_s[0][r] = p;
-        pend_s[1][r] = alpha;
-      }
-    }
     if (lane == 0) l_s[r] = l[h];
   }
   __syncthreads();
@@ -616,9 +648,7 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
     for (int r = 0; r < kMaxRep; ++r) {
       if (r >= rep) break;
       T* orow = a.out + ((int64_t)b * G * rep + g * rep + r) * D;
-      float o = acc[r];
-      if (RING && active) o = __fadd_rn(__fmul_rn(o, pend_s[1][r]), __fmul_rn(pend_s[0][r], vn));
-      store(orow + dv, o / fmaxf(l_s[r], 1e-30f));
+      store(orow + dv, acc[r] / fmaxf(l_s[r], 1e-30f));
     }
   }
 }

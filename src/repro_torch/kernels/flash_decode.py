@@ -45,18 +45,23 @@ is invisible in the result.
 Ring form (the reference's ``_flash_gqa_fused(..., ring=True)`` through
 ``flash_decode_attention_ring``; entry point ``flash_decode_gqa_fused_ring``,
 kernel ``gqa_decode_ring_kernel``, counter ``RING_KERNEL``): the cold tier
-is the sliding-window ring of ``kv_cache.append_decode_ring``. Over the
-pre-append cache the fused form masks cold row ``(length - hot_cap) %
-cold_cap`` of an active slot whose window has wrapped (``length - hot_cap
->= cold_cap``): the append that follows overwrites it, and the position it
-holds has left the window of the token being decoded. It keeps the fold
-the GQA forms had before absolute tiles (``fold_tiers``): the hot tier's
-tiles, the cold rows' in ring order, then the pending token as a one-key
-tile. Ring order is not position order, but every path that decodes a row
-reads the ring through this one form, so grouped and chunked admission
-give the same bits (a ring serve never preempts, so it never recomputes). Without ``k_new`` the ring entry point is the post-append form
-(kernel 6) as it is: over a wrapped ring the length clip marks every row
-valid, as the reference's clamp does.
+is the sliding-window ring of ``kv_cache.append_decode_ring``, where cold
+position p sits at row ``(p - hot_cap) % cold_cap`` while the ring holds
+it. It folds absolute tiles too (``fold_positions(..., ring=True)``),
+over the positions the ring holds, with the pending token at its
+position; over the pre-append
+cache an active slot whose window has wrapped also leaves out its oldest
+cold position (the evictee: the append that follows overwrites its row,
+and it has left the window of the token being decoded), while an inactive
+slot keeps every row, as the reference does. Tiles wholly before the window
+are skipped, as the chunked ring form skips them, so at ``hot_cap`` 0
+(every SWA cache the engine builds) a decoded row is the one-row ring
+chunk's row bit for bit (``flash_prefill_plain(..., ring=True)`` at
+``window = cold_cap``; an inactive slot's at ``valid`` 0 and no window),
+and a speculative verify chunk over the ring gives the decode's rows.
+Without ``k_new`` the ring entry point is the post-append form (kernel 6)
+as it is: over a wrapped ring the length clip marks every row valid, as
+the reference's clamp does.
 
 fp8 (e4m3) tiers (``BitNetConfig.kv_fp8``; the reference upcasts each
 fp8 tile to f32 in all three kernel functions): every form above also
@@ -191,17 +196,6 @@ def fold_tile(state, logits, valid, v):
     return fold_tiles(state, logits[..., None, :], valid[..., None, :], v[..., None, :, :])
 
 
-def ring_evictee(cache: kvc.TieredKVCache, active) -> torch.Tensor:
-    """Cold row of each slot that the coming ring append overwrites, where
-    the slot is active and its window has wrapped; -1 elsewhere (b,)."""
-    b = cache.lengths.shape[0]
-    n = cache.lengths.long() - cache.hot_cap
-    act = (torch.ones(b, dtype=torch.bool, device=n.device) if active is None
-           else active.bool())
-    wrapped = act & (n >= cache.cold_cap) & (cache.cold_cap > 0)
-    return torch.where(wrapped, torch.remainder(n, max(cache.cold_cap, 1)), -1)
-
-
 FOLD_TILES = 32  # tiles whose products the plain decode forms at once
 
 
@@ -226,33 +220,6 @@ def fold_tiles(state, logits, valid, v):
     return m_new[..., -1], l, acc
 
 
-def fold_tiers(qg: torch.Tensor, cache: kvc.TieredKVCache, scale: float,
-               evict: Optional[torch.Tensor] = None):
-    """The ring form's fold: online-softmax state after the hot tier's and
-    then the cold tier's 32-key tiles (the cold rows in ring order), valid
-    rows only, without the cold row ``evict`` (b,) of each slot (-1:
-    none), folded as ``fold_tile`` would one by one (``fold_tiles``,
-    ``FOLD_TILES`` at a time). qg: (b, g, rep, 1, d) f32 (rotated) queries;
-    returns (m, l, acc) of shapes (b, g, rep) and (b, g, rep, d)."""
-    b, g, rep, _, d = qg.shape
-    lengths = cache.lengths.long()
-    state = (qg.new_full((b, g, rep), NEG_INF), qg.new_zeros((b, g, rep)),
-             qg.new_zeros((b, g, rep, d)))
-    tiers = ((True, cache.hot_cap, lengths.clamp(max=cache.hot_cap)),
-             (False, cache.cold_cap, (lengths - cache.hot_cap).clamp(0, cache.cold_cap)))
-    for hot, cap, n_valid in tiers:
-        for start in range(0, cap, TILE * FOLD_TILES):
-            n = min(FOLD_TILES, -(-(cap - start) // TILE))
-            pos = start + torch.arange(n * TILE, device=qg.device)
-            valid = pos[None] < n_valid[:, None]  # (b, n T)
-            if evict is not None and not hot:
-                valid = valid & (pos[None] != evict[:, None])
-            # rows past the tier repeat its last one: masked, as every invalid key
-            kt, vt = tier_rows(cache, hot, pos.clamp(max=cap - 1))  # (b, n T, g, d)
-            state = _fold_keys(state, qg, kt, vt, valid, scale)
-    return state
-
-
 def _fold_keys(state, qg, kt, vt, valid, scale):
     """Fold n consecutive 32-key tiles of keys kt / values vt (b, n T, g, d)
     under ``valid`` (b, n T) into ``state`` (``fold_tiles``)."""
@@ -267,38 +234,66 @@ def _fold_keys(state, qg, kt, vt, valid, scale):
     return fold_tiles(state, logits, valid.reshape(b, n, TILE)[:, None, None], tiles(vt))
 
 
-def fold_positions(qg: torch.Tensor, cache, scale: float, pending=None):
+def fold_positions(qg: torch.Tensor, cache, scale: float, pending=None, ring: bool = False):
     """Online-softmax state after the slot's keys in ABSOLUTE 32-key tiles,
-    as the chunked prefill forms fold them: tile i holds positions 32 i ..
-    32 i + 31, position p < hot_cap from hot row p and the rest from cold
-    row p - hot_cap (through the page table when paged), so a tile may
-    hold rows of both tiers. ``pending`` = (k (b, g, d), v (b, g, d) f32,
-    active (b,)): an active slot's pending token is the key at position
-    ``lengths[b]``, inside its tile. qg: (b, g, rep, 1, d) f32 (rotated)
-    queries; returns (m, l, acc) of shapes (b, g, rep) and (b, g, rep, d).
-    A decoded row is then the one-row chunk's row bit for bit."""
+    as the chunked prefill forms fold them and in the kernel's walk
+    (``decode_body``): tile i holds positions 32 i .. 32 i + 31; slot b's
+    keys are the positions below n_hot[b] and those in [lo[b], n_keys[b]),
+    position p < hot_cap from hot row p and the rest from cold row
+    ``row(p)`` (through the page table when paged), so a tile may hold rows
+    of both tiers. ``pending`` = (k (b, g, d), v (b, g, d) f32, active
+    (b,)): an active slot's pending token is the key at position
+    n_keys[b], inside its tile.
+
+    Linear tiers: n_hot = lo = 0, n_keys = min(length, hot_cap +
+    cold_cap), row(p) = p - hot_cap. Ring cold tier (``ring``): n_hot =
+    min(length, hot_cap), lo = max(hot_cap, length - cold_cap + active)
+    clipped to length, n_keys = length and row(p) = (p - hot_cap) %
+    cold_cap, the ring row that holds p; an active slot's oldest held
+    position is the evictee, which the coming append overwrites.
+
+    Tiles holding no key of any slot are skipped, and one that holds none
+    of a slot's keys leaves that slot's state as it was, as the chunked
+    forms' tiles do (``flash_prefill_plain``), so a decoded row is the
+    one-row chunk's row bit for bit. qg: (b, g, rep, 1, d) f32 (rotated)
+    queries; returns (m, l, acc) of shapes (b, g, rep) and (b, g, rep,
+    d)."""
     b, g, rep, _, d = qg.shape
     hc, cc = cache.hot_cap, cache.cold_cap
-    n_tier = cache.lengths.long().clamp(max=hc + cc)
+    length = cache.lengths.long()
+    act = pending[2].long() if pending is not None else torch.zeros_like(length)
+    if ring:
+        n_hot = length.clamp(max=hc)
+        lo = torch.minimum((length - cc + act).clamp(min=hc), length)
+    else:
+        length = length.clamp(max=hc + cc)
+        n_hot = lo = torch.zeros_like(length)
+    n_end = length + act
     state = (qg.new_full((b, g, rep), NEG_INF), qg.new_zeros((b, g, rep)),
              qg.new_zeros((b, g, rep, d)))
-    n_pos = hc + cc + (pending is not None)
-    for start in range(0, n_pos, TILE * FOLD_TILES):
-        n = min(FOLD_TILES, -(-(n_pos - start) // TILE))
-        pos = start + torch.arange(n * TILE, device=qg.device)
-        valid = pos[None] < n_tier[:, None]  # (b, n T)
+    n_tiles = -(-int(n_end.max()) // TILE) if b else 0
+    t0 = torch.arange(n_tiles, device=qg.device) * TILE
+    need = ((t0[None] < n_hot[:, None])
+            | ((t0[None] + TILE > lo[:, None]) & (t0[None] < n_end[:, None]))).any(0)
+    starts = t0[need]
+    lanes = torch.arange(TILE, device=qg.device)
+    for i in range(0, starts.shape[0], FOLD_TILES):
+        pos = (starts[i:i + FOLD_TILES, None] + lanes).reshape(-1)  # (n T,)
+        valid = (pos[None] < n_hot[:, None]) | ((pos[None] >= lo[:, None])
+                                                & (pos[None] < length[:, None]))  # (b, n T)
         # rows past a tier repeat its last one: masked, as every invalid key
         rows = [(pos < hc, tier_rows(cache, True, pos.clamp(max=hc - 1)))] if hc else []
         if cc:
-            rows.append((pos >= hc, tier_rows(cache, False, (pos - hc).clamp(0, cc - 1))))
+            row = torch.remainder(pos - hc, cc) if ring else pos - hc
+            rows.append((pos >= hc, tier_rows(cache, False, row.clamp(0, cc - 1))))
         kt, vt = (x.float() for x in rows[-1][1])  # (b, n T, g, d)
         if len(rows) == 2:
             sel = rows[0][0][None, :, None, None]
             kt = torch.where(sel, rows[0][1][0].float(), kt)
             vt = torch.where(sel, rows[0][1][1].float(), vt)
         if pending is not None:
-            k_p, v_p, act = pending
-            at = act[:, None] & (pos[None] == n_tier[:, None])  # (b, n T)
+            k_p, v_p, _ = pending
+            at = act.bool()[:, None] & (pos[None] == length[:, None])  # (b, n T)
             kt = torch.where(at[:, :, None, None], k_p[:, None], kt)
             vt = torch.where(at[:, :, None, None], v_p[:, None], vt)
             valid = valid | at
@@ -325,10 +320,8 @@ def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
                              active, scale: float, theta: float, ring: bool = False):
     """Plain fused version, in the kernel's arithmetic: rotate q and k_new
     at ``lengths`` (in f32) and fold the absolute tiles with, for active
-    slots, the pending token at its position (``fold_positions``). The
-    ring form folds the tiers instead (``fold_tiers``, without each active
-    wrapped slot's evictee, ``ring_evictee``), then the pending token as a
-    last one-key tile."""
+    slots, the pending token at its position (``fold_positions``; the ring
+    form over the positions the ring holds)."""
     b, h, d = q.shape
     g = k_new.shape[1]
     pos = cache.lengths.long()[:, None]  # (b, 1)
@@ -337,13 +330,7 @@ def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
     qg = q_rot.reshape(b, g, h // g, 1, d)
     act = (torch.ones(b, dtype=torch.bool, device=q.device) if active is None
            else active.bool())
-    if ring:
-        state = fold_tiers(qg, cache, scale, ring_evictee(cache, active))
-        logit = tree_sum(qg[:, :, :, 0] * k_rot[:, :, None], -1) * scale  # (b, g, rep)
-        v_p = torch.where(act[:, None, None], v_new.float(), 0.0)[:, :, None, None]
-        state = fold_tile(state, logit[..., None], act[:, None, None, None], v_p)
-    else:
-        state = fold_positions(qg, cache, scale, (k_rot, v_new.float(), act))
+    state = fold_positions(qg, cache, scale, (k_rot, v_new.float(), act), ring=ring)
     return _finish(state).reshape(b, h, d).to(q.dtype), k_rot.to(k_new.dtype)
 
 
@@ -502,8 +489,9 @@ def flash_decode_attention_ring(
     impl: str = "auto",
 ):
     """GQA decode over a ring cold tier (sliding-window archs; reference:
-    ``flash_decode_attention_ring``). The fused form (``k_new``) masks the
-    ring row the coming append evicts (``ring_evictee``) and launches
+    ``flash_decode_attention_ring``). The fused form (``k_new``) folds the
+    positions the ring holds in absolute tiles, without the row the coming
+    append evicts (``fold_positions``), and launches
     ``flash_decode_gqa_fused_ring``; the post-append form is
     ``flash_decode_attention``'s, since a wrapped ring is valid in every
     row."""

@@ -77,15 +77,16 @@ contiguous draft cache propose a K-token chunk, one
 form with its emit and without the append) scores it against the target's
 cache, the accept rule keeps the longest prefix the target itself would
 have emitted, and the round commits the whole chunk and truncates both
-caches to it. The draft prefills from offset 0 in its own chunk waves
-beside the target's (``draft_prefilling``), never sharing a prefix; the
-target's last chunk waits for the draft. A round emits a data-dependent
+caches to it; over a sliding-window ring, whose wrapped append is
+destructive, it commits only the accepted rows and truncates the draft's
+cache alone, as the reference does. The draft prefills from offset 0 in
+its own chunk waves beside the target's (``draft_prefilling``), never
+sharing a prefix; the target's last chunk waits for the draft. A round emits a data-dependent
 1..K tokens, so the host mirrors are read back once per iteration, where
 a paged slot also returns the pages its rollback stranded. Greedy tokens
-equal the non-speculative serve's for every accept / reject mix. Unlike
-the reference, a ring (SWA) layout refuses speculation: the ring decode
-(A1d) folds hot, then ring order, then the pending token, so a ring
-verify would agree with a ring decode to rounding only.
+equal the non-speculative serve's for every accept / reject mix, on the
+ring too: the ring decode (A1d) folds the ring's positions in absolute
+32-key tiles, so a verify chunk's row is the decoded row bit for bit.
 
 Not ported: SDC scrubbing, and the drain / handoff of sessions between
 replicas.
@@ -332,13 +333,6 @@ class Engine:
                     f"prefill_chunk={prefill_chunk}) falls back to non-speculative decode",
                     RuntimeWarning, stacklevel=2)
                 spec = False
-            elif cfg.attn_type == "swa":
-                raise NotImplementedError(
-                    "speculative decoding on a ring (SWA) layout is not ported: the ring "
-                    "decode (A1d, kernels/flash_decode.py fold_tiers) folds the hot tier, "
-                    "then the ring in ring order, then the pending token, so a verify "
-                    "chunk's row agrees with the decoded row to rounding only and greedy "
-                    "tokens could differ from the non-speculative serve's")
         self.spec = spec
         self.draft_params = (pack_params(tree_to(draft_params, self.device), draft_cfg)
                              if spec else None)
@@ -499,8 +493,11 @@ class Engine:
         appends row K - 1 to the draft cache), ``spec_verify_chunk``
         scores it without appending, the accept rule picks ``n_emit``, the
         whole chunk is committed and both caches are truncated to ``seq0
-        + n_emit``. Every emitted token is a target argmax. The ledger
-        charges ``spec_traffic_tokens``. Device work only."""
+        + n_emit``; a ring (SWA) commits only the ``n_emit`` accepted rows,
+        since a wrapped ring append overwrites rows a rollback could not
+        restore, and only the draft's cache is truncated. Every emitted
+        token is a target argmax. The ledger charges
+        ``spec_traffic_tokens`` for the rows committed. Device work only."""
         k_spec = self.spec_k
         active = state.allocated & ~state.done
         act32 = active.to(torch.int32)
@@ -519,8 +516,10 @@ class Engine:
         greedy = logits.argmax(dim=-1).to(torch.int32)
         n_emit = spec_lib.longest_accepted_prefix(chunk, greedy, chunk_valid, stop_token,
                                                   force_reject=self.spec_force == "reject")
-        T.spec_commit_chunk(self.cfg, state.cache, kvs, chunk_valid)
-        for caches in (state.cache, state.draft_cache):
+        ring = self.cfg.attn_type == "swa"
+        commit_n = n_emit if ring else chunk_valid
+        T.spec_commit_chunk(self.cfg, state.cache, kvs, commit_n)
+        for caches in (state.draft_cache,) if ring else (state.cache, state.draft_cache):
             for stack in caches.values():
                 kv_cache.truncate(stack, seq0 + n_emit)
         pos = (torch.arange(out_cap, dtype=torch.int32, device=self.device)[None]
@@ -538,7 +537,7 @@ class Engine:
         if stop_token is not None:
             done = done | (active & (state.tok == stop_token))
         state.done = done
-        tr = kv_cache.spec_traffic_tokens(seq0, chunk_valid, chunk_valid, self.hot_cap)
+        tr = kv_cache.spec_traffic_tokens(seq0, chunk_valid, commit_n, self.hot_cap)
         state.ledger = {k: state.ledger[k] + tr[k] * act32 for k in TRAFFIC_KEYS}
         state.drafted = state.drafted + (chunk_valid - 1).clamp(min=0)
         state.accepted = state.accepted + (n_emit - 1).clamp(min=0)

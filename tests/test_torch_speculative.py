@@ -20,8 +20,12 @@ max_len 64, prefill_chunk 4, page size 8; the draft from
   after every iteration); the stop token, full accept with its ledger
   identity, forced reject, cancels mid-speculation and mid-draft-prefill,
   preemption mid-speculation.
-* The gates: vocabulary mismatch, temperature, the MLA fallback warning
-  and the ring's ``NotImplementedError`` (the port's one departure).
+* Over the sliding-window ring (mixtral-8x22b-smoke, window 8, as the
+  reference's test builds it): the engine against its sequential serve
+  and the JAX speculative engine at K in {1, 2, 4, 8}, counters and
+  ledgers included, the ring's lengths equal to the draft's, the slot's
+  and the host mirror's every iteration; forced reject.
+* The gates: vocabulary mismatch, temperature, the MLA fallback warning.
 """
 
 import dataclasses
@@ -95,22 +99,38 @@ def _with_lora_b(jref, params, seed):
     return walk(params)
 
 
-@pytest.fixture(scope="module")
-def models(jref):
-    """falcon3-1b-smoke (the reference's PRNGKey(0) init, LoRA B seeded) and
-    its ``make_draft_config`` draft (PRNGKey(7)), packed by the reference
-    and carried across: (jcfg, jparams, jdcfg, jdparams) and the port's."""
-    jcfg = jref.configs.get_smoke_config("falcon3-1b")
-    jparams = jref.pack.pack_params(
-        _with_lora_b(jref, jref.T.init_params(jref.jax.random.PRNGKey(0), jcfg), 0), jcfg)
+def _carried(jref, name, lora_seed=None):
+    """``name``'s smoke config (the reference's PRNGKey(0) init, LoRA B
+    seeded from ``lora_seed`` where given) and its ``make_draft_config``
+    draft (PRNGKey(7)), packed by the reference and carried across:
+    (jcfg, jparams, jdcfg, jdparams) and the port's."""
+    jcfg = jref.configs.get_smoke_config(name)
+    jparams = jref.T.init_params(jref.jax.random.PRNGKey(0), jcfg)
+    if lora_seed is not None:
+        jparams = _with_lora_b(jref, jparams, lora_seed)
+    jparams = jref.pack.pack_params(jparams, jcfg)
     jdcfg = jref.spec.make_draft_config(jcfg)
     jdparams = jref.pack.pack_params(jref.T.init_params(jref.jax.random.PRNGKey(7), jdcfg),
                                      jdcfg)
-    cfg = get_smoke_config("falcon3-1b")
+    cfg = get_smoke_config(name)
     dcfg = spec_lib.make_draft_config(cfg)
     port = (cfg, interop.params_from_reference(_numpy_tree(jref, jparams)), dcfg,
             interop.params_from_reference(_numpy_tree(jref, jdparams)))
     return (jcfg, jparams, jdcfg, jdparams), port
+
+
+@pytest.fixture(scope="module")
+def models(jref):
+    """falcon3-1b-smoke, LoRA B seeded (``_carried``)."""
+    return _carried(jref, "falcon3-1b", lora_seed=0)
+
+
+@pytest.fixture(scope="module")
+def ring_models(jref):
+    """mixtral-8x22b-smoke: sliding window 8 over a ring cold tier, MoE
+    (``_carried``), as the reference's tests/test_speculative.py builds
+    it."""
+    return _carried(jref, "mixtral-8x22b")
 
 
 def _prompts(seed, n_rows, length, vocab=256):
@@ -131,11 +151,20 @@ def _port_engine(port, k=0, draft=None, **kw):
     return Engine(cfg, params, device="cpu", **spec, **_kw(**kw))
 
 
+# reference engines by construction: an engine keeps its jitted steps
+# (keyed by shape, out_cap = max_len and the stop token), so the tests
+# that build one alike share its compiles; every session starts afresh
+_REF_ENGINES = {}
+
+
 def _ref_engine(jref, ref, k=0, draft=None, **kw):
     jcfg, jparams, jdcfg, jdparams = ref
     jdcfg, jdparams = draft or (jdcfg, jdparams)
-    spec = dict(draft_cfg=jdcfg, draft_params=jdparams, spec_k=k) if k else {}
-    return jref.engine.Engine(jcfg, jparams, **spec, **_kw(**kw))
+    key = (id(jparams), id(jdparams), k, tuple(sorted(_kw(**kw).items())))
+    if key not in _REF_ENGINES:
+        spec = dict(draft_cfg=jdcfg, draft_params=jdparams, spec_k=k) if k else {}
+        _REF_ENGINES[key] = jref.engine.Engine(jcfg, jparams, **spec, **_kw(**kw))
+    return _REF_ENGINES[key]
 
 
 def _serve_both(jref, models, reqs, k, port_hook=None, ref_hook=None, serve_kw=None, **kw):
@@ -164,10 +193,19 @@ def _same_records(fin, jfin):
             j.outcome, j.seq_len, j.drafted_tokens, j.accepted_tokens, j.traffic), rid
 
 
+_BASE_TOKENS = {}
+
+
 def _base_tokens(models, reqs, **kw):
-    """The port's non-speculative serve of ``reqs``."""
-    eng = _port_engine(models[1], **kw)
-    return {f.rid: f.tokens for f in eng.serve([Request(r, t, n) for r, t, n in reqs])}
+    """The port's non-speculative serve of ``reqs`` (served once per
+    module for each set of requests and engine arguments)."""
+    key = (id(models), tuple((r, t.tobytes(), n) for r, t, n in reqs),
+           tuple(sorted(kw.items())))
+    if key not in _BASE_TOKENS:
+        eng = _port_engine(models[1], **kw)
+        _BASE_TOKENS[key] = {f.rid: f.tokens
+                             for f in eng.serve([Request(r, t, n) for r, t, n in reqs])}
+    return _BASE_TOKENS[key]
 
 
 # ---------------------------------------------------------------------------
@@ -370,15 +408,15 @@ def test_verify_chunk_matches_reference(jref, models, paged):
             torch.testing.assert_close(v[ok], torch.from_numpy(jv[i])[ok], **LOGIT_TOL)
 
 
-def _verify_rows_equal_decode(cfg, params, prompts, chunk, device, **cache_kw):
-    """Verify ``chunk`` (slots, K) after ``prompts``; then decode the same
-    tokens one at a time from a copy of the cache. Returns both logits
-    (slots, K, V)."""
+def _verify_rows_equal_decode(cfg, params, prompts, chunk, device, fill_chunk=8, **cache_kw):
+    """Verify ``chunk`` (slots, K) after ``prompts`` (streamed in chunks of
+    ``fill_chunk``); then decode the same tokens one at a time from a copy
+    of the cache. Returns both logits (slots, K, V)."""
     slots, k = chunk.shape
     with torch.inference_mode():
         cache = T.init_decode_cache(cfg, slots, cache_kw.pop("max_len"), device=device,
                                     **cache_kw)
-        _fill(cfg, params, cache, prompts, c=8, device=device)
+        _fill(cfg, params, cache, prompts, c=fill_chunk, device=device)
         toks = torch.as_tensor(chunk, device=device)
         valid = torch.full((slots,), k, dtype=torch.int32, device=device)
         logits, _ = T.spec_verify_chunk(params, cfg, toks, cache, valid)
@@ -420,12 +458,13 @@ def full_width_params():
 
 
 def _full_width_case(cfg, params, device):
-    """A 30-token prompt (chunks of 8) then a K = 4 chunk: verify rows at
+    """A 30-token prompt (one chunk: each pass of the plain version over the
+    full-width weights costs seconds) then a K = 4 chunk: verify rows at
     lengths 30-33, across hot_cap 32."""
     prompts = _prompts(60, 2, 30, cfg.vocab_size)
     chunk = _prompts(31, 2, 4, cfg.vocab_size)
-    got, want = _verify_rows_equal_decode(cfg, params, prompts, chunk, device, max_len=64,
-                                          hot_cap=32)
+    got, want = _verify_rows_equal_decode(cfg, params, prompts, chunk, device, fill_chunk=30,
+                                          max_len=64, hot_cap=32)
     assert torch.equal(got, want), (got - want).abs().max()
 
 
@@ -498,6 +537,72 @@ def test_paged_matches_sequential_and_reference(jref, models, k):
         np.testing.assert_array_equal(f.tokens, base[rid])
     assert len(checked) == eng.last_stats.iterations > 0
     assert eng.last_stats.grown_pages == jeng.last_stats.grown_pages
+
+
+def _ring_reqs(jref):
+    """The reference test's SWA case: 3 prompts of 9 tokens from
+    PRNGKey(1), 12 new each, so every sequence wraps the ring of 8."""
+    prompts = jref.jax.random.randint(jref.jax.random.PRNGKey(1), (3, 9), 0, 256)
+    return [(i, np.asarray(p, np.int32), 12) for i, p in enumerate(prompts)]
+
+
+def _ring_lengths_hook(seen):
+    """After every iteration: each decoding slot's ring length equals its
+    draft cache's length, its seq_len and the host mirror (a ring commits
+    only the accepted rows; the draft alone is truncated)."""
+    def hook(ctx):
+        st_ = ctx.state
+        ring = st_.cache["attn_moe"].lengths[0]
+        draft = st_.draft_cache["attn"].lengths[0]
+        for s in ctx.sched.active_slots():
+            if s in ctx.prefilling or s in ctx.draft_prefilling:
+                continue
+            assert int(ring[s]) == int(draft[s]) == int(st_.seq_len[s]) == ctx.seq_mirror[s]
+            seen.append(int(ring[s]))
+    return hook
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_ring_matches_sequential_and_reference(jref, ring_models, k):
+    """Speculation over the sliding-window ring (mixtral-8x22b-smoke,
+    window 8, hot 4, max_len 64, prefill_chunk 4; the reference test's
+    prompts): greedy tokens equal the port's non-speculative serve and the
+    JAX speculative engine's, with its drafted / accepted counters and
+    ledgers (``spec_traffic_tokens`` charging the committed rows); the ring
+    commits only the accepted rows, so its lengths track the draft's, the
+    slot's and the host mirror's after every iteration, past the wrap."""
+    reqs = _ring_reqs(jref)
+    seen = []
+    eng, fin, jeng, jfin = _serve_both(jref, ring_models, reqs, k,
+                                       port_hook=_ring_lengths_hook(seen),
+                                       serve_kw=dict(slots=3))
+    assert eng.spec and jeng.spec
+    _same_records(fin, jfin)
+    base = _base_tokens(ring_models, reqs)
+    for rid, f in fin.items():
+        np.testing.assert_array_equal(f.tokens, base[rid])
+    st_, jst = eng.last_stats, jeng.last_stats
+    assert (st_.drafted_tokens, st_.accepted_tokens) == (jst.drafted_tokens, jst.accepted_tokens)
+    assert st_.accepted_tokens <= st_.drafted_tokens
+    assert st_.drafted_tokens == (0 if k == 1 else sum(f.drafted_tokens for f in fin.values()))
+    assert max(seen) > 8  # the rings wrapped while speculating
+
+
+def test_ring_forced_reject(jref, ring_models):
+    """``spec_force="reject"`` over the ring: one token a round, each round
+    committing one row to the ring; tokens equal the non-speculative
+    serve's, nothing accepted, drafted as the rule gives."""
+    k, reqs = 4, _ring_reqs(jref)
+    seen = []
+    eng = _port_engine(ring_models[1], k, spec_force="reject")
+    fin = {f.rid: f for f in eng.serve([Request(r, t, n) for r, t, n in reqs], slots=3,
+                                       on_iteration=_ring_lengths_hook(seen))}
+    base = _base_tokens(ring_models, reqs)
+    drafted = sum(min(k, 12 - r) - 1 for r in range(12))
+    for rid, f in fin.items():
+        np.testing.assert_array_equal(f.tokens, base[rid])
+        assert f.accepted_tokens == 0 and f.drafted_tokens == drafted
+    assert max(seen) > 8
 
 
 def test_stop_token(jref, models):
@@ -725,18 +830,6 @@ def test_mla_falls_back_with_warning():
     assert not eng.spec and eng.draft_params is None
     res = eng.generate(_prompts(1, 2, 6), max_new_tokens=4)
     assert res.tokens.shape == (2, 4) and eng.last_stats.drafted_tokens == 0
-
-
-def test_ring_layout_refuses_speculation():
-    """The port's departure from the reference: a ring (SWA) layout raises,
-    naming the ring decode's fold order (A1d), instead of speculating."""
-    cfg = get_smoke_config("mixtral-8x22b")
-    params = T.init_params(cfg, seed=0, device="cpu")
-    dcfg = spec_lib.make_draft_config(cfg)
-    dparams = T.init_params(dcfg, seed=7, device="cpu")
-    with pytest.raises(NotImplementedError, match="A1d"):
-        Engine(cfg, params, hot_cap=HOT, max_len=32, prefill_chunk=4, device="cpu",
-               draft_cfg=dcfg, draft_params=dparams, spec_k=4)
 
 
 def test_draft_configs_match_reference(jref):

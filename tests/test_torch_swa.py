@@ -250,15 +250,23 @@ def test_fused_ring_decode_matches_reference(jref, impl, hot, cold, lens, active
     np.testing.assert_allclose(k_rot.numpy(), np.asarray(want_k), **TOL)
 
 
+def _evictee(cache, active):
+    """Cold row of each slot that the coming ring append overwrites, where
+    the slot is active and its window has wrapped; -1 elsewhere."""
+    n = cache.lengths.long() - cache.hot_cap
+    wrapped = active & (n >= cache.cold_cap)
+    return torch.where(wrapped, torch.remainder(n, cache.cold_cap), -1)
+
+
 def test_fused_ring_decode_masks_only_the_evictee():
-    """The ring form masks only the evictee: with no pending token (no
-    slot active) it folds the contiguous fused form's tiles bit for bit
-    (hot 0, so the ring rows are the absolute tiles), and with one it
-    differs from that form where a wrapped active slot would otherwise read
-    the position that has left its window, and equals the f64 softmax over
-    the ring rows but the evictee, then the pending token. (With a pending
-    token the ring form folds it as its own tile, the contiguous form
-    inside its absolute tile.)"""
+    """The ring form masks only the evictee: with no slot active it keeps
+    every ring row, the one-row ring chunk's rows at valid 0 and no window
+    bit for bit; with every slot active it leaves out the row the append
+    evicts, the one-row chunk's rows at window = the ring's width bit for
+    bit, and differs from the linear fused form where a wrapped slot would
+    otherwise read the position that has left its window; it equals the
+    f64 softmax over the ring rows but the evictee, then the pending
+    token."""
     b, h, g, d, cold = 3, 4, 2, 16, 8
     tc = kvc.init_cache(b, 0, cold, (g, d))
     for t in range(11):
@@ -267,15 +275,13 @@ def test_fused_ring_decode_masks_only_the_evictee():
                                active=torch.tensor([True, t < 8, t < 4]))
     q, kn, vn = (torch.from_numpy(a) for a in (_rand(1, b, h, d), _rand(2, b, g, d),
                                                 _rand(3, b, g, d)))
-    ev = fd.ring_evictee(tc, None)
+    busy = torch.ones(b, dtype=torch.bool)
+    ev = _evictee(tc, busy)
     assert ev.tolist() == [11 % cold, 0, -1]  # wrapped slots only
-    idle = torch.zeros(b, dtype=torch.bool)
-    o_ring, _ = fd.flash_decode_attention_ring(q, tc, k_new=kn, v_new=vn, active=idle,
-                                               rope_theta=THETA)
-    o_flat, _ = fd.flash_decode_attention(q, tc, k_new=kn, v_new=vn, active=idle,
-                                          rope_theta=THETA)
-    assert torch.equal(o_ring, o_flat)
-    o_ring, _ = fd.flash_decode_attention_ring(q, tc, k_new=kn, v_new=vn, rope_theta=THETA)
+    for act in (~busy, busy):
+        o_ring, _ = fd.flash_decode_attention_ring(q, tc, k_new=kn, v_new=vn, active=act,
+                                                   rope_theta=THETA)
+        assert torch.equal(o_ring, _one_row_chunk(q, tc, kn, vn, act))
     o_flat, _ = fd.flash_decode_attention(q, tc, k_new=kn, v_new=vn, rope_theta=THETA)
     assert not torch.equal(o_ring[0], o_flat[0])
     # oracle in f64: softmax over the ring rows but the evictee, then the
@@ -291,6 +297,165 @@ def test_fused_ring_decode_masks_only_the_evictee():
             lg = keys[:, hh // 2] @ qr[i, hh] * d ** -0.5
             want = torch.softmax(lg, 0) @ vals[:, hh // 2]
             torch.testing.assert_close(o_ring[i, hh].double(), want, rtol=1e-5, atol=1e-5)
+
+
+def _one_row_chunk(q, cache, k_new, v_new, active):
+    """Each slot's row of the one-row ring chunk (A3c at C = 1, with its
+    emit and no append): an active slot's at window = the ring's width, an
+    inactive one's at valid 0 and no window (every ring row) -> (b, h, d)."""
+    args = (q[:, None], k_new[:, None], v_new[:, None], cache)
+    o_act = fp.flash_prefill_attention(*args, valid=active.to(torch.int32),
+                                       window=cache.cold_cap, ring=True, rope_theta=THETA)[0]
+    o_idle = fp.flash_prefill_attention(*args, valid=torch.zeros_like(active, dtype=torch.int32),
+                                        ring=True, rope_theta=THETA)[0]
+    return torch.where(active[:, None, None], o_act[:, 0], o_idle[:, 0])
+
+
+def _cpu_ring(lens, cold, g, d, seed, dtype=torch.float32, tier="same", hot=0):
+    """A ring cache filled by active-masked ring decode appends ending
+    together at ``lens`` (NaN in the rows never written); ``tier`` "fp8"
+    casts the tiers through ``to_tier``."""
+    cache = _card_ring("cpu", dtype, lens, cold, g, d, seed, hot=hot)
+    if tier == "fp8":
+        cache = kvc.TieredKVCache(*(kvc.to_tier(t, kvc.FP8) for t in cache[:4]), cache.lengths)
+    return cache
+
+
+# lengths before, at and past the wrap; window starts (length - cold + 1)
+# aligned to 32 (cold 40: 71, 103; cold 64: 95, 127) and not
+RING_ROW_CASES = {
+    "ring8": (8, [0, 1, 7, 8, 9, 21, 40, 41]),
+    "ring40": (40, [31, 32, 33, 39, 40, 41, 71, 72, 100, 103]),
+    "ring64": (64, [63, 64, 65, 95, 127, 128, 200]),
+}
+
+
+@pytest.mark.parametrize("tier", ["float32", "bfloat16", "fp8"])
+@pytest.mark.parametrize("case", sorted(RING_ROW_CASES))
+def test_ring_decode_row_equals_ring_chunk_row(case, tier):
+    """A1d folds absolute tiles: the plain ring decode's row equals the
+    one-row ring chunk's (``flash_prefill_plain(..., ring=True)`` at C = 1)
+    bit for bit, and k_rot the chunk's emitted k, at lengths across the
+    wrap, window starts aligned and unaligned to 32, inactive slots, f32
+    and bf16 tiers, and fp8 tiers under f32 activations."""
+    cold, lens = RING_ROW_CASES[case]
+    dtype = torch.bfloat16 if tier == "bfloat16" else torch.float32
+    b, rep, g, d = len(lens), 3, 2, 16
+    cache = _cpu_ring(lens, cold, g, d, seed=cold + len(tier), dtype=dtype, tier=tier)
+    gen = torch.Generator().manual_seed(cold)
+    q, kn, vn = (torch.randn(s, generator=gen).to(dtype)
+                 for s in ((b, g * rep, d), (b, g, d), (b, g, d)))
+    act = torch.tensor([i % 3 != 2 for i in range(b)])
+    o, k_rot = fd.flash_decode_attention_ring(q, cache, k_new=kn, v_new=vn, active=act,
+                                              rope_theta=THETA)
+    assert torch.isfinite(o).all() and torch.equal(o, _one_row_chunk(q, cache, kn, vn, act))
+    _, k_c, _ = fp.flash_prefill_attention(q[:, None], kn[:, None], vn[:, None], cache,
+                                           valid=act.to(torch.int32), window=cold, ring=True,
+                                           rope_theta=THETA)
+    assert torch.equal(kvc.raw(kvc.to_tier(k_rot[act], k_c.dtype)), kvc.raw(k_c[act, 0]))
+
+
+def _ring_tile_walk(length, active, hc, cc):
+    """The ring kernel's tile walk, transcribed from ``decode_body``'s RING
+    branch (csrc/flash_decode.cuh): [(tile start, {lane: ("hot" | "cold",
+    row) or None for the pending token})] in fold order."""
+    tile = fd.TILE
+    n_end, n_hot = length + active, min(length, hc)
+    lo = min(max(hc, length - cc + active), length)
+    t_hot = -(-n_hot // tile)
+    t_up = max(lo // tile, t_hot)
+    n_tiles = t_hot + max(-(-n_end // tile) - t_up, 0)
+    rbase = (max(lo - hc, 0) % cc if cc else 0) - lo
+    walk = []
+    for tk in range(n_tiles):
+        start = (tk if tk < t_hot else tk - t_hot + t_up) * tile
+        n = min(tile, n_end - start)
+        lanes = {}
+        for j in range(tile):
+            pos = start + j
+            if not (j < n and (pos < n_hot or pos >= lo)):
+                continue
+            r = rbase + pos
+            r = r - cc if r >= cc else r
+            lanes[j] = (None if active and pos == length
+                        else ("hot", pos) if pos < hc else ("cold", r))
+        walk.append((start, lanes))
+    return walk
+
+
+@pytest.mark.parametrize("hot,cold,lens", [
+    (0, 8, [0, 1, 8, 9, 21, 40]),  # a ring narrower than a tile
+    (0, 40, [39, 40, 41, 71, 72, 100]),  # window starts aligned and not
+    (2, 6, [1, 2, 8, 9, 15]),  # a hot tier before the ring
+    (4, 40, [3, 4, 36, 44, 45, 80, 200]),  # hot rows, then a gap of evicted tiles
+])
+def test_ring_decode_tile_walk_model_equals_plain(hot, cold, lens):
+    """The ring kernel's index arithmetic (which tiles it folds, each
+    lane's key and ring row, the pending token's lane), transcribed in
+    ``_ring_tile_walk``, visits the positions the ring holds, each at its
+    ring row, every tile holding a key; folding its tiles one by one gives
+    the plain ring decode's bits, active and inactive slots alike."""
+    b, rep, g, d = len(lens), 2, 2, 16
+    cache = _cpu_ring(lens, cold, g, d, seed=hot + cold, hot=hot)
+    gen = torch.Generator().manual_seed(hot + cold)
+    q, kn, vn = (torch.randn(s, generator=gen) for s in ((b, g * rep, d), (b, g, d), (b, g, d)))
+    scale = d ** -0.5
+    for act in (torch.ones(b, dtype=torch.bool), torch.tensor([i % 2 == 0 for i in range(b)])):
+        want, k_rot = fd.flash_decode_fused_plain(q, cache, kn, vn, act, scale, THETA, ring=True)
+        q_rot = apply_rope(q[:, None], cache.lengths.long()[:, None], THETA)[:, 0]
+        for s, length in enumerate(cache.lengths.tolist()):
+            walk = _ring_tile_walk(length, int(act[s]), hot, cold)
+            held = {st + j for st, lanes in walk for j in lanes}
+            lo = min(max(hot, length - cold + int(act[s])), length)
+            assert held == set(range(min(length, hot))) | set(range(lo, length + int(act[s])))
+            assert all(lanes for _, lanes in walk)
+            assert [st for st, _ in walk] == sorted({st for st, _ in walk})
+            state = (torch.full((1, g, rep), kvc.NEG_INF), torch.zeros(1, g, rep),
+                     torch.zeros(1, g, rep, d))
+            for st, lanes in walk:
+                kt, vt = torch.zeros(1, fd.TILE, g, d), torch.zeros(1, fd.TILE, g, d)
+                valid = torch.zeros(1, fd.TILE, dtype=torch.bool)
+                for j, src in lanes.items():
+                    if src is None:
+                        kt[0, j], vt[0, j] = k_rot[s], vn[s]
+                    else:
+                        tier, row = src
+                        assert tier == "hot" or (st + j - hot) % cold == row
+                        kt[0, j] = (cache.hot_k if tier == "hot" else cache.cold_k)[s, row]
+                        vt[0, j] = (cache.hot_v if tier == "hot" else cache.cold_v)[s, row]
+                    valid[0, j] = True
+                state = fd._fold_keys(state, q_rot[s:s + 1].reshape(1, g, rep, 1, d), kt, vt,
+                                      valid, scale)
+            got = (state[2] / torch.clamp(state[1], min=1e-30)[..., None]).reshape(-1, d)
+            assert torch.equal(got, want[s]), (hot, cold, length, bool(act[s]))
+
+
+def test_ring_decode_at_mixtral_heads(jref):
+    """At mixtral-8x22b's head geometry (48 / 8 heads of 128) over a ring of
+    96 rows: the plain ring decode equals the one-row ring chunk's rows bit
+    for bit at lengths before, at and past the wrap (window starts aligned
+    and not), an inactive slot among them; the reference's Pallas ring
+    kernel in interpret mode agrees on o to TOL (its own fold order) and on
+    k_rot to LOGIT_TOL: at position 290 the two frameworks' f32 RoPE
+    angles differ by about 3e-5, which a rotated row carries as it is."""
+    lens, cold, g, rep, d = [95, 96, 97, 127, 150, 290], 96, 8, 6, 128
+    b = len(lens)
+    cache = _cpu_ring(lens, cold, g, d, seed=11)
+    gen = torch.Generator().manual_seed(12)
+    q, kn, vn = (torch.randn(s, generator=gen) for s in ((b, g * rep, d), (b, g, d), (b, g, d)))
+    act = torch.tensor([True, True, False, True, True, True])
+    o, k_rot = fd.flash_decode_attention_ring(q, cache, k_new=kn, v_new=vn, active=act,
+                                              rope_theta=THETA)
+    assert torch.equal(o, _one_row_chunk(q, cache, kn, vn, act))
+    jnp = jref.jnp
+    jcache = jref.kvc.TieredKVCache(*(jnp.asarray(t.numpy()) for t in cache[:4]),
+                                    jnp.asarray(cache.lengths.numpy()))
+    want_o, want_k = jref.fd.flash_decode_attention_ring(
+        jnp.asarray(q.numpy()), jcache, impl="pallas", interpret=True,
+        k_new=jnp.asarray(kn.numpy()), v_new=jnp.asarray(vn.numpy()),
+        active=jnp.asarray(act.numpy()), rope_theta=THETA)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **TOL)
+    np.testing.assert_allclose(k_rot.numpy(), np.asarray(want_k), **LOGIT_TOL)
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
@@ -724,6 +889,40 @@ def test_cuda_ring_decode_kernel_bit_identical(cuda, dtype, shape, cold):
     assert torch.equal(o, o_p) and torch.equal(k_rot, k_p)
     post = fd.flash_decode_attention_ring(q, cache)
     assert torch.equal(post, fd.flash_decode_attention_ring(q, cache, impl="plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["same", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(6, 8, 128), (2, 4, 256)])  # rep, g, d
+@pytest.mark.parametrize("cold", [64, 4096])
+def test_cuda_ring_decode_row_equals_ring_chunk_row(cuda, dtype, shape, cold, tier):
+    """A1d (A1c over fp8 tiers) folds absolute tiles on the card: the ring
+    decode kernel's row equals the one-row ring chunk kernel's (A3c / A3d
+    at C = 1 with its emit, no append) bit for bit, at lengths before, at
+    and past the wrap, window starts aligned (cold + 31, cold + 63) and
+    unaligned to 32, inactive slots; one launch of each."""
+    rep, g, d = shape
+    far = 3 * cold + 5 if cold == 64 else cold + 40  # a short fill for the 4096 ring
+    lens = [0, cold - 1, cold, cold + 1, cold + 31, far, cold + 2, cold + 63]
+    act = torch.tensor([False, True, True, True, True, True, False, True], device=cuda)
+    cache = _card_ring(cuda, dtype, lens, cold, g, d, seed=cold + d + 1)
+    if tier == "fp8":
+        cache = kvc.TieredKVCache(*(kvc.to_tier(t, kvc.FP8) for t in cache[:4]), cache.lengths)
+    gen = torch.Generator(device=cuda).manual_seed(d + 1)
+    b = len(lens)
+    q, kn, vn = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+                 for s in ((b, g * rep, d), (b, g, d), (b, g, d)))
+    fp8 = tier == "fp8"
+    dec, chunk = ((fd.FP8_RING_KERNEL, fp.FP8_CHUNK_RING_KERNEL) if fp8
+                  else (fd.RING_KERNEL, fp.CHUNK_RING_KERNEL))
+    before = (dec.launches, chunk.launches)
+    o, _ = fd.flash_decode_attention_ring(q, cache, k_new=kn, v_new=vn, active=act,
+                                          rope_theta=THETA)
+    row = _one_row_chunk(q, cache, kn, vn, act)
+    torch.cuda.synchronize()
+    assert (dec.launches, chunk.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.isfinite(o).all() and torch.equal(o, row)
 
 
 @pytest.mark.cuda
