@@ -98,12 +98,13 @@
    under fuse_act_quant=False (the carried-scale path): tokens equal on
    6/6 rows, ledger, no act-quant kernel launch, one known-scale launch
    per projection. Then chunked admission (prefill_chunk=32): generate
-   6 x (96 + 32), tokens equal to the plain chunked run and to grouped
-   admission of the same prompts on 6/6 rows, 18 chunk launches per wave
-   and no fresh launch; serve six requests of prompt lengths 5 / 31 / 32 /
-   33 / 77 / 100 through 4 slots, each request's tokens equal to the plain
-   chunked run's and its ledger at its closed form; a traced breakdown of
-   the chunked generate. Then paged serving with prefix sharing (hot 32,
+   6 x (96 + 32), tokens equal to grouped admission of the same prompts on
+   6/6 rows (and to the plain chunked run at the depth cut to 4 layers), 18
+   chunk launches per wave and no fresh launch; serve six requests of
+   prompt lengths 5 / 31 / 32 / 33 / 77 / 100 through 4 slots, each
+   request's tokens equal to grouped admission's (and at 4 layers to the
+   plain chunked run's) and its ledger at its closed form; a traced
+   breakdown of the chunked generate. Then paged serving with prefix sharing (hot 32,
    max_len 192, prefill_chunk 32, page size 32, 4 slots): eight requests,
    five sharing a 96-token prefix (one of them copy-on-write inside a
    page, one growing its pages mid-decode), served shared, unshared,
@@ -112,7 +113,18 @@
    at that depth), prefix reuse as the prefix tree's rule gives, the
    ledger deltas equal to the skipped prompt work, 18 paged chunk launches
    per wave and 18 paged decode launches per step and no contiguous one; a
-   traced shared serve. Then the overload control plane (paged, 4 slots,
+   traced shared serve. Then sessions (the same geometry and requests, 18
+   layers): replica A drains its four decoding slots with KV handoffs,
+   which cross a LocalTransport and seed replica B's prefix tree (a
+   second engine over the same weights); the resumed serve's tokens equal
+   the uninterrupted serve's on 8/8 and spare chunk waves against a cold
+   resume; the same payloads corrupted in flight raise HandoffError and
+   resume cold, 8/8; a Router over two replicas under FleetChaosInjector
+   (a kill, a corrupted handoff every tick) and a stale heartbeat on an
+   injected clock, two seeds, 8/8 with the fleet invariants after every
+   tick; over fp8 tiers a payload equal to its device rows byte for byte,
+   its bodies a quarter of f32's, the migrated fp8 serve against the
+   unmigrated one printed. Then the overload control plane (paged, 4 slots,
    eight requests of 40-104 prompt tokens + 64): the default pool, then a
    6-page pool with the invariant checker after every iteration (19
    preemptions with recompute-from-prefix): tokens equal on 8/8 requests,
@@ -128,9 +140,9 @@
    with spec_force="reject", each equal to the non-speculative serve on
    6/6, 18 chunk launches per round and 4 x K draft decodes; the paged
    requests with the invariant checker (check 7) every iteration, 8/8;
-   the overload requests on 6 pages, 8/8 against the unpressured
-   speculative and the non-speculative serves; over fp8 tiers at 2 layers
-   equal to its plain run; acceptance rates, tokens/s against the
+   at 2 layers the overload requests on 6 pages, 8/8 against the
+   unpressured speculative and the non-speculative serves, and over fp8
+   tiers the speculative serve equal to its plain run; acceptance rates, tokens/s against the
    non-speculative serve and a verify's device ms against K decode
    steps' printed. The entry-point path also drives the paged
    post-append decode on the 18 layers' caches. Then the same model over
@@ -201,6 +213,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 ops/s,
@@ -232,27 +245,65 @@ def time_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+# wall seconds spent in torch.profiler traces: the warm-up step, the traced
+# run and the trace's processing (stopping the trace and its averages)
+TRACE_SECONDS = {"warm": 0.0, "run": 0.0, "processing": 0.0}
+
+
+def device_totals(results):
+    """Per-name count and device microseconds of the device events (kernels,
+    copies, sets) in a profiler's raw results: what ``key_averages()``
+    reports for them (a device event's self time is its duration), without
+    building its per-event Python objects and trees, which took 174 s of an
+    863 s run of this script (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    import torch
+
+    totals = {}
+    for e in results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        t = totals.setdefault(e.name(), [0, 0.0])
+        t[0] += 1
+        t[1] += (e.end_ns() - e.start_ns()) / 1e3
+    return [types.SimpleNamespace(key=name, count=n, self_device_time_total=us)
+            for name, (n, us) in totals.items()]
+
+
 def trace_events(fn, warm=None):
-    """torch.profiler averages of the CUDA kernels that ``fn()`` launches,
-    traced in the active step of a schedule whose warm-up step runs
-    ``warm()``: collection is then running when ``fn`` starts (a trace
-    started right before ``fn`` lost its first kernel records on the
-    H100's machine, every time, late in a long run)."""
+    """torch.profiler totals of the device events that ``fn()`` launches
+    (``device_totals``), traced in the active step of a schedule whose
+    warm-up step runs ``warm()``: collection is then running when ``fn``
+    starts (a trace started right before ``fn`` lost its first kernel
+    records on the H100's machine, every time, late in a long run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     out = {}
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: out.setdefault("events", p.key_averages())) as prof:
+                 on_trace_ready=lambda p: out.setdefault(
+                     "events", device_totals(p.profiler.kineto_results))) as prof:
         if warm is not None:
             warm()
         torch.cuda.synchronize()
+        t1 = time.perf_counter()
         prof.step()
         fn()
         torch.cuda.synchronize()
+        t2 = time.perf_counter()
         prof.step()
+    t3 = time.perf_counter()
+    for key, dt in (("warm", t1 - t0), ("run", t2 - t1), ("processing", t3 - t2)):
+        TRACE_SECONDS[key] += dt
     return list(out.get("events", []))
+
+
+def trace_line(before):
+    """The profiler's wall seconds since the snapshot ``before`` of
+    TRACE_SECONDS, as printed beside a phase's time."""
+    return ", ".join(f"{k} {TRACE_SECONDS[k] - before[k]:.2f} s" for k in TRACE_SECONDS)
 
 
 def profiled_kernels(fn, iters=20, only=None, attempts=3):
@@ -283,8 +334,7 @@ def device_ms(fn, iters=20, only=None):
 
 
 def _device_us(event):
-    t = getattr(event, "self_device_time_total", None)
-    return t if t is not None else getattr(event, "self_cuda_time_total", 0.0)
+    return event.self_device_time_total
 
 
 def timed(label, fn, only=None, iters=20):
@@ -2788,13 +2838,16 @@ def counting_waves(eng):
 
 def chunked_phase(torch, cfg, packed, kernels):
     """falcon3-1b admitted by chunk waves of 32 (``prefill_chunk=32``, hot 32,
-    max_len 128): (a) ``generate`` 6 x (96 + 32), against the plain chunked
-    run and grouped admission of the same prompts (6/6 rows each); (b) ``serve`` six requests of prompt lengths 5 / 31 / 32 /
-    33 / 77 / 100 through 4 slots, 24 new tokens each, ``sync_every`` 8
-    (slot reuse at another length, offsets into the cold tier, partial and
-    idle chunks), against the plain chunked run. Ledgers at the closed
-    form, ``weight_loads == 0``, 18 chunk launches per wave and no fresh
-    launch. Returns the launches of (a) and of (b)."""
+    max_len 128): (a) ``generate`` 6 x (96 + 32), against grouped admission
+    of the same prompts (6/6 rows), and at the depth cut to MAIN_PLAIN_CUT
+    layers against the plain chunked run; (b) ``serve`` six requests of
+    prompt lengths 5 / 31 / 32 / 33 / 77 / 100 through 4 slots, 24 new
+    tokens each, ``sync_every`` 8 (slot reuse at another length, offsets
+    into the cold tier, partial and idle chunks), against grouped admission
+    of the same requests, and at the depth cut against the plain chunked
+    run. Ledgers at the closed form, ``weight_loads == 0``, 18 chunk
+    launches per wave and no fresh launch. Returns the launches of (a) and
+    of (b)."""
     import numpy as np
 
     from repro_torch.core import dr_edram
@@ -2818,14 +2871,22 @@ def chunked_phase(torch, cfg, packed, kernels):
           f"{label}: a kernel of the path never launched: {launches}")
     check_served(res, cfg, eng, 128, label, prompt_len=96)
     check(eng.chunk_shapes == {(6, 32)}, f"{label}: chunk wave shapes {eng.chunk_shapes}")
+    # the plain run at the depth cut (the full-depth run is held to grouped
+    # admission below, and grouped to its plain run in the slice phase)
+    cut = MAIN_PLAIN_CUT
+    c_cut = dataclasses.replace(cfg, n_layers=cut)
+    p_cut = dict(packed, blocks=packed["blocks"][:cut])
+    plain_cut = dataclasses.replace(cfg_plain, n_layers=cut)
     t0 = time.perf_counter()
-    res_p = Engine(cfg_plain, packed, **kw).generate(prompts, max_new_tokens=32)
+    tok_cut, tok_p = (Engine(c, p_cut, **kw).generate(prompts, max_new_tokens=32).tokens.numpy()
+                      for c in (c_cut, plain_cut))
     torch.cuda.synchronize()
     tokens = res.tokens.numpy()
-    same = int((res_p.tokens.numpy() == tokens).all(axis=1).sum())
-    print(f"{label} plain run: {time.perf_counter() - t0:.2f} s; greedy tokens equal on "
-          f"{same}/6 rows")
-    check(same == 6, f"{label}: greedy tokens differ from the plain chunked run ({same}/6 rows)")
+    same = int((tok_p == tok_cut).all(axis=1).sum())
+    print(f"{label} kernel and plain runs at {cut} layers: {time.perf_counter() - t0:.2f} s; "
+          f"greedy tokens equal on {same}/6 rows")
+    check(same == 6, f"{label}: greedy tokens at {cut} layers differ from the plain chunked run "
+                     f"({same}/6 rows)")
     grouped = Engine(cfg, packed, **{**kw, "prefill_chunk": 0}).generate(
         prompts, max_new_tokens=32).tokens.numpy()
     rows = (grouped == tokens).all(axis=1)
@@ -2853,19 +2914,28 @@ def chunked_phase(torch, cfg, packed, kernels):
           f"{n_chunk / max(len(waves_b), 1):g}")
     check(n_chunk == cfg.n_layers * len(waves_b) and launches_b[fp.KERNEL.symbol] == 0,
           f"{label_b}: not {cfg.n_layers} chunk launches per wave: {launches_b}")
-    fin_p = Engine(cfg_plain, packed, **{**kw, "slots": 4}).serve(
-        [Request(i, t, 24) for i, t in reqs], **skw)
-    want = {f.rid: f for f in fin_p}
+    t0 = time.perf_counter()
+    grouped_b = {f.rid: f.tokens for f in Engine(cfg, packed, **{**kw, "slots": 4,
+                                                                 "prefill_chunk": 0}).serve(
+        [Request(i, t, 24) for i, t in reqs], **skw)}
+    fin_cut, fin_p = ({f.rid: f.tokens for f in Engine(c, p_cut, **{**kw, "slots": 4}).serve(
+        [Request(i, t, 24) for i, t in reqs], **skw)} for c in (c_cut, plain_cut))
+    torch.cuda.synchronize()
+    print(f"{label_b}: grouped serve and kernel and plain runs at {cut} layers: "
+          f"{time.perf_counter() - t0:.2f} s")
     check(eng_b.weight_loads == 0, f"{label_b}: weights were reloaded")
+    for rid in fin_cut:
+        check(np.array_equal(fin_cut[rid], fin_p[rid]),
+              f"{label_b}: request {rid} tokens at {cut} layers differ from the plain chunked run")
     for f in fin:
-        check(np.array_equal(f.tokens, want[f.rid].tokens),
-              f"{label_b}: request {f.rid} tokens differ from the plain chunked run")
+        check(np.array_equal(f.tokens, grouped_b[f.rid]),
+              f"{label_b}: request {f.rid} tokens differ from grouped admission")
         closed = dr_edram.closed_form_reduction(f.seq_len, 32)
         check(f.seq_len == lens[f.rid] + 24 and abs(f.external_reduction - closed) <= 1e-12,
               f"{label_b}: request {f.rid} seq_len {f.seq_len}, reduction "
               f"{f.external_reduction} != {closed}")
-    print(f"{label_b}: tokens equal to the plain chunked run (6/6 requests); every ledger at "
-          f"its closed form; weight_loads = 0")
+    print(f"{label_b}: tokens equal to grouped admission (6/6 requests) and, at {cut} layers, to "
+          f"the plain chunked run (6/6); every ledger at its closed form; weight_loads = 0")
     return launches, launches_b
 
 
@@ -2914,7 +2984,9 @@ def expected_reuse(specs, hot, ps):
 
 def traced_serve(torch, eng, reqs_fn, label):
     """Wall time, device busy share and the top kernels of one traced
-    ``serve`` (after a warm-up serve)."""
+    ``serve``. The engine has served these requests before; the
+    profiler's warm-up step serves only the shortest one, so that
+    collection is running when the traced serve starts."""
     timing = {}
 
     def run():
@@ -2923,8 +2995,11 @@ def traced_serve(torch, eng, reqs_fn, label):
         torch.cuda.synchronize()
         timing["wall"] = (time.perf_counter() - t0) * 1e3
 
-    events = sorted(trace_events(run, warm=lambda: eng.serve(reqs_fn())), key=_device_us,
-                    reverse=True)
+    def warm():
+        shortest = min(reqs_fn(), key=lambda r: r.prompt_len + r.max_new_tokens)
+        eng.serve([shortest])
+
+    events = sorted(trace_events(run, warm=warm), key=_device_us, reverse=True)
     wall = timing["wall"]
     busy = sum(_device_us(e) for e in events) / 1e3
     if busy <= 0:
@@ -3062,8 +3137,277 @@ def paged_phase(torch, cfg, packed, kernels, smi):
           f"request's delta = "
           f"(full - resumed prompt ledger) x {tb} B); unshared and contiguous ledgers at the "
           f"closed form; weight_loads = 0")
+    t0, before = time.perf_counter(), dict(TRACE_SECONDS)
     traced_serve(torch, eng, reqs, label)
+    print(f"{label}: the traced serve {time.perf_counter() - t0:.2f} s (profiler: "
+          f"{trace_line(before)})")
     return launches, {rid: f.tokens for rid, f in fin.items()}
+
+
+# the sessions phase: warm and cold migration between replicas, the router
+# the router runs' chaos seeds: r0 is killed busy at tick 1 (seed 1) or 3
+# (seed 2), and r1's stale heartbeat drains it; the control plane reads no
+# token value, so the run's ticks, kills and migrations are those of any
+# weights at this geometry
+SESSION_SEEDS = (1, 2)
+
+
+def slot_rows(torch, ctx, s):
+    """Slot ``s``'s rows in every cache stack, read from the device directly
+    (the hot tier, and the cold rows through the host's page-table mirror):
+    the bytes an export must carry."""
+    import numpy as np
+
+    from repro_torch.core import kv_cache as kvc
+
+    out = {}
+    for key, cache in ctx.state.cache.items():
+        length = int(cache.lengths[0, s])
+        n_hot, n_cold = min(length, cache.hot_cap), max(length - cache.hot_cap, 0)
+        ps = cache.page_size
+        pages = torch.as_tensor(ctx.host_table[s, : -(-n_cold // ps)].astype(np.int64),
+                                device=cache.pool_k.device)
+        rows = {}
+        for name, hot, pool in (("k", cache.hot_k, cache.pool_k), ("v", cache.hot_v, cache.pool_v)):
+            rows[f"hot_{name}"] = kvc.raw(hot)[:, s, :n_hot].cpu()
+            cold = kvc.raw(pool)[:, pages]
+            cold = cold.reshape((cold.shape[0], -1) + cold.shape[3:])
+            rows[f"cold_{name}"] = cold[:, :n_cold].cpu()
+        out[key] = rows
+    return out
+
+
+def sessions_phase(torch, cfg, packed, kernels, smi, paged_tokens):
+    """falcon3-1b sessions at full width and depth, in the paged phase's
+    geometry (hot 32, max_len 192, page size 32, ``prefill_chunk`` 32, 4
+    slots, ``sync_every`` 8) on ``paged_requests``, f32 tiers held to
+    equality with ``paged_tokens`` (the uninterrupted shared serve).
+
+    (a) Warm migration: replica A serves until r0-r3 have finished and
+    r4-r7 have decoded one iteration, then drains with handoffs; every
+    payload crosses a ``LocalTransport`` and is imported on replica B (a
+    second ``Engine`` over the same packed weights), where the drained
+    requests are resubmitted. Tokens equal on 8/8; every payload seeds > 0
+    tokens and each resumed request reuses at least that much (up to the
+    prefix tree's cap of len - 1); both pools hold only tree pages;
+    ``weight_loads == 0``; over A and B 18 paged chunk launches per wave,
+    18 paged decode launches per step and no contiguous attention launch.
+    (b) The same payloads each corrupted in flight: every import raises
+    ``HandoffError``, the requests resume cold with the same tokens on
+    8/8; B's chunk waves warm against cold printed (the match must spare
+    waves). (c) A ``Router`` over two replicas under
+    ``FleetChaosInjector`` (one kill, a corrupted handoff every tick) and a
+    heartbeat-timeout drain of r1 on an injected clock, seeds SESSION_SEEDS:
+    every request finishes once with the uninterrupted tokens,
+    ``check_fleet_invariants`` green after every tick, ``RouterStats``
+    printed. (d) fp8 tiers (``kv_fp8``): a decoding slot's payload equal to
+    its device rows byte for byte after pack and unpack, its array bodies
+    a quarter of the same rows packed from f32 tiers; the warm-migrated fp8
+    serve's tokens against the unmigrated one's printed, with no limit (a
+    resumed prefill reads its own rows at full precision where the decode
+    read them fp8-rounded, in the reference too). Returns the launches of
+    (a), with (d)'s fp8 forms."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.serving import (Engine, FleetChaosConfig, FleetChaosInjector, HandoffError,
+                                     LocalTransport, Replica, Request, Router)
+
+    label = "falcon3-1b sessions"
+    specs = paged_requests(cfg.vocab_size)
+    kw = dict(hot_cap=32, max_len=192, prefill_chunk=32, slots=4, sync_every=8, paged=True,
+              page_size=32)
+    n_l = cfg.n_layers
+
+    def reqs():
+        return [Request(rid, t, n) for rid, t, n in specs]
+
+    def counted_engine(c, name):
+        eng = Engine(c, packed, **kw)
+        return Replica(name, eng), counting_waves(eng), counting_steps(eng)
+
+    def migrate(c, rows_of_slot=False):
+        """A's serve up to the drain; (replica, finished, drained, payloads,
+        the device rows of one decoding slot when asked, its rid)."""
+        rep, waves, steps = counted_engine(c, "A")
+        rep.start()
+        for r in reqs():
+            rep.submit(r)
+        while not (len(rep.ctx.finished) == 4 and rep.ctx.sched.active_slots()
+                   and not rep.ctx.prefilling):
+            check(rep.busy(), f"{label}: A went idle before r4-r7 decoded")
+            rep.step()
+        done = rep.take_finished()
+        probe = None
+        if rows_of_slot:
+            s = rep.ctx.sched.active_slots()[-1]
+            probe = (rep.ctx.sched.slot_req[s].rid, slot_rows(torch, rep.ctx, s))
+        drained, handoffs = rep.drain(with_handoffs=True)
+        tree_only(rep.engine, f"{label} A")
+        return rep, done, drained, handoffs, probe, waves, steps
+
+    def resume(c, drained, handoffs, transport, corrupt=False):
+        rep, waves, steps = counted_engine(c, "B")
+        rep.start()
+        seeded, errors = {}, 0
+        for r in drained:
+            if r.rid in handoffs:
+                if corrupt:
+                    transport.corrupt_next()
+                try:
+                    seeded[r.rid] = rep.import_handoff(r.tokens, transport.send(handoffs[r.rid]))
+                except HandoffError:
+                    errors += 1
+            check(rep.submit(r), f"{label}: B shed request {r.rid}")
+        while rep.busy():
+            rep.step()
+        tree_only(rep.engine, f"{label} B")
+        return rep, rep.take_finished(), seeded, errors, waves, steps
+
+    def equal(fins, want):
+        return sum(f.outcome == "finished" and np.array_equal(f.tokens, want[f.rid]) for f in fins)
+
+    # (a) warm migration
+    out = {}
+
+    def warm():
+        out["a"] = migrate(cfg)
+        drained, handoffs = out["a"][2], out["a"][3]
+        out["cold_in"] = copy.deepcopy(drained)
+        out["b"] = resume(cfg, drained, handoffs, LocalTransport())
+
+    _, launches, wall = counted(kernels, warm)
+    rep_a, done_a, drained, handoffs, _, waves_a, steps_a = out["a"]
+    rep_b, fin_b, seeded, errors, waves_b, steps_b = out["b"]
+    same = equal(done_a + fin_b, paged_tokens)
+    reused = {f.rid: f.prefix_tokens_reused for f in fin_b}
+    lens = {r.rid: len(r.tokens) for r in drained}
+    print(f"{label} (a) warm migration A -> B: {wall:.2f} s; A finished "
+          f"{sorted(f.rid for f in done_a)} and drained {[r.rid for r in drained]} (folded lengths {lens}), payload bytes "
+          f"{ {rid: len(b) for rid, b in handoffs.items()} }, seeded {seeded}, prefix tokens "
+          f"reused on B {reused}; tokens equal to the uninterrupted serve on {same}/8; chunk "
+          f"waves A {len(waves_a)} + B {len(waves_b)}, decode steps A {len(steps_a)} + B "
+          f"{len(steps_b)}; launches {launches}")
+    check(same == 8 and len(done_a) + len(fin_b) == 8, f"{label} (a): tokens differ ({same}/8)")
+    check(sorted(handoffs) == [4, 5, 6, 7] and sorted(seeded) == [4, 5, 6, 7]
+          and all(v > 0 for v in seeded.values()) and errors == 0,
+          f"{label} (a): payloads {sorted(handoffs)}, seeded {seeded}, errors {errors}")
+    check(all(reused[rid] >= min(seeded[rid], lens[rid] - 1) for rid in seeded),
+          f"{label} (a): a resumed request reused less than was seeded: {reused}, {seeded}")
+    check(rep_a.engine.weight_loads == 0 and rep_b.engine.weight_loads == 0,
+          f"{label} (a): weights were reloaded")
+    n_waves, n_steps = len(waves_a) + len(waves_b), len(steps_a) + len(steps_b)
+    check(launches[fp.CHUNK_PAGED_KERNEL.symbol] == n_l * n_waves
+          and launches[fd.PAGED_KERNEL.symbol] == n_l * n_steps,
+          f"{label} (a): paged launches {launches} for {n_waves} waves / {n_steps} steps")
+    check(launches[fp.CHUNK_KERNEL.symbol] == 0 and launches[fd.KERNEL.symbol] == 0
+          and launches[fp.KERNEL.symbol] == 0,
+          f"{label} (a): a contiguous-form attention kernel launched: {launches}")
+    check(all(n > 0 for sym, n in launches.items()
+              if sym not in (fp.CHUNK_KERNEL.symbol, fd.KERNEL.symbol, fp.KERNEL.symbol)),
+          f"{label} (a): a kernel of the path never launched: {launches}")
+
+    # (b) every payload corrupted in flight: cold resume
+    t0 = time.perf_counter()
+    transport = LocalTransport()
+    _, fin_c, seeded_c, errors_c, waves_c, _ = resume(cfg, out["cold_in"], handoffs, transport,
+                                                      corrupt=True)
+    same = equal(done_a + fin_c, paged_tokens)
+    print(f"{label} (b) corrupted transfer: {time.perf_counter() - t0:.2f} s; {errors_c} of "
+          f"{len(handoffs)} imports raised HandoffError ({transport.corrupted} corrupted in "
+          f"flight), resumed cold: tokens equal to the uninterrupted serve on {same}/8; B's "
+          f"chunk waves warm {len(waves_b)} against cold {len(waves_c)}")
+    check(errors_c == len(handoffs) and not seeded_c and same == 8,
+          f"{label} (b): errors {errors_c}, seeded {seeded_c}, tokens equal {same}/8")
+    check(len(waves_b) < len(waves_c), f"{label}: the warm resume spared no chunk wave "
+                                       f"({len(waves_b)} against {len(waves_c)})")
+
+    # (c) a router over two replicas under fleet chaos and a stale heartbeat
+    for seed in SESSION_SEEDS:
+        t0 = time.perf_counter()
+        now = {"t": 0.0}
+
+        def clock():
+            now["t"] += 0.005
+            return now["t"]
+
+        reps = [Replica(f"r{i}", Engine(cfg, packed, **kw), clock=clock) for i in range(2)]
+        router = Router(reps, seed=seed, clock=clock, sleep=lambda s: None,
+                        straggler_drain=False, heartbeat_timeout=5.0)
+        chaos = FleetChaosInjector(FleetChaosConfig(seed=seed, kill_rate=0.3, corrupt_rate=1.0,
+                                                    max_kills=1))
+        stale = []
+
+        def on_tick(r):
+            rep = r.replicas["r1"]
+            if (not stale and not rep.dead and rep.busy()
+                    and any(s not in rep.ctx.prefilling for s in rep.ctx.sched.active_slots())):
+                rep.heartbeat = clock() - 100.0  # r1's heartbeat goes stale
+                stale.append(r.stats.ticks)
+            chaos.on_tick(r)  # the fleet invariants after every tick
+
+        fins = router.serve(reqs(), on_tick=on_tick)
+        same = equal(fins, paged_tokens)
+        st = router.stats
+        print(f"{label} (c) router, seed {seed}: {time.perf_counter() - t0:.2f} s; kills "
+              f"{chaos.kills}, r1's heartbeat stale at tick {stale}; {st}; outcomes "
+              f"{sorted(set(f.outcome for f in fins))}; tokens equal to the uninterrupted serve "
+              f"on {same}/8; fleet invariants green after {st.ticks} ticks")
+        check(len(fins) == 8 and same == 8, f"{label} (c) seed {seed}: tokens equal {same}/8")
+        check(chaos.kills and st.cold_migrations > 0 and st.drains >= 1
+              and st.handoff_corruptions >= 1,
+              f"{label} (c) seed {seed}: no kill, cold migration, drain or corrupted handoff: {st}")
+        check(all(r.engine.weight_loads == 0 for r in reps), f"{label} (c): weights reloaded")
+
+    # (d) fp8 tiers
+    t0 = time.perf_counter()
+    c8 = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, kv_fp8=True))
+    want8 = {f.rid: f.tokens for f in Engine(c8, packed, **kw).serve(reqs())}
+    fp8_kernels = kernels + [fd.FP8_PAGED_KERNEL, fp.FP8_CHUNK_PAGED_KERNEL]
+
+    def warm8():
+        out["a8"] = migrate(c8, rows_of_slot=True)
+        out["b8"] = resume(c8, out["a8"][2], out["a8"][3], LocalTransport())
+
+    _, launches8, _ = counted(fp8_kernels, warm8)
+    _, done8, _, handoffs8, (rid, rows), waves8a, steps8a = out["a8"]
+    _, fin8, seeded8, _, waves8b, steps8b = out["b8"]
+    states = kvc.unpack_slot_state(handoffs8[rid])
+    check(all(states[k][n].dtype == kvc.FP8 and kvc._bytes_of(kvc.raw(states[k][n]))
+              == kvc._bytes_of(rows[k][n]) for k in states for n in rows[k]),
+          f"{label} (d): rid {rid}'s unpacked payload differs from its device rows")
+    as_f32 = {k: {n: (v.float() if isinstance(v, torch.Tensor) else v) for n, v in st.items()}
+              for k, st in states.items()}
+    blob32 = kvc.pack_slot_state(as_f32, 32)
+    body8 = sum(states[k][n].numel() for k in states for n in rows[k])
+    body32 = sum(as_f32[k][n].numel() * 4 for k in states for n in rows[k])
+    same8 = equal(done8 + fin8, want8)
+    print(f"{label} (d) fp8 tiers: rid {rid}'s payload {len(handoffs8[rid])} bytes (array bodies "
+          f"{body8}), the same rows from f32 tiers {len(blob32)} bytes (bodies {body32}, "
+          f"{body32 / body8:g}x), unpacked equal to the device rows byte for byte; seeded "
+          f"{seeded8}; the warm-migrated fp8 serve against the unmigrated one: tokens equal on "
+          f"{same8}/8 (printed, no limit); {time.perf_counter() - t0:.2f} s; launches {launches8}")
+    # the frames differ only in the dtype names: 'float32' is 6 bytes
+    # shorter than 'float8_e4m3fn', once per array
+    n_arrays = sum(len(rows[k]) for k in rows)
+    check(body32 == 4 * body8
+          and len(blob32) - len(handoffs8[rid]) == body32 - body8 - 6 * n_arrays,
+          f"{label} (d): payload {len(handoffs8[rid])} bytes, from f32 tiers {len(blob32)}: "
+          f"the fp8 bodies are not a quarter of f32's")
+    check(all(v > 0 for v in seeded8.values()) and len(done8) + len(fin8) == 8,
+          f"{label} (d): seeded {seeded8}")
+    n_waves8, n_steps8 = len(waves8a) + len(waves8b), len(steps8a) + len(steps8b)
+    check(launches8[fp.FP8_CHUNK_PAGED_KERNEL.symbol] == n_l * n_waves8
+          and launches8[fd.FP8_PAGED_KERNEL.symbol] == n_l * n_steps8
+          and launches8[fp.CHUNK_PAGED_KERNEL.symbol] == 0
+          and launches8[fd.PAGED_KERNEL.symbol] == 0,
+          f"{label} (d): fp8 launches {launches8} for {n_waves8} waves / {n_steps8} steps")
+    return {**launches, fd.FP8_PAGED_KERNEL.symbol: launches8[fd.FP8_PAGED_KERNEL.symbol],
+            fp.FP8_CHUNK_PAGED_KERNEL.symbol: launches8[fp.FP8_CHUNK_PAGED_KERNEL.symbol]}
 
 
 OVERLOAD_LENGTHS = (40, 56, 72, 88, 104, 64, 48, 96)
@@ -3132,7 +3476,7 @@ def overload_phase(torch, cfg, packed, kernels, smi):
     own plain run, fp8 (b) against fp8 (a) printed (a chunk reads its own
     keys at full precision and the cache at fp8, so recompute legitimately
     differs there). Returns the launches of (b) at full depth and the
-    tokens of (a) by rid."""
+    tokens of (a) by rid, at full depth and at the depth cut."""
     import numpy as np
 
     from repro_torch.kernels import flash_decode as fd
@@ -3313,7 +3657,8 @@ def overload_phase(torch, cfg, packed, kernels, smi):
     for e, f, n_pages, what in ((e_b8, f_b8, 6, "fp8 (b)"), (e_p8, f_p8, 6, "plain fp8 (b)"),
                                 (e_a8, f_a8, None, "fp8 (a)")):
         want_counters(e, f, n_pages, what)
-    return launches, {rid: f.tokens for rid, f in fin_a.items()}
+    return (launches, {rid: f.tokens for rid, f in fin_a.items()},
+            {rid: f.tokens for rid, f in f_a4.items()})
 
 
 FP8_CUT = 4  # the depth of the fp8 phase's plain grouped run and its chunked and paged serves
@@ -3592,13 +3937,16 @@ def speculative_phase(torch, cfg, packed, kernels, smi, paged_tokens, overload_t
     ``weight_loads == 0``. (b) Paged with prefix sharing (the paged phase's
     geometry and eight requests) with ``check_serving_invariants`` (check 7
     included) after every iteration: tokens equal to the non-speculative
-    paged serve's on 8/8, the paged chunk form per round. (c) The overload
+    paged serve's on 8/8, the paged chunk form per round. (c) At the depth
+    cut to OVERLOAD_CUT layers (full-depth preemption is held by the
+    overload phase, full-depth speculation by (a) and (b)), the overload
     cell's requests on its 6-page pool: preemptions land between rounds,
     tokens equal to the unpressured speculative serve's and to the
-    non-speculative serve's on 8/8. (d) fp8 tiers at SPEC_FP8_CUT layers:
-    the speculative serve equals its own plain fp8 run; against the
-    non-speculative fp8 serve printed. Prints each mix's acceptance rate and
-    tokens/s against the non-speculative serve's. Returns the launches of
+    non-speculative serve's at that depth (``overload_tokens``) on 8/8.
+    (d) fp8 tiers at SPEC_FP8_CUT layers: the speculative serve equals its
+    own plain fp8 run; against the non-speculative fp8 serve printed.
+    Prints each mix's acceptance rate and tokens/s against the
+    non-speculative serve's. Returns the launches of
     (a) (seeded draft), (b), (c) and (d) by path."""
     import numpy as np
 
@@ -3709,21 +4057,24 @@ def speculative_phase(torch, cfg, packed, kernels, smi, paged_tokens, overload_t
     tree_only(eng, f"{label} paged")
     paths[f"{label} paged"] = launches
 
-    # (c) the overload cell's 6-page pool
+    # (c) the overload cell's 6-page pool, at the depth cut
     okw = dict(pkw)
+    ocut = OVERLOAD_CUT
+    c_o = dataclasses.replace(cfg, n_layers=ocut)
+    p_o = dict(packed, blocks=packed["blocks"][:ocut])
     ospecs = [(rid, t, 64) for rid, t in overload_requests(cfg.vocab_size)]
-    eng_a = Engine(cfg, packed, draft_cfg=dcfg, draft_params=dparams, spec_k=k, **okw)
+    eng_a = Engine(c_o, p_o, draft_cfg=dcfg, draft_params=dparams, spec_k=k, **okw)
     t0 = time.perf_counter()
     fin_a = {f.rid: f for f in eng_a.serve(reqs(ospecs))}
     wall_a = time.perf_counter() - t0
-    eng_b = Engine(cfg, packed, draft_cfg=dcfg, draft_params=dparams, spec_k=k, n_pages=6, **okw)
+    eng_b = Engine(c_o, p_o, draft_cfg=dcfg, draft_params=dparams, spec_k=k, n_pages=6, **okw)
     fin_b, launches, wall = counted(kernels, lambda: eng_b.serve(
         reqs(ospecs), on_iteration=check_serving_invariants))
     fin_b = {f.rid: f for f in fin_b}
     st = eng_b.last_stats
     same_a = sum(np.array_equal(fin_b[r].tokens, fin_a[r].tokens) for r in fin_b)
     same_n = sum(np.array_equal(fin_b[r].tokens, overload_tokens[r]) for r in fin_b)
-    print(f"{label} overload (6 pages): {wall:.2f} s (unpressured {wall_a:.2f} s), "
+    print(f"{label} overload (6 pages, {ocut} layers): {wall:.2f} s (unpressured {wall_a:.2f} s), "
           f"preemptions {st.preemptions}, recompute_tokens {st.recompute_tokens}, iterations "
           f"{st.iterations}, drafted {st.drafted_tokens}, accepted {st.accepted_tokens}; tokens "
           f"equal to the unpressured speculative serve on {same_a}/8 and to the "
@@ -3734,7 +4085,9 @@ def speculative_phase(torch, cfg, packed, kernels, smi, paged_tokens, overload_t
     check(st.drafted_tokens == sum(f.drafted_tokens for f in fin_b.values()),
           f"{label} overload: drafted tokens lost across preemptions")
     tree_only(eng_b, f"{label} overload")
-    paths[f"{label} overload"] = launches
+    check(launches[fp.CHUNK_PAGED_KERNEL.symbol] > 0 and launches[fd.PAGED_KERNEL.symbol] == 0,
+          f"{label} overload: launches {launches}")
+    paths[f"{label} overload ({ocut} layers)"] = launches
 
     # (d) fp8 tiers at the depth cut: the speculative serve against its plain run
     cut = SPEC_FP8_CUT
@@ -3782,7 +4135,7 @@ def slice_phase(torch, gen, smi):
     from repro_torch.serving.engine import Engine
 
     cfg = get_config("falcon3-1b")
-    t0 = time.perf_counter()
+    t0 = t_slice = time.perf_counter()
     params = T.init_params(cfg, seed=0, device="cuda")
     lgen = torch.Generator(device="cuda").manual_seed(1)
     for blk in params["blocks"]:
@@ -3860,31 +4213,42 @@ def slice_phase(torch, gen, smi):
         (eng, wall, launches), tokens)
     check(carried[fd.KERNEL.symbol] == gqa,
           f"carried-scale run: {carried[fd.KERNEL.symbol]} GQA decode launches, fused run {gqa}")
+    print(f"[falcon3-1b generate, plain, entry-point and carried-scale runs: "
+          f"{time.perf_counter() - t_slice:.2f} s]")
+    t0 = time.perf_counter()
     chunked, chunked_serve = chunked_phase(torch, cfg, packed,
                                            [tm.KERNEL, fd.KERNEL, fp.KERNEL, fp.CHUNK_KERNEL,
                                             kl.KERNEL, krms.KERNEL])
+    print(f"[falcon3-1b chunked phase: {time.perf_counter() - t0:.2f} s]")
     t0 = time.perf_counter()
     served = [tm.KERNEL, fd.KERNEL, fd.PAGED_KERNEL, fp.KERNEL, fp.CHUNK_KERNEL,
               fp.CHUNK_PAGED_KERNEL, kl.KERNEL, krms.KERNEL]
     paged, paged_tokens = paged_phase(torch, cfg, packed, served, smi)
     print(f"[falcon3-1b paged phase: {time.perf_counter() - t0:.2f} s]")
     t0 = time.perf_counter()
-    overload, overload_tokens = overload_phase(torch, cfg, packed, served, smi)
+    sessions = sessions_phase(torch, cfg, packed, served, smi, paged_tokens)
+    print(f"[falcon3-1b sessions phase: {time.perf_counter() - t0:.2f} s]")
+    t0 = time.perf_counter()
+    overload, overload_tokens, overload_cut_tokens = overload_phase(torch, cfg, packed, served,
+                                                                    smi)
     print(f"[falcon3-1b overload phase: {time.perf_counter() - t0:.2f} s]")
     t0 = time.perf_counter()
     spec_paths = speculative_phase(torch, cfg, packed, served, smi, paged_tokens,
-                                   overload_tokens)
+                                   overload_cut_tokens)
     print(f"[falcon3-1b speculative phase: {time.perf_counter() - t0:.2f} s]")
     t0 = time.perf_counter()
     fp8_paths, fp8_tok_s = fp8_falcon_phase(torch, gen, cfg, packed, prompts, tokens)
     print(f"[falcon3-1b fp8 phase: {time.perf_counter() - t0:.2f} s]")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
     breakdown(torch, eng, prompts, before="57.693 ms in 1224 launches on an H100")
     decode_glue_per_step(torch, cfg, kw, cfg.rope_theta)
+    print(f"[falcon3-1b breakdown and decode glue: {time.perf_counter() - t0:.2f} s]")
     return {"falcon3-1b": launches, "falcon3-1b entry points": entry,
             "falcon3-1b carried-scale": carried, "falcon3-1b chunked": chunked,
             "falcon3-1b chunked serve": chunked_serve, "falcon3-1b paged": paged,
-            "falcon3-1b overload": overload, **spec_paths, **fp8_paths}, {
+            "falcon3-1b sessions": sessions, "falcon3-1b overload": overload, **spec_paths,
+            **fp8_paths}, {
                 "falcon3-1b": 6 * 96 / wall, "falcon3-1b carried-scale": carried_tok_s,
                 "falcon3-1b fp8": fp8_tok_s}
 
@@ -4805,31 +5169,37 @@ def main() -> int:
     phases.append(("kernel 8 fp8 form", lambda: fp8_latent_phase(torch, gen, smi),
                    fd.LATENT_FP8_KERNEL, "deepseek-v3-671b-l5 fp8"))
     rows = []
+    t_kernels, before = time.perf_counter(), dict(TRACE_SECONDS)
     for label, fn, _, _ in phases:
         t0 = time.perf_counter()
         rows.append(fn())
         print(f"[{label} phase: {time.perf_counter() - t0:.2f} s]")
+    print(f"kernel phases: {time.perf_counter() - t_kernels:.2f} s, of which profiler traces "
+          f"{trace_line(before)}")
     t0 = time.perf_counter()
     decode_prefill_phase(torch, gen, theta)
     print(f"[decode = prefill phase: {time.perf_counter() - t0:.2f} s]")
     t0 = time.perf_counter()
     spec_kernel_phase(torch, gen, theta, smi)
     print(f"[speculative kernel forms phase: {time.perf_counter() - t0:.2f} s]")
-    t0 = time.perf_counter()
+    t0, before = time.perf_counter(), dict(TRACE_SECONDS)
     paths, tok_s = slice_phase(torch, gen, smi)
     print(f"[falcon3-1b phase: {time.perf_counter() - t0:.2f} s]")
+    print(f"falcon3-1b phase's profiler traces: {trace_line(before)}")
     gc.collect()  # engines whose methods a phase wrapped hold their weights in a cycle
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    t0, before = time.perf_counter(), dict(TRACE_SECONDS)
     ds_paths, ds_tok_s = deepseek_phase(torch)
     print(f"[deepseek-v3-671b-l5 phase: {time.perf_counter() - t0:.2f} s]")
+    print(f"deepseek-v3-671b-l5 phase's profiler traces: {trace_line(before)}")
     paths.update(ds_paths)
     tok_s.update(ds_tok_s)
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    t0, before = time.perf_counter(), dict(TRACE_SECONDS)
     mx_paths, mx_tok_s = mixtral_phase(torch, smi)
     print(f"[mixtral-8x22b phase: {time.perf_counter() - t0:.2f} s]")
+    print(f"mixtral-8x22b phase's profiler traces: {trace_line(before)}")
     paths.update(mx_paths)
     tok_s.update(mx_tok_s)
     for row, (_, _, kern, main_path) in zip(rows, phases):
@@ -4837,7 +5207,9 @@ def main() -> int:
         row["launches_by_path"] = {p: d[kern.symbol] for p, d in paths.items()
                                    if kern.symbol in d}
     print("tokens/s " + ", ".join(f"{p} {t:.2f}" for p, t in tok_s.items()) + f" on {smi}")
-    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
+    print(f"profiler traces in all: {trace_line(dict.fromkeys(TRACE_SECONDS, 0.0))}")
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s on a host whose falcon3-1b "
+          f"generate ran {tok_s['falcon3-1b']:.1f} tokens/s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -41,12 +41,21 @@ plain reads upcast a tier row to f32, which is exact for all three.
 The traffic ledger (``step_traffic_tokens``, ``prompt_traffic_tokens``)
 counts KV accesses in token units per slot; summed over a sequence it
 reconciles exactly with ``dr_edram.closed_form_reduction``.
+
+The handoff wire format (``export_slot_state`` / ``import_slot_state``,
+``pack_slot_state`` / ``unpack_slot_state``, ``write_pool_pages`` /
+``gather_pool_pages``) serializes one slot's rows for warm migration
+between replicas; its payload is the reference's byte for byte. Not
+ported: ``pool_page_crcs`` (the SDC scrub's page stamps).
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -798,3 +807,277 @@ def prompt_traffic_tokens_resumed(prompt_len: int, prefix_len: int,
     out["ext_read"] += reload_hot
     out["ondie_write"] += reload_hot
     return out
+
+
+# ---------------------------------------------------------------------------
+# Slot-state serialization (replica KV handoff; serving/replica.py)
+# ---------------------------------------------------------------------------
+#
+# Warm migration between replicas ships ONE slot's live KV rows in the tier
+# storage dtype: with kv_fp8 on, one byte per element, 4x smaller than f32
+# and 2x smaller than bf16. The frame is the reference's byte for byte: a
+# crc32 per ``page_size`` rows of every array and a whole-payload trailer,
+# so a corrupted or torn handoff raises ``HandoffError`` and the receiver
+# recomputes from the prefix instead of serving wrong tokens. numpy holds
+# neither bf16 nor fp8, so the rows travel as torch tensors on the host and
+# cross the wire as their bytes; the payload names each dtype as numpy (and
+# ml_dtypes) spell it, through ``_WIRE_DTYPES``.
+
+
+class HandoffError(RuntimeError):
+    """A serialized slot-state payload failed verification: torn framing,
+    an unknown dtype, a per-page or whole-payload checksum mismatch, or a
+    dtype that does not match the receiving cache. Receivers treat it as
+    "no handoff" and recompute the request from its prompt."""
+
+    def __init__(self, msg: str, key: Optional[str] = None, page: Optional[int] = None):
+        super().__init__(msg)
+        self.key = key
+        self.page = page
+
+
+_HANDOFF_MAGIC = b"KVH1"
+_HANDOFF_ARRAYS = ("hot_k", "hot_v", "cold_k", "cold_v")
+# storage dtypes by the name the payload carries (numpy's / ml_dtypes')
+_WIRE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                "bfloat16": torch.bfloat16, "float8_e4m3fn": FP8}
+_WIRE_NAMES = {v: k for k, v in _WIRE_DTYPES.items()}
+
+
+def _wire_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a payload's dtype name."""
+    if name not in _WIRE_DTYPES:
+        raise HandoffError(f"unknown storage dtype {name!r} in handoff")
+    return _WIRE_DTYPES[name]
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous()
+
+
+def _wire_name(t: torch.Tensor) -> str:
+    if t.dtype not in _WIRE_NAMES:
+        raise HandoffError(f"no wire name for storage dtype {t.dtype}")
+    return _WIRE_NAMES[t.dtype]
+
+
+def _bytes_of(t: torch.Tensor) -> bytes:
+    """The bytes of a contiguous host tensor, as numpy's ``tobytes`` gives
+    them for the same values."""
+    return t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def _stack_view(cache):
+    """(stacked, lead-axed tensors): a stacked cache as it is, an unstacked
+    one with a leading layer axis of 1 (views)."""
+    stacked = cache.lengths.ndim == 2
+    return stacked, (lambda t: t if stacked else t[None])
+
+
+def slot_state_length(cache) -> np.ndarray:
+    """Per-slot cached length, collapsed over a stacked layer axis."""
+    lengths = cache.lengths.cpu().numpy()
+    return lengths.max(axis=0) if lengths.ndim == 2 else lengths
+
+
+def export_slot_state(cache, slot: int) -> dict:
+    """Host copy of one slot's live KV rows, in the tier storage dtype
+    (reference: ``export_slot_state``). Tiered or paged, stacked or not;
+    the arrays always carry a leading layer axis (1 when unstacked):
+    ``hot_k`` / ``hot_v`` the first ``min(length, hot_cap)`` rows,
+    ``cold_k`` / ``cold_v`` the ``length - hot_cap`` rows past them. A paged
+    cache's cold rows are gathered through the slot's page-table row (read
+    from the device once), so the export does not depend on the layout."""
+    stacked, lead = _stack_view(cache)
+    lengths = cache.lengths.cpu()
+    length = int(lengths[:, slot].max()) if stacked else int(lengths[slot])
+    hc = cache.hot_cap
+    n_hot, n_cold = min(length, hc), max(length - hc, 0)
+
+    def rows(t, *idx):
+        return raw(lead(t))[idx].cpu().view(t.dtype)
+
+    state = {"length": length, "stacked": stacked,
+             "hot_k": rows(cache.hot_k, slice(None), slot, slice(0, n_hot)),
+             "hot_v": rows(cache.hot_v, slice(None), slot, slice(0, n_hot))}
+    if isinstance(cache, PagedKVCache):
+        ps = cache.page_size
+        table = (cache.page_table[0] if stacked else cache.page_table)[slot]
+        kp = -(-n_cold // ps) if n_cold else 0
+        ids = table[:kp].cpu().long().to(cache.pool_k.device)
+        for name, pool in (("cold_k", cache.pool_k), ("cold_v", cache.pool_v)):
+            pages = rows(pool, slice(None), ids)  # (layers, kp, ps, ...)
+            state[name] = pages.reshape((pages.shape[0], kp * ps) + pages.shape[3:])[:, :n_cold]
+    else:
+        for name, tier in (("cold_k", cache.cold_k), ("cold_v", cache.cold_v)):
+            state[name] = rows(tier, slice(None), slot, slice(0, n_cold))
+    return state
+
+
+def pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """Host rows (layers, r, ...) zero-padded to (layers, rows, ...)."""
+    pad = rows - t.shape[1]
+    if pad <= 0:
+        return t
+    return torch.cat([t, _zeros((t.shape[0], pad) + tuple(t.shape[2:]), t.dtype, None)], 1)
+
+
+def _put(tier: torch.Tensor, idx, vals: torch.Tensor) -> None:
+    """``tier[idx] = vals`` through the bytes (fp8 tiers have no indexing
+    kernel), ``vals`` already in the tier's dtype."""
+    raw(tier)[idx] = raw(vals.to(tier.device))
+
+
+def _check_dtype(cache, arr, key: str) -> None:
+    want, got = _wire_name(cache.hot_k), _wire_name(arr)
+    if want != got:
+        raise HandoffError(f"handoff dtype {got} does not match cache storage dtype {want} for "
+                           f"{key!r}: refusing to cast KV bits", key=key)
+
+
+@torch.inference_mode()
+def import_slot_state(cache, slot: int, state: dict):
+    """Write an exported slot state into ``slot`` of ``cache``, in place
+    (reference: ``import_slot_state``; the round trip is bit-identical, and
+    a dtype that differs from the cache's raises ``HandoffError`` rather
+    than cast). A paged cache's cold rows go through the slot's CURRENT
+    page-table row, overwriting whole pages: the caller must have pointed
+    it at pages the slot owns alone, as an admission does."""
+    stacked, lead = _stack_view(cache)
+    length = int(state["length"])
+    hc = cache.hot_cap
+    n_hot, n_cold = min(length, hc), max(length - hc, 0)
+    for name in _HANDOFF_ARRAYS:
+        _check_dtype(cache, state[name], name)
+    for name, tier in (("hot_k", cache.hot_k), ("hot_v", cache.hot_v)):
+        _put(lead(tier), (slice(None), slot, slice(0, n_hot)), _host(state[name]))
+    lead(cache.lengths)[:, slot] = length
+    if isinstance(cache, PagedKVCache):
+        ps = cache.page_size
+        kp = -(-n_cold // ps) if n_cold else 0
+        if kp:
+            row = (cache.page_table[0] if stacked else cache.page_table)[slot, :kp]
+            ids = row.cpu().long().to(cache.pool_k.device)
+            for name, pool in (("cold_k", cache.pool_k), ("cold_v", cache.pool_v)):
+                c = pad_rows(_host(state[name]), kp * ps)
+                _put(lead(pool), (slice(None), ids),
+                     c.reshape((c.shape[0], kp, ps) + c.shape[2:]))
+    else:
+        for name, tier in (("cold_k", cache.cold_k), ("cold_v", cache.cold_v)):
+            _put(lead(tier), (slice(None), slot, slice(0, n_cold)), _host(state[name]))
+    return cache
+
+
+@torch.inference_mode()
+def write_pool_pages(cache: PagedKVCache, page_ids, k_pages, v_pages) -> PagedKVCache:
+    """Write whole pages into the shared pool, in place (reference:
+    ``write_pool_pages``): ``k_pages`` / ``v_pages`` are (layers, n,
+    page_size, ...) rows for pool pages ``page_ids`` (n,). The receiving
+    side of warm migration: imported cold pages land in freshly allocated
+    pages, which the prefix tree then adopts by id. Pages of another dtype
+    than the pool's raise ``HandoffError`` (the reference would cast)."""
+    _, lead = _stack_view(cache)
+    ids = torch.as_tensor(np.asarray(page_ids, np.int64), device=cache.pool_k.device)
+    for name, pool, pages in (("cold_k", cache.pool_k, k_pages), ("cold_v", cache.pool_v, v_pages)):
+        _check_dtype(cache, pages, name)
+        _put(lead(pool), (slice(None), ids), _host(pages))
+    return cache
+
+
+def gather_pool_pages(cache: PagedKVCache, page_ids):
+    """Read whole pages out of the pool (reference: ``gather_pool_pages``):
+    ``(k_pages, v_pages)`` host tensors of (layers, n, page_size, ...) in
+    the storage dtype, layers 1 for an unstacked cache."""
+    _, lead = _stack_view(cache)
+    ids = torch.as_tensor(np.asarray(page_ids, np.int64), device=cache.pool_k.device)
+    return tuple(raw(lead(pool))[:, ids].cpu().view(pool.dtype)
+                 for pool in (cache.pool_k, cache.pool_v))
+
+
+def pack_slot_state(states: dict, page_size: int) -> bytes:
+    """Serialize ``{cache_key: export_slot_state(...)}`` into one framed
+    payload (reference: ``pack_slot_state``, whose bytes it gives for the
+    same rows): arrays in their storage dtype, a crc32 per ``page_size``
+    rows and a whole-payload crc32 trailer."""
+    ps = max(int(page_size), 1)
+    out = [_HANDOFF_MAGIC, struct.pack("<II", len(states), ps)]
+    for key in sorted(states):
+        st = states[key]
+        kb = key.encode()
+        out += [struct.pack("<H", len(kb)), kb,
+                struct.pack("<IB", int(st["length"]), 1 if st["stacked"] else 0)]
+        for name in _HANDOFF_ARRAYS:
+            dt = _wire_name(st[name]).encode()
+            arr = _host(st[name])
+            rows = arr.shape[1]
+            n_pages = -(-rows // ps) if rows else 0
+            out += [struct.pack("<H", len(dt)), dt, struct.pack("<B", arr.ndim),
+                    struct.pack(f"<{arr.ndim}I", *arr.shape), struct.pack("<I", n_pages)]
+            for p in range(n_pages):
+                chunk = _bytes_of(arr[:, p * ps:(p + 1) * ps])
+                out += [struct.pack("<II", len(chunk), zlib.crc32(chunk) & 0xFFFFFFFF), chunk]
+    body = b"".join(out)
+    return body + struct.pack("<I", zlib.crc32(body) & 0xFFFFFFFF)
+
+
+def unpack_slot_state(buf: bytes) -> dict:
+    """Parse and verify a ``pack_slot_state`` payload (reference:
+    ``unpack_slot_state``; a payload of either package). Raises
+    ``HandoffError`` on torn framing, an unknown dtype, a page's crc
+    mismatch (``.key`` / ``.page`` name the damage) or the trailer's: it
+    never returns unverified rows. Arrays come back as host tensors."""
+    try:
+        pos = [0]
+
+        def take(n):
+            a, b = pos[0], pos[0] + n
+            if b > len(buf):
+                raise HandoffError("torn handoff payload: truncated frame")
+            pos[0] = b
+            return buf[a:b]
+
+        if take(4) != _HANDOFF_MAGIC:
+            raise HandoffError("not a slot-state handoff payload (bad magic)")
+        n_entries, ps = struct.unpack("<II", take(8))
+        states = {}
+        for _ in range(n_entries):
+            klen, = struct.unpack("<H", take(2))
+            key = take(klen).decode()
+            length, stacked = struct.unpack("<IB", take(5))
+            st = {"length": int(length), "stacked": bool(stacked)}
+            for name in _HANDOFF_ARRAYS:
+                dlen, = struct.unpack("<H", take(2))
+                dtype = _wire_dtype(take(dlen).decode())
+                ndim, = struct.unpack("<B", take(1))
+                shape = struct.unpack(f"<{ndim}I", take(4 * ndim))
+                n_pages, = struct.unpack("<I", take(4))
+                arr = _zeros(shape, dtype, None)
+                rows = shape[1] if ndim > 1 else 0
+                row_elems = int(np.prod(shape[2:], dtype=np.int64))
+                for p in range(n_pages):
+                    nbytes, crc = struct.unpack("<II", take(8))
+                    chunk = take(nbytes)
+                    if (zlib.crc32(chunk) & 0xFFFFFFFF) != crc:
+                        raise HandoffError(f"handoff page checksum mismatch: {key}.{name} page {p}",
+                                           key=key, page=p)
+                    a, b = p * ps, min((p + 1) * ps, rows)
+                    want = shape[0] * (b - a) * row_elems * arr.element_size()
+                    if nbytes != want:
+                        raise HandoffError(f"torn handoff payload: {key}.{name} page {p} holds "
+                                           f"{nbytes} bytes, its rows {want}")
+                    if nbytes:
+                        rows_u8 = arr.reshape(shape[0], rows, row_elems).view(torch.uint8)
+                        rows_u8[:, a:b] = torch.frombuffer(bytearray(chunk), dtype=torch.uint8
+                                                           ).reshape(shape[0], b - a, -1)
+                st[name] = arr
+            states[key] = st
+        trailer, = struct.unpack("<I", take(4))
+        if (zlib.crc32(buf[:pos[0] - 4]) & 0xFFFFFFFF) != trailer:
+            raise HandoffError("handoff payload checksum mismatch (corrupted framing)")
+        if pos[0] != len(buf):
+            raise HandoffError("torn handoff payload: trailing bytes")
+        return states
+    except HandoffError:
+        raise
+    except Exception as e:  # struct.error, shape and reshape mismatches
+        raise HandoffError(f"torn handoff payload: {e}") from None

@@ -8,17 +8,21 @@ harness (``serving/chaos.py``) and the engine's iteration watchdog share.
   ``random.Random``, the reference's generator, so both packages draw the
   same points);
 - ``StragglerMonitor``: flags steps slower than ``factor`` x the median of
-  a sliding window.
-
-Not ported yet: ``PreemptionGuard`` (it belongs with the engine's
-drain, sessions and fleet) and ``run_with_recovery`` (the training loop).
+  a sliding window;
+- ``PreemptionGuard``: a SIGTERM-style flag that ``Engine.serve`` turns
+  into a graceful drain (``Engine(guard=...)``);
+- ``run_with_recovery``: the bounded-restart supervisor; the router
+  restarts dead replicas through it (``serving/router.py``). The training
+  loop that the reference also supervises with it is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
+import signal
 import statistics
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 
@@ -96,3 +100,40 @@ class StragglerMonitor:
     @property
     def median(self) -> float:
         return statistics.median(self.times) if self.times else 0.0
+
+
+class PreemptionGuard:
+    """Turns SIGTERM / SIGINT into a cooperative flag (``requested``); the
+    serving loop drains when it sees it raised."""
+
+    def __init__(self, install_handlers: bool = False):
+        self.requested = False
+        if install_handlers:  # not in tests: pytest owns the signals
+            signal.signal(signal.SIGTERM, self._handler)
+            signal.signal(signal.SIGINT, self._handler)
+
+    def _handler(self, signum, frame):
+        self.requested = True
+
+    def request(self) -> None:
+        """Raise the flag by hand (tests, an external agent)."""
+        self.requested = True
+
+
+def run_with_recovery(loop_fn: Callable[[Optional[int]], object], max_restarts: int = 3,
+                      on_restart: Optional[Callable] = None):
+    """Supervise ``loop_fn(resume_step)``: call it with ``None`` and return
+    its result; on an exception call it again, up to ``max_restarts``
+    times, then re-raise. ``on_restart(attempt, error)`` runs before each
+    retry."""
+    attempts = 0
+    while True:
+        try:
+            return loop_fn(None)
+        except Exception as e:  # noqa: BLE001
+            attempts += 1
+            if attempts > max_restarts:
+                raise
+            if on_restart:
+                on_restart(attempts, e)
+            time.sleep(0.01)

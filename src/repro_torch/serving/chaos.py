@@ -14,8 +14,13 @@
 
 The injector uses public calls only (``PagePool.alloc`` / ``decref``,
 ``Engine.cancel``): it is a hostile client, so what it breaks is a real
-protocol hole. Not ported: check 9 and the SDC injectors (the SDC plane),
-and the fleet chaos (sessions, router).
+protocol hole.
+
+The fleet level (``serving/router.py``): ``FleetChaosInjector`` kills
+replicas, stalls them and corrupts the next warm handoff, each from its own
+seeded stream, and ``check_fleet_invariants`` audits the router after every
+tick (checks 1-6). Not ported: check 9 and the SDC injectors (the SDC
+plane), in the engine's chaos and the fleet's.
 """
 
 from __future__ import annotations
@@ -242,3 +247,147 @@ class ChaosInjector:
         for _, pages in self.held:
             ctx.pool.decref(pages)
         self.held = []
+
+
+# ---------------------------------------------------------------------------
+# fleet chaos: replica kills, stalls and handoff corruption against the
+# router, and the fleet-wide invariant checker
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FleetChaosConfig:
+    """Replica-level injection rates (probability per router tick). Kill,
+    stall and corruption draw from their own seeded streams (``seed``,
+    ``seed + 1``, ``seed + 2``), so enabling one never moves another's
+    points. The SDC classes of the reference belong to the SDC plane,
+    which is not ported: a non-zero rate there raises."""
+
+    seed: int = 0
+    kill_rate: float = 0.0  # kill a live replica (its device state is lost)
+    stall_rate: float = 0.0  # make one iteration a straggler...
+    stall_seconds: float = 0.25  # ...this slow
+    corrupt_rate: float = 0.0  # flip a byte in the next warm handoff
+    max_kills: int = 2  # the run's kill budget
+    min_survivors: int = 1  # never kill below this many live replicas
+    weight_flip_rate: float = 0.0
+    page_decay_rate: float = 0.0
+    nan_rate: float = 0.0
+    check_invariants: bool = True
+
+
+class FleetChaosInjector:
+    """Deterministic fleet adversary for ``Router.serve(on_tick=...)``::
+
+        chaos = FleetChaosInjector(FleetChaosConfig(seed=0, kill_rate=.1))
+        finished = router.serve(reqs, on_tick=chaos.on_tick)
+
+    Every fault goes through a public call (``Replica.kill`` / ``stall``,
+    ``Transport.corrupt_next``); with ``check_invariants``,
+    ``check_fleet_invariants`` runs after every injection round."""
+
+    def __init__(self, config: FleetChaosConfig):
+        if config.weight_flip_rate or config.page_decay_rate or config.nan_rate:
+            raise NotImplementedError("SDC fault injection belongs to the SDC plane, which "
+                                      "is not ported")
+        self.cfg = config
+        self._kill = FaultSchedule(config.seed, config.kill_rate)
+        self._stall = FaultSchedule(config.seed + 1, config.stall_rate)
+        self._corrupt = FaultSchedule(config.seed + 2, config.corrupt_rate)
+        self.kills: List[Tuple[int, str]] = []  # (tick, replica)
+        self.stalls: List[Tuple[int, str]] = []
+        self.corruptions: List[int] = []
+
+    def on_tick(self, router) -> None:
+        tick = router.stats.ticks
+        live = [r for r in router.replicas.values() if not r.dead]
+        if (self._kill.fires(tick) and len(self.kills) < self.cfg.max_kills
+                and len(live) > self.cfg.min_survivors):
+            victim = self._kill.pick(live)
+            victim.kill()
+            self.kills.append((tick, victim.name))
+            live = [r for r in live if r.name != victim.name]
+        if self._stall.fires(tick) and live:
+            target = self._stall.pick(live)
+            target.stall(self.cfg.stall_seconds)
+            self.stalls.append((tick, target.name))
+        if self._corrupt.fires(tick):
+            corrupt = getattr(router.transport, "corrupt_next", None)
+            if corrupt is not None:
+                corrupt()
+                self.corruptions.append(tick)
+        if self.cfg.check_invariants:
+            check_fleet_invariants(router)
+
+
+def check_fleet_invariants(router) -> None:
+    """Fleet-wide protocol audit at a tick boundary (reference:
+    ``check_fleet_invariants``), raising ``InvariantViolation``:
+
+    1. every accepted rid is in exactly one place: the terminal records,
+       the router's pending list, or one replica's queue or slots (no rid
+       live on two replicas, none with two terminal records);
+    2. the router's ``assigned`` map agrees with where requests are;
+    3. every live replica's session passes ``check_serving_invariants`` (a
+       killed one is exempt: its pool reconciled when it was abandoned);
+    4. no two replicas share a ``PagePool``;
+    5. the router's retries equal the dispatch surplus per request, and
+       every terminal record is of an accepted request, ``failed`` ones
+       counted in ``stats.failed``;
+    6. ``stats.sdc_retirements`` equals the SDC-retired set, each of whose
+       replicas is dead, barred from restart and flagged ``unhealthy``
+       (the port retires none, so this holds at 0)."""
+    locations: Dict[int, List[str]] = {}
+
+    def seen(rid: int, where: str) -> None:
+        locations.setdefault(rid, []).append(where)
+
+    for fin in router.finished:
+        seen(fin.rid, f"terminal:{fin.outcome}")
+    for p in router.pending:
+        seen(p.req.rid, "router:pending")
+    live = [r for r in router.replicas.values() if not r.dead and r.ctx is not None]
+    # a replica killed this tick still holds its requests in its host
+    # bookkeeping until the router harvests it next tick
+    for rep in (r for r in router.replicas.values() if r.ctx is not None):
+        tag = rep.name if not rep.dead else f"{rep.name}(dead)"
+        for req in rep.ctx.sched.queue:
+            seen(req.rid, f"{tag}:queued")
+        for s, req in enumerate(rep.ctx.sched.slot_req):
+            if req is not None:
+                seen(req.rid, f"{tag}:slot{s}")
+    for rid in router.accepted:
+        where = locations.get(rid, [])
+        if len(where) != 1:
+            raise InvariantViolation(f"rid {rid} is in {len(where)} places: {where or 'NOWHERE'}")
+    for rid, name in router.assigned.items():
+        where = locations[rid][0]
+        if not (where.startswith(f"{name}:") or where.startswith(f"{name}(dead):")):
+            raise InvariantViolation(f"rid {rid} assigned to {name} but found at {where}")
+    for rep in live:
+        check_serving_invariants(rep.ctx)
+    pools = [id(rep.ctx.pool) for rep in live if rep.ctx.pool is not None]
+    if len(set(pools)) != len(pools):
+        raise InvariantViolation("two replicas share one PagePool")
+    surplus = sum(max(n - 1, 0) for n in router.attempts.values())
+    if router.stats.retries != surplus:
+        raise InvariantViolation(f"router retries {router.stats.retries} != dispatch surplus "
+                                 f"{surplus}")
+    for fin in router.finished:
+        if fin.rid not in router.accepted:
+            raise InvariantViolation(f"terminal record for never-accepted rid {fin.rid}")
+    n_failed = sum(1 for f in router.finished if f.outcome == "failed")
+    if n_failed != router.stats.failed:
+        raise InvariantViolation(f"failed terminals {n_failed} != stats.failed "
+                                 f"{router.stats.failed}")
+    sdc_retired = getattr(router, "_sdc_retired", set())
+    if getattr(router.stats, "sdc_retirements", 0) != len(sdc_retired):
+        raise InvariantViolation(f"sdc_retirements {router.stats.sdc_retirements} != retired "
+                                 f"set {sorted(sdc_retired)}")
+    for name in sdc_retired:
+        rep = router.replicas[name]
+        if (not rep.dead or name not in router._retired
+                or not getattr(rep.engine, "unhealthy", False)):
+            raise InvariantViolation(f"SDC-retired replica {name} is not permanently dead "
+                                     f"(dead={rep.dead}, retired={name in router._retired}, "
+                                     f"unhealthy={getattr(rep.engine, 'unhealthy', False)})")

@@ -88,8 +88,21 @@ equal the non-speculative serve's for every accept / reject mix, on the
 ring too: the ring decode (A1d) folds the ring's positions in absolute
 32-key tiles, so a verify chunk's row is the decoded row bit for bit.
 
-Not ported: SDC scrubbing, and the drain / handoff of sessions between
-replicas.
+Sessions and handoff (reference: the session evacuation API, the
+primitives ``serving/replica.py`` and ``serving/router.py`` build on).
+``drain_session`` evacuates a live session: every active slot is
+preempted through the fold above and the queue emptied, so a resubmitted
+request continues bit for bit; with ``with_handoffs`` a paged engine first
+serializes each decoding slot's rows (``export_slot``, the
+``kv_cache.pack_slot_state`` wire format). ``import_handoff`` seeds a
+receiving session's prefix tree from such a payload (the full cold pages
+through ``write_pool_pages`` into fresh pages, the hot rows in the
+``save_hot`` page layout), so the resubmitted request re-prefills only
+past the match. ``abandon_session`` tears down a dead session on the host
+alone. ``Engine(guard=PreemptionGuard())`` drains ``serve`` when the flag
+is raised and leaves the evacuated requests in ``last_drained``.
+
+Not ported: SDC scrubbing.
 """
 
 from __future__ import annotations
@@ -105,7 +118,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core import dr_edram, kv_cache
 from repro_torch.device import resolve_device
-from repro_torch.distributed.fault import StragglerMonitor
+from repro_torch.distributed.fault import PreemptionGuard, StragglerMonitor
 from repro_torch.kernels.flash_decode import TILE
 from repro_torch.models import transformer as T
 from repro_torch.models.pack import pack_params, tree_to
@@ -227,6 +240,8 @@ class _ServeCtx:
     spec: bool = False
     hot_cap: int = 0
     page_size: int = 0
+    # after drain_session: the folded requests evacuated instead of finished
+    drained: Optional[List[Request]] = None
 
 
 @dataclasses.dataclass
@@ -257,7 +272,7 @@ class Engine:
                  n_pages: Optional[int] = None, prefix_sharing: bool = True,
                  max_queue: Optional[int] = None, clock: Optional[Callable[[], float]] = None,
                  draft_cfg: Optional[ModelConfig] = None, draft_params=None, spec_k: int = 0,
-                 spec_force: Optional[str] = None):
+                 spec_force: Optional[str] = None, guard: Optional[PreemptionGuard] = None):
         if not pack:
             raise NotImplementedError("QAT (unpacked) serving is not part of this port")
         if sample not in ("greedy", "temperature"):
@@ -308,6 +323,12 @@ class Engine:
         self._cancel_requested: Set[int] = set()
         self.last_stats: Optional[ServeStats] = None
         self._last_ctx: Optional[_ServeCtx] = None
+        # cooperative preemption: when the guard's flag is raised mid-serve,
+        # the loop finishes its iteration, folds every active slot's
+        # emitted tokens into its request and returns; the evacuated
+        # requests are left in last_drained
+        self.guard = guard
+        self.last_drained: Optional[List[Request]] = None
         # speculative decoding: a draft model and a chunk width K turn the
         # decode step into a draft-verify round (reference gates, in order)
         self.draft_cfg = draft_cfg
@@ -1171,13 +1192,139 @@ class Engine:
         shedding. Under paged serving page pressure degrades (eviction,
         then preemption with recompute-from-prefix) instead of failing;
         ``max_queue`` bounds the admission queue and ``on_iteration(ctx)``
-        runs after every loop iteration."""
+        runs after every loop iteration. With a ``PreemptionGuard``
+        attached, a raised flag drains the session after the current
+        iteration: the evacuated requests go to ``last_drained`` and get no
+        terminal record from this call."""
         ctx = self.start_session(requests, slots=slots, stop_token=stop_token,
                                  sync_every=sync_every, max_queue=max_queue,
                                  on_iteration=on_iteration)
+        self.last_drained = None
         while not ctx.sched.idle():
             self.run_iteration(ctx)
+            if self.guard is not None and self.guard.requested:
+                self.last_drained, _ = self.drain_session(ctx)
+                self.guard.requested = False  # consumed: drained once
+                break
         return self.finish_session(ctx)
+
+    # ------------------------------------------------------------------
+    # session evacuation: drain (cooperative) / abandon (after a crash),
+    # and the warm-migration handoff
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def drain_session(self, ctx: _ServeCtx, with_handoffs: bool = False):
+        """Evacuate a live session (reference: ``drain_session``): every
+        active slot is preempted through the fold (emitted tokens join the
+        prompt, ``orig_prompt_len`` marks the seam, pages decref), then the
+        queue is emptied. Returns ``(drained, handoffs)``: the evacuated
+        requests in claim order, which continue bit for bit wherever they
+        are resubmitted, and, with ``with_handoffs`` on a paged engine,
+        each decoding slot's rows serialized BEFORE the fold, by rid. A
+        slot still prefilling (its target or draft cache) ships none and
+        migrates cold."""
+        handoffs: Dict[int, bytes] = {}
+        for s in list(ctx.sched.active_slots()):
+            req = ctx.sched.slot_req[s]
+            if (with_handoffs and self.paged and s not in ctx.prefilling
+                    and s not in ctx.draft_prefilling):
+                handoffs[req.rid] = self.export_slot(ctx, s)
+            self._preempt_slot(ctx, s)
+        drained = sorted(ctx.sched.queue, key=lambda r: r.claim)
+        ctx.sched.queue.clear()
+        ctx.drained = drained
+        return drained, handoffs
+
+    def abandon_session(self, ctx: _ServeCtx) -> List[Request]:
+        """Tear down a DEAD session on the host (reference:
+        ``abandon_session``): release every slot's pages and the queue and
+        return the orphaned requests in claim order, active slots first.
+        No device work and no fold: a dead device has no tokens to give,
+        so the emitted ones come from the router's journal. The pool then
+        holds the tree's references only, and the scheduler is idle."""
+        orphans: List[Request] = []
+        for s in list(ctx.sched.active_slots()):
+            req = ctx.sched.retire(s)
+            ctx.prefilling.pop(s, None)
+            ctx.draft_prefilling.pop(s, None)
+            if ctx.slot_pages[s]:
+                ctx.pool.decref(ctx.slot_pages[s])
+                ctx.slot_pages[s] = []
+            ctx.prefix_used[s] = ctx.remaining[s] = ctx.seq_mirror[s] = 0
+            orphans.append(req)
+        orphans.sort(key=lambda r: r.claim)
+        orphans += sorted(ctx.sched.queue, key=lambda r: r.claim)
+        ctx.sched.queue.clear()
+        return orphans
+
+    def export_slot(self, ctx: _ServeCtx, s: int) -> bytes:
+        """Slot ``s``'s rows across every cache stack as one checksummed
+        payload (reference: ``export_slot``), in the tier storage dtype."""
+        states = {k: kv_cache.export_slot_state(c, s) for k, c in ctx.state.cache.items()}
+        return kv_cache.pack_slot_state(states, self._page_size if self.paged
+                                        else DEFAULT_PAGE_SIZE)
+
+    @torch.inference_mode()
+    def import_handoff(self, ctx: _ServeCtx, tokens, blob: bytes) -> int:
+        """The receiving side of warm migration (reference:
+        ``import_handoff``): verify and unpack a payload and seed this
+        session's prefix tree with it, so the resubmitted request's prefix
+        match skips the seeded rows. Returns the prompt tokens seeded (0:
+        nothing usable; the request then runs cold, which is always right).
+
+        The hot tier and every FULL cold page are adopted: the cold rows
+        are written into freshly allocated pool pages, which the tree's
+        ``insert`` adopts by id, and the hot rows into the tree's snapshot
+        pages in the ``save_hot`` layout. The partial last page is not
+        seeded: the match is capped at ``len(tokens) - 1`` anyway, and the
+        chunked prefill recomputes the tail bit for bit. Raises
+        ``HandoffError`` on a payload that fails verification; the caller
+        falls back to cold."""
+        if not (self.paged and self.prefix_sharing and ctx.ptree):
+            return 0
+        states = kv_cache.unpack_slot_state(blob)
+        if set(states) != set(ctx.state.cache):
+            raise kv_cache.HandoffError(f"handoff cache keys {sorted(states)} do not match this "
+                                        f"engine's {sorted(ctx.state.cache)}")
+        toks = np.asarray(tokens, np.int32)
+        hc, ps = self.hot_cap, self._page_size
+        length = min(st["length"] for st in states.values())
+        if length < len(toks):
+            raise kv_cache.HandoffError(f"handoff covers {length} tokens but the folded request "
+                                        f"carries {len(toks)}: torn capture")
+        if len(toks) <= hc:
+            return 0  # nothing past the hot tier: a cold re-prefill is cheap
+        kf = (len(toks) - hc) // ps  # full cold pages only
+        ctx.ptree.evict_for(kf)
+        pages = ctx.pool.alloc(kf) if kf else []
+        if pages is None:
+            return 0  # the pool cannot host the handoff: go cold
+
+        def as_pages(rows, n):
+            """Host rows (layers, r <= n * ps, ...) as n zero-padded pages."""
+            return kv_cache.pad_rows(rows, n * ps).reshape((rows.shape[0], n, ps)
+                                                           + tuple(rows.shape[2:]))
+
+        for key, st in states.items():
+            if kf:
+                kv_cache.write_pool_pages(ctx.state.cache[key], pages,
+                                          *(as_pages(st[n][:, : kf * ps], kf)
+                                            for n in ("cold_k", "cold_v")))
+
+        def save(ids):
+            # hot row i -> row i % ps of page ids[i // ps], the save_hot
+            # layout, so an admission restores it as a local snapshot
+            for key, st in states.items():
+                kv_cache.write_pool_pages(ctx.state.cache[key], ids,
+                                          *(as_pages(st[n], len(ids)) for n in ("hot_k", "hot_v")))
+
+        ok = ctx.ptree.insert(toks, np.asarray(pages, np.int32), save)
+        # the tree holds its own references on what it adopted; the
+        # allocation's retire either way (a refused or duplicate insert
+        # frees the pages here)
+        if pages:
+            ctx.pool.decref(pages)
+        return hc + kf * ps if ok else 0
 
     def generate(self, prompts, max_new_tokens: int = 32,
                  stop_token: Optional[int] = None) -> GenerationResult:
