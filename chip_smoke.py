@@ -3410,6 +3410,356 @@ def sessions_phase(torch, cfg, packed, kernels, smi, paged_tokens):
             fp.FP8_CHUNK_PAGED_KERNEL.symbol: launches8[fp.FP8_CHUNK_PAGED_KERNEL.symbol]}
 
 
+# ---------------------------------------------------------------------------
+# the SDC plane: NaN rows through the path's kernels, then the scrub ladder
+# ---------------------------------------------------------------------------
+
+
+def nan_rows_phase(torch, gen, theta):
+    """Each kernel of the SDC path on an input row that holds a NaN,
+    against its plain version on the same inputs: the same rows come out
+    finite (the poisoned row never does), and the finite rows are
+    bit-identical. Kernel 1's act-quant form (falcon3-1b's four leaf shapes
+    at M 1 / 6 / 32, f32 and bf16: its absmax keeps a NaN since this
+    slice) and kernel 4 (a NaN row scale), A1b (the paged fused decode),
+    A3b (the paged chunked prefill), the LoRA kernel and rms_norm at
+    falcon3-1b's shapes. Without that, a NaN upset would reach the logits
+    as finite garbage on the card and the sentinel would never latch."""
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.core.ternary import act_quant
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+
+    cases = 0
+
+    def finite_rows(t):
+        return torch.isfinite(t.float()).reshape(t.shape[0], -1).all(dim=-1).tolist()
+
+    def agrees(label, fn, args, row):
+        nonlocal cases
+        args = [a.clone() for a in args]
+        args[0][row].view(-1)[0] = float("nan")
+        got, want = fn(*args, impl="auto"), fn(*args, impl="plain")
+        torch.cuda.synchronize()
+        fin = finite_rows(want)
+        keep = torch.as_tensor(fin, device=got.device)
+        check(finite_rows(got) == fin and not fin[row] and torch.equal(got[keep], want[keep]),
+              f"NaN rows: {label}: finite rows {finite_rows(got)} against the plain version's "
+              f"{fin}, or a finite row differs")
+        cases += 1
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for k, n in DECODE_SHAPES:
+        _, (p,), col = projection_operands(torch, gen, 1, k, n)
+        for m in (1, 6, 32):
+            for dtype in (torch.float32, torch.bfloat16):
+                agrees(f"ternary_matmul_actq M={m} K={k} N={n} {dtype}",
+                       lambda x, impl: tm.ternary_matmul_actq(x, p, col, k=k, impl=impl),
+                       [rand(m, k, dtype=dtype)], m // 2)
+            q = act_quant(rand(m, k))
+            agrees(f"ternary_matmul_known M={m} K={k} N={n}",
+                   lambda xs, impl: tm.ternary_matmul_fused(q.xq, p, xs, col, k=k, impl=impl),
+                   [q.scale], m - 1)
+    x, w = rand(6, 2048), rand(2048) + 1.0
+    agrees("rms_norm", lambda x, impl: krms.rms_norm(x, w, 1e-6, impl=impl), [x], 2)
+    a, b = rand(2048, 16) * 0.1, rand(16, 2048) * 0.1
+    agrees("lora_delta", lambda x, impl: kl.lora_delta(x, a, b, 2.0, impl=impl), [x], 4)
+    cache = kvc.init_paged_cache(4, 32, 160, (4, 256), page_size=32, device="cuda")
+    for tier in (cache.hot_k, cache.hot_v, cache.pool_k, cache.pool_v):
+        tier.copy_(rand(*tier.shape))
+    cache.lengths.copy_(torch.tensor([80, 40, 100, 33], dtype=torch.int32, device="cuda"))
+    k_new, v_new = rand(4, 4, 256), rand(4, 4, 256)
+    active = torch.ones(4, dtype=torch.bool, device="cuda")
+
+    def fresh():
+        return type(cache)(*(t.clone() for t in cache))
+
+    agrees("flash_decode_gqa_fused_paged (A1b)",
+           lambda q, impl: fd.flash_decode_attention(q, fresh(), k_new=k_new, v_new=v_new,
+                                                     active=active, rope_theta=theta,
+                                                     impl=impl)[0], [rand(4, 8, 256)], 1)
+    kc, vc = rand(4, 8, 4, 256), rand(4, 8, 4, 256)
+    n_valid = torch.tensor([8, 3, 8, 5], dtype=torch.int32, device="cuda")
+    agrees("flash_prefill_chunk_paged (A3b)",
+           lambda q, impl: fp.flash_prefill_attention(q, kc, vc, fresh(), n_valid,
+                                                      rope_theta=theta, impl=impl)[0],
+           [rand(4, 8, 8, 256)], 2)
+    print(f"NaN rows: {cases} cases (kernel 1's act-quant form and kernel 4 at falcon3-1b's "
+          f"shapes, M 1 / 6 / 32; A1b; A3b; LoRA; rms_norm): the poisoned row non-finite and "
+          f"every other row bit-identical to the plain version")
+
+
+SDC_CUT = 4  # the depth of the SDC phase's chaos and fleet runs, (e) and (f)
+
+
+def sdc_phase(torch, cfg, packed, kernels, smi, paged_tokens):
+    """falcon3-1b's SDC plane at full width and depth, in the paged phase's
+    geometry (hot 32, max_len 192, page size 32, ``prefill_chunk`` 32, 4
+    slots, ``sync_every`` 8), f32 tiers, on ``paged_requests``, each run
+    held to ``paged_tokens`` (the uninterrupted shared serve), with
+    ``IntegrityConfig(scrub_every=4)`` unless said otherwise:
+
+    (a) integrity on, no fault: tokens equal on 8/8, nothing detected, so
+    kernel 4's ABFT probe gives no false positive at full width; its
+    launches per weight scrub (one per layer and leaf path: 72), the
+    scrubs, one weight and one page scrub's wall, and the serve's wall
+    against the same serve without integrity; the probe agrees with its
+    plain version on the clean and on a flipped tree. (b) a bit flipped by
+    ``flip_packed_bit`` at iteration 2: detected within one scrub period,
+    one reload, the golden copy restored, 8/8. (c) one bit flipped in a
+    crc-stamped page through ``write_pool_pages``: the page quarantined,
+    its readers rolled back, 8/8. (d) a NaN poked into a decoding slot's
+    hot K: the sentinel latches on the card, that request ends
+    ``"numerics"`` and the other seven equal. (e) a ``ChaosInjector`` with
+    the three planes at the reference test's rates (0.2 / 0.1 / 0.1, seed
+    0) and check 9 every iteration: every finished request equal, and
+    ``sdc_detected`` = reloads + quarantined pages + contained slots. (f) a
+    ``Router`` over two replicas, one of them with ``max_weight_strikes``
+    2 under ``RomFaultInjector(7, rate=1.0, reassert=None)``: one SDC
+    retirement, the retired replica dead and unhealthy, 8/8, the fleet
+    invariants after every tick. (e) and (f) run at SDC_CUT layers, held
+    to a faultless serve at that depth (at 18 layers they took 31.7 of the
+    phase's 73.9 s on an H100). Returns the launches of (a)."""
+    import numpy as np
+
+    from repro_torch.core import bitlinear
+    from repro_torch.core import kv_cache as kvc
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import pack as pack_lib
+    from repro_torch.serving import (ChaosConfig, ChaosInjector, Engine, Replica, Request, Router,
+                                     check_fleet_invariants, check_serving_invariants)
+    from repro_torch.serving import sdc
+
+    label = "falcon3-1b sdc"
+    specs = paged_requests(cfg.vocab_size)
+    kw = dict(hot_cap=32, max_len=192, prefill_chunk=32, slots=4, sync_every=8, paged=True,
+              page_size=32)
+    n_leaves = 4 * cfg.n_layers  # wqkv, wo, wgu, down in every layer
+
+    def reqs():
+        return [Request(rid, t, n) for rid, t, n in specs]
+
+    def engine(scrub_every=4, c=cfg, p=packed, **ic):
+        return Engine(c, p, integrity=sdc.IntegrityConfig(scrub_every=scrub_every, **ic), **kw)
+
+    def timing(eng, name):
+        calls = []
+        fn = getattr(eng, name)
+
+        def timed_call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t)
+            return out
+
+        setattr(eng, name, timed_call)
+        return calls
+
+    def session(eng, hook=None):
+        ctx = eng.start_session(reqs(), on_iteration=hook)
+        while eng.run_iteration(ctx):
+            pass
+        eng.finish_session(ctx)
+        return ctx
+
+    def equal(fins, want=paged_tokens):
+        return sum(f.outcome == "finished" and np.array_equal(f.tokens, want[f.rid])
+                   for f in fins)
+
+    def pool_ok(ctx, what):
+        pool, tp = ctx.pool, set(ctx.ptree.tree_pages())
+        check(all(pool.refs[p] == (1 if p in tp else 0) for p in range(pool.n_pages))
+              and pool.available() == pool.n_pages - len(tp) - len(pool.quarantined),
+              f"{label} {what}: pages other than the tree's held after the serve")
+
+    # (a) integrity on, no fault; the same serve without integrity first
+    t0 = time.perf_counter()
+    plain_serve = Engine(cfg, packed, **kw)
+    t1 = time.perf_counter()
+    base = {f.rid: f for f in plain_serve.serve(reqs())}
+    torch.cuda.synchronize()
+    wall_off = time.perf_counter() - t1
+    check(sum(np.array_equal(f.tokens, paged_tokens[r]) for r, f in base.items()) == 8,
+          f"{label}: the serve without integrity differs from the paged phase's")
+    t1 = time.perf_counter()
+    eng = engine()
+    t_build = time.perf_counter() - t1
+    w_calls, p_calls = timing(eng, "_scrub_weights"), timing(eng, "_scrub_pages")
+    ctx_a, launches, wall_on = counted(kernels + [tm.KNOWN_KERNEL], lambda: session(eng))
+    st = ctx_a.stats
+    same = equal(ctx_a.finished)
+    per_scrub = launches[tm.KNOWN_KERNEL.symbol] / max(len(w_calls), 1)
+    print(f"{label} (a) integrity on, no fault: tokens equal to the uninterrupted serve on "
+          f"{same}/8; sdc_detected {st.sdc_detected}; {len(w_calls)} weight scrubs and "
+          f"{len(p_calls)} page scrubs in {st.iterations} iterations ({st.pages_scrubbed} page "
+          f"checks); kernel-4 launches {launches[tm.KNOWN_KERNEL.symbol]} = {per_scrub:g} per "
+          f"weight scrub (M = 1, one per layer and leaf path); a weight scrub "
+          f"{1e3 * np.mean(w_calls):.1f} ms (crc32 of "
+          f"{sum(s.size for _, s in pack_lib.iter_packed_leaves(eng.params))} packed bytes on "
+          f"the host + the ABFT probe), a page scrub {1e3 * np.mean(p_calls):.2f} ms; serve "
+          f"{wall_on:.2f} s against {wall_off:.2f} s without integrity ({wall_on / wall_off:.2f}x) "
+          f"in this call; engine build with the stamps and the golden copy {t_build:.2f} s; "
+          f"launches {launches}")
+    check(same == 8 and st.sdc_detected == 0 and st.weight_reloads == 0,
+          f"{label} (a): tokens equal {same}/8, sdc_detected {st.sdc_detected}")
+    check(len(w_calls) > 0 and launches[tm.KNOWN_KERNEL.symbol] == n_leaves * len(w_calls),
+          f"{label} (a): {launches[tm.KNOWN_KERNEL.symbol]} kernel-4 launches for "
+          f"{len(w_calls)} weight scrubs (want {n_leaves} each)")
+    check(all(n > 0 for sym, n in launches.items()
+              if sym not in (fd.KERNEL.symbol, fp.CHUNK_KERNEL.symbol, fp.KERNEL.symbol)),
+          f"{label} (a): a kernel of the path never launched: {launches}")
+    check(eng.weight_loads == 0 and not eng.unhealthy, f"{label} (a): weights reloaded")
+    pool_ok(ctx_a, "(a)")
+    # the probe against its plain version, clean and with one flipped bit
+    path0 = next(iter(pack_lib.iter_packed_leaves(eng.params)))[0]
+    flipped = sdc.flip_packed_bit(eng.params, path0, 5, 2)
+    for tree, want in ((eng.params, []), (flipped, [path0])):
+        got, plain = sdc.abft_verify_tree(tree), sdc.abft_verify_tree(tree, impl="plain")
+        check(got == plain == want, f"{label}: the probe {got}, its plain version {plain}, "
+                                    f"want {want}")
+    for path, stack in pack_lib.iter_packed_leaves(eng.params):
+        sub = stack.layers[-1]
+        x = torch.ones((1, sub.k), device="cuda")
+        y, y_plain = (bitlinear.abft_check(sub, x, impl=impl)[0] for impl in ("auto", "plain"))
+        check(torch.equal(y, y_plain), f"{label}: the probe's y differs from plain on {path}")
+    del flipped
+    print(f"{label}: the kernel-4 probe and its plain version flag the same paths on the clean "
+          f"tree ([]) and with {path0} flipped ([{path0}]), y bit-identical on every path")
+
+    # (b) one stuck ROM bit planted at iteration 2
+    t0b = time.perf_counter()
+    eng = engine()
+    planted, detected = [], []
+
+    def plant(ctx):
+        if ctx.iteration == 2 and not planted:
+            eng.params = sdc.flip_packed_bit(eng.params, path0, 5, 2)
+            planted.append(ctx.iteration)
+        if ctx.stats.weight_reloads and not detected:
+            detected.append(ctx.iteration)
+
+    ctx = session(eng, plant)
+    same = equal(ctx.finished)
+    print(f"{label} (b) weight flip ({path0}, byte 5, bit 2) at iteration {planted}: detected at "
+          f"iteration {detected}, reloads {ctx.stats.weight_reloads}, strikes "
+          f"{eng.weight_fault_strikes}, rollbacks {ctx.stats.preemptions}; tokens equal on "
+          f"{same}/8; {time.perf_counter() - t0b:.2f} s")
+    check(planted and detected and detected[0] <= planted[0] + 4
+          and ctx.stats.weight_reloads == 1 and eng.weight_fault_strikes == 1
+          and pack_lib.verify_packed(eng.params) == [] and same == 8,
+          f"{label} (b): planted {planted}, detected {detected}, reloads "
+          f"{ctx.stats.weight_reloads}, tokens equal {same}/8")
+
+    # (c) one bit of a crc-stamped page
+    t0c = time.perf_counter()
+    eng = engine()
+    hit = []
+
+    def decay(ctx):
+        if hit or not ctx.page_crc:
+            return
+        page = sorted(ctx.page_crc)[0]
+        cache = ctx.state.cache[next(k for k in sorted(ctx.state.cache)
+                                     if hasattr(ctx.state.cache[k], "page_table"))]
+        kp, vp = kvc.gather_pool_pages(cache, [page])
+        kp.view(torch.uint8).view(-1)[0] ^= 0x10
+        kvc.write_pool_pages(cache, [page], kp, vp)
+        hit.append(page)
+
+    ctx = session(eng, decay)
+    same = equal(ctx.finished)
+    print(f"{label} (c) page {hit} flipped through write_pool_pages: quarantined "
+          f"{sorted(ctx.pool.quarantined)}, sdc_detected {ctx.stats.sdc_detected}, rollbacks "
+          f"{ctx.stats.preemptions}; tokens equal on {same}/8; {time.perf_counter() - t0c:.2f} s")
+    check(hit and set(hit) <= ctx.pool.quarantined and ctx.stats.sdc_detected >= 1 and same == 8,
+          f"{label} (c): flipped {hit}, quarantined {ctx.pool.quarantined}, equal {same}/8")
+    check_serving_invariants(ctx, sdc_budget=dict(page_flips=len(hit)))
+    pool_ok(ctx, "(c)")
+
+    # (d) a NaN upset in a decoding slot
+    t0d = time.perf_counter()
+    eng = engine()
+    poked = []
+
+    def poke(ctx):
+        decoding = [s for s in ctx.sched.active_slots() if s not in ctx.prefilling]
+        if not poked and decoding and sdc.inject_activation_nan(ctx, decoding[0]):
+            poked.append(ctx.sched.slot_req[decoding[0]].rid)
+
+    ctx = session(eng, poke)
+    outcomes = {f.rid: f.outcome for f in ctx.finished}
+    same = equal(ctx.finished)
+    print(f"{label} (d) NaN poked into rid {poked}'s hot K: outcomes {outcomes}, slots "
+          f"contained {ctx.stats.slots_quarantined}; the other requests equal on {same}/7; "
+          f"{time.perf_counter() - t0d:.2f} s")
+    check(len(poked) == 1 and outcomes[poked[0]] == "numerics"
+          and ctx.stats.slots_quarantined == 1 and same == 7,
+          f"{label} (d): poked {poked}, outcomes {outcomes}, equal {same}/7")
+    check_serving_invariants(ctx, sdc_budget=dict(nan_pokes=1))
+
+    # (e) the three planes at once, check 9 every iteration, at SDC_CUT layers
+    t0e = time.perf_counter()
+    c_cut = dataclasses.replace(cfg, n_layers=SDC_CUT)
+    p_cut = dict(packed, blocks=packed["blocks"][:SDC_CUT])
+    cut_tokens = {f.rid: f.tokens for f in Engine(c_cut, p_cut, **kw).serve(reqs())}
+    eng = engine(max_weight_strikes=10 ** 6, c=c_cut, p=p_cut)
+    chaos = ChaosInjector(eng, ChaosConfig(seed=0, weight_flip_rate=0.2, page_decay_rate=0.1,
+                                           nan_rate=0.1))
+    ctx = session(eng, chaos.on_iteration)
+    chaos.release_all(ctx)
+    check_serving_invariants(ctx, sdc_budget=chaos.sdc_budget())
+    st = ctx.stats
+    fins = [f for f in ctx.finished if f.outcome == "finished"]
+    same = equal(fins, cut_tokens)
+    print(f"{label} (e) SDC chaos at {SDC_CUT} layers (seed 0; weight 0.2, pages 0.1, NaN 0.1): injected "
+          f"{chaos.sdc_budget()}; detected {st.sdc_detected} = reloads {st.weight_reloads} + "
+          f"quarantined pages {len(ctx.pool.quarantined)} + contained slots "
+          f"{st.slots_quarantined}; rollbacks {st.preemptions}, iterations {st.iterations}; "
+          f"outcomes {sorted((f.rid, f.outcome) for f in ctx.finished)}; finished requests "
+          f"equal on {same}/{len(fins)}; {time.perf_counter() - t0e:.2f} s")
+    check(len(ctx.finished) == 8 and same == len(fins)
+          and {f.outcome for f in ctx.finished} <= {"finished", "numerics"},
+          f"{label} (e): finished equal {same}/{len(fins)}")
+    check(st.sdc_detected == st.weight_reloads + len(ctx.pool.quarantined) + st.slots_quarantined
+          and st.slots_quarantined <= chaos.nan_pokes and st.sdc_detected > 0,
+          f"{label} (e): the detection ledger does not reconcile: {st}")
+
+    # (f) a replica that strikes out is retired; its work finishes on the other
+    t0f = time.perf_counter()
+    reps = [Replica("a", engine(max_weight_strikes=2, c=c_cut, p=p_cut)),
+            Replica("b", engine(max_weight_strikes=10 ** 6, c=c_cut, p=p_cut))]
+    router = Router(reps, seed=0, sleep=lambda s: None, straggler_drain=False)
+    rom = sdc.RomFaultInjector(7, rate=1.0, reassert=None)
+
+    def on_tick(r):
+        a = r.replicas["a"]
+        if not a.dead and a.ctx is not None:
+            rom.on_iteration(a.engine, a.ctx)
+        check_fleet_invariants(r)
+
+    fins = router.serve(reqs(), on_tick=on_tick)
+    check_fleet_invariants(router)
+    same = equal(fins, cut_tokens)
+    print(f"{label} (f) router at {SDC_CUT} layers, replica a under RomFaultInjector(7, rate 1.0, "
+          f"reassert None): "
+          f"{router.stats}; a dead {reps[0].dead}, unhealthy {reps[0].engine.unhealthy} after "
+          f"{reps[0].engine.weight_fault_strikes} strikes ({rom.injected} bits asserted); tokens "
+          f"equal on {same}/8; {time.perf_counter() - t0f:.2f} s")
+    check(router.stats.sdc_retirements == 1 and router._sdc_retired == {"a"} and reps[0].dead
+          and reps[0].engine.unhealthy and not reps[1].dead and len(fins) == 8 and same == 8,
+          f"{label} (f): retirements {router.stats.sdc_retirements}, equal {same}/8")
+    print(f"{label}: {time.perf_counter() - t0:.2f} s on {smi}")
+    return launches
+
+
 OVERLOAD_LENGTHS = (40, 56, 72, 88, 104, 64, 48, 96)
 # The reference engine's control-plane counters for this geometry (hot 32,
 # max_len 192, prefill_chunk 32, page size 32, 4 slots, sync_every 8,
@@ -4229,6 +4579,10 @@ def slice_phase(torch, gen, smi):
     sessions = sessions_phase(torch, cfg, packed, served, smi, paged_tokens)
     print(f"[falcon3-1b sessions phase: {time.perf_counter() - t0:.2f} s]")
     t0 = time.perf_counter()
+    nan_rows_phase(torch, gen, cfg.rope_theta)
+    sdc = sdc_phase(torch, cfg, packed, served, smi, paged_tokens)
+    print(f"[falcon3-1b sdc phase: {time.perf_counter() - t0:.2f} s]")
+    t0 = time.perf_counter()
     overload, overload_tokens, overload_cut_tokens = overload_phase(torch, cfg, packed, served,
                                                                     smi)
     print(f"[falcon3-1b overload phase: {time.perf_counter() - t0:.2f} s]")
@@ -4247,7 +4601,8 @@ def slice_phase(torch, gen, smi):
     return {"falcon3-1b": launches, "falcon3-1b entry points": entry,
             "falcon3-1b carried-scale": carried, "falcon3-1b chunked": chunked,
             "falcon3-1b chunked serve": chunked_serve, "falcon3-1b paged": paged,
-            "falcon3-1b sessions": sessions, "falcon3-1b overload": overload, **spec_paths,
+            "falcon3-1b sessions": sessions, "falcon3-1b sdc": sdc,
+            "falcon3-1b overload": overload, **spec_paths,
             **fp8_paths}, {
                 "falcon3-1b": 6 * 96 / wall, "falcon3-1b carried-scale": carried_tok_s,
                 "falcon3-1b fp8": fp8_tok_s}

@@ -45,8 +45,9 @@ reconciles exactly with ``dr_edram.closed_form_reduction``.
 The handoff wire format (``export_slot_state`` / ``import_slot_state``,
 ``pack_slot_state`` / ``unpack_slot_state``, ``write_pool_pages`` /
 ``gather_pool_pages``) serializes one slot's rows for warm migration
-between replicas; its payload is the reference's byte for byte. Not
-ported: ``pool_page_crcs`` (the SDC scrub's page stamps).
+between replicas; its payload is the reference's byte for byte.
+``pool_page_crcs`` stamps pool pages for the SDC scrub over the same
+gather.
 """
 
 from __future__ import annotations
@@ -992,6 +993,30 @@ def gather_pool_pages(cache: PagedKVCache, page_ids):
     ids = torch.as_tensor(np.asarray(page_ids, np.int64), device=cache.pool_k.device)
     return tuple(raw(lead(pool))[:, ids].cpu().view(pool.dtype)
                  for pool in (cache.pool_k, cache.pool_v))
+
+
+def pool_page_crcs(caches: dict, pages) -> dict:
+    """crc32 of each pool page's bytes across every paged cache stack
+    (reference: ``pool_page_crcs``): the DR-eDRAM retention stamp the
+    serving scrub verifies. ``caches`` is the engine's ``{key: cache}``;
+    a page's digest chains its K, then its V bytes (every layer) of each
+    paged stack in sorted-key order, so one bit flip anywhere in the
+    page's storage changes it. Returns ``{page_id: crc}``; one gather per
+    stack and tier, whatever the page count."""
+    ids = sorted(int(p) for p in pages)
+    if not ids:
+        return {}
+    crcs = {p: 0 for p in ids}
+    for key in sorted(caches):
+        cache = caches[key]
+        if not isinstance(cache, PagedKVCache):
+            continue
+        kp, vp = gather_pool_pages(cache, ids)
+        for i, p in enumerate(ids):
+            for pages in (kp, vp):
+                crcs[p] = zlib.crc32(_host(pages[:, i]).reshape(-1).view(torch.uint8).numpy(),
+                                     crcs[p])
+    return {p: c & 0xFFFFFFFF for p, c in crcs.items()}
 
 
 def pack_slot_state(states: dict, page_size: int) -> bytes:

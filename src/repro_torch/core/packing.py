@@ -8,9 +8,13 @@ Both codecs pack along the contraction (K) axis of a (K, N) weight:
     all-zero-trit byte is 121.
 
 K is zero-padded (zero trits) to a multiple of the group size.
+
+``packed_crc32`` is the ROM integrity stamp of a packed array's bytes.
 """
 
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
@@ -46,11 +50,9 @@ def pad_k(wq: torch.Tensor, group: int) -> torch.Tensor:
 def pack2(wq: torch.Tensor) -> torch.Tensor:
     """(K, ...) int8 trits -> (ceil(K/4), ...) uint8."""
     wq = pad_k(wq, PACK2_GROUP)
-    codes = torch.where(wq == 1, 1, torch.where(wq == -1, 2, 0)).to(torch.int32)
+    codes = (wq == 1).to(torch.uint8) | ((wq == -1).to(torch.uint8) << 1)
     codes = codes.reshape((wq.shape[0] // PACK2_GROUP, PACK2_GROUP) + tuple(wq.shape[1:]))
-    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.int32, device=wq.device)
-    shifts = shifts.reshape((1, PACK2_GROUP) + (1,) * (wq.ndim - 1))
-    return (codes << shifts).sum(dim=1).to(torch.uint8)
+    return codes[:, 0] | (codes[:, 1] << 2) | (codes[:, 2] << 4) | (codes[:, 3] << 6)
 
 
 def unpack2(packed: torch.Tensor, k: int | None = None) -> torch.Tensor:
@@ -101,3 +103,15 @@ def decode_table_243() -> np.ndarray:
             tbl[v, i] = x % 3 - 1
             x //= 3
     return tbl
+
+
+def packed_crc32(packed: torch.Tensor, prev: int = 0) -> int:
+    """crc32 of a packed trit array's bytes (reference: ``packed_crc32``),
+    continuing ``prev``: stamped once at pack time and verified by the
+    serving scrub, so any bit flip in the packed words changes it, flips
+    that the ABFT row sums cannot see included. The bytes cross to the
+    host; uint8 words have no byte order. Chaining the layers of a stack
+    in order (``prev`` = the crc so far) gives the crc of the stacked
+    array's bytes."""
+    host = packed.detach().cpu().contiguous().numpy()
+    return zlib.crc32(host, prev) & 0xFFFFFFFF  # the array's buffer, not a copy

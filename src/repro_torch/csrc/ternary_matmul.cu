@@ -223,6 +223,17 @@ struct Place {
 
 // Largest |x| over elements [k0, k1) of one row, lanes t, t + stride, ...;
 // 16-byte loads, eight in flight, over the aligned middle when ``vec``.
+// The larger of two magnitudes (non-negative floats, or a NaN with its sign
+// cleared by fabsf) as an integer max of their bits: for non-negative
+// floats integer order is float order, so every finite and infinite result
+// is fmaxf's bit for bit, and a NaN's bits order above +inf, so a NaN row
+// keeps its NaN absmax (fmaxf would drop it). The plain version's
+// torch.amax propagates NaN the same way, so a NaN row's scale, and with it
+// the row's output, is NaN in both. Branch-free: one integer max.
+__device__ __forceinline__ float abs_max(float a, float b) {
+  return __int_as_float(max(__float_as_int(a), __float_as_int(b)));
+}
+
 template <typename T>
 __device__ float absmax_range(const T* row, int k0, int k1, int t, int stride, bool vec) {
   constexpr int V = 16 / sizeof(T);
@@ -242,12 +253,12 @@ __device__ float absmax_range(const T* row, int k0, int k1, int t, int stride, b
       for (int j = 0; j < 8; ++j) {
         const T* el = reinterpret_cast<const T*>(&u[j]);
 #pragma unroll
-        for (int q = 0; q < V; ++q) m = fmaxf(m, fabsf(to_f32(el[q])));
+        for (int q = 0; q < V; ++q) m = abs_max(m, fabsf(to_f32(el[q])));
       }
     }
   }
-  for (int k = k0 + t; k < a0; k += stride) m = fmaxf(m, fabsf(to_f32(row[k])));
-  for (int k = a1 + t; k < k1; k += stride) m = fmaxf(m, fabsf(to_f32(row[k])));
+  for (int k = k0 + t; k < a0; k += stride) m = abs_max(m, fabsf(to_f32(row[k])));
+  for (int k = a1 + t; k < k1; k += stride) m = abs_max(m, fabsf(to_f32(row[k])));
   return m;
 }
 
@@ -271,8 +282,8 @@ __device__ void row_scales(const Args& a, const T* x, int64_t e, int m0, int liv
         amax = absmax_range(x + (int64_t)(m0 + r) * a.K, k0, k1, (warp % P) * 32 + lane, 32 * P,
                             vec);
 #pragma unroll
-      for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-      if (lane == 0) atomicMax(&amax_bits[r], __float_as_int(amax));  // |x| >= 0: int order
+      for (int o = 16; o; o >>= 1) amax = abs_max(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      if (lane == 0) atomicMax(&amax_bits[r], __float_as_int(amax));  // abs_max's int order
     }
     pl.sync();
     for (int r = threadIdx.x; r < R; r += kThreads) {
@@ -280,8 +291,8 @@ __device__ void row_scales(const Args& a, const T* x, int64_t e, int m0, int liv
 #pragma unroll
       for (int q = 0; q < kMaxCluster; ++q)
         if (q < pl.cl)
-          m = fmaxf(m, __int_as_float(*pl.cluster.map_shared_rank(&amax_bits[r], q)));
-      row_scale[r] = a.qmax / fmaxf(m, kEps);
+          m = abs_max(m, __int_as_float(*pl.cluster.map_shared_rank(&amax_bits[r], q)));
+      row_scale[r] = a.qmax / abs_max(m, kEps);  // a NaN absmax: a NaN scale
     }
   } else if constexpr (EPI == kScaled) {
     for (int r = threadIdx.x; r < R; r += kThreads)

@@ -18,6 +18,12 @@ factors, norms, the embedding, the lm_head (none in a model that ties
 its embeddings, such as a speculative draft) and the float dict leaves
 (``router``; MLA's ``w_uk`` / ``w_uv``, as ``{"w"}`` or already
 fake-quantized ``{"fq"}``) come across unchanged.
+
+Integrity stamps come across too: ``wsum`` sliced per layer like the
+scale, and ``crc``, which the reference stamps over a whole stacked leaf,
+as each layer's own crc, after checking that the layers' bytes chained in
+order give the reference's stamp (``models.pack.stack_crc32``); a stamp
+that does not match its bytes raises.
 """
 
 from __future__ import annotations
@@ -25,9 +31,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core.bitlinear import FusedPackedLinear, PackedLinear
+from repro_torch.models.pack import iter_packed_leaves, stack_crc32
 
 _PACKED_FIELDS = ("packed", "scale", "k", "codec")
+_OPTIONAL_FIELDS = ("splits", "wsum", "crc")
 LAYER_STACKS = ("blocks", "dense_blocks", "moe_blocks")
 
 
@@ -38,7 +47,8 @@ def _packed_fields(node):
     if isinstance(node, dict):
         return node if set(_PACKED_FIELDS) <= set(node) else None
     if all(hasattr(node, f) for f in _PACKED_FIELDS):
-        return {f: getattr(node, f) for f in (*_PACKED_FIELDS, "splits") if hasattr(node, f)}
+        return {f: getattr(node, f) for f in (*_PACKED_FIELDS, *_OPTIONAL_FIELDS)
+                if getattr(node, f, None) is not None}
     return None
 
 
@@ -59,23 +69,46 @@ def _take(node, i: int):
     """Layer ``i`` of a stacked subtree (every array's leading axis)."""
     fields = _packed_fields(node)
     if fields is not None:
-        return {**fields, "packed": fields["packed"][i], "scale": fields["scale"][i]}
+        out = {**fields, "packed": fields["packed"][i], "scale": fields["scale"][i]}
+        if fields.get("wsum") is not None:
+            out["wsum"] = fields["wsum"][i]
+        if fields.get("crc") is not None:
+            out["crc"] = "layer"  # each layer's own, checked against the stack's
+        return out
     if isinstance(node, dict):
         return {k: _take(v, i) for k, v in node.items()}
     return np.asarray(node)[i]
+
+
+def _stack_crcs(node, path=()):
+    """{dotted path: crc} of the stamped packed leaves of a reference
+    subtree."""
+    fields = _packed_fields(node)
+    if fields is not None:
+        return {".".join(path): int(fields["crc"])} if fields.get("crc") is not None else {}
+    if isinstance(node, dict):
+        out = {}
+        for k in sorted(node):
+            out.update(_stack_crcs(node[k], path + (str(k),)))
+        return out
+    return {}
 
 
 def _convert(node, device):
     fields = _packed_fields(node)
     if fields is not None:
         packed = to_tensor(fields["packed"], device)
-        scale = to_tensor(fields["scale"], device).float()
+        kw = dict(packed=packed, scale=to_tensor(fields["scale"], device).float(),
+                  k=int(fields["k"]), codec=str(fields["codec"]))
+        if fields.get("wsum") is not None:
+            kw["wsum"] = to_tensor(fields["wsum"], device).float()
+        if fields.get("crc") is not None:
+            kw["crc"] = packing.packed_crc32(packed)
+            if fields["crc"] != "layer" and kw["crc"] != int(fields["crc"]):
+                raise ValueError("a packed leaf's crc stamp does not match its bytes")
         if fields.get("splits") is not None:
-            return FusedPackedLinear(packed=packed, scale=scale, k=int(fields["k"]),
-                                     codec=str(fields["codec"]),
-                                     splits=tuple(int(s) for s in fields["splits"]))
-        return PackedLinear(packed=packed, scale=scale, k=int(fields["k"]),
-                            codec=str(fields["codec"]))
+            return FusedPackedLinear(splits=tuple(int(s) for s in fields["splits"]), **kw)
+        return PackedLinear(**kw)
     if isinstance(node, dict):
         return {k: _convert(v, device) for k, v in node.items()}
     return to_tensor(node, device)
@@ -96,4 +129,9 @@ def params_from_reference(tree: dict, device="cpu") -> dict:
             blocks = tree[name]
             n_layers = np.asarray(blocks["attn"]["ln"]).shape[0]
             out[name] = [_convert(_take(blocks, i), device) for i in range(n_layers)]
+            want = _stack_crcs(blocks)
+            for path, stack in iter_packed_leaves(out[name]):
+                if path in want and stack_crc32(stack) != want[path]:
+                    raise ValueError(f"the crc stamp of {name}.{path} does not match its "
+                                     "layers' bytes")
     return out

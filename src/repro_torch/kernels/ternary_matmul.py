@@ -13,13 +13,17 @@ wrapper, bit-identical to the kernel and to the reference.
   and epilogue.
 - ``ternary_matmul`` (``ops.ternary_matmul``): int8 codes -> the exact
   int32 accumulator, no scales.
+- ``ternary_matmul_abft`` (``ops.ternary_matmul_abft``): the known-scale
+  kernel plus the ABFT row-sum check in plain PyTorch around it, against
+  the pack-time checksum ``abft_wsum`` (reference:
+  ``ternary_matmul.abft_wsum``, plain JAX there too).
 - ``ternary_matmul_expert`` / ``ternary_matmul_expert_fused``
   (``ops.ternary_matmul_expert`` / ``_expert_fused``): the act-quant and
   the known-scale forms over a leading expert dimension — x (E, C, K),
   packed (E, K/g, N), per-column scales (E, N) — in ONE launch (expert
   index on the grid's z axis). Their plain versions walk the experts in
-  chunks: unpacking all 256 DeepSeek-V3 experts to float64 at once would
-  take 60 GB.
+  chunks: unpacking all 256 DeepSeek-V3 experts to float at once would
+  take 30 GB or more.
 
 Each entry point has its own launch count. The reference pads M/N/K to
 its TPU block table (padded rows with ``x_scale`` 1, padded columns with
@@ -49,8 +53,8 @@ KNOWN_KERNEL = CudaKernel("ternary_matmul", "ternary_matmul_known",
 KNOWN_EXPERT_KERNEL = CudaKernel("ternary_matmul", "ternary_matmul_known_expert",
                                  [_P] * 5 + [_I] * 6 + [_P])
 INT32_KERNEL = CudaKernel("ternary_matmul", "ternary_matmul_int32", [_P] * 3 + [_I] * 5 + [_P])
-# experts unpacked at once by the plain expert versions (float64 trits of
-# 16 DeepSeek-V3 w_gu experts: 16 x 7168 x 4096 x 8 B = 3.8 GB)
+# experts unpacked at once by the plain expert versions (float32 trits of
+# 16 DeepSeek-V3 w_gu experts: 16 x 7168 x 4096 x 4 B = 1.9 GB)
 PLAIN_EXPERT_CHUNK = 16
 FLOATS = (torch.float32, torch.bfloat16)
 
@@ -60,15 +64,25 @@ FLOATS = (torch.float32, torch.bfloat16)
 # ---------------------------------------------------------------------------
 
 
+def exact_float(k: int) -> torch.dtype:
+    """The narrowest float type whose product of int8 codes and trits over
+    K terms is exact in any summation order: every partial sum is an
+    integer of magnitude at most 128 K, so float32 (integers up to 2**24)
+    holds it up to K = 2**17, float64 (2**53) beyond."""
+    return torch.float32 if 128 * k <= 2 ** 24 else torch.float64
+
+
 def ternary_acc_plain(xq: torch.Tensor, packed: torch.Tensor, k: int,
                       codec: str) -> torch.Tensor:
-    """int8 (M, K) x packed (K/g, N) -> exact int32 accumulator (M, N).
-
-    The product runs in float64 (every partial sum is an integer below
-    2**53, so it is exact): integer ``matmul`` has no CUDA implementation."""
+    """int8 (M, K) x packed (K/g, N) -> exact int32 accumulator (M, N):
+    on the CPU an int8 GEMM with an int32 accumulator (``torch._int_mm``),
+    on the card (where that GEMM needs M > 16) a float product in
+    ``exact_float(k)``. Integer ``matmul`` has no CUDA implementation."""
     trits = packing.unpack(packed, codec, k)
-    acc = xq.to(torch.float64) @ trits.to(torch.float64)
-    return acc.to(torch.int32)
+    if not xq.is_cuda:
+        return torch._int_mm(xq.to(torch.int8).contiguous(), trits)
+    ft = exact_float(k)
+    return (xq.to(ft) @ trits.to(ft)).to(torch.int32)
 
 
 def ternary_matmul_fused_plain(xq: torch.Tensor, packed: torch.Tensor, x_scale: torch.Tensor,
@@ -92,13 +106,14 @@ def ternary_matmul_expert_fused_plain(xq: torch.Tensor, packed: torch.Tensor,
                                       x_scale: torch.Tensor, col_scale: torch.Tensor, k: int,
                                       codec: str = "pack2") -> torch.Tensor:
     """Plain known-scale expert version: for each chunk of experts an exact
-    float64 batched accumulate and the rescale."""
+    batched accumulate (``exact_float``) and the rescale."""
     e, c, _ = xq.shape
+    ft = exact_float(k)
     out = torch.empty((e, c, packed.shape[-1]), dtype=torch.float32, device=xq.device)
     for e0 in range(0, e, PLAIN_EXPERT_CHUNK):
         e1 = min(e0 + PLAIN_EXPERT_CHUNK, e)
         trits = packing.unpack(packed[e0:e1].transpose(0, 1), codec, k).transpose(0, 1)
-        acc = torch.bmm(xq[e0:e1].to(torch.float64), trits.to(torch.float64))
+        acc = torch.bmm(xq[e0:e1].to(ft), trits.to(ft))
         out[e0:e1] = acc.to(torch.int32).to(torch.float32) * (
             col_scale[e0:e1, None, :].float() / x_scale[e0:e1].float())
     return out
@@ -283,3 +298,49 @@ def ternary_matmul_expert_fused(xq: torch.Tensor, packed: torch.Tensor, x_scale:
     if _plain(impl, xq):
         return ternary_matmul_expert_fused_plain(xq, packed, x_scale, col_scale, k, codec)
     return _launch_known_expert(xq, packed, x_scale, col_scale, k, codec)
+
+
+# ---------------------------------------------------------------------------
+# ABFT weight checksums (the SDC scrub's probe)
+# ---------------------------------------------------------------------------
+
+
+def abft_wsum(packed: torch.Tensor, k: int, codec: str, scale: torch.Tensor) -> torch.Tensor:
+    """The scale-weighted ABFT checksum of a packed (K/g, N) weight with
+    scale ``s`` (scalar or per column): ``wsum[k] = sum_n trit[k, n] *
+    s[n]``, f32 (K,). Since ``y = (xq @ trits) * s / x_scale``, the row
+    sum of ``y`` is ``(xq @ wsum) / x_scale``: one GEMV checks a matmul.
+    A leading expert dimension passes through. Plain PyTorch on the
+    leaf's device, as in the reference; its sum order is PyTorch's, so it
+    agrees with the reference's to f32 rounding, not bit for bit."""
+    if packed.ndim == 3:
+        return torch.stack([abft_wsum(p, k, codec, s) for p, s in zip(packed, scale)])
+    trits = packing.unpack(packed, codec, k).float()
+    s = scale.float()
+    if s.ndim == 0:
+        return trits.sum(dim=-1) * s
+    return trits @ s
+
+
+def ternary_matmul_abft(xq: torch.Tensor, packed: torch.Tensor, x_scale: torch.Tensor,
+                        col_scale: torch.Tensor, wsum: torch.Tensor, *, k: int,
+                        codec: str = "pack2", impl: str = "auto", atol: float = 1e-4,
+                        eps_factor: float = 64.0):
+    """Kernel 4 plus the ABFT row-sum check (reference:
+    ``ops.ternary_matmul_abft``): ``y = ternary_matmul_fused(...)`` (the
+    kernel on CUDA tensors, its plain version on CPU ones), the predicted
+    row sums ``(xq @ wsum) / x_scale``, ``residual = |sum_n y - pred|``
+    and ``tol = atol + eps_factor * eps_f32 * mag``, ``mag`` the
+    positive-term magnitude of both sums. Returns ``(y, residual, tol)``.
+    A flipped trit at k moves the row sum by ``|xq[r, k]| * s``: outside
+    ``tol`` wherever the row's code at k is nonzero (rows whose codes are
+    zero there are the blind spot the exact crc covers)."""
+    y = ternary_matmul_fused(xq, packed, x_scale, col_scale, k=k, codec=codec, impl=impl)
+    xqf = xq.float()
+    xs = x_scale[..., 0].float()
+    w = wsum.float()
+    pred = (xqf @ w) / xs
+    residual = (y.sum(dim=-1) - pred).abs()
+    mag = (xqf.abs() @ w.abs()) / xs.abs() + y.abs().sum(dim=-1)
+    tol = atol + eps_factor * torch.finfo(torch.float32).eps * mag
+    return y, residual, tol

@@ -1,5 +1,5 @@
-"""Freeze float params into ROM form: packed ternary (reference:
-``repro/models/pack.py``; the integrity stamps are not part of this slice).
+"""Freeze float params into ROM form: packed ternary, and the integrity
+stamps the serving SDC scrub verifies (reference: ``repro/models/pack.py``).
 
 ``pack_params`` replaces every quantizable projection leaf
 ``{"w": (K, N)}`` named in ``PACK_KEYS`` by a ``PackedLinear`` (packed
@@ -19,11 +19,24 @@ The absmean here is a float32 mean summed in PyTorch's order, which can
 differ from the reference's by up to two ulps (and then flip a trit at the
 rounding boundary); parity tests therefore carry the reference's packed
 leaves rather than re-packing its float weights.
+
+Integrity (``add_integrity``, ``pack_params(integrity=True)``) stamps
+every packed leaf with its ABFT checksum ``wsum`` and the crc32 of its
+bytes. The reference stacks the layers of a model, so its leaves, dotted
+paths, crcs and fault addresses are per STACKED leaf
+(``blocks.attn.wqkv`` is (L, K/g, N)); the port keeps one dict per layer.
+``iter_packed_leaves`` therefore yields the reference's paths, in its
+sorted-key order, each with a ``LeafStack`` of the layers' leaves:
+``stack_crc32`` chains the layers' bytes in order (the crc of the stacked
+bytes), ``size`` is the stacked byte count and flat byte ``i`` of the
+stack lies in layer ``i // per_layer``. Each layer leaf carries its own
+crc, so ``verify_packed`` names a path when any of its layers mismatches.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -31,6 +44,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core import packing
 from repro_torch.core.bitlinear import FusedPackedLinear, PackedLinear
 from repro_torch.core.ternary import weight_quant_absmean, weight_quant_ste
+from repro_torch.kernels.ternary_matmul import abft_wsum
 
 PACK_KEYS = {
     "wq", "wk", "wv", "wo",  # attention
@@ -102,9 +116,13 @@ def _fuse_tree(tree):
     return out
 
 
-def pack_params(params, cfg: ModelConfig, codec: str | None = None):
+def pack_params(params, cfg: ModelConfig, codec: str | None = None,
+                integrity: bool = False):
     """Convert a float parameter tree to the packed-inference tree, on the
-    tree's own device."""
+    tree's own device; ``integrity`` stamps every packed leaf
+    (``add_integrity``)."""
+    if integrity:
+        return add_integrity(pack_params(params, cfg, codec))
     codec = codec or cfg.bitnet.codec
 
     def walk(tree, name=None):
@@ -121,6 +139,97 @@ def pack_params(params, cfg: ModelConfig, codec: str | None = None):
         return tree
 
     return _fuse_tree(walk(params))
+
+
+# ---------------------------------------------------------------------------
+# integrity stamps (serving/sdc.py)
+# ---------------------------------------------------------------------------
+
+
+def stamp_integrity(pw):
+    """``pw`` with its ABFT ``wsum`` and the crc32 of its packed bytes,
+    both computed from its own words (reference: ``_stamp_integrity``)."""
+    return dataclasses.replace(pw, wsum=abft_wsum(pw.packed, pw.k, pw.codec, pw.scale),
+                               crc=packing.packed_crc32(pw.packed))
+
+
+def add_integrity(tree):
+    """Stamp every packed leaf that lacks a stamp; everything else passes
+    through (reference: ``add_integrity``)."""
+    if isinstance(tree, (PackedLinear, FusedPackedLinear)):
+        return stamp_integrity(tree) if tree.crc is None else tree
+    if isinstance(tree, list):
+        return [add_integrity(v) for v in tree]
+    if isinstance(tree, dict):
+        return {k: add_integrity(v) for k, v in tree.items()}
+    return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafStack:
+    """The leaves of every layer at one of the reference's stacked paths,
+    in layer order (one leaf for a path outside a layer stack)."""
+
+    layers: tuple
+
+    @property
+    def per_layer(self) -> int:
+        """Packed bytes of one layer's leaf."""
+        return int(self.layers[0].packed.numel())
+
+    @property
+    def size(self) -> int:
+        """Packed bytes of the stack, the reference's leaf size."""
+        return self.per_layer * len(self.layers)
+
+    @property
+    def stamped(self) -> bool:
+        return all(pw.crc is not None for pw in self.layers)
+
+
+def stack_crc32(stack: LeafStack) -> int:
+    """crc32 of the stack's bytes in layer order: the reference's
+    ``packed_crc32`` of its stacked leaf."""
+    crc = 0
+    for pw in stack.layers:
+        crc = packing.packed_crc32(pw.packed, crc)
+    return crc
+
+
+def iter_packed_leaves(tree) -> Iterator[Tuple[str, LeafStack]]:
+    """``(dotted_path, LeafStack)`` for every packed leaf of the tree, in
+    the reference's sorted-key order and with its paths: a layer list
+    stands where the reference has a stacked subtree, so its index is not
+    part of the path. The enumeration the fault injectors and the weight
+    scrub share."""
+
+    def walk(node, path):
+        if isinstance(node, (PackedLinear, FusedPackedLinear)):
+            yield path, (node,)
+        elif isinstance(node, dict):
+            for key in sorted(node):
+                yield from walk(node[key], path + (str(key),))
+        elif isinstance(node, list) and node:
+            per_layer = [dict(walk(layer, path)) for layer in node]
+            for p in per_layer[0]:
+                yield p, tuple(pw for layer in per_layer for pw in layer[p])
+
+    for path, layers in walk(tree, ()):
+        yield ".".join(path), LeafStack(layers)
+
+
+def stack_corrupt(stack: LeafStack) -> bool:
+    """True when a stamped layer's bytes no longer match its crc."""
+    return any(pw.crc is not None and packing.packed_crc32(pw.packed) != pw.crc
+               for pw in stack.layers)
+
+
+def verify_packed(tree) -> List[str]:
+    """Re-crc every stamped leaf against its pack-time crc and return the
+    dotted paths where a layer mismatches (empty: clean). The exact
+    weight check: it sees flips the ABFT row sums cannot (rows whose codes
+    are zero). Unstamped leaves are skipped."""
+    return [path for path, stack in iter_packed_leaves(tree) if stack_corrupt(stack)]
 
 
 def tree_to(tree, device):

@@ -116,5 +116,5 @@ def expert_fused_linear(leaf, x: torch.Tensor, cfg: ModelConfig) -> tuple:
 def init_linear(d_in: int, d_out: int, *, generator, device, dtype=torch.float32,
                 scale: float | None = None) -> dict:
     s = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((d_in, d_out), generator=generator, device=device, dtype=dtype) * s
+    w = torch.randn((d_in, d_out), generator=generator, device=device, dtype=dtype).mul_(s)
     return {"w": w}

@@ -9,8 +9,11 @@
 - ``ChaosInjector`` is a seeded, deterministic adversary built on
   ``distributed/fault.py``: transient pool exhaustion (takes free pages
   and holds them for a few iterations), straggler stalls (sleeps inside the
-  loop, which its ``StragglerMonitor`` flags) and mid-flight cancellation
-  (a slot still prefilling first). Same seed, same serve: same injections.
+  loop, which its ``StragglerMonitor`` flags), mid-flight cancellation
+  (a slot still prefilling first) and the three SDC planes of
+  ``serving/sdc.py`` (stuck ROM bits, page retention decay, NaN upsets),
+  whose totals bound the engine's detections (check 9). Same seed, same
+  serve: same injections.
 
 The injector uses public calls only (``PagePool.alloc`` / ``decref``,
 ``Engine.cancel``): it is a hostile client, so what it breaks is a real
@@ -19,8 +22,8 @@ protocol hole.
 The fleet level (``serving/router.py``): ``FleetChaosInjector`` kills
 replicas, stalls them and corrupts the next warm handoff, each from its own
 seeded stream, and ``check_fleet_invariants`` audits the router after every
-tick (checks 1-6). Not ported: check 9 and the SDC injectors (the SDC
-plane), in the engine's chaos and the fleet's.
+tick (checks 1-6), and injects the SDC planes into each replica from a
+stream family of its own.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.distributed.fault import FaultSchedule, StragglerMonitor
+from repro_torch.serving import sdc
 from repro_torch.serving.paging import pages_needed
 
 
@@ -38,7 +42,8 @@ class InvariantViolation(RuntimeError):
     """A serving-plane protocol invariant failed under test."""
 
 
-def check_serving_invariants(ctx, extra_refs: Optional[Dict[int, int]] = None) -> None:
+def check_serving_invariants(ctx, extra_refs: Optional[Dict[int, int]] = None,
+                             sdc_budget: Optional[Dict[str, int]] = None) -> None:
     """Check the page pool's refcount protocol against ``ctx`` (an
     ``Engine`` session's ``_ServeCtx``), raising ``InvariantViolation`` at
     the first breach:
@@ -60,12 +65,15 @@ def check_serving_invariants(ctx, extra_refs: Optional[Dict[int, int]] = None) -
        finished request) and, when paged, every decoding slot holds
        exactly the pages its mirrored length needs: the rollback returned
        every page the rejected suffix held;
-    8. quarantined pages are dead: never free, in the tree or mapped by a
-       live slot (nothing quarantines a page yet, so this passes
-       vacuously).
+    8. quarantined pages (the SDC scrub's) are dead: never free, in the
+       tree or mapped by a live slot;
+    9. with ``sdc_budget`` (the injectors' totals: ``weight_asserts``,
+       ``page_flips``, ``nan_pokes``), no SDC repair counter exceeds what
+       was injected: detection may lag injection, never exceed it.
 
     A context without a pool (non-paged serving) passes the page checks
-    vacuously; check 7's ledger part still runs."""
+    and check 9 vacuously, as in the reference; check 7's ledger part still
+    runs."""
     if getattr(ctx, "spec", False):
         _check_speculation(ctx)
     pool = ctx.pool
@@ -123,6 +131,30 @@ def check_serving_invariants(ctx, extra_refs: Optional[Dict[int, int]] = None) -
         for s in live:
             if p in ctx.slot_pages[s]:
                 raise InvariantViolation(f"quarantined page {p} is still mapped by slot {s}")
+    if sdc_budget is not None:
+        _check_sdc_counters(ctx, sdc_budget)
+
+
+def _check_sdc_counters(ctx, budget: Dict[str, int]) -> None:
+    """Check 9 (reference: ``_check_sdc_counters``): the SDC ladder's
+    counters against the injectors' own totals. A repair counter above its
+    budget means the scrub invented a fault."""
+    st = ctx.stats
+    w = int(budget.get("weight_asserts", 0))
+    p = int(budget.get("page_flips", 0))
+    n = int(budget.get("nan_pokes", 0))
+    if st.weight_reloads > w:
+        raise InvariantViolation(f"weight_reloads {st.weight_reloads} exceeds injected weight "
+                                 f"asserts {w}")
+    n_quar = len(getattr(ctx.pool, "quarantined", set()) or ())
+    if n_quar > p:
+        raise InvariantViolation(f"{n_quar} quarantined pages exceed injected page flips {p}")
+    if st.slots_quarantined > n:
+        raise InvariantViolation(f"slots_quarantined {st.slots_quarantined} exceeds injected "
+                                 f"NaN pokes {n}")
+    if st.sdc_detected > w + p + n:
+        raise InvariantViolation(f"sdc_detected {st.sdc_detected} exceeds total injected "
+                                 f"faults {w + p + n}")
 
 
 def _check_speculation(ctx) -> None:
@@ -154,9 +186,9 @@ def _check_speculation(ctx) -> None:
 class ChaosConfig:
     """Per-class injection rates (probability per loop iteration) and
     shapes; each class draws from its own seeded stream (``seed``,
-    ``seed + 1``, ``seed + 2``), so enabling one does not move another's
-    points. The SDC classes of the reference belong to the SDC plane,
-    which is not ported: a non-zero rate there raises."""
+    ``seed + 1``, ``seed + 2``; the SDC planes ``seed + 3``, ``+ 4``,
+    ``+ 5``), so enabling one does not move another's points. The SDC
+    planes need ``Engine(integrity=...)`` for the engine to fight back."""
 
     seed: int = 0
     exhaust_rate: float = 0.0  # take pages from the pool...
@@ -165,9 +197,10 @@ class ChaosConfig:
     straggle_rate: float = 0.0  # sleep inside the serving loop...
     straggle_seconds: float = 0.02  # ...this long (a slow decode chunk)
     cancel_rate: float = 0.0  # cancel a live request mid-flight
-    weight_flip_rate: float = 0.0
-    page_decay_rate: float = 0.0
-    nan_rate: float = 0.0
+    weight_flip_rate: float = 0.0  # mint a stuck ROM bit address
+    weight_reassert: Optional[int] = 1  # re-asserts per address (None: forever)
+    page_decay_rate: float = 0.0  # per-iteration retention decay rate
+    nan_rate: float = 0.0  # poke NaN into a decoding slot's hot K
     check_invariants: bool = True
 
 
@@ -185,14 +218,18 @@ class ChaosInjector:
     faking state."""
 
     def __init__(self, engine, config: ChaosConfig):
-        if config.weight_flip_rate or config.page_decay_rate or config.nan_rate:
-            raise NotImplementedError("SDC fault injection belongs to the SDC plane, which "
-                                      "is not ported")
         self.engine = engine
         self.cfg = config
         self._exhaust = FaultSchedule(config.seed, config.exhaust_rate)
         self._straggle = FaultSchedule(config.seed + 1, config.straggle_rate)
         self._cancel = FaultSchedule(config.seed + 2, config.cancel_rate)
+        # the SDC adversaries ride their own streams, so enabling them
+        # never moves the other classes' points
+        self.rom = sdc.RomFaultInjector(config.seed + 3, config.weight_flip_rate,
+                                        reassert=config.weight_reassert)
+        self.retention = sdc.RetentionInjector(config.seed + 4, config.page_decay_rate)
+        self._nan = FaultSchedule(config.seed + 5, config.nan_rate)
+        self.nan_pokes = 0
         self.monitor = StragglerMonitor(window=20, factor=3.0)
         self.held: List[Tuple[int, List[int]]] = []  # (release_at, pages)
         self.cancelled: List[int] = []
@@ -232,8 +269,22 @@ class ChaosInjector:
                 rid = self._cancel.pick(cands)
                 self.engine.cancel(rid)
                 self.cancelled.append(rid)
+        # the SDC planes: stuck ROM bits (asserted again after a repair),
+        # retention decay of stamped pages, NaN upsets in a decoding slot
+        self.rom.on_iteration(self.engine, ctx)
+        self.retention.on_iteration(self.engine, ctx)
+        if self._nan.fires(it):
+            decoding = _decoding_slots(ctx)
+            if decoding and sdc.inject_activation_nan(ctx, self._nan.pick(decoding)):
+                self.nan_pokes += 1
         if self.cfg.check_invariants:
-            check_serving_invariants(ctx, extra_refs=self._held_counts())
+            check_serving_invariants(ctx, extra_refs=self._held_counts(),
+                                     sdc_budget=self.sdc_budget())
+
+    def sdc_budget(self) -> Dict[str, int]:
+        """The injected totals check 9 bounds the detections by."""
+        return {"weight_asserts": self.rom.injected, "page_flips": self.retention.injected,
+                "nan_pokes": self.nan_pokes}
 
     def _held_counts(self) -> Counter:
         c: Counter = Counter()
@@ -249,6 +300,11 @@ class ChaosInjector:
         self.held = []
 
 
+def _decoding_slots(ctx) -> List[int]:
+    return [s for s in ctx.sched.active_slots()
+            if s not in ctx.prefilling and s not in ctx.draft_prefilling]
+
+
 # ---------------------------------------------------------------------------
 # fleet chaos: replica kills, stalls and handoff corruption against the
 # router, and the fleet-wide invariant checker
@@ -260,8 +316,9 @@ class FleetChaosConfig:
     """Replica-level injection rates (probability per router tick). Kill,
     stall and corruption draw from their own seeded streams (``seed``,
     ``seed + 1``, ``seed + 2``), so enabling one never moves another's
-    points. The SDC classes of the reference belong to the SDC plane,
-    which is not ported: a non-zero rate there raises."""
+    points. The SDC planes act per replica per tick (its engine needs an
+    ``IntegrityConfig``); each replica gets its own stream family at
+    ``seed + 3 * (rank + 1)``, its rank in sorted-name order."""
 
     seed: int = 0
     kill_rate: float = 0.0  # kill a live replica (its device state is lost)
@@ -270,9 +327,10 @@ class FleetChaosConfig:
     corrupt_rate: float = 0.0  # flip a byte in the next warm handoff
     max_kills: int = 2  # the run's kill budget
     min_survivors: int = 1  # never kill below this many live replicas
-    weight_flip_rate: float = 0.0
-    page_decay_rate: float = 0.0
-    nan_rate: float = 0.0
+    weight_flip_rate: float = 0.0  # mint a stuck ROM bit on one replica
+    weight_reassert: Optional[int] = 1  # re-asserts per address (None: forever)
+    page_decay_rate: float = 0.0  # per-page-per-tick retention decay
+    nan_rate: float = 0.0  # a NaN upset in a decoding slot
     check_invariants: bool = True
 
 
@@ -287,9 +345,6 @@ class FleetChaosInjector:
     ``check_fleet_invariants`` runs after every injection round."""
 
     def __init__(self, config: FleetChaosConfig):
-        if config.weight_flip_rate or config.page_decay_rate or config.nan_rate:
-            raise NotImplementedError("SDC fault injection belongs to the SDC plane, which "
-                                      "is not ported")
         self.cfg = config
         self._kill = FaultSchedule(config.seed, config.kill_rate)
         self._stall = FaultSchedule(config.seed + 1, config.stall_rate)
@@ -297,6 +352,40 @@ class FleetChaosInjector:
         self.kills: List[Tuple[int, str]] = []  # (tick, replica)
         self.stalls: List[Tuple[int, str]] = []
         self.corruptions: List[int] = []
+        # per-replica SDC adversaries, made on first sight of a name
+        self._sdc: Dict[str, tuple] = {}
+        self.nan_pokes = 0
+
+    def _sdc_for(self, name: str, rank: int):
+        if name not in self._sdc:
+            base = self.cfg.seed + 3 * (rank + 1)
+            self._sdc[name] = (
+                sdc.RomFaultInjector(base, self.cfg.weight_flip_rate,
+                                     reassert=self.cfg.weight_reassert),
+                sdc.RetentionInjector(base + 1, self.cfg.page_decay_rate),
+                FaultSchedule(base + 2, self.cfg.nan_rate),
+            )
+        return self._sdc[name]
+
+    def _inject_sdc(self, router) -> None:
+        tick = router.stats.ticks
+        for rank, name in enumerate(sorted(router.replicas)):
+            rep = router.replicas[name]
+            if rep.dead or rep.ctx is None:
+                continue
+            rom, retention, nan = self._sdc_for(name, rank)
+            rom.on_iteration(rep.engine, rep.ctx)
+            retention.on_iteration(rep.engine, rep.ctx)
+            if nan.fires(tick):
+                decoding = _decoding_slots(rep.ctx)
+                if decoding and sdc.inject_activation_nan(rep.ctx, nan.pick(decoding)):
+                    self.nan_pokes += 1
+
+    def sdc_budget(self) -> Dict[str, int]:
+        """The fleet's injected totals, summed over the replicas."""
+        return {"weight_asserts": sum(v[0].injected for v in self._sdc.values()),
+                "page_flips": sum(v[1].injected for v in self._sdc.values()),
+                "nan_pokes": self.nan_pokes}
 
     def on_tick(self, router) -> None:
         tick = router.stats.ticks
@@ -316,6 +405,7 @@ class FleetChaosInjector:
             if corrupt is not None:
                 corrupt()
                 self.corruptions.append(tick)
+        self._inject_sdc(router)
         if self.cfg.check_invariants:
             check_fleet_invariants(router)
 
@@ -336,7 +426,7 @@ def check_fleet_invariants(router) -> None:
        counted in ``stats.failed``;
     6. ``stats.sdc_retirements`` equals the SDC-retired set, each of whose
        replicas is dead, barred from restart and flagged ``unhealthy``
-       (the port retires none, so this holds at 0)."""
+       (nothing resurrected a replica whose ROM plane struck out)."""
     locations: Dict[int, List[str]] = {}
 
     def seen(rid: int, where: str) -> None:

@@ -102,7 +102,23 @@ past the match. ``abandon_session`` tears down a dead session on the host
 alone. ``Engine(guard=PreemptionGuard())`` drains ``serve`` when the flag
 is raised and leaves the evacuated requests in ``last_drained``.
 
-Not ported: SDC scrubbing.
+SDC resilience (reference: "Fault model & SDC ladder"; ``serving/sdc.py``).
+``Engine(integrity=IntegrityConfig(...))`` stamps every packed leaf with
+its ABFT checksum and crc32, refuses weights that fail their crc at load
+(``WeightFaultError``) and keeps a host golden copy of the packed words.
+Every step that emits logits latches non-finite ones per slot into the
+device bool ``numerics_bad`` (read on the host only at a scrub). Every
+``scrub_every`` iterations, and whenever a decoding slot is ripe for
+harvest, ``_scrub`` runs before the harvest: the weights' crcs and the
+ABFT probe (one kernel-4 launch per layer slice), whose faults reload the
+leaf from the golden copy, flush the prefix tree and roll every slot back
+to its last verified token count (``_preempt_slot(n_fold=)``), counting a
+strike (``max_weight_strikes`` make the engine ``unhealthy``, which the
+``Router`` retires); then the crc stamps of the full cold pages, whose
+mismatches quarantine the page and roll its readers back; then the
+sentinel, whose slots end ``"numerics"`` (or raise ``NumericsError``).
+Since a rollback re-prefills only verified tokens and recompute is bit
+exact, every request that finishes gives a faultless serve's tokens.
 """
 
 from __future__ import annotations
@@ -120,8 +136,10 @@ from repro_torch.core import dr_edram, kv_cache
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault import PreemptionGuard, StragglerMonitor
 from repro_torch.kernels.flash_decode import TILE
+from repro_torch.models import pack as pack_lib
 from repro_torch.models import transformer as T
 from repro_torch.models.pack import pack_params, tree_to
+from repro_torch.serving import sdc as sdc_lib
 from repro_torch.serving import speculative as spec_lib
 from repro_torch.serving.paging import (PagePool, PagePoolError, PrefixCache, PrefixMatch,
                                         pages_needed)
@@ -169,6 +187,9 @@ class DecodeState:
     draft_cache: Optional[dict] = None
     drafted: Optional[torch.Tensor] = None  # (slots,) int32
     accepted: Optional[torch.Tensor] = None  # (slots,) int32
+    # the SDC sentinel: a slot's logits were non-finite since its
+    # admission (read on the host only at a scrub, serving/sdc.py)
+    numerics_bad: Optional[torch.Tensor] = None  # (slots,) bool
 
 
 @dataclasses.dataclass
@@ -179,7 +200,10 @@ class ServeStats:
     ``iter_p50`` / ``iter_max`` (seconds) and ``straggler_flags`` summarize
     the iterations' wall times through a ``StragglerMonitor``.
     ``drafted_tokens`` / ``accepted_tokens`` sum the requests' speculation
-    ledgers. The SDC counters of the reference stay 0 (not ported)."""
+    ledgers. The SDC ladder's counters (0 without ``Engine(integrity=)``):
+    faults the scrub detected, full pages crc-verified, packed leaves
+    reloaded from the golden copy, slots contained for non-finite logits
+    (outcome ``"numerics"``)."""
 
     preemptions: int = 0
     rejected: int = 0
@@ -242,6 +266,12 @@ class _ServeCtx:
     page_size: int = 0
     # after drain_session: the folded requests evacuated instead of finished
     drained: Optional[List[Request]] = None
+    # the SDC scrub (Engine(integrity=)): page -> (born, crc) stamps over
+    # FULL cold pages, each slot's emitted count at its last clean scrub
+    # (the rollback target) and the iteration of the last scrub
+    page_crc: Dict[int, tuple] = dataclasses.field(default_factory=dict)
+    verified_len: Optional[List[int]] = None
+    last_scrub: int = -1
 
 
 @dataclasses.dataclass
@@ -272,7 +302,8 @@ class Engine:
                  n_pages: Optional[int] = None, prefix_sharing: bool = True,
                  max_queue: Optional[int] = None, clock: Optional[Callable[[], float]] = None,
                  draft_cfg: Optional[ModelConfig] = None, draft_params=None, spec_k: int = 0,
-                 spec_force: Optional[str] = None, guard: Optional[PreemptionGuard] = None):
+                 spec_force: Optional[str] = None, guard: Optional[PreemptionGuard] = None,
+                 integrity: Optional[sdc_lib.IntegrityConfig] = None):
         if not pack:
             raise NotImplementedError("QAT (unpacked) serving is not part of this port")
         if sample not in ("greedy", "temperature"):
@@ -357,6 +388,21 @@ class Engine:
         self.spec = spec
         self.draft_params = (pack_params(tree_to(draft_params, self.device), draft_cfg)
                              if spec else None)
+        # the SDC plane: stamp every packed leaf, refuse a corrupt image at
+        # load and keep a host golden copy of the packed words (the repair
+        # source, one list of layers per path); the session loop scrubs on
+        # the cadence of `integrity` (_scrub)
+        self.integrity = integrity
+        self._golden: Optional[Dict[str, List[torch.Tensor]]] = None
+        self.weight_fault_strikes = 0  # distinct scrubs that found weight faults
+        self.unhealthy = False  # strikes >= max_weight_strikes
+        if integrity is not None:
+            self.params = pack_lib.add_integrity(self.params)
+            bad = pack_lib.verify_packed(self.params)
+            if bad:
+                raise sdc_lib.WeightFaultError(f"packed weights failed crc32 at load: {bad}")
+            self._golden = {path: [pw.packed.cpu().clone() for pw in stack.layers]
+                            for path, stack in pack_lib.iter_packed_leaves(self.params)}
 
     def _chunked_capable(self) -> bool:
         """Chunked prefill needs a pure attention-token path: a dense / MoE
@@ -415,6 +461,7 @@ class Engine:
             out=torch.zeros((n_slots, out_cap), dtype=torch.int32, device=dev),
             ledger={k: z() for k in TRAFFIC_KEYS},
             draft_cache=draft_cache, drafted=z(), accepted=z(),
+            numerics_bad=torch.zeros((n_slots,), dtype=torch.bool, device=dev),
         )
 
     def _sample_fn(self, logits: torch.Tensor) -> torch.Tensor:
@@ -444,6 +491,8 @@ class Engine:
         if stop_token is not None:
             done = done | (active & (state.tok == stop_token))
         state.done, state.n_gen = done, n_gen
+        # the SDC sentinel: latch non-finite logits per active slot
+        state.numerics_bad = state.numerics_bad | (active & ~torch.isfinite(logits).all(dim=-1))
 
     def _admit(self, state: DecodeState, slots_idx: List[int], group: List[Request]) -> None:
         """Prefill ``group`` (equal prompt lengths), scatter the fresh cache
@@ -468,6 +517,7 @@ class Engine:
         state.out[idx] = 0
         state.drafted[idx] = 0
         state.accepted[idx] = 0
+        state.numerics_bad[idx] = False
         for k in TRAFFIC_KEYS:
             state.ledger[k][idx] = 0
 
@@ -495,6 +545,7 @@ class Engine:
         state.ledger = {k: torch.where(is_first, 0, v) for k, v in state.ledger.items()}
         state.drafted = torch.where(is_first, 0, state.drafted)
         state.accepted = torch.where(is_first, 0, state.accepted)
+        state.numerics_bad = torch.where(is_first, False, state.numerics_bad)
 
     def _draft_chunk_step(self, state: DecodeState, tokens: torch.Tensor,
                           n_valid: torch.Tensor, is_first: torch.Tensor) -> None:
@@ -562,6 +613,9 @@ class Engine:
         state.ledger = {k: state.ledger[k] + tr[k] * act32 for k in TRAFFIC_KEYS}
         state.drafted = state.drafted + (chunk_valid - 1).clamp(min=0)
         state.accepted = state.accepted + (n_emit - 1).clamp(min=0)
+        # the SDC sentinel over the verify logits (slots, K, vocab)
+        state.numerics_bad = state.numerics_bad | (
+            active & ~torch.isfinite(logits).all(dim=-1).all(dim=-1))
 
     def _stream_chunks(self, state: DecodeState, n_slots: int, prefilling: Dict[int, list],
                        max_waves: int, on_last=None,
@@ -656,13 +710,14 @@ class Engine:
         truncation: it writes a whole fresh row, lengths included."""
         state.allocated[s] = False
         state.done[s] = False
+        state.numerics_bad[s] = False
         if truncate:
             mask = torch.zeros(state.allocated.shape, dtype=torch.bool, device=self.device)
             mask[s] = True
             for stack in list(state.cache.values()) + list((state.draft_cache or {}).values()):
                 kv_cache.release_slots(stack, mask)
 
-    def _preempt_slot(self, ctx: _ServeCtx, s: int) -> None:
+    def _preempt_slot(self, ctx: _ServeCtx, s: int, n_fold: Optional[int] = None) -> None:
         """Evict slot ``s`` mid-flight to reclaim its pages (reference:
         ``_preempt_slot``): fold the tokens it emitted into its request's
         prompt, carry this attempt's ledger, release its pages and device
@@ -671,7 +726,10 @@ class Engine:
         t_{k-1} samples t_k again from the same last row, bit for bit: the
         decode and the chunked prefill fold the same absolute tiles. A
         speculative slot's drafted / accepted counts fold into the request
-        as its ledger does."""
+        as its ledger does. ``n_fold`` caps the tokens folded: the SDC
+        ladder passes the slot's last verified count, so tokens emitted
+        after a detected corruption are discarded and generated again from
+        the clean prefix (the ledger still charges the whole attempt)."""
         req = ctx.sched.slot_req[s]
         tb = ctx.token_bytes
         carry = dict(req.carry_traffic) if req.carry_traffic else {k: 0 for k in TRAFFIC_KEYS}
@@ -686,6 +744,8 @@ class Engine:
             st = ctx.state
             p_attempt = req.prompt_len
             n_gen = int(st.n_gen[s])
+            if n_fold is not None:
+                n_gen = min(n_fold, n_gen)
             if n_gen:
                 out_row = st.out[s, :n_gen].cpu().numpy().astype(np.int32)
                 if req.orig_prompt_len is None:
@@ -707,6 +767,8 @@ class Engine:
             ctx.pool.decref(ctx.slot_pages[s])
             ctx.slot_pages[s] = []
         ctx.prefix_used[s] = ctx.remaining[s] = ctx.seq_mirror[s] = 0
+        if ctx.verified_len is not None:
+            ctx.verified_len[s] = 0
         ctx.sched.requeue(s)
         self._release_slot_state(ctx.state, s, truncate=ctx.chunked)
 
@@ -817,6 +879,7 @@ class Engine:
             state.ledger = {k: torch.where(r, 0, v) for k, v in state.ledger.items()}
             state.drafted = torch.where(r, 0, state.drafted)
             state.accepted = torch.where(r, 0, state.accepted)
+            state.numerics_bad = torch.where(r, False, state.numerics_bad)
             ctx.host_table[:] = new_table
         if transient:
             ctx.pool.decref(transient)
@@ -945,6 +1008,8 @@ class Engine:
             ctx.pool.decref(ctx.slot_pages[s])
             ctx.slot_pages[s] = []
         ctx.prefix_used[s] = ctx.remaining[s] = ctx.seq_mirror[s] = 0
+        if ctx.verified_len is not None:
+            ctx.verified_len[s] = 0
         self._release_slot_state(st, s, truncate=ctx.chunked)
 
     def _sweep_cancel_expire(self, ctx: _ServeCtx) -> int:
@@ -1024,7 +1089,7 @@ class Engine:
             stop_token=stop_token, chunk=sync_every or self.sync_every,
             on_iteration=on_iteration, monitor=StragglerMonitor(window=16, factor=4.0),
             spec=self.spec, hot_cap=self.hot_cap,
-            page_size=self._page_size if self.paged else 0,
+            page_size=self._page_size if self.paged else 0, verified_len=[0] * n_slots,
         )
         if self.paged:
             ctx.pool = PagePool(self._pool_pages(n_slots))
@@ -1103,6 +1168,10 @@ class Engine:
                 ctx.remaining[s] = max(ctx.remaining[s] - n_steps, 0)
                 ctx.seq_mirror[s] = min(ctx.seq_mirror[s] + n_steps, self.max_len)
         progress |= n_steps > 0
+        # the SDC scrub, BEFORE harvest: a ripe slot forces one, so no
+        # request retires with an unverified tail (harvest gating)
+        if self.integrity is not None:
+            self._scrub(ctx)
         # sync point: only the small done mask crosses to the host
         done = state.done.cpu().numpy()
         ripe = [s for s in decoding if done[s]]
@@ -1124,6 +1193,10 @@ class Engine:
                 ctx.stats.record_spec(fin)
                 self._cancel_requested.discard(req.rid)
                 ctx.prefix_used[s] = ctx.remaining[s] = ctx.seq_mirror[s] = 0
+                # the slot's next tenant starts unverified (fault 5: the
+                # reference keeps this count, so a rollback before the next
+                # tenant's first scrub folds its unverified tokens)
+                ctx.verified_len[s] = 0
                 if self.paged:  # pages free when their last reader leaves
                     ctx.pool.decref(ctx.slot_pages[s])
                     ctx.slot_pages[s] = []
@@ -1143,6 +1216,137 @@ class Engine:
                 f"rid={getattr(head, 'rid', None)}), {ctx.pool.available() if ctx.pool else 0} "
                 f"pages free of {ctx.pool.n_pages if ctx.pool else 0}; raise n_pages")
         return progress
+
+    # ------------------------------------------------------------------
+    # the SDC scrub: detect -> contain -> repair (serving/sdc.py)
+    # ------------------------------------------------------------------
+    def _scrub(self, ctx: _ServeCtx) -> None:
+        """One scrub pass before harvest (reference: ``_scrub``):
+
+        1. weights: the crc of every packed leaf (exact) and, with
+           ``abft_probe``, the ABFT probe; a fault reloads the leaf from
+           the golden copy, flushes the prefix tree, rolls every live slot
+           back to its verified count and counts a strike
+           (``max_weight_strikes`` make the engine ``unhealthy``);
+        2. KV pages (when no weight fault was found): stamp newly full
+           cold pages and verify the stamped ones; a mismatch quarantines
+           the page for good, evicts it from the prefix tree and rolls its
+           readers back;
+        3. numerics: read the sentinel; a latched slot is contained
+           (outcome ``"numerics"``) or raises ``NumericsError``.
+
+        It runs every ``scrub_every`` iterations and whenever a decoding
+        slot is ripe for harvest. Slots that come through clean advance
+        ``verified_len`` to their emitted count, so a rollback target
+        always comes from a scrub before any later fault."""
+        ic = self.integrity
+        done = ctx.state.done.cpu().numpy()
+        ripe = any(done[s] for s in ctx.sched.active_slots() if s not in ctx.prefilling)
+        if not (ripe or ctx.iteration - ctx.last_scrub >= ic.scrub_every):
+            return
+        ctx.last_scrub = ctx.iteration
+        weight_hit = ic.scrub_weights and self._scrub_weights(ctx)
+        if not weight_hit and ic.scrub_pages and self.paged:
+            self._scrub_pages(ctx)
+        self._check_numerics(ctx)
+        # the surviving decoding slots advance their verified count
+        n_gen = ctx.state.n_gen.cpu().numpy()
+        for s in ctx.sched.active_slots():
+            if s in ctx.prefilling or s in ctx.draft_prefilling:
+                continue
+            ctx.verified_len[s] = int(n_gen[s])
+
+    def _scrub_weights(self, ctx: _ServeCtx) -> bool:
+        """Detect and repair packed-weight corruption; True when a fault
+        was found (the page scrub is then skipped: every page stamp was
+        just dropped)."""
+        bad = set(pack_lib.verify_packed(self.params))
+        if self.integrity.abft_probe:
+            bad |= set(sdc_lib.abft_verify_tree(self.params))
+        if not bad:
+            return False
+        ctx.stats.sdc_detected += len(bad)
+        for path in sorted(bad):
+            gold = (self._golden or {}).get(path)
+            if gold is None:
+                continue  # an unrepairable leaf: the strike below still counts
+            stack = sdc_lib.get_leaf(self.params, path)
+            self.params = sdc_lib.set_leaf(self.params, path, pack_lib.LeafStack(tuple(
+                dataclasses.replace(pw, packed=g.to(self.device))
+                for pw, g in zip(stack.layers, gold))))
+            self.weight_loads += 1
+            ctx.stats.weight_reloads += 1
+        self.weight_fault_strikes += 1
+        if self.weight_fault_strikes >= self.integrity.max_weight_strikes:
+            # repeated faults: a bad ROM bank, not a particle strike; the
+            # router's health sweep drains and retires the replica
+            self.unhealthy = True
+        # containment: everything computed since the fault window opened
+        # is suspect: cached prefixes, page stamps, unverified tails
+        if ctx.ptree is not None:
+            ctx.ptree.flush()
+        ctx.page_crc.clear()
+        for s in list(ctx.sched.active_slots()):
+            self._preempt_slot(ctx, s, n_fold=ctx.verified_len[s])
+        return True
+
+    def _scrub_pages(self, ctx: _ServeCtx) -> None:
+        """Detect and contain KV-page corruption: stamp newly full pages,
+        verify the stamped ones, quarantine mismatches and roll their
+        readers back. Only FULL cold pages behind each slot's frontier and
+        the tree's pages are covered: they are append-frozen; the hot tier
+        and the partial frontier page change legitimately and are covered
+        by the numerics sentinel only."""
+        pool, ptree = ctx.pool, ctx.ptree
+        hc, ps = self.hot_cap, self._page_size
+        seq_dev = ctx.state.seq_len.cpu().numpy()
+        want = set(ptree.tree_pages()) if ptree is not None else set()
+        for s in ctx.sched.active_slots():
+            nf = max(0, int(seq_dev[s]) - hc) // ps
+            want.update(ctx.slot_pages[s][:nf])
+        # drop stamps whose page left the set or began a new life since
+        for p in list(ctx.page_crc):
+            if p not in want or ctx.page_crc[p][0] != int(pool.born[p]):
+                del ctx.page_crc[p]
+        check = sorted(ctx.page_crc)
+        fresh = sorted(want - set(check))
+        crcs = kv_cache.pool_page_crcs(ctx.state.cache, check + fresh)
+        bad = [p for p in check if crcs[p] != ctx.page_crc[p][1]]
+        for p in fresh:
+            ctx.page_crc[p] = (int(pool.born[p]), crcs[p])
+        ctx.stats.pages_scrubbed += len(check)
+        if not bad:
+            return
+        ctx.stats.sdc_detected += len(bad)
+        # quarantine FIRST, so the eviction's and the preemptions' decrefs
+        # park the damaged pages instead of freeing them
+        for p in bad:
+            pool.quarantine(p)
+            del ctx.page_crc[p]
+        if ptree is not None:
+            ptree.evict_pages(bad)
+        bad_set = set(bad)
+        for s in list(ctx.sched.active_slots()):
+            if bad_set & set(ctx.slot_pages[s]):
+                self._preempt_slot(ctx, s, n_fold=ctx.verified_len[s])
+
+    def _check_numerics(self, ctx: _ServeCtx) -> None:
+        """Read the sentinel and contain (or raise on) every latched slot:
+        it ends with outcome ``"numerics"``, its partial output surfaced
+        and never retried."""
+        flagged = ctx.state.numerics_bad.cpu().numpy()
+        for s in list(ctx.sched.active_slots()):
+            if not flagged[s]:
+                continue
+            ctx.stats.sdc_detected += 1
+            if self.integrity.on_numerics == "raise":
+                req = ctx.sched.slot_req[s]
+                raise sdc_lib.NumericsError(f"non-finite logits in slot {s} "
+                                            f"(rid={getattr(req, 'rid', None)})", slot=s)
+            # repair the transient plane before the slot's next tenant
+            sdc_lib.clear_hot_slot(ctx, s)
+            self._cancel_slot(ctx, s, "numerics")
+            ctx.stats.slots_quarantined += 1
 
     def _refresh_mirrors(self, ctx: _ServeCtx, decoding: List[int]) -> None:
         """After speculative rounds (which emit a data-dependent 1..K tokens

@@ -64,9 +64,9 @@ class PagePoolError(RuntimeError):
 class PagePool:
     """Free list + per-page reader counts for the physical page pool.
 
-    Quarantine: a page retired for good (the reference's SDC repair
-    ladder retires pages whose bytes were found corrupted; that ladder is
-    not ported yet) — ``quarantine`` pulls it off the free list (or marks
+    Quarantine: a page retired for good (the SDC scrub retires pages
+    whose bytes were found corrupted, ``Engine._scrub_pages``) —
+    ``quarantine`` pulls it off the free list (or marks
     it so the next ``decref`` to zero doesn't return it), and ``alloc``
     never hands it out again. The pool is then free ∪ referenced ∪
     quarantined, pairwise disjoint."""

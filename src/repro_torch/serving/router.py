@@ -20,17 +20,15 @@ flags) and migrates work off a replica that fails or degrades:
   ``HandoffError``: the router counts it and the request runs cold.
 
 Restarts go through ``run_with_recovery`` (bounded retries); a replica
-whose budget is spent stays dead and the survivors serve its load. Every
+whose budget is spent stays dead and the survivors serve its load. A
+replica whose engine struck out on weight faults (``Engine.unhealthy``,
+the SDC ladder) is retired for good: its work migrates warm and it is
+never restarted. Every
 accepted request ends in exactly one terminal record across the fleet,
 cancels that land mid-migration (tombstoned here) and requests whose
 retry budget runs out (outcome ``failed``) included;
 ``serving/chaos.py``'s ``check_fleet_invariants`` derives that after
 every tick.
-
-Not ported: the retirement of a replica whose engine struck out on weight
-faults (``_retire_sdc``): it reads the SDC plane's ``Engine.unhealthy``,
-which the port does not have yet, so ``RouterStats.sdc_retirements``
-stays 0.
 """
 
 from __future__ import annotations
@@ -65,7 +63,7 @@ class RouterStats:
     drains: int = 0
     failed: int = 0  # retry budget spent: outcome "failed"
     sheds: int = 0  # a replica's bounded queue bounced an admission
-    sdc_retirements: int = 0  # replicas retired for weight faults (SDC plane; not ported)
+    sdc_retirements: int = 0  # replicas retired for repeated weight faults
 
 
 @dataclasses.dataclass
@@ -120,7 +118,7 @@ class Router:
         self._done: set = set()
         self._cancel: set = set()  # tombstones: cancelled before a terminal
         self._retired: set = set()  # replicas whose restart budget is spent
-        self._sdc_retired: set = set()  # always empty here (module docstring)
+        self._sdc_retired: set = set()  # retired for weight-fault strikes
         self._stop_token: Optional[int] = None
         # straggler flags already acted on, per replica (the sweep reacts
         # to new flags only)
@@ -327,10 +325,15 @@ class Router:
             self._requeue(req, avoid=rep.name, handoff=blob, backoff=False)
 
     def _health_sweep(self) -> None:
-        """New straggler flags or a heartbeat older than the timeout drain
-        a busy replica (warm migration); it stays live and takes new work
-        once it steps again."""
+        """An engine that struck out on repeated weight faults
+        (``Engine.unhealthy``) is retired for good; new straggler flags or
+        a heartbeat older than the timeout drain a busy replica (warm
+        migration), which stays live and takes new work once it steps
+        again."""
         for rep in self._live():
+            if getattr(rep.engine, "unhealthy", False):
+                self._retire_sdc(rep)
+                continue
             flags = rep.straggler_flags()
             fresh = flags - self._flags_seen.get(rep.name, 0)
             self._flags_seen[rep.name] = flags
@@ -340,6 +343,22 @@ class Router:
                 unhealthy = True
             if unhealthy and rep.busy():
                 self._drain_replica(rep, "unhealthy")
+
+    def _retire_sdc(self, rep: Replica) -> None:
+        """Retire a replica whose engine declared itself ``unhealthy``
+        (reference: ``_retire_sdc``). Unlike a straggler drain it does not
+        come back: its weights keep corrupting. Its last scrub verified
+        every surviving slot, so the work warm-migrates off with handoffs
+        before the kill."""
+        self.stats.sdc_retirements += 1
+        if rep.busy():
+            self._drain_replica(rep, "sdc")
+        else:
+            self._collect(rep)
+        rep.seal()  # close the now idle session, keep its stats
+        rep.kill()
+        self._retired.add(rep.name)
+        self._sdc_retired.add(rep.name)
 
     def _restart_dead(self) -> None:
         """Restart dead replicas through ``run_with_recovery``: a failing

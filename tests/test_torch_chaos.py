@@ -33,6 +33,7 @@ from repro_torch.serving.chaos import (ChaosConfig, ChaosInjector, InvariantViol
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.paging import PagePool, PrefixCache
 from repro_torch.serving.scheduler import Request
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 HOT, ML, PS = 4, 64, 8
 NAME = "falcon3-1b"
@@ -201,8 +202,19 @@ def test_checker_green_on_tree_and_slots():
 
 
 def test_sdc_injection_is_refused():
-    with pytest.raises(NotImplementedError, match="SDC"):
-        ChaosInjector(None, ChaosConfig(nan_rate=0.1))
+    """Refused until the SDC plane was ported; now an SDC rate builds the
+    three adversaries on their own streams, seed + 3 / + 4 / + 5, so they
+    never move the other classes' points (the ladder itself:
+    tests/test_torch_sdc.py)."""
+    import numpy as np
+
+    inj = ChaosInjector(None, ChaosConfig(seed=4, weight_flip_rate=0.2, page_decay_rate=0.1,
+                                          nan_rate=0.1))
+    assert inj.rom._rng.random() == np.random.default_rng(7).random()
+    assert inj.retention._rng.random() == np.random.default_rng(8).random()
+    nan = FaultSchedule(9, 0.1)
+    assert [inj._nan.fires(i) for i in range(50)] == [nan.fires(i) for i in range(50)]
+    assert inj.sdc_budget() == {"weight_asserts": 0, "page_flips": 0, "nan_pokes": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -283,15 +295,16 @@ def test_chaos_is_deterministic_per_seed(sides):
 
 
 def test_chaos_straggler_injection_flags(sides):
-    """A slow decode chunk (a sleep inside the loop, 6x the median
+    """A slow decode chunk (a sleep inside the loop, 6x the slowest
     iteration of a warm-up serve, since the plain versions on the CPU set
-    the iteration time) is flagged by the injector's StragglerMonitor and
-    shows in the session's iteration stats."""
+    the iteration time and a loaded machine moves it between serves) is
+    flagged by the injector's StragglerMonitor and shows in the session's
+    iteration stats."""
     port, _ = sides
     reqs = lambda: [Request(0, _prompt(300, 8, port.vocab), 40)]  # noqa: E731
     eng = port.engine(slots=1)
     eng.serve(reqs(), slots=1, sync_every=2)
-    nap = 6 * eng.last_stats.iter_p50
+    nap = 6 * eng.last_stats.iter_max
     chaos = ChaosInjector(eng, ChaosConfig(seed=3, straggle_rate=0.15, straggle_seconds=nap))
     fin = eng.serve(reqs(), slots=1, sync_every=2, on_iteration=chaos.on_iteration)
     assert fin[0].outcome == "finished"

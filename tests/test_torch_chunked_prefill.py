@@ -33,6 +33,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import apply_rope
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request, SlotScheduler
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -29,6 +29,7 @@ from repro_torch.core import dr_edram, kv_cache
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request, SlotScheduler
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 NAMES = ["falcon3-1b", "deepseek-v3-671b"]

@@ -26,6 +26,7 @@ from repro_torch.core.kv_cache import NEG_INF
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.models.layers import apply_rope, rope_cos_sin
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 THETA = 1_000_042.0

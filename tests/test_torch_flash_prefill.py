@@ -26,6 +26,7 @@ from repro_torch.core import kv_cache as kvc
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels.flash_decode import tree_sum
 from repro_torch.models import attention as tattn
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 THETA = 1_000_042.0

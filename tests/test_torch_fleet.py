@@ -40,6 +40,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import (Engine, FleetChaosConfig, FleetChaosInjector,
                                  InvariantViolation, LocalTransport, PagePool, Replica,
                                  ReplicaDead, Request, Router, check_fleet_invariants)
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 CI_SEEDS = [0, 1, 2]
 HOT, ML, PS = 4, 64, 8
@@ -470,8 +471,15 @@ def test_local_transport_corruption_is_one_shot():
 
 
 def test_fleet_chaos_refuses_sdc_rates():
-    with pytest.raises(NotImplementedError):
-        FleetChaosInjector(FleetChaosConfig(page_decay_rate=0.1))
+    """Refused until the SDC plane was ported; now each replica gets its
+    own stream family at seed + 3 * (rank + 1), by its rank in sorted-name
+    order (the retirement it drives: tests/test_torch_sdc.py)."""
+    chaos = FleetChaosInjector(FleetChaosConfig(seed=2, page_decay_rate=0.1))
+    rom, retention, _ = chaos._sdc_for("r1", 1)
+    assert rom._rng.random() == np.random.default_rng(8).random()
+    assert retention._rng.random() == np.random.default_rng(9).random()
+    assert chaos._sdc_for("r1", 1)[0] is rom
+    assert chaos.sdc_budget() == {"weight_asserts": 0, "page_flips": 0, "nan_pokes": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 THETA = 1_000_000.0
@@ -455,7 +456,19 @@ def _numpy_tree(jref, tree):
     return np.asarray(tree)
 
 
+_MODELS: dict = {}
+
+
 def _models(jref, name, seed, kv_fp8=True):
+    """The reference's packed seeded weights and the port's copy, built
+    once per (name, seed, kv_fp8) for the module (engines only read them)."""
+    key = (name, seed, kv_fp8)
+    if key not in _MODELS:
+        _MODELS[key] = _build_models(jref, name, seed, kv_fp8)
+    return _MODELS[key]
+
+
+def _build_models(jref, name, seed, kv_fp8):
     jcfg = jref.configs.get_smoke_config(name)
     jcfg = dataclasses.replace(jcfg, bitnet=dataclasses.replace(
         jcfg.bitnet, kv_fp8=kv_fp8, impl="pallas"))

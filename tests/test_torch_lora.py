@@ -26,6 +26,7 @@ from repro_torch.core import lora
 from repro_torch.kernels import lora as klora
 from repro_torch.models import transformer as T
 from repro_torch.models.pack import pack_params
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 # falcon3-1b's adapters (K, N) at rank 16: lora_v, lora_o, lora_down

@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_decode import NEG_INF, tree_sum
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, qops
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 LAYER_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -34,6 +34,7 @@ from repro_torch.kernels import ternary_matmul as tm
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.models.pack import pack_params
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 CODECS = ["pack2", "pack243"]
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)

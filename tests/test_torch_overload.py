@@ -36,6 +36,7 @@ from repro_torch.serving.chaos import InvariantViolation, check_serving_invarian
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.paging import PagePool, PrefixCache
 from repro_torch.serving.scheduler import Request, SchedulerError, SlotScheduler
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 HOT, ML, PS = 4, 64, 8
 NAME = "falcon3-1b"

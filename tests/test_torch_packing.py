@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import packing, ternary
 from repro_torch.models import pack as tpack
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CODECS = ["pack2", "pack243"]

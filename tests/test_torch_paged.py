@@ -41,6 +41,7 @@ from repro_torch.serving import engine as engine_mod
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.paging import PagePool, PagePoolError, PrefixCache, pages_needed
 from repro_torch.serving.scheduler import Request
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 THETA = 1e4

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import rms_norm as krms
 from repro_torch.models import layers
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 RMS_NORM_ULPS = 8
 WIDTHS = [2048, 7168, 1536, 512]  # falcon3-1b's d_model; DeepSeek-V3's d_model, q and kv ranks

@@ -38,6 +38,7 @@ from repro_torch.distributed.fault import PreemptionGuard
 from repro_torch.serving.chaos import check_serving_invariants
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 HOT, ML, PS = 4, 64, 8
 NAME = "falcon3-1b"

@@ -46,6 +46,7 @@ from repro_torch.serving import speculative as spec_lib
 from repro_torch.serving.chaos import check_serving_invariants
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 HOT, ML, PS = 4, 64, 8
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -29,6 +29,7 @@ from repro_torch.core.ternary import act_quant
 from repro_torch.kernels import ref
 from repro_torch.kernels import ternary_matmul as tm
 from repro_torch.models import qops
+from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 CODECS = ["pack2", "pack243"]
 # deepseek-v3-671b's 2-D packed projections (K, N), as chip_smoke.py serves them
@@ -277,6 +278,29 @@ def test_carried_scale_route_launches_no_prologue_kernel(monkeypatch):
     assert calls == ["ternary_matmul_fused"] * 2
     bitlinear.packed_matmul(leaf, torch.from_numpy(x))
     assert calls[-1] == "ternary_matmul_actq"
+
+
+@pytest.mark.parametrize("k", [8192, 2 ** 17])
+def test_plain_product_exact_at_its_range_limit(k):
+    """The plain accumulate is exact: on the CPU an int8 GEMM with an int32
+    accumulator, on the card a float product in ``exact_float(k)``
+    (float32 while 128 K <= 2**24). At the extremes, codes -128 against
+    all-+1 / all--1 / alternating trits, both give the float64 oracle's
+    sums bit for bit, the largest magnitude 128 K = 2**24 at K = 2**17."""
+    assert tm.exact_float(k) == torch.float32
+    assert tm.exact_float(2 ** 17 + 1) == torch.float64
+    n = 3
+    trits = torch.stack([torch.ones(k, dtype=torch.int8), -torch.ones(k, dtype=torch.int8),
+                         (torch.arange(k) % 2 * 2 - 1).to(torch.int8)], dim=1)
+    xq = torch.stack([torch.full((k,), -128, dtype=torch.int8),
+                      torch.full((k,), 127, dtype=torch.int8)])
+    want = ref.ternary_matmul_dense_ref(xq, trits)
+    assert want[0, 0] == -128 * k and want[0, 1] == 128 * k
+    packed = packing.pack(trits, "pack2")
+    assert torch.equal(tm.ternary_acc_plain(xq, packed, k, "pack2"), want)
+    ft = tm.exact_float(k)
+    assert torch.equal((xq.to(ft) @ trits.to(ft)).to(torch.int32), want)
+    assert want.shape == (2, n)
 
 
 def test_wrapper_dispatch_and_checks():

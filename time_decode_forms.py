@@ -28,14 +28,14 @@ DECODE_SOURCES = ("flash_decode", "flash_decode_paged", "flash_decode_ring", "fl
                   "flash_decode_paged_fp8")
 
 
-def sass_digests(build, libs) -> dict:
+def sass_digests(build, libs, sources=DECODE_SOURCES) -> dict:
     """{mangled kernel name: first 12 hex digits of the sha256 of its SASS
-    instructions and their encodings} for every kernel of the decode
-    libraries ``libs`` (name -> path); names and code without the
+    instructions and their encodings} for every kernel of the libraries
+    ``sources`` (``libs``: name -> path); names and code without the
     anonymous namespace's tag, which differs between checkouts."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     out = {}
-    for name in DECODE_SOURCES:
+    for name in sources:
         text = subprocess.run([str(tool), "-sass", str(libs[name])], capture_output=True,
                               text=True, check=True).stdout
         # the anonymous namespace's tag follows the source's path: dropped
