@@ -73,7 +73,11 @@ def _take(node, i: int):
         if fields.get("wsum") is not None:
             out["wsum"] = fields["wsum"][i]
         if fields.get("crc") is not None:
-            out["crc"] = "layer"  # each layer's own, checked against the stack's
+            # the stack's crc does not hold for one layer: the layer is
+            # stamped from its own bytes, and params_from_reference checks
+            # the stack's stamp
+            del out["crc"]
+            out["stamped"] = True
         return out
     if isinstance(node, dict):
         return {k: _take(v, i) for k, v in node.items()}
@@ -102,9 +106,9 @@ def _convert(node, device):
                   k=int(fields["k"]), codec=str(fields["codec"]))
         if fields.get("wsum") is not None:
             kw["wsum"] = to_tensor(fields["wsum"], device).float()
-        if fields.get("crc") is not None:
+        if fields.get("crc") is not None or fields.get("stamped"):
             kw["crc"] = packing.packed_crc32(packed)
-            if fields["crc"] != "layer" and kw["crc"] != int(fields["crc"]):
+            if fields.get("crc") is not None and kw["crc"] != int(fields["crc"]):
                 raise ValueError("a packed leaf's crc stamp does not match its bytes")
         if fields.get("splits") is not None:
             return FusedPackedLinear(splits=tuple(int(s) for s in fields["splits"]), **kw)

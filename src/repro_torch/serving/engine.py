@@ -188,7 +188,8 @@ class DecodeState:
     drafted: Optional[torch.Tensor] = None  # (slots,) int32
     accepted: Optional[torch.Tensor] = None  # (slots,) int32
     # the SDC sentinel: a slot's logits were non-finite since its
-    # admission (read on the host only at a scrub, serving/sdc.py)
+    # admission (read on the host only at a scrub, serving/sdc.py); None
+    # on an engine without ``integrity``, which never reads it
     numerics_bad: Optional[torch.Tensor] = None  # (slots,) bool
 
 
@@ -461,7 +462,8 @@ class Engine:
             out=torch.zeros((n_slots, out_cap), dtype=torch.int32, device=dev),
             ledger={k: z() for k in TRAFFIC_KEYS},
             draft_cache=draft_cache, drafted=z(), accepted=z(),
-            numerics_bad=torch.zeros((n_slots,), dtype=torch.bool, device=dev),
+            numerics_bad=(torch.zeros((n_slots,), dtype=torch.bool, device=dev)
+                          if self.integrity is not None else None),
         )
 
     def _sample_fn(self, logits: torch.Tensor) -> torch.Tensor:
@@ -492,7 +494,8 @@ class Engine:
             done = done | (active & (state.tok == stop_token))
         state.done, state.n_gen = done, n_gen
         # the SDC sentinel: latch non-finite logits per active slot
-        state.numerics_bad = state.numerics_bad | (active & ~torch.isfinite(logits).all(dim=-1))
+        if state.numerics_bad is not None:
+            state.numerics_bad |= active & ~torch.isfinite(logits).all(dim=-1)
 
     def _admit(self, state: DecodeState, slots_idx: List[int], group: List[Request]) -> None:
         """Prefill ``group`` (equal prompt lengths), scatter the fresh cache
@@ -517,7 +520,8 @@ class Engine:
         state.out[idx] = 0
         state.drafted[idx] = 0
         state.accepted[idx] = 0
-        state.numerics_bad[idx] = False
+        if state.numerics_bad is not None:
+            state.numerics_bad[idx] = False
         for k in TRAFFIC_KEYS:
             state.ledger[k][idx] = 0
 
@@ -545,7 +549,8 @@ class Engine:
         state.ledger = {k: torch.where(is_first, 0, v) for k, v in state.ledger.items()}
         state.drafted = torch.where(is_first, 0, state.drafted)
         state.accepted = torch.where(is_first, 0, state.accepted)
-        state.numerics_bad = torch.where(is_first, False, state.numerics_bad)
+        if state.numerics_bad is not None:
+            state.numerics_bad.masked_fill_(is_first, False)
 
     def _draft_chunk_step(self, state: DecodeState, tokens: torch.Tensor,
                           n_valid: torch.Tensor, is_first: torch.Tensor) -> None:
@@ -614,8 +619,8 @@ class Engine:
         state.drafted = state.drafted + (chunk_valid - 1).clamp(min=0)
         state.accepted = state.accepted + (n_emit - 1).clamp(min=0)
         # the SDC sentinel over the verify logits (slots, K, vocab)
-        state.numerics_bad = state.numerics_bad | (
-            active & ~torch.isfinite(logits).all(dim=-1).all(dim=-1))
+        if state.numerics_bad is not None:
+            state.numerics_bad |= active & ~torch.isfinite(logits).all(dim=-1).all(dim=-1)
 
     def _stream_chunks(self, state: DecodeState, n_slots: int, prefilling: Dict[int, list],
                        max_waves: int, on_last=None,
@@ -710,7 +715,8 @@ class Engine:
         truncation: it writes a whole fresh row, lengths included."""
         state.allocated[s] = False
         state.done[s] = False
-        state.numerics_bad[s] = False
+        if state.numerics_bad is not None:
+            state.numerics_bad[s] = False
         if truncate:
             mask = torch.zeros(state.allocated.shape, dtype=torch.bool, device=self.device)
             mask[s] = True
@@ -879,7 +885,8 @@ class Engine:
             state.ledger = {k: torch.where(r, 0, v) for k, v in state.ledger.items()}
             state.drafted = torch.where(r, 0, state.drafted)
             state.accepted = torch.where(r, 0, state.accepted)
-            state.numerics_bad = torch.where(r, False, state.numerics_bad)
+            if state.numerics_bad is not None:
+                state.numerics_bad.masked_fill_(r, False)
             ctx.host_table[:] = new_table
         if transient:
             ctx.pool.decref(transient)
@@ -1245,8 +1252,8 @@ class Engine:
         if not (ripe or ctx.iteration - ctx.last_scrub >= ic.scrub_every):
             return
         ctx.last_scrub = ctx.iteration
-        weight_hit = ic.scrub_weights and self._scrub_weights(ctx)
-        if not weight_hit and ic.scrub_pages and self.paged:
+        weight_hit = self._scrub_weights(ctx)
+        if not weight_hit and self.paged:
             self._scrub_pages(ctx)
         self._check_numerics(ctx)
         # the surviving decoding slots advance their verified count

@@ -59,14 +59,13 @@ class WeightFaultError(RuntimeError):
 
 @dataclasses.dataclass
 class IntegrityConfig:
-    """The engine's SDC scrub (``Engine(integrity=...)``). ``scrub_every``
-    is the cadence in loop iterations; a slot ripe for harvest forces a
-    scrub too, so no request retires with unverified weights or KV behind
-    it (harvest gating)."""
+    """The engine's SDC scrub (``Engine(integrity=...)``). Every scrub
+    checks the crc32 of every packed leaf and, on a paged engine, of every
+    stamped full KV page. ``scrub_every`` is the cadence in loop
+    iterations; a slot ripe for harvest forces a scrub too, so no request
+    retires with unverified weights or KV behind it (harvest gating)."""
 
     scrub_every: int = 4  # iterations between scrubs (ripe slots force one)
-    scrub_weights: bool = True  # crc32 of every packed leaf
-    scrub_pages: bool = True  # crc32 of stamped full KV pages
     abft_probe: bool = True  # the ABFT checked-matmul probe of every leaf
     on_numerics: str = "contain"  # "contain" (retire the slot) | "raise"
     max_weight_strikes: int = 3  # repeated weight faults -> unhealthy

@@ -438,6 +438,32 @@ def test_weight_fault_detected_repaired_within_one_scrub_period(sides, clean):
     _assert_clean(out[0], clean[()])
 
 
+def test_weight_fault_caught_by_crc_alone_with_the_abft_probe_off(sides, clean, monkeypatch):
+    """``abft_probe=False``: the scrub runs no probe, and the crc alone
+    catches and repairs the same planted bit; the same ledger as the
+    reference's engine with the probe off."""
+    def no_probe(*a, **k):
+        raise AssertionError("the ABFT probe ran with abft_probe=False")
+
+    monkeypatch.setattr(sdc_lib, "abft_verify_tree", no_probe)
+    out = []
+    for side in sides:
+        planted = []
+
+        def hook(eng, ctx, side=side, planted=planted):
+            if ctx.iteration == 2 and not planted:
+                path = next(iter(side.pack.iter_packed_leaves(eng.params)))[0]
+                eng.params = side.sdc.flip_packed_bit(eng.params, path, 5, 2)
+                planted.append(ctx.iteration)
+
+        eng, ctx = _run(side, side.sdc.IntegrityConfig(scrub_every=2, abft_probe=False), hook)
+        assert planted and ctx.stats.weight_reloads == eng.weight_fault_strikes == 1
+        assert side.pack.verify_packed(eng.params) == []
+        out.append(_ledger(eng, ctx))
+    assert out[0] == out[1]
+    _assert_clean(out[0], clean[()])
+
+
 def test_hand_corrupted_page_is_quarantined_and_rolled_back(sides, clean):
     out = []
     for side in sides:
