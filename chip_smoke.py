@@ -174,7 +174,22 @@
    6/6 rows; prints peak device memory, each phase's time and, for each
    model, the ternary, prefill and latent kernels' device time per traced
    generate.
-5. mixtral-8x22b at full width and depth (56 layers, 8 experts top-2,
+5. The dense families at full width, from seed 0, packed layer by layer,
+   each serving 6 prompts x (32 + 32) tokens (hot_cap=32, max_len=128, 6
+   slots) after a warm-up: qwen3-32b at full depth (64 layers, qk-norm,
+   64 / 8 heads of 128: rep 8, h * hd = 8192 against d_model 5120, d_ff
+   25600), gemma-7b at full depth (28 layers, GeGLU, MHA 16 x 256, tied
+   embeddings scaled by sqrt(3072), vocab 256000) and deepseek-coder-33b
+   cut to 8 layers (56 / 8 heads: rep 7, d_model 7168, d_ff 19200). Each:
+   launches per decode step and admission exactly (ternary 4 per layer,
+   GQA decode 1 per layer per step, fresh prefill 1 per layer per
+   admission, rms_norm 2 per layer, 4 with the qk-norm, + 1, no LoRA),
+   ledgers at the closed form, no weight reloaded, and at 2 layers the
+   kernel run's tokens equal to the plain run's. qwen3-32b: chunked
+   admission (prefill_chunk 32) at 4 layers equal to grouped, and a traced
+   6 x (32 + 8) generate; deepseek-coder-33b: a paged serve (page size 32)
+   equal to the contiguous one, 8 paged decodes per step at rep 7.
+6. mixtral-8x22b at full width and depth (56 layers, 8 experts top-2,
    sliding window 4096 over a ring cold tier, the published capacity
    1.25), drawn from seed 0 and packed layer by layer, served over 4 slots
    (max_len 4352): prompts of 1000 and 3000 tokens inside the window,
@@ -198,7 +213,7 @@
    request served alone equals the batched serve and the kernel run
    equals its plain run, and over fp8 tiers grouped and chunked admission
    each equal their plain runs.
-6. Prints {"kernels": [...]} (each form's launches on its own path and on
+7. Prints {"kernels": [...]} (each form's launches on its own path and on
    every path that counted it) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero. Run from the
@@ -4736,6 +4751,177 @@ def deepseek_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# the dense families: qwen3-32b (qk-norm, rep 8), gemma-7b (GeGLU, MHA,
+# tied embeddings scaled by sqrt(d_model)), deepseek-coder-33b (rep 7)
+# ---------------------------------------------------------------------------
+
+DENSE_KW = dict(hot_cap=32, max_len=128, slots=6)
+DENSE_NEW = 32  # 6 x (32 + 32): rows 33-64 come from the cold tier
+DENSE_PLAIN_CUT = 2  # the depth of each model's plain comparison
+QWEN_CHUNK_CUT = 4  # the depth of qwen3-32b's chunked-against-grouped check
+CODER_DEPTH = 8  # deepseek-coder-33b served at full width, depth 62 -> 8
+
+
+def dense_depth_cut(cfg, params, n):
+    """``cfg`` and ``params`` cut to their first ``n`` layers."""
+    return dataclasses.replace(cfg, n_layers=n), dict(params, blocks=params["blocks"][:n])
+
+
+def dense_model_run(torch, cfg, label, smi):
+    """One dense model served at full width from seed-0 weights packed layer
+    by layer: generate 6 x (32 + 32) after a warm-up, the launches per
+    decode step and per admission, the DR ledger and ``weight_loads``, then
+    the same prompts at DENSE_PLAIN_CUT layers against the plain run.
+    Returns (engine, params, prompts, tokens, launches, tokens/s)."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda", pack=True)
+    torch.cuda.synchronize()
+    print(f"{label}: init + pack {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, init peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.activation}, qk_norm {cfg.qk_norm}, tied {cfg.tie_embeddings}, scaled "
+          f"embeddings {cfg.scale_embed}) on {smi}")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (6, 32)).astype(np.int32)
+    kernels = [tm.KERNEL, fd.KERNEL, fp.KERNEL, kl.KERNEL, krms.KERNEL]
+    eng = Engine(cfg, params, **DENSE_KW)
+    t0 = time.perf_counter()
+    eng.generate(prompts[:, :8], max_new_tokens=2)  # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    print(f"{label} warm-up generate 6 x (8 + 2): {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted(kernels, lambda: eng.generate(prompts,
+                                                                max_new_tokens=DENSE_NEW))
+    tok_s = 6 * DENSE_NEW / wall
+    print(f"{label} generate 6 x (32 + {DENSE_NEW}): {wall:.3f} s, {tok_s:.1f} tokens/s, "
+          f"launches {launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_served(res, cfg, eng, 32 + DENSE_NEW, label)
+    n, steps = cfg.n_layers, DENSE_NEW
+    norms = (4 if cfg.qk_norm else 2) * n + 1
+    want = {tm.KERNEL.symbol: 4 * n * (steps + 1), fd.KERNEL.symbol: n * steps,
+            fp.KERNEL.symbol: n, kl.KERNEL.symbol: 0, krms.KERNEL.symbol: norms * (steps + 1)}
+    check(launches == want, f"{label}: launches {launches} != {want} (per decode step and "
+                            f"admission: ternary {4 * n}, GQA decode {n} / 0, prefill 0 / "
+                            f"{n}, rms_norm {norms}, LoRA 0)")
+    print(f"{label} launches per decode step / admission: ternary {4 * n} / {4 * n}, "
+          f"flash_decode_gqa_fused {n} / 0, flash_prefill_fresh 0 / {n}, rms_norm {norms} / "
+          f"{norms}, lora_delta 0 / 0 (as checked)")
+    tokens = res.tokens.numpy()
+    cut = DENSE_PLAIN_CUT
+    c_cut, p_cut = dense_depth_cut(cfg, params, cut)
+    plain = dataclasses.replace(c_cut, bitnet=dataclasses.replace(c_cut.bitnet, impl="plain"))
+    t0 = time.perf_counter()
+    tok_k, tok_p = (Engine(c, p_cut, **DENSE_KW).generate(
+        prompts, max_new_tokens=DENSE_NEW).tokens.numpy() for c in (c_cut, plain))
+    same = int((tok_k == tok_p).all(axis=1).sum())
+    print(f"{label} kernel and plain runs at {cut} layers: {time.perf_counter() - t0:.2f} s; "
+          f"greedy tokens equal on {same}/6 rows")
+    check(same == 6, f"{label}: greedy tokens at {cut} layers differ from the plain run "
+                     f"({same}/6 rows equal)")
+    return eng, params, prompts, tokens, launches, tok_s
+
+
+def dense_families_phase(torch, smi):
+    """The dense families at full width on the card: qwen3-32b at full
+    depth (64 layers; chunked admission at QWEN_CHUNK_CUT layers against
+    grouped; a traced generate), gemma-7b at full depth (28 layers),
+    deepseek-coder-33b at CODER_DEPTH layers (a paged serve, page size 32,
+    against the contiguous one: kernel 2's paged form at rep 7). Returns
+    (launches by path, tokens/s by path)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.serving.engine import Engine
+
+    paths, tok_s = {}, {}
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-32b")
+    eng, params, prompts, tokens, launches, tok_s["qwen3-32b"] = dense_model_run(
+        torch, cfg, "qwen3-32b", smi)
+    paths["qwen3-32b"] = launches
+    c4, p4 = dense_depth_cut(cfg, params, QWEN_CHUNK_CUT)
+    chunk_kernels = [tm.KERNEL, fd.KERNEL, fp.KERNEL, fp.CHUNK_KERNEL, krms.KERNEL]
+    grouped = Engine(c4, p4, **DENSE_KW).generate(prompts, max_new_tokens=DENSE_NEW)
+    chunked_eng = Engine(c4, p4, prefill_chunk=32, **DENSE_KW)
+    chunked, chunk_launches, _ = counted(
+        chunk_kernels, lambda: chunked_eng.generate(prompts, max_new_tokens=DENSE_NEW))
+    same = int((chunked.tokens.numpy() == grouped.tokens.numpy()).all(axis=1).sum())
+    print(f"qwen3-32b at {QWEN_CHUNK_CUT} layers, chunked admission (prefill_chunk 32, "
+          f"waves {sorted(chunked_eng.chunk_shapes)}) against grouped: {same}/6 rows equal; "
+          f"launches {chunk_launches}")
+    check(same == 6, f"qwen3-32b chunked admission differs from grouped ({same}/6 rows)")
+    check(chunk_launches[fp.CHUNK_KERNEL.symbol] == QWEN_CHUNK_CUT
+          and chunk_launches[fp.KERNEL.symbol] == 0,
+          f"qwen3-32b chunked: not {QWEN_CHUNK_CUT} chunk launches in one wave: "
+          f"{chunk_launches}")
+    paths[f"qwen3-32b chunked ({QWEN_CHUNK_CUT} layers)"] = chunk_launches
+    del grouped, chunked, chunked_eng
+    breakdown(torch, eng, prompts, label="qwen3-32b", new=8)
+    del eng, params, p4
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[qwen3-32b: {time.perf_counter() - t0:.2f} s]")
+
+    t0 = time.perf_counter()
+    cfg = get_config("gemma-7b")
+    eng, params, _, _, launches, tok_s["gemma-7b"] = dense_model_run(torch, cfg, "gemma-7b",
+                                                                     smi)
+    paths["gemma-7b"] = launches
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[gemma-7b: {time.perf_counter() - t0:.2f} s]")
+
+    t0 = time.perf_counter()
+    name = f"deepseek-coder-33b-l{CODER_DEPTH}"
+    cfg = dataclasses.replace(get_config("deepseek-coder-33b"), name=name,
+                              n_layers=CODER_DEPTH)
+    eng, params, prompts, tokens, launches, tok_s[name] = dense_model_run(torch, cfg, name,
+                                                                          smi)
+    paths[name] = launches
+    paged_kernels = [tm.KERNEL, fd.KERNEL, fd.PAGED_KERNEL, fp.KERNEL, fp.CHUNK_PAGED_KERNEL,
+                     kl.KERNEL, krms.KERNEL]
+    paged_eng = Engine(cfg, params, prefill_chunk=32, paged=True, page_size=32, **DENSE_KW)
+    res, paged, wall = counted(paged_kernels,
+                               lambda: paged_eng.generate(prompts, max_new_tokens=DENSE_NEW))
+    same = int((res.tokens.numpy() == tokens).all(axis=1).sum())
+    print(f"{name} paged (page size 32, prefill_chunk 32): {wall:.3f} s, tokens equal to the "
+          f"contiguous grouped serve on {same}/6 rows; launches {paged}")
+    check(same == 6, f"{name} paged serve differs from the contiguous one ({same}/6 rows)")
+    check(paged[fd.PAGED_KERNEL.symbol] == CODER_DEPTH * DENSE_NEW
+          and paged[fp.CHUNK_PAGED_KERNEL.symbol] == CODER_DEPTH
+          and paged[fd.KERNEL.symbol] == paged[fp.KERNEL.symbol] == 0,
+          f"{name} paged: not {CODER_DEPTH} paged decodes a step and paged chunks a wave "
+          f"alone: {paged}")
+    check_served(res, cfg, paged_eng, 32 + DENSE_NEW, f"{name} paged")
+    paths[f"{name} paged"] = paged
+    del eng, paged_eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{name}: {time.perf_counter() - t0:.2f} s]")
+    return paths, tok_s
+
+
+# ---------------------------------------------------------------------------
 # mixtral-8x22b: sliding-window attention over the ring, MoE top-2 of 8
 # ---------------------------------------------------------------------------
 
@@ -5549,6 +5735,14 @@ def main() -> int:
     print(f"deepseek-v3-671b-l5 phase's profiler traces: {trace_line(before)}")
     paths.update(ds_paths)
     tok_s.update(ds_tok_s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0, before = time.perf_counter(), dict(TRACE_SECONDS)
+    dense_paths, dense_tok_s = dense_families_phase(torch, smi)
+    print(f"[dense families phase: {time.perf_counter() - t0:.2f} s]")
+    print(f"dense families phase's profiler traces: {trace_line(before)}")
+    paths.update(dense_paths)
+    tok_s.update(dense_tok_s)
     gc.collect()
     torch.cuda.empty_cache()
     t0, before = time.perf_counter(), dict(TRACE_SECONDS)

@@ -1,10 +1,14 @@
 """Model configs of the port (reference: ``repro/configs/base.py``,
-``repro/configs/falcon3_1b.py``, ``repro/configs/deepseek_v3_671b.py`` and
-``repro/configs/mixtral_8x22b.py``).
+``repro/configs/falcon3_1b.py``, ``qwen3_8b.py``, ``qwen3_32b.py``,
+``gemma_7b.py``, ``deepseek_coder_33b.py``, ``deepseek_v3_671b.py`` and
+``mixtral_8x22b.py``).
 
 A copy of the fields the ported paths read — the dense family (falcon3-1b:
 untied, SwiGLU, full GQA attention; its speculative draft falcon3-draft,
-tied embeddings), the MoE family with MLA attention
+tied embeddings; qwen3-8b / qwen3-32b with an RMSNorm over each q and k
+head; gemma-7b with GeGLU, MHA and tied embeddings scaled by
+sqrt(d_model); deepseek-coder-33b, the plain llama shape), the MoE family
+with MLA attention
 (deepseek-v3-671b: latent KV cache, shared + routed experts) and the MoE
 family with sliding-window GQA attention (mixtral-8x22b: a ring-buffer
 cold tier of ``swa_window`` rows, no hot tier) — so the port imports
@@ -77,12 +81,15 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // n_heads
+    activation: str = "swiglu"  # "swiglu" | "geglu" (gated); "gelu" (non-gated) is not ported
+    qk_norm: bool = False  # RMSNorm over each q and k head before RoPE (qwen3)
     attn_type: str = "full"  # "full" (GQA) | "swa" (GQA, sliding window) | "mla"
     swa_window: int = 4096
     rope_theta: float = 1_000_000.0
     norm_eps: float = 1e-6
     decode_headroom: int = 128
     tie_embeddings: bool = False  # the lm_head is embed.T (no lm_head leaf)
+    scale_embed: bool = False  # embeddings scaled by sqrt(d_model) (gemma)
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     bitnet: BitNetConfig = field(default_factory=BitNetConfig)
@@ -191,6 +198,72 @@ DEEPSEEK_V3_671B = ModelConfig(
 DEEPSEEK_V3_671B_L5 = dataclasses.replace(DEEPSEEK_V3_671B, name="deepseek-v3-671b-l5",
                                           n_layers=5)
 
+# qwen3-8b — qk-norm, GQA [hf:Qwen/Qwen3-8B; hf]
+QWEN3_8B = ModelConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=12288,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen3-8B; hf",
+)
+
+# qwen3-32b — qk-norm, GQA rep 8, h * hd = 8192 against d_model 5120
+QWEN3_32B = ModelConfig(
+    name="qwen3-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=25600,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen3-8B; hf",
+)
+
+# gemma-7b — GeGLU, MHA (16 kv heads of 256), tied embeddings scaled by
+# sqrt(d_model) [arXiv:2403.08295; hf]
+GEMMA_7B = ModelConfig(
+    name="gemma-7b",
+    family="dense",
+    n_layers=28,
+    d_model=3072,
+    n_heads=16,
+    n_kv_heads=16,
+    head_dim=256,
+    d_ff=24576,
+    vocab_size=256000,
+    activation="geglu",
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+    scale_embed=True,
+    source="arXiv:2403.08295; hf",
+)
+
+# deepseek-coder-33b — the llama shape, GQA rep 7 [arXiv:2401.14196; hf]
+DEEPSEEK_CODER_33B = ModelConfig(
+    name="deepseek-coder-33b",
+    family="dense",
+    n_layers=62,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=19200,
+    vocab_size=32256,
+    rope_theta=100_000.0,
+    source="arXiv:2401.14196; hf",
+)
+
 # mixtral-8x22b — 8 experts top-2, sliding-window attention (window 4096):
 # the decode cache is a ring of the window's last tokens [arXiv:2401.04088; hf]
 MIXTRAL_8X22B = ModelConfig(
@@ -210,11 +283,13 @@ MIXTRAL_8X22B = ModelConfig(
     source="arXiv:2401.04088; hf",
 )
 
+_DENSE_FAMILIES = (QWEN3_8B, QWEN3_32B, GEMMA_7B, DEEPSEEK_CODER_33B)
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, DEEPSEEK_V3_671B_L5,
-                        MIXTRAL_8X22B)}
+                        MIXTRAL_8X22B, *_DENSE_FAMILIES)}
 _SMOKE: Dict[str, ModelConfig] = {
-    c.name: shrink(c) for c in (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, MIXTRAL_8X22B)}
+    c.name: shrink(c) for c in (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, MIXTRAL_8X22B,
+                                *_DENSE_FAMILIES)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -99,6 +99,9 @@ def init_attention(cfg: ModelConfig, *, generator, device, dtype=torch.float32) 
         "wv": qops.init_linear(d, g * hd, **kw),
         "wo": qops.init_linear(h * hd, d, **kw),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
     if cfg.bitnet.lora_rank:
         from repro_torch.core import lora as lora_lib
 
@@ -114,8 +117,14 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     hidden = rms_norm(x, p["ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     # fused packed wq‖wk‖wv: one act-quant + one kernel launch; the v
     # adapter applies to its segment after the split
-    return qops.fused_linear(p["wqkv"], hidden, cfg, out_shapes=((h, hd), (g, hd), (g, hd)),
-                             lora_leaves={2: p.get("lora_v")})
+    q, k, v = qops.fused_linear(p["wqkv"], hidden, cfg, out_shapes=((h, hd), (g, hd), (g, hd)),
+                                lora_leaves={2: p.get("lora_v")})
+    if cfg.qk_norm:
+        # qwen3: an RMSNorm over each q and k head, before the attention
+        # kernels rotate them
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps, impl=cfg.bitnet.impl)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps, impl=cfg.bitnet.impl)
+    return q, k, v
 
 
 def _window(cfg: ModelConfig):

@@ -1,7 +1,10 @@
-"""Shared layers: RMSNorm, RoPE, the SwiGLU MLP (reference:
-``repro/models/layers.py``)."""
+"""Shared layers: RMSNorm, RoPE, the gated MLP, SwiGLU or GeGLU
+(reference: ``repro/models/layers.py``)."""
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -45,8 +48,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def _check_gated(cfg: ModelConfig):
+    if cfg.activation not in ("swiglu", "geglu"):
+        raise NotImplementedError(f"activation {cfg.activation!r} (the non-gated MLP) is not "
+                                  "ported")
+
+
 def init_mlp(cfg: ModelConfig, d_ff: int | None = None, *, generator, device,
              dtype=torch.float32) -> dict:
+    _check_gated(cfg)
     d, f = cfg.d_model, d_ff or cfg.d_ff
     p = {
         "ln": torch.ones((d,), dtype=dtype, device=device),
@@ -62,8 +72,29 @@ def init_mlp(cfg: ModelConfig, d_ff: int | None = None, *, generator, device,
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def dtype_const(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` first (as ``jnp.asarray(value,
+    dtype)`` or a weakly typed constant in the reference), as a Python
+    float: a product with it then rounds once, as there, and launches no
+    host-to-device copy."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` in its order:
+    ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))`` with ``c =
+    sqrt(2 / pi)``, each constant rounded to x's dtype, and x^3 as (x * x)
+    * x (jax's ``integer_pow``)."""
+    c, k = dtype_const(math.sqrt(2 / math.pi), x.dtype), dtype_const(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
 def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    _check_gated(cfg)
     h = rms_norm(x, p["ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     # fused packed gate‖up: one act-quant + one kernel launch for both halves
     g, u = qops.fused_linear(p["wgu"], h, cfg)
-    return qops.linear(p["down"], F.silu(g) * u, cfg, lora_leaf=p.get("lora_down"))
+    act = gelu_tanh(g) if cfg.activation == "geglu" else F.silu(g)
+    return qops.linear(p["down"], act * u, cfg, lora_leaf=p.get("lora_down"))

@@ -36,7 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import qops
-from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
+from repro_torch.models.layers import apply_mlp, dtype_const, init_mlp, rms_norm
 from repro_torch.models.pack import pack_params
 
 DEFAULT_HOT_CAP = 32  # paper: 32 buffered early tokens (S = 128)
@@ -108,8 +108,14 @@ def _attn_cache_spec(cfg: ModelConfig):
     return (g, hd), (g, hd)
 
 
-def _embed_tokens(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["embed"]["w"][tokens.long()].to(dtype)
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Embedding rows in ``dtype``; under ``cfg.scale_embed`` (gemma) times
+    sqrt(d_model), the constant rounded to ``dtype`` before the product as
+    in the reference. The tied lm_head reads the unscaled table."""
+    x = params["embed"]["w"][tokens.long()].to(dtype)
+    if cfg.scale_embed:
+        x = x * dtype_const(cfg.d_model ** 0.5, dtype)
+    return x
 
 
 def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor,
@@ -203,7 +209,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if max_len is None:
         max_len = s + cfg.decode_headroom
     dtype = params["final_ln"].dtype
-    x = _embed_tokens(params, tokens, dtype)
+    x = _embed_tokens(params, cfg, tokens, dtype)
     cache = init_decode_cache(cfg, b, max_len, hot_cap, dtype=dtype, device=x.device)
     for pname, cname, _ in layer_stacks(cfg):
         for i, bp in enumerate(params[pname]):
@@ -221,7 +227,7 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cac
     logits at each slot's last valid row (slots, V) f32 (meaningless for
     idle slots) and the cache. Every shape is fixed by (slots, C),
     whatever the prompt lengths."""
-    x = _embed_tokens(params, tokens, params["final_ln"].dtype)  # (slots, C, d)
+    x = _embed_tokens(params, cfg, tokens, params["final_ln"].dtype)  # (slots, C, d)
     for pname, cname, _ in layer_stacks(cfg):
         for i, bp in enumerate(params[pname]):
             x = _attn_block_prefill(bp, x, cfg, kvc.layer(cache[cname], i), n_valid)
@@ -248,7 +254,7 @@ def spec_verify_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cach
     accumulators and per-row act-quant, the fixed-order LoRA and rms_norm
     kernels, attention over absolute 32-key tiles), so row j equals the
     decode step's logits for the same token bit for bit."""
-    x = _embed_tokens(params, tokens, params["final_ln"].dtype)  # (slots, K, d)
+    x = _embed_tokens(params, cfg, tokens, params["final_ln"].dtype)  # (slots, K, d)
     kvs = {}
     for pname, cname, _ in layer_stacks(cfg):
         kvs[cname] = []
@@ -279,7 +285,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
                 active: Optional[torch.Tensor] = None):
     """One token for every slot: tokens (b,) -> (logits (b, V) f32, cache).
     ``active`` (b,) bool gates the KV appends per slot (in place)."""
-    x = _embed_tokens(params, tokens, params["final_ln"].dtype)  # (b, d)
+    x = _embed_tokens(params, cfg, tokens, params["final_ln"].dtype)  # (b, d)
     for pname, cname, _ in layer_stacks(cfg):
         for i, bp in enumerate(params[pname]):
             x = _attn_block_decode(bp, x, cfg, kvc.layer(cache[cname], i), active)

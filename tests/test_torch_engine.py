@@ -99,7 +99,8 @@ def _models(jref, codec, seed=0, name="falcon3-1b", fuse_act_quant=True, act_bit
     return jcfg, jpacked, cfg, interop.params_from_reference(_numpy_tree(jref, jpacked))
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ["qwen3-8b", "qwen3-32b", "gemma-7b",
+                                          "deepseek-coder-33b"])
 def test_configs_match_reference(jref, name):
     """Every field the port keeps equals the reference's, nested MLA / MoE /
     BitNet fields included; the depth-cut config differs in name and depth

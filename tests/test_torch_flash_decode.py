@@ -26,6 +26,7 @@ from repro_torch.core.kv_cache import NEG_INF
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.models.layers import apply_rope, rope_cos_sin
+from test_torch_paged import LENGTHS, _card_pair, _shuffle_pages
 from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -498,3 +499,41 @@ def test_cuda_post_append_kernel_bit_identical_to_plain(cuda, d, rep, tiers, dty
     o_p = fd.flash_decode_attention(q, cache, impl="plain")
     assert torch.equal(o, o_p)
     assert torch.isfinite(o).all() and not o[cache.lengths.eq(0)].any()
+
+
+# (h, g, d) of the dense families: deepseek-coder-33b (rep 7, the last of
+# the kernel's 8 head slots masked), qwen3-8b / qwen3-32b (rep 8, every
+# slot) and gemma-7b (MHA: 16 groups of 256)
+FAMILY_HEADS = [(56, 8, 128), (64, 8, 128), (16, 16, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["contiguous", "paged"])
+@pytest.mark.parametrize("h,g,d", FAMILY_HEADS)
+def test_cuda_fused_kernel_bit_identical_at_dense_family_heads(cuda, h, g, d, form, dtype):
+    """Kernel 2 (fused RoPE) at the dense families' heads, contiguous and
+    paged (page size 32, shuffled table), hot 32 / cold 96 at lengths
+    0-128, NaN past each length, an inactive slot: o and k_rot
+    torch.equal to the plain version and, paged, to the contiguous
+    kernel; one launch of the form's entry point."""
+    dt = getattr(torch, dtype)
+    cont, paged = _card_pair(cuda, dt, 32, LENGTHS, g=g, d=d, seed=h + d)
+    cache = _shuffle_pages(paged, h) if form == "paged" else cont
+    gen = torch.Generator(device=cuda).manual_seed(h * d)
+    b = len(LENGTHS)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(dt)
+    kn, vn = (torch.randn((b, g, d), generator=gen, device=cuda).to(dt) for _ in range(2))
+    active = torch.tensor([True] * (b - 1) + [False], device=cuda)
+    kw = dict(k_new=kn, v_new=vn, active=active, rope_theta=THETA)
+    kern = fd.PAGED_KERNEL if form == "paged" else fd.KERNEL
+    before = kern.launches
+    o, k_rot = fd.flash_decode_attention(q, cache, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    o_p, k_p = fd.flash_decode_attention(q, cache, impl="plain", **kw)
+    assert torch.equal(o, o_p) and torch.equal(k_rot, k_p)
+    assert torch.isfinite(o).all()
+    if form == "paged":
+        o_c, k_c = fd.flash_decode_attention(q, cont, **kw)
+        assert torch.equal(o, o_c) and torch.equal(k_rot, k_c)

@@ -26,6 +26,7 @@ from repro_torch.core import kv_cache as kvc
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels.flash_decode import tree_sum
 from repro_torch.models import attention as tattn
+from test_torch_paged import _card_pair, _shuffle_pages
 from test_torch_threads import share_cpu_threads  # noqa: F401 (autouse: torch threads per worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -344,3 +345,60 @@ def test_cuda_mla_form_has_its_own_entry_point(cuda, dtype):
     torch.cuda.synchronize()
     assert (fp.KERNEL.launches, fp.MLA_KERNEL.launches) == (gqa, mla + 1)
     assert torch.equal(got, fp.flash_prefill_attention(q, k, v, impl="plain", **kw))
+
+
+# (h, g, d) of the dense families: deepseek-coder-33b (rep 7), qwen3-8b /
+# qwen3-32b (rep 8), gemma-7b (MHA: 16 groups of 256)
+FAMILY_HEADS = [(56, 8, 128), (64, 8, 128), (16, 16, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [32, 77])
+@pytest.mark.parametrize("h,g,d", FAMILY_HEADS)
+def test_cuda_fresh_kernel_bit_identical_at_dense_family_heads(cuda, h, g, d, s, dtype):
+    """Kernel 3's fresh form at the dense families' heads, ragged and empty
+    slots: o, k_cast and v_cast equal to the plain version bit for bit."""
+    b = 6
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in _qkv(h + s, b, s, h, g, d))
+    valid = torch.tensor([s, s - 5, 0, s, 1, s], dtype=torch.int32, device=cuda)
+    before = fp.KERNEL.launches
+    got = fp.flash_prefill_attention(q, k, v, valid=valid, rope_theta=THETA)
+    torch.cuda.synchronize()
+    assert fp.KERNEL.launches == before + 1
+    want = fp.flash_prefill_attention(q, k, v, valid=valid, rope_theta=THETA, impl="plain")
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["chunked", "paged chunked"])
+@pytest.mark.parametrize("h,g,d", FAMILY_HEADS)
+def test_cuda_chunk_kernels_bit_identical_at_dense_family_heads(cuda, h, g, d, form, dtype):
+    """Kernel 3's chunked and paged chunked forms at the dense families'
+    heads: C 32 at offsets 0-96 (hot 32 / cold 96, page size 32, shuffled
+    table), valid 0 / 1 / 27 / 32; o, k_cast and v_cast equal to the plain
+    version and, paged, to the contiguous chunked kernel bit for bit; one
+    launch of the form's entry point."""
+    lens = [0, 1, 31, 32, 33, 64, 80, 96]
+    dt = getattr(torch, dtype)
+    cont, paged = _card_pair(cuda, dt, 32, lens, g=g, d=d, seed=h + d)
+    cache = _shuffle_pages(paged, h) if form == "paged chunked" else cont
+    b, c = len(lens), 32
+    gen = torch.Generator(device=cuda).manual_seed(h * d)
+    q = torch.randn((b, c, h, d), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((b, c, g, d), generator=gen, device=cuda).to(dt) for _ in range(2))
+    valid = torch.tensor([32, 1, 27, 0, 32, 5, 32, 32], dtype=torch.int32, device=cuda)
+    kern = fp.CHUNK_PAGED_KERNEL if form == "paged chunked" else fp.CHUNK_KERNEL
+    before = kern.launches
+    got = fp.flash_prefill_attention(q, k, v, cache, valid, rope_theta=THETA)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = fp.flash_prefill_attention(q, k, v, cache, valid, rope_theta=THETA, impl="plain")
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    if form == "paged chunked":
+        for x, z in zip(got, fp.flash_prefill_attention(q, k, v, cont, valid, rope_theta=THETA)):
+            assert torch.equal(x, z)

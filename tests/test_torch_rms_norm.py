@@ -152,3 +152,22 @@ def test_cuda_rms_norm_rows_do_not_depend_on_m(cuda, d):
     rows = torch.cat([krms.rms_norm(xc[i:i + 1], wc) for i in range(576)])
     torch.cuda.synchronize()
     assert torch.equal(full, rows) and torch.equal(full.cpu(), krms.rms_norm(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(6, 1, 64, 128), (6, 1, 8, 128), (6, 32, 56, 128),
+                                   (3, 77, 8, 128)])
+def test_cuda_qk_norm_rows_bit_identical_to_plain(cuda, shape, dtype):
+    """The qk-norm's rows (qwen3: M = b * s * heads rows of D 128, a q or k
+    head each, from a (b, s, heads, 128) projection): the kernel equals the
+    plain version bit for bit, one launch, with seeded weights."""
+    m, d = int(np.prod(shape[:-1])), shape[-1]
+    x = torch.from_numpy(_x(m, m, d).reshape(shape)).to(cuda, getattr(torch, dtype))
+    w = (1 + 0.3 * torch.randn(d, generator=torch.Generator().manual_seed(m))).to(cuda)
+    before = krms.KERNEL.launches
+    got = krms.rms_norm(x, w, 1e-6)
+    want = krms.rms_norm(x, w, 1e-6, impl="plain")
+    torch.cuda.synchronize()
+    assert krms.KERNEL.launches == before + 1
+    assert got.shape == x.shape and got.dtype == x.dtype and torch.equal(got, want)
