@@ -189,7 +189,22 @@
    admission (prefill_chunk 32) at 4 layers equal to grouped, and a traced
    6 x (32 + 8) generate; deepseek-coder-33b: a paged serve (page size 32)
    equal to the contiguous one, 8 paged decodes per step at rep 7.
-6. mixtral-8x22b at full width and depth (56 layers, 8 experts top-2,
+6. The SSM and hybrid families at full width and depth, from seed 0,
+   packed layer by layer, f32, hot_cap 32, max_len 128, 6 slots, grouped
+   admission: mamba2-130m (24 Mamba2 blocks, attention-free) and zamba2-7b
+   (81 Mamba2 blocks in 13 groups of 6 and a tail of 3, one shared
+   attention + MLP block after each group: MHA 32 x 112 through kernel 2's
+   d 112 form, with a per-group v adapter). Each: generate 6 x (96 + 32)
+   after a warm-up (a 96-token prompt scans in 3 SSD chunks of 32 and
+   fills the shared block's cold tier), memory and tokens/s, launches per
+   decode step and admission exactly, the ledger (0 bytes a token without
+   attention; the closed form for zamba2) and no weight reloaded; greedy
+   tokens equal to the plain run (mamba2-130m at full depth, zamba2-7b at
+   13 layers: 2 groups and a tail of 1). mamba2-130m: a mixed-length serve
+   of prompts 96 / 64 / 33 / 17 / 5 / 3 equal to its plain run, and each
+   request served alone against the batched serve, printed. zamba2-7b: a
+   traced 6 x (96 + 8) generate.
+7. mixtral-8x22b at full width and depth (56 layers, 8 experts top-2,
    sliding window 4096 over a ring cold tier, the published capacity
    1.25), drawn from seed 0 and packed layer by layer, served over 4 slots
    (max_len 4352): prompts of 1000 and 3000 tokens inside the window,
@@ -213,7 +228,7 @@
    request served alone equals the batched serve and the kernel run
    equals its plain run, and over fp8 tiers grouped and chunked admission
    each equal their plain runs.
-7. Prints {"kernels": [...]} (each form's launches on its own path and on
+8. Prints {"kernels": [...]} (each form's launches on its own path and on
    every path that counted it) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero. Run from the
@@ -633,6 +648,66 @@ def kernel2_phase(torch, gen, theta, smi):
                 source="src/repro_torch/csrc/flash_decode.cuh",
                 replaces="src/repro/kernels/flash_decode.py:481", max_abs_err=worst,
                 **t80, len127=t127)
+
+
+ZAMBA_HEADS = (32, 32, 112)  # zamba2-7b's shared block: (h, g, d), MHA
+
+
+def d112_timing(torch, gen, theta, length, smi):
+    """Kernel, plain, SDPA and bound of kernel 2's d 112 form at zamba2-7b's
+    decode shape (b 6, h 32, g 32, d 112, f32), every slot at ``length``
+    plus its pending token."""
+    from repro_torch.kernels import flash_decode as fd
+
+    (h, g, d), b = ZAMBA_HEADS, 6
+    q, cache, k_new, v_new = decode_case(torch, gen, [length] * b, torch.float32, b=b, h=h,
+                                         g=g, d=d)
+    kw = dict(k_new=k_new, v_new=v_new, active=torch.ones(b, dtype=torch.bool, device="cuda"),
+              rope_theta=theta)
+    print(f"flash_decode_gqa_fused d 112 at length {length}:")
+    ms, _ = timed("kernel", lambda: fd.flash_decode_attention(q, cache, **kw), only=GQA_DECODE)
+    plain_ms, _ = timed("plain", lambda: fd.flash_decode_attention(q, cache, impl="plain", **kw))
+    library_ms, _ = timed("SDPA", decode_sdpa(torch, q, cache, length, (k_new, v_new)))
+    # as decode_timing's: q, the valid rows, lengths, out, k_new, v_new,
+    # active, the cos / sin tables and k_rot
+    n_bytes = (b * h * d * 4 + b * length * g * d * 4 * 2 + 4 * b + b * h * d * 4
+               + 2 * b * g * d * 4 + 4 * b + b * d * 4 + b * g * d * 4)
+    ops = 4 * b * h * (length + 1) * d
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"flash_decode_gqa_fused d 112 (b=6, h=g=32, length {length}, f32): kernel {ms:.5f} "
+          f"ms, plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms by "
+          f"{b_by} ({n_bytes} B, {ops} FLOP) on {smi}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def kernel2_d112_phase(torch, gen, theta, smi):
+    """Kernel 2's fused contiguous form at d 112 (zamba2-7b's shared block,
+    rep 1): o and k_rot bit-identical to the plain version in f32 and bf16
+    at lengths 1 / 31 / 32 / 33 / 80 / 127 (NaN past each, slot 2
+    inactive), then timed at the served run's middle length."""
+    from repro_torch.kernels import flash_decode as fd
+
+    (h, g, d), worst = ZAMBA_HEADS, 0.0
+    lengths = [1, 31, 32, 33, 80, 127]
+    active = torch.tensor([True, True, False, True, True, True], device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, cache, k_new, v_new = decode_case(torch, gen, lengths, dtype, h=h, g=g, d=d)
+        kw = dict(k_new=k_new, v_new=v_new, active=active, rope_theta=theta)
+        o, k_rot = fd.flash_decode_attention(q, cache, **kw)
+        o_p, k_rot_p = fd.flash_decode_attention(q, cache, impl="plain", **kw)
+        torch.cuda.synchronize()
+        check(torch.isfinite(o).all(), "flash_decode d 112 output not finite")
+        check(torch.equal(k_rot, k_rot_p), f"flash_decode d 112 k_rot not bit-identical ({dtype})")
+        worst = max(worst, max_err(o, o_p))
+        check(torch.equal(o, o_p), f"flash_decode d 112 output not bit-identical to plain "
+                                   f"({dtype}): {max_err(o, o_p)}")
+    print(f"flash_decode_gqa_fused d 112: o and k_rot bit-identical to plain in f32 and bf16 "
+          f"(h = g = 32, lengths {lengths}, NaN past each, slot 2 inactive)")
+    # the served run's decode lengths are 96 .. 127
+    return dict(name="flash_decode_gqa_fused (d 112)", route="cuda",
+                source="src/repro_torch/csrc/flash_decode.cuh",
+                replaces="src/repro/kernels/flash_decode.py:481", max_abs_err=worst,
+                **d112_timing(torch, gen, theta, 111, smi))
 
 
 # ---------------------------------------------------------------------------
@@ -4922,6 +4997,209 @@ def dense_families_phase(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# the SSM and hybrid families: mamba2-130m, zamba2-7b
+# ---------------------------------------------------------------------------
+
+SSM_KW = dict(hot_cap=32, max_len=128, slots=6)
+SSM_PROMPT, SSM_NEW = 96, 32  # 6 x (96 + 32): 3 SSD chunks of 32 per prompt
+ZAMBA_PLAIN_CUT = 13  # zamba2-7b's plain comparison: 2 groups of 6 and a tail of 1
+SSM_MIXED = (96, 64, 33, 17, 5, 3)  # mamba2-130m's mixed serve (prime lengths: chunk 1)
+
+
+def ssm_launches(cfg):
+    """Launches per decode step and per admission of an SSM or hybrid
+    model: 2 ternary and 2 rms_norm per Mamba2 block (in_proj, out_proj;
+    its two norms) and a LoRA (lora_out) when the config has adapters; per
+    shared-block invocation 4 ternary (wqkv, wo, wgu, down), 2 rms_norm and
+    3 LoRA (the group's lora_v, lora_o, lora_down) and, per decode step, one
+    kernel 2; the final norm once."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+
+    n = cfg.n_layers
+    ng = n // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    lora = (n + 3 * ng) if cfg.bitnet.lora_rank else 0
+    step = {tm.KERNEL.symbol: 2 * n + 4 * ng, fd.KERNEL.symbol: ng, fp.KERNEL.symbol: 0,
+            kl.KERNEL.symbol: lora, krms.KERNEL.symbol: 2 * n + 2 * ng + 1}
+    admit = dict(step, **{fd.KERNEL.symbol: 0})
+    return step, admit
+
+
+def hybrid_depth_cut(cfg, params, n):
+    """A hybrid ``cfg`` and ``params`` cut to their first ``n`` Mamba2 blocks:
+    the whole groups (with their adapters), then the next group's first
+    blocks as the tail (``n`` not a multiple of the group)."""
+    ng, nt = divmod(n, cfg.hybrid_attn_every)
+    return dataclasses.replace(cfg, n_layers=n), dict(
+        params, mamba_groups=params["mamba_groups"][:ng],
+        shared_lora_v=params["shared_lora_v"][:ng], mamba_tail=params["mamba_groups"][ng][:nt])
+
+
+def check_ssm_served(fin, cfg, eng, label):
+    """Every request's ledger: the closed form at its length over the shared
+    block's cache (hybrid), zero bytes without attention (the token
+    ledger still counts at 0 bytes a token, as the reference's does); no
+    weight reloaded."""
+    from repro_torch.core import dr_edram
+
+    check(eng.weight_loads == 0, f"{label}: weights were reloaded")
+    for f in fin:
+        if cfg.attn_type == "none":
+            check(not any(f.traffic.values()) and f.external_reduction == 0.0,
+                  f"{label}: row {f.rid} ledger {f.traffic} on an attention-free model")
+        else:
+            closed = dr_edram.closed_form_reduction(f.seq_len, SSM_KW["hot_cap"])
+            check(abs(f.external_reduction - closed) <= 1e-12,
+                  f"{label}: row {f.rid} external_reduction {f.external_reduction} != {closed}")
+    print(f"{label} DR ledger: bytes a token {eng._kv_token_bytes()}, row 0 external_reduction "
+          f"{fin[0].external_reduction!r}, weight_loads = {eng.weight_loads}")
+
+
+def ssm_model_run(torch, cfg, label, smi, plain_cut):
+    """One SSM or hybrid model at full width and depth from seed-0 weights
+    packed layer by layer: generate 6 x (96 + 32) after a warm-up, the
+    launches per decode step and admission, the ledger, then the same
+    prompts at ``plain_cut`` blocks against the plain run. Returns (engine,
+    params, prompts, launches, tokens/s)."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda", pack=True)
+    torch.cuda.synchronize()
+    s = cfg.ssm
+    print(f"{label}: init + pack {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, init peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({cfg.n_layers} Mamba2 blocks, "
+          f"d_model {cfg.d_model}, d_inner {s.d_inner(cfg.d_model)}, "
+          f"{s.n_heads(cfg.d_model)} SSM heads of {s.head_dim}, {s.n_groups} groups of "
+          f"{s.d_state} states, attention {cfg.attn_type}"
+          + (f", a shared block every {cfg.hybrid_attn_every} ({cfg.n_heads} heads of "
+             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, LoRA rank {cfg.bitnet.lora_rank})"
+             if cfg.family == "hybrid" else "")
+          + f", vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}) on {smi}")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (6, SSM_PROMPT)).astype(np.int32)
+    kernels = [tm.KERNEL, fd.KERNEL, fp.KERNEL, kl.KERNEL, krms.KERNEL]
+    eng = Engine(cfg, params, **SSM_KW)
+    t0 = time.perf_counter()
+    eng.generate(prompts[:, :8], max_new_tokens=2)  # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    print(f"{label} warm-up generate 6 x (8 + 2): {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted(kernels, lambda: eng.generate(prompts,
+                                                                max_new_tokens=SSM_NEW))
+    tok_s = 6 * SSM_NEW / wall
+    print(f"{label} generate 6 x ({SSM_PROMPT} + {SSM_NEW}): {wall:.3f} s, {tok_s:.1f} tokens/s, "
+          f"launches {launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {smi}")
+    tokens = res.tokens.numpy()
+    check(tokens.shape == (6, SSM_NEW) and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+          f"{label}: generated tokens out of range or short")
+    check(all(f.seq_len == SSM_PROMPT + SSM_NEW for f in res.finished),
+          f"{label}: a row's seq_len is not {SSM_PROMPT + SSM_NEW}")
+    check_ssm_served(res.finished, cfg, eng, label)
+    step, admit = ssm_launches(cfg)
+    want = {k: step[k] * SSM_NEW + admit[k] for k in step}
+    check(launches == want, f"{label}: launches {launches} != {want} (per decode step "
+                            f"{step}, per admission {admit})")
+    print(f"{label} launches per decode step / admission: ternary {step[tm.KERNEL.symbol]} / "
+          f"{admit[tm.KERNEL.symbol]}, flash_decode_gqa_fused {step[fd.KERNEL.symbol]} / 0, "
+          f"flash_prefill_fresh 0 / 0, rms_norm {step[krms.KERNEL.symbol]} / "
+          f"{admit[krms.KERNEL.symbol]}, lora_delta {step[kl.KERNEL.symbol]} / "
+          f"{admit[kl.KERNEL.symbol]} (as checked)")
+    c_cut, p_cut = ((cfg, params) if plain_cut == cfg.n_layers
+                    else hybrid_depth_cut(cfg, params, plain_cut))
+    plain = dataclasses.replace(c_cut, bitnet=dataclasses.replace(c_cut.bitnet, impl="plain"))
+    t0 = time.perf_counter()
+    tok_k = (tokens if plain_cut == cfg.n_layers else Engine(c_cut, p_cut, **SSM_KW).generate(
+        prompts, max_new_tokens=SSM_NEW).tokens.numpy())
+    tok_p = Engine(plain, p_cut, **SSM_KW).generate(prompts,
+                                                    max_new_tokens=SSM_NEW).tokens.numpy()
+    same = int((tok_k == tok_p).all(axis=1).sum())
+    print(f"{label} kernel and plain runs at {plain_cut} blocks: "
+          f"{time.perf_counter() - t0:.2f} s; greedy tokens equal on {same}/6 rows")
+    check(same == 6, f"{label}: greedy tokens at {plain_cut} blocks differ from the plain run "
+                     f"({same}/6 rows equal)")
+    return eng, params, prompts, launches, tok_s
+
+
+def mamba_mixed_serve(torch, cfg, params, label):
+    """mamba2-130m serving prompts of SSM_MIXED tokens + 32 over 6 slots
+    (one group per length), equal to its plain serve; each request served
+    alone against the batched serve, printed (the SSD scan's plain einsums
+    run at the group's batch size)."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(5)
+    specs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SSM_MIXED]
+
+    def reqs():
+        return [Request(rid=i, tokens=t, max_new_tokens=SSM_NEW) for i, t in enumerate(specs)]
+
+    plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, **SSM_KW)
+    fin = {f.rid: f for f in eng.serve(reqs())}
+    wall = time.perf_counter() - t0
+    fin_p = {f.rid: f for f in Engine(plain, params, **SSM_KW).serve(reqs())}
+    same = sum(np.array_equal(fin[r].tokens, fin_p[r].tokens) for r in fin)
+    print(f"{label} mixed serve (prompts {SSM_MIXED} + {SSM_NEW}, 6 slots): {wall:.2f} s, "
+          f"tokens equal to the plain serve on {same}/6 requests")
+    check(same == 6 and all(len(f.tokens) == SSM_NEW for f in fin.values()),
+          f"{label}: the mixed serve differs from its plain run ({same}/6 requests)")
+    check_ssm_served(list(fin.values()), cfg, eng, f"{label} mixed serve")
+    alone = []
+    for r in reqs():
+        f = Engine(cfg, params, **SSM_KW).serve([r])[0]
+        alone.append(bool(np.array_equal(f.tokens, fin[r.rid].tokens)))
+    print(f"{label}: each request served alone against the batched serve (prompts "
+          f"{SSM_MIXED}): equal {alone} ({sum(alone)}/6)")
+
+
+def ssm_families_phase(torch, smi):
+    """mamba2-130m and zamba2-7b at full width and depth on the card (see the
+    module docstring, item 6). Returns (launches by path, tokens/s by path)."""
+    from repro_torch.configs import get_config
+
+    paths, tok_s = {}, {}
+    t0 = time.perf_counter()
+    cfg = get_config("mamba2-130m")
+    eng, params, _, paths["mamba2-130m"], tok_s["mamba2-130m"] = ssm_model_run(
+        torch, cfg, "mamba2-130m", smi, plain_cut=cfg.n_layers)
+    mamba_mixed_serve(torch, cfg, params, "mamba2-130m")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mamba2-130m: {time.perf_counter() - t0:.2f} s]")
+
+    t0 = time.perf_counter()
+    cfg = get_config("zamba2-7b")
+    eng, params, prompts, paths["zamba2-7b"], tok_s["zamba2-7b"] = ssm_model_run(
+        torch, cfg, "zamba2-7b", smi, plain_cut=ZAMBA_PLAIN_CUT)
+    breakdown(torch, eng, prompts, label="zamba2-7b", new=8)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[zamba2-7b: {time.perf_counter() - t0:.2f} s]")
+    return paths, tok_s
+
+
+# ---------------------------------------------------------------------------
 # mixtral-8x22b: sliding-window attention over the ring, MoE top-2 of 8
 # ---------------------------------------------------------------------------
 
@@ -5651,6 +5929,8 @@ def main() -> int:
     # (label, phase, its kernel, the path whose run gives its launches)
     phases = [("kernel 1", lambda: kernel1_phase(torch, gen), tm.KERNEL, "falcon3-1b"),
               ("kernel 2", lambda: kernel2_phase(torch, gen, theta, smi), fd.KERNEL, "falcon3-1b"),
+              ("kernel 2 d 112 form", lambda: kernel2_d112_phase(
+                  torch, gen, get_config("zamba2-7b").rope_theta, smi), fd.KERNEL, "zamba2-7b"),
               ("kernel 3", lambda: kernel3_phase(torch, gen, theta), fp.KERNEL, "falcon3-1b"),
               ("kernel 3 chunked form", lambda: kernel3_chunk_phase(torch, gen, theta, smi),
                fp.CHUNK_KERNEL, "falcon3-1b chunked"),
@@ -5743,6 +6023,14 @@ def main() -> int:
     print(f"dense families phase's profiler traces: {trace_line(before)}")
     paths.update(dense_paths)
     tok_s.update(dense_tok_s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0, before = time.perf_counter(), dict(TRACE_SECONDS)
+    ssm_paths, ssm_tok_s = ssm_families_phase(torch, smi)
+    print(f"[ssm families phase: {time.perf_counter() - t0:.2f} s]")
+    print(f"ssm families phase's profiler traces: {trace_line(before)}")
+    paths.update(ssm_paths)
+    tok_s.update(ssm_tok_s)
     gc.collect()
     torch.cuda.empty_cache()
     t0, before = time.perf_counter(), dict(TRACE_SECONDS)

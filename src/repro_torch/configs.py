@@ -1,7 +1,7 @@
 """Model configs of the port (reference: ``repro/configs/base.py``,
 ``repro/configs/falcon3_1b.py``, ``qwen3_8b.py``, ``qwen3_32b.py``,
 ``gemma_7b.py``, ``deepseek_coder_33b.py``, ``deepseek_v3_671b.py`` and
-``mixtral_8x22b.py``).
+``mixtral_8x22b.py``, ``mamba2_130m.py`` and ``zamba2_7b.py``).
 
 A copy of the fields the ported paths read — the dense family (falcon3-1b:
 untied, SwiGLU, full GQA attention; its speculative draft falcon3-draft,
@@ -11,8 +11,11 @@ sqrt(d_model); deepseek-coder-33b, the plain llama shape), the MoE family
 with MLA attention
 (deepseek-v3-671b: latent KV cache, shared + routed experts) and the MoE
 family with sliding-window GQA attention (mixtral-8x22b: a ring-buffer
-cold tier of ``swa_window`` rows, no hot tier) — so the port imports
-nothing of the JAX package. ``BitNetConfig.impl`` mirrors the
+cold tier of ``swa_window`` rows, no hot tier), the attention-free SSM
+family (mamba2-130m: a stack of Mamba2 blocks, ``attn_type="none"``) and
+the hybrid family (zamba2-7b: groups of ``hybrid_attn_every`` Mamba2
+blocks, each followed by one shared attention + MLP block) — so the port
+imports nothing of the JAX package. ``BitNetConfig.impl`` mirrors the
 reference's dispatch switch: ``"auto"`` runs the CUDA kernels on CUDA
 tensors and the plain PyTorch versions on CPU tensors; ``"plain"`` forces
 the plain versions everywhere (used to run the same path twice for
@@ -52,6 +55,22 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 64
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class BitNetConfig:
     """The paper's quantization recipe (BitNet b1.58 / a4.8 + LoRA §III-C)."""
 
@@ -73,7 +92,7 @@ class BitNetConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" | "moe"
+    family: str  # "dense" | "moe" | "ssm" | "hybrid"
     n_layers: int
     d_model: int
     n_heads: int
@@ -83,15 +102,17 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     activation: str = "swiglu"  # "swiglu" | "geglu" (gated); "gelu" (non-gated) is not ported
     qk_norm: bool = False  # RMSNorm over each q and k head before RoPE (qwen3)
-    attn_type: str = "full"  # "full" (GQA) | "swa" (GQA, sliding window) | "mla"
+    attn_type: str = "full"  # "full" (GQA) | "swa" (GQA, sliding window) | "mla" | "none"
     swa_window: int = 4096
     rope_theta: float = 1_000_000.0
     norm_eps: float = 1e-6
     decode_headroom: int = 128
     tie_embeddings: bool = False  # the lm_head is embed.T (no lm_head leaf)
     scale_embed: bool = False  # embeddings scaled by sqrt(d_model) (gemma)
+    hybrid_attn_every: int = 0  # zamba2: the shared attention block every k layers
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     bitnet: BitNetConfig = field(default_factory=BitNetConfig)
     source: str = ""
 
@@ -128,6 +149,11 @@ def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
             capacity_factor=4.0,  # no token drops in smoke
         )
         kw["n_layers"] = 2
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=8, chunk=8)
+    if cfg.family == "hybrid":
+        kw["hybrid_attn_every"] = 2
+        kw["n_layers"] = 5  # 2 groups of 2 + a tail of 1
     if cfg.bitnet.lora_rank:
         kw["bitnet"] = dataclasses.replace(cfg.bitnet, lora_rank=4)
     kw.update(overrides)
@@ -283,13 +309,52 @@ MIXTRAL_8X22B = ModelConfig(
     source="arXiv:2401.04088; hf",
 )
 
+# mamba2-130m — SSD (state-space duality), attention-free: d_inner 1536, 24
+# SSM heads of 64, one B / C group of 128 states [arXiv:2405.21060; unverified]
+MAMBA2_130M = ModelConfig(
+    name="mamba2-130m",
+    family="ssm",
+    n_layers=24,
+    d_model=768,
+    n_heads=1,  # attention-free; the SSM heads derive from the ssm config
+    n_kv_heads=1,
+    head_dim=64,
+    d_ff=0,
+    vocab_size=50280,
+    attn_type="none",
+    tie_embeddings=True,
+    ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64, n_groups=1, chunk=64),
+    source="arXiv:2405.21060; unverified",
+)
+
+# zamba2-7b — 81 Mamba2 blocks in 13 groups of 6 and a tail of 3; after each
+# group ONE shared attention + MLP block (MHA, 32 heads of 112) whose v
+# projection takes a per-invocation LoRA adapter [arXiv:2411.15242; unverified]
+ZAMBA2_7B = ModelConfig(
+    name="zamba2-7b",
+    family="hybrid",
+    n_layers=81,
+    d_model=3584,
+    n_heads=32,
+    n_kv_heads=32,
+    head_dim=112,
+    d_ff=14336,
+    vocab_size=32000,
+    hybrid_attn_every=6,
+    ssm=SSMConfig(d_state=64, d_conv=4, expand=2, head_dim=64, n_groups=2, chunk=64),
+    bitnet=BitNetConfig(lora_rank=16),  # the shared block's per-invocation adapters
+    rope_theta=10_000.0,
+    source="arXiv:2411.15242; unverified",
+)
+
 _DENSE_FAMILIES = (QWEN3_8B, QWEN3_32B, GEMMA_7B, DEEPSEEK_CODER_33B)
+_SSM_FAMILIES = (MAMBA2_130M, ZAMBA2_7B)
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, DEEPSEEK_V3_671B_L5,
-                        MIXTRAL_8X22B, *_DENSE_FAMILIES)}
+                        MIXTRAL_8X22B, *_DENSE_FAMILIES, *_SSM_FAMILIES)}
 _SMOKE: Dict[str, ModelConfig] = {
     c.name: shrink(c) for c in (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, MIXTRAL_8X22B,
-                                *_DENSE_FAMILIES)}
+                                *_DENSE_FAMILIES, *_SSM_FAMILIES)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -74,6 +74,15 @@
 //    holds them in registers, in the lane dot order of every other logit),
 //    and its softmax step puts them at the pending lane of their tile;
 //    its value is the P.V thread's value of that key. Slice 0 writes k_rot.
+//  * Head dim 112 (zamba2-7b's shared attention block; the fused contiguous
+//    form in f32 and bf16 only, its own instantiation): the lanes carry 128
+//    dims (padded_dims), dims 112 .. 127 zero in registers and shared memory
+//    and never read or written in memory, whose rows stay 112 wide. The dot
+//    products are then the halving tree over 128, the plain version's
+//    tree_sum, and the two 64-dim value slices cover 128, the threads of
+//    dims 112 .. 127 folding zeros and writing nothing. The RoPE partner of
+//    dim i is i +- 56, in another lane and register, so the row passes
+//    through the warp's row of shared memory (rope_padded).
 //  * The two forms are one template (FUSED): the post-append form drops the
 //    RoPE prologue and the pending token at compile time, so the tile
 //    loop, the one the plain versions share too, exists once.
@@ -156,6 +165,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "fp8.cuh"
 
 namespace {
@@ -174,6 +185,16 @@ constexpr unsigned kFull = 0xffffffffu;
 // Value dims per block: the grid is (D / slice_dims(D), G, B), and the
 // D / slice_dims(D) slice blocks of a (slot, group) form one cluster.
 __host__ __device__ constexpr int slice_dims(int d) { return d < 64 ? d : 64; }
+
+// The lane layout's width: D itself for the powers of two, the next one
+// up for d 112 (zamba2-7b's heads). Dims D .. padded_dims(D) - 1 are zero in
+// registers and shared memory and neither read nor written in memory, so
+// the dot products are the halving tree over the padded width, which is
+// the plain version's tree_sum (it zero-pads to a power of two), and the
+// value slices (64 wide) cover it in whole blocks.
+__host__ __device__ constexpr int padded_dims(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -294,6 +315,41 @@ __device__ __forceinline__ void rope(float (&x)[TL], const float (&c)[(TL + 1) /
   }
 }
 
+// The RoPE of a padded width (D not a power of two): the partner of dim i is
+// i + D / 2 or i - D / 2, in another lane and register, so the row passes
+// through the warp's own row of shared memory. c and s hold the table
+// entry of each dim this lane holds (load_table_padded). The expression is
+// rope's.
+template <int D, int TL>
+__device__ __forceinline__ void load_table_padded(const float* row, int lane, float (&out)[TL]) {
+#pragma unroll
+  for (int t = 0; t < TL; ++t) {
+    const int i = lane + 32 * t;
+    out[t] = i < D ? row[i < D / 2 ? i : i - D / 2] : 0.f;
+  }
+}
+
+template <int D, int TL>
+__device__ __forceinline__ void rope_padded(float (&x)[TL], const float (&c)[TL],
+                                            const float (&s)[TL], int lane) {
+  __shared__ float row_s[kWarps][D];
+  float* row = row_s[threadIdx.x >> 5];
+  __syncwarp();  // the warp's last rotation has read its row
+#pragma unroll
+  for (int t = 0; t < TL; ++t)
+    if (lane + 32 * t < D) row[lane + 32 * t] = x[t];
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < TL; ++t) {
+    const int i = lane + 32 * t;
+    if (i < D) {
+      const float other = row[i < D / 2 ? i + D / 2 : i - D / 2];
+      x[t] = i < D / 2 ? __fsub_rn(__fmul_rn(x[t], c[t]), __fmul_rn(other, s[t]))
+                       : __fadd_rn(__fmul_rn(x[t], c[t]), __fmul_rn(other, s[t]));
+    }
+  }
+}
+
 // T: the activations' type (q, k_new, v_new, out, k_rot); TT: the tiers'
 // (T, or __nv_fp8_e4m3).
 template <typename T, typename TT = T>
@@ -319,9 +375,12 @@ struct DecodeArgs {
 
 template <typename T, typename TT, int D, bool FUSED, bool PAGED, bool RING = false>
 __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
-  constexpr int TL = D >= 32 ? D / 32 : 1;  // head dims per lane
-  constexpr int DVS = slice_dims(D);        // value dims per block
-  constexpr int S = D / DVS;                // slice blocks of a cluster
+  constexpr int DP = padded_dims(D);         // the lane layout's width
+  constexpr bool kPad = DP != D;             // d 112: dims D .. DP - 1 are zero
+  constexpr int TL = DP >= 32 ? DP / 32 : 1;  // head dims per lane
+  constexpr int NT = kPad ? TL : (TL + 1) / 2;  // RoPE table entries per lane
+  constexpr int DVS = slice_dims(DP);         // value dims per block
+  constexpr int S = DP / DVS;                 // slice blocks of a cluster
   constexpr int SPLIT = kThreads / DVS;  // P.V threads per value dim
   constexpr int KPT = kTile / SPLIT;     // a tile's keys per P.V thread
   constexpr int CW = S * kWarps;      // warps of a cluster, which share a chunk's logits
@@ -360,17 +419,25 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
     }
   }
   const bool active = FUSED && a.active[b] != 0;
-  float kr[TL], vn = 0.f, cos_l[(TL + 1) / 2], sin_l[(TL + 1) / 2];
-  if constexpr (FUSED) {
+  float kr[TL], vn = 0.f, cos_l[NT], sin_l[NT];
+  if constexpr (FUSED && kPad) {
+    load_table_padded<D, TL>(a.cos + (int64_t)b * (D / 2), lane, cos_l);
+    load_table_padded<D, TL>(a.sin + (int64_t)b * (D / 2), lane, sin_l);
+  } else if constexpr (FUSED) {
     load_table<D, TL>(a.cos + (int64_t)b * (D / 2), lane, cos_l);
     load_table<D, TL>(a.sin + (int64_t)b * (D / 2), lane, sin_l);
+  }
+  if constexpr (FUSED) {
     const T* krow = a.k_new + ((int64_t)b * G + g) * D;
 #pragma unroll
     for (int t = 0; t < TL; ++t) {
       const int i = lane + 32 * t;
       kr[t] = i < D ? to_f32(krow[i]) : 0.f;
     }
-    vn = to_f32(a.v_new[((int64_t)b * G + g) * D + dv]);
+    if constexpr (kPad)
+      vn = dv < D ? to_f32(a.v_new[((int64_t)b * G + g) * D + dv]) : 0.f;
+    else
+      vn = to_f32(a.v_new[((int64_t)b * G + g) * D + dv]);
   }
 
   const int length = a.lengths[b];
@@ -491,7 +558,9 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
         const int j = part + SPLIT * u, pos = start[k] + j;
         const bool held = held_at(k, j);
         const TT* row = (pos < a.HC ? a.hot_v : a.cold_v) + row_at(k, j, held) + dv;
-        const float x = held ? to_f32(*row) : 0.f;
+        bool vheld = held;
+        if constexpr (kPad) vheld = held && dv < D;  // a padded dim reads nothing
+        const float x = vheld ? to_f32(*row) : 0.f;
         v[k][u] = j == pl[k] ? vn : x;
       }
   };
@@ -501,8 +570,9 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
   // also rotates the pending k, so the pending logits of its heads come
   // here, and slice 0's warp 0 writes k_rot ----
   float lg_pend[kHeadsPerWarp] = {};
+  if constexpr (FUSED && kPad) rope_padded<D>(kr, cos_l, sin_l, lane);
+  else if constexpr (FUSED) rope<D>(kr, cos_l, sin_l, lane);
   if constexpr (FUSED) {
-    rope<D>(kr, cos_l, sin_l, lane);
     if (slice == 0 && warp == 0)
 #pragma unroll
       for (int t = 0; t < TL; ++t) {
@@ -514,7 +584,8 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
   for (int h = 0; h < kHeadsPerWarp; ++h) {
     const int r = warp + kWarps * h;
     if (r >= rep) break;
-    if constexpr (FUSED) rope<D>(qx[h], cos_l, sin_l, lane);
+    if constexpr (FUSED && kPad) rope_padded<D>(qx[h], cos_l, sin_l, lane);
+    else if constexpr (FUSED) rope<D>(qx[h], cos_l, sin_l, lane);
 #pragma unroll
     for (int t = 0; t < TL; ++t) {
       const int i = lane + 32 * t;
@@ -643,7 +714,9 @@ __device__ __forceinline__ void decode_body(const DecodeArgs<T, TT>& a) {
     if (lane == 0) l_s[r] = l[h];
   }
   __syncthreads();
-  if (part == 0) {
+  bool writes = part == 0;
+  if constexpr (kPad) writes = writes && dv < D;  // a padded dim has no output
+  if (writes) {
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r) {
       if (r >= rep) break;
@@ -670,7 +743,7 @@ __global__ void __launch_bounds__(kThreads, 1) gqa_decode_ring_kernel(DecodeArgs
 
 template <typename T, typename TT, int D, bool FUSED, bool PAGED, bool RING>
 cudaError_t launch_d(const DecodeArgs<T, TT>& a, int B, cudaStream_t stream) {
-  constexpr int S = D / slice_dims(D);
+  constexpr int S = padded_dims(D) / slice_dims(padded_dims(D));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S, a.G, B);
   cfg.blockDim = dim3(kThreads);
@@ -703,6 +776,11 @@ cudaError_t launch(const DecodeArgs<T, TT>& a, int B, int D, cudaStream_t stream
     case 64: return launch_d<T, TT, 64, FUSED, PAGED, RING>(a, B, stream);
     case 128: return launch_d<T, TT, 128, FUSED, PAGED, RING>(a, B, stream);
     case 256: return launch_d<T, TT, 256, FUSED, PAGED, RING>(a, B, stream);
+    case 112:
+      // zamba2-7b's heads: the fused contiguous form only, f32 and bf16 tiers
+      if constexpr (FUSED && !PAGED && !RING && std::is_same<T, TT>::value)
+        return launch_d<T, TT, 112, FUSED, PAGED, RING>(a, B, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

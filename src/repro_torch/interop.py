@@ -11,9 +11,14 @@ differ from the reference's by one ulp, which would flip trits.
 
 The reference stacks the layers along a leading axis of each layer
 stack (``blocks``; ``dense_blocks`` and ``moe_blocks`` for the MoE
-family); the port keeps one dict per layer, so the stacks are unstacked
-here. Expert-stacked packed leaves keep their expert dimension (packed
-(E, K/g, N), scale (E,) or per-column (E, N) for a fused w_gu). LoRA
+family; ``mamba_tail`` for the hybrid family); the port keeps one dict
+per layer, so the stacks are unstacked here. The hybrid family's
+``mamba_groups`` is stacked twice, (n_groups, every, ...): it becomes a
+list of groups, each a list of blocks. Its ``shared`` block is one block,
+not stacked, and ``shared_lora_v`` (one v adapter per group, (n_groups,
+...)) becomes a list of adapters, one per group. Expert-stacked packed
+leaves keep their expert dimension (packed (E, K/g, N), scale (E,) or
+per-column (E, N) for a fused w_gu). LoRA
 factors, norms, the embedding, the lm_head (none in a model that ties
 its embeddings, such as a speculative draft) and the float dict leaves
 (``router``; MLA's ``w_uk`` / ``w_uv``, as ``{"w"}`` or already
@@ -37,7 +42,11 @@ from repro_torch.models.pack import iter_packed_leaves, stack_crc32
 
 _PACKED_FIELDS = ("packed", "scale", "k", "codec")
 _OPTIONAL_FIELDS = ("splits", "wsum", "crc")
-LAYER_STACKS = ("blocks", "dense_blocks", "moe_blocks")
+LAYER_STACKS = ("blocks", "dense_blocks", "moe_blocks", "mamba_tail")
+# stacked twice: (n_groups, every, ...)
+GROUP_STACKS = ("mamba_groups",)
+# one entry per group, each a subtree of its own (no packed leaf)
+PER_GROUP = ("shared_lora_v",)
 
 
 def _packed_fields(node):
@@ -124,18 +133,35 @@ def from_reference(node, device="cpu"):
     return _convert(node, device)
 
 
+def _n_stacked(node) -> int:
+    """The length of a stacked subtree's leading axis (of its first array)."""
+    fields = _packed_fields(node)
+    if fields is not None:
+        return np.asarray(fields["packed"]).shape[0]
+    if isinstance(node, dict):
+        return _n_stacked(node[sorted(node)[0]])
+    return np.asarray(node).shape[0]
+
+
+def _unstack(node, device, depth: int):
+    """A subtree stacked ``depth`` times -> nested lists of the port's
+    layers."""
+    if depth == 0:
+        return _convert(node, device)
+    return [_unstack(_take(node, i), device, depth - 1) for i in range(_n_stacked(node))]
+
+
 def params_from_reference(tree: dict, device="cpu") -> dict:
     """The reference's (packed or float) parameter tree, as numpy, -> the
     port's tree on ``device``."""
-    out = {k: _convert(v, device) for k, v in tree.items() if k not in LAYER_STACKS}
-    for name in LAYER_STACKS:
-        if name in tree:
-            blocks = tree[name]
-            n_layers = np.asarray(blocks["attn"]["ln"]).shape[0]
-            out[name] = [_convert(_take(blocks, i), device) for i in range(n_layers)]
-            want = _stack_crcs(blocks)
-            for path, stack in iter_packed_leaves(out[name]):
-                if path in want and stack_crc32(stack) != want[path]:
-                    raise ValueError(f"the crc stamp of {name}.{path} does not match its "
-                                     "layers' bytes")
+    depth = {**dict.fromkeys(LAYER_STACKS, 1), **dict.fromkeys(GROUP_STACKS, 2),
+             **dict.fromkeys(PER_GROUP, 1)}
+    out = {}
+    for name, node in tree.items():
+        out[name] = _unstack(node, device, depth.get(name, 0))
+        want = _stack_crcs(node) if name in LAYER_STACKS + GROUP_STACKS else {}
+        for path, stack in iter_packed_leaves(out[name]):
+            if path in want and stack_crc32(stack) != want[path]:
+                raise ValueError(f"the crc stamp of {name}.{path} does not match its "
+                                 "layers' bytes")
     return out

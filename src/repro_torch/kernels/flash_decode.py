@@ -7,6 +7,9 @@ the paged and ring forms' in ``flash_decode_paged.cu`` and
 - fused RoPE (``_flash_gqa_fused`` through ``flash_decode_attention(
   k_new=..., rope_theta=...)``): q (b, h, d) and the pending token's k
   (b, g, d) arrive UNROTATED; both rotate at position ``cache.lengths[b]``.
+  Its contiguous f32 / bf16 form also takes d 112 (``FUSED_HEAD_DIMS``),
+  whose dot products are halving trees over 128 dims, the last 16 zero:
+  ``tree_sum``'s own zero padding, so the plain version is unchanged.
   Each slot attends over its cached keys and — when ``active`` — the
   pending (k, v) at position ``lengths[b]``. The cache is the PRE-append
   state; the call returns ``(o, k_rot)`` and the caller appends. Plain
@@ -126,6 +129,9 @@ FP8_GQA_PAGED_KERNEL = CudaKernel("flash_decode_paged_fp8", "flash_decode_gqa_pa
                                   GQA_PAGED_KERNEL.argtypes)
 MAX_REP = 8
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+# and the fused contiguous form's (f32 and bf16 tiers): zamba2-7b's heads
+# of 112, carried in a lane layout 128 wide (csrc/flash_decode.cuh)
+FUSED_HEAD_DIMS = HEAD_DIMS + (112,)
 LATENT_KERNEL = CudaKernel(
     "flash_latent", "flash_decode_latent",
     [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -334,9 +340,10 @@ def flash_decode_fused_plain(q, cache: kvc.TieredKVCache, k_new, v_new,
     return _finish(state).reshape(b, h, d).to(q.dtype), k_rot.to(k_new.dtype)
 
 
-def _check_gqa(q, cache, extra=()):
+def _check_gqa(q, cache, extra=(), head_dims=HEAD_DIMS):
     """Operands the GQA kernel takes; raises on anything else. A paged
-    cache passes its pools where the cold tiers go."""
+    cache passes its pools where the cold tiers go. ``head_dims``: the
+    form's instantiations."""
     b, h, d = q.shape
     g = cache.hot_k.shape[2]
     rep = h // g
@@ -351,9 +358,9 @@ def _check_gqa(q, cache, extra=()):
             or any(t.dtype != tier_dt for t in (cache.hot_v, cold_k, cold_v))):
         raise TypeError("flash_decode_attention: q and k/v_new must share one dtype, f32 or "
                         "bf16, and the four tiers that dtype or fp8 (e4m3)")
-    if rep * g != h or rep > MAX_REP or d not in HEAD_DIMS:
+    if rep * g != h or rep > MAX_REP or d not in head_dims:
         raise ValueError(f"flash_decode_attention: h={h}, g={g}, d={d} unsupported "
-                         f"(rep <= {MAX_REP}, d in {HEAD_DIMS})")
+                         f"(rep <= {MAX_REP}, d in {head_dims} for this form)")
     cold_shape = (cache.n_pages, cache.page_size, g, d) if paged else (b, cache.cold_cap, g, d)
     for name, t, shape in (("hot", cache.hot_k, (b, cache.hot_cap, g, d)),
                            ("cold", cold_k, cold_shape)):
@@ -383,7 +390,9 @@ def _launch(q, cache, k_new, v_new, active, scale, theta, ring=False):
     g = cache.hot_k.shape[2]
     if k_new.shape != (b, g, d) or v_new.shape != (b, g, d):
         raise ValueError(f"flash_decode_attention: k/v_new must be {(b, g, d)}")
-    tensors, lengths = _check_gqa(q, cache, (k_new, v_new))
+    contiguous = not (ring or _fp8(cache) or isinstance(cache, kvc.PagedKVCache))
+    tensors, lengths = _check_gqa(q, cache, (k_new, v_new),
+                                  FUSED_HEAD_DIMS if contiguous else HEAD_DIMS)
     act = (torch.ones(b, dtype=torch.int32, device=q.device) if active is None
            else active.to(torch.int32).contiguous())
     cos, sin = rope_cos_sin(lengths.long()[:, None], d, theta)  # (b, 1, d/2)

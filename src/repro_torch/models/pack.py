@@ -10,7 +10,9 @@ w_dq‖w_dkv and the experts' w_gate‖w_up — into ``FusedPackedLinear``s
 with per-column scales: one act-quant and one kernel launch per group.
 MLA's float-kept factors ``w_uk`` / ``w_uv`` become ``{"fq":
 weight_quant_ste(w)}``, the value the reference computes at every use;
-the router, embedding and lm_head stay float (``SKIP_KEYS``). Leaves that
+the router, embedding and lm_head stay float (``SKIP_KEYS``), and so do a
+Mamba2 block's norms, conv, ``a_log``, ``d_skip``, ``dt_bias`` and LoRA
+factors (only its ``in_proj`` and ``out_proj`` pack). Leaves that
 are already packed or fake-quantized pass through, so packing a packed
 tree is a no-op: that is how weights packed by the reference and carried
 across by ``interop`` enter the engine unchanged.
@@ -26,7 +28,10 @@ bytes. The reference stacks the layers of a model, so its leaves, dotted
 paths, crcs and fault addresses are per STACKED leaf
 (``blocks.attn.wqkv`` is (L, K/g, N)); the port keeps one dict per layer.
 ``iter_packed_leaves`` therefore yields the reference's paths, in its
-sorted-key order, each with a ``LeafStack`` of the layers' leaves:
+sorted-key order, each with a ``LeafStack`` of the layers' leaves (the
+hybrid family's ``mamba_groups``, stacked twice in the reference, is a
+list of groups of blocks here, walked group by group, so the layers
+come in the order of the stacked leaf's bytes; ``shared`` is one block):
 ``stack_crc32`` chains the layers' bytes in order (the crc of the stacked
 bytes), ``size`` is the stacked byte count and flat byte ``i`` of the
 stack lies in layer ``i // per_layer``. Each layer leaf carries its own
@@ -51,6 +56,7 @@ PACK_KEYS = {
     "gate", "up", "down",  # mlp
     "w_gate", "w_up", "w_down",  # routed experts (E-stacked)
     "shared_gate", "shared_up", "shared_down",  # shared expert
+    "in_proj", "out_proj",  # Mamba2 blocks (unfused: they take different inputs)
     "w_dq", "w_uq", "w_dkv",  # MLA projections
 }
 FQ_KEYS = {"w_uk", "w_uv"}  # MLA factors: float-kept, ternarized at use

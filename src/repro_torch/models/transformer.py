@@ -1,5 +1,6 @@
 """Decoder LM: init / prefill / decode with the tiered DR cache
-(reference: ``repro/models/transformer.py``, dense and moe families).
+(reference: ``repro/models/transformer.py``, the dense, moe, ssm and
+hybrid families).
 
 Parameters are a plain dict: ``embed``, ``final_ln``, ``lm_head`` (absent
 under ``cfg.tie_embeddings``, where the lm_head is ``embed.T``) and the
@@ -9,14 +10,32 @@ and scans them; here a Python loop walks the list):
   * moe: ``dense_blocks`` (the leading dense-FFN layers, ``{"attn",
     "mlp"}``; absent without any, as in mixtral) then ``moe_blocks``
     (``{"attn", "moe"}``); attention is MLA when ``cfg.attn_type ==
-    "mla"``, sliding-window GQA when it is ``"swa"``.
+    "mla"``, sliding-window GQA when it is ``"swa"``;
+  * ssm: ``blocks``, one Mamba2 block each (``models/ssm.py``);
+  * hybrid (zamba2): ``mamba_groups``, a list of groups of
+    ``hybrid_attn_every`` Mamba2 blocks (the reference stacks it twice),
+    ``mamba_tail`` (the blocks past the last whole group; absent without
+    any), ``shared``, ONE ``{"attn", "mlp"}`` block run after every group,
+    and ``shared_lora_v``, one v adapter per group, which takes the place
+    of the shared block's own ``lora_v`` at that group's invocation.
 The decode cache stacks the per-layer caches of each stack along a
 leading axis: ``{"attn": TieredKVCache}`` (dense, tiers (L, b, cap, g,
 hd), or a ``PagedKVCache`` with pools (L, n_pages, page_size, g, hd)) or
 ``{"attn_dense", "attn_moe"}`` (moe; ``attn_dense`` only with dense
 layers; under MLA the k-slot tiers are (L, b, cap, 576) latent rows and
 the v-slot is empty). Under SWA the cache has no hot tier and a ring cold
-tier of ``min(swa_window, max_len)`` rows, as in the reference.
+tier of ``min(swa_window, max_len)`` rows, as in the reference. The
+recurrent families keep ``ssm.SSMState``s with leading layer axes:
+``{"ssm": (L, b, ...)}`` (ssm), and ``{"mamba": (n_groups, every, b, ...),
+"attn": a TieredKVCache of the n_groups shared-block invocations, "tail":
+(n_tail, b, ...)}`` (hybrid). Their prefill is the reference's
+collect-state forward (its flash-prefill path admits only the
+attention-cache families): the Mamba2 blocks' chunked SSD scan and, for the
+shared block, ``attention.attention_full`` in plain PyTorch, whose rotated
+k / v fill the invocation's cache; decode runs the recurrent step, with
+the state of an inactive slot kept as it was, and kernel 2 for the shared
+block. As in the reference, a Mamba2 block's output REPLACES the hidden
+state: there is no residual around it.
 
 Speculative decoding (``serving/engine.py``) verifies a K-token chunk with
 ``spec_verify_chunk`` (the chunk step's layers over the no-append form of
@@ -36,6 +55,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import qops
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_mlp, dtype_const, init_mlp, rms_norm
 from repro_torch.models.pack import pack_params
 
@@ -52,7 +72,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     drawn, so no float copy of the stack exists (mixtral-8x22b's float
     attention projections alone take 20 GB); the result equals
     ``pack_params(init_params(...))``, draw for draw."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -69,11 +89,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     def done(block: dict) -> dict:
         return pack_params(block, cfg) if pack else block
 
+    def mamba(n):
+        return [done(ssm_lib.init_mamba_block(cfg, **kw)) for _ in range(n)]
+
     if cfg.family == "dense":
         params["blocks"] = [
             done({"attn": init_attn(cfg, **kw), "mlp": init_mlp(cfg, **kw)})
             for _ in range(cfg.n_layers)
         ]
+        return params
+    if cfg.family == "ssm":
+        params["blocks"] = mamba(cfg.n_layers)
+        return params
+    if cfg.family == "hybrid":
+        ng, nt = hybrid_groups(cfg)
+        params["mamba_groups"] = [mamba(cfg.hybrid_attn_every) for _ in range(ng)]
+        if nt:
+            params["mamba_tail"] = mamba(nt)
+        params["shared"] = done({"attn": init_attn(cfg, **kw), "mlp": init_mlp(cfg, **kw)})
+        if cfg.bitnet.lora_rank:
+            from repro_torch.core import lora as lora_lib
+
+            g, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+            params["shared_lora_v"] = [lora_lib.init(d, g * hd, cfg.bitnet.lora_rank, **kw)
+                                       for _ in range(ng)]
         return params
     nd = cfg.moe.n_dense_layers
     if nd:
@@ -89,9 +128,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     return params
 
 
+def hybrid_groups(cfg: ModelConfig):
+    """(whole groups, tail blocks) of a hybrid model's Mamba2 stack."""
+    ng = cfg.n_layers // cfg.hybrid_attn_every
+    return ng, cfg.n_layers - ng * cfg.hybrid_attn_every
+
+
 def layer_stacks(cfg: ModelConfig):
-    """(parameter stack, cache stack, layers) in the order the layers run;
-    a MoE model without dense layers has no dense stack."""
+    """(parameter stack, cache stack, layers) of the attention-cache
+    families, in the order the layers run; a MoE model without dense
+    layers has no dense stack."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the {cfg.family} family has no attention layer stack")
     if cfg.family == "dense":
         return (("blocks", "attn", cfg.n_layers),)
     nd = cfg.moe.n_dense_layers
@@ -145,7 +193,32 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     (``kv_cache.PagedKVCache``); a page id names the same pool page in
     every layer, so the engine keeps one host-side page account. The
     tiers are in ``dtype``, or fp8 (e4m3) under ``cfg.bitnet.kv_fp8``
-    whatever the layout (reference: ``init_decode_cache``)."""
+    whatever the layout; the recurrent families' zero states
+    (``ssm.init_mamba_state``) keep ``dtype`` (reference:
+    ``init_decode_cache``)."""
+
+    def attn(n):
+        return _attn_cache(cfg, batch, max_len, hot_cap, dtype, device, n, paged, page_size,
+                           n_pages)
+
+    def state(*lead):
+        return ssm_lib.init_mamba_state(batch, cfg, dtype, device, lead=lead)
+
+    if cfg.family == "ssm":
+        return {"ssm": state(cfg.n_layers)}
+    if cfg.family == "hybrid":
+        ng, nt = hybrid_groups(cfg)
+        out = {"mamba": state(ng, cfg.hybrid_attn_every), "attn": attn(ng)}
+        if nt:
+            out["tail"] = state(nt)
+        return out
+    return {cname: attn(n) for _, cname, n in layer_stacks(cfg)}
+
+
+def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, hot_cap: int, dtype, device,
+                n: int, paged: bool = False, page_size: int = 32,
+                n_pages: Optional[int] = None):
+    """One attention stack of ``n`` layers (``init_decode_cache``)."""
     if cfg.bitnet.kv_fp8:
         dtype = kvc.FP8
     hc = min(hot_cap, max_len)
@@ -157,13 +230,18 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
         if cfg.attn_type == "swa":
             raise NotImplementedError("a paged cold tier has no ring layout (SWA archs), "
                                       "as in the reference")
-        return {cname: kvc.init_paged_cache(batch, hc, cc, kshape, dtype,
-                                            page_size=page_size, n_pages=n_pages,
-                                            device=device, lead=(n,), v_shape=vshape)
-                for _, cname, n in layer_stacks(cfg)}
-    return {cname: kvc.init_cache(batch, hc, cc, kshape, dtype, device=device,
-                                  lead=(n,), v_shape=vshape)
-            for _, cname, n in layer_stacks(cfg)}
+        return kvc.init_paged_cache(batch, hc, cc, kshape, dtype, page_size=page_size,
+                                    n_pages=n_pages, device=device, lead=(n,),
+                                    v_shape=vshape)
+    return kvc.init_cache(batch, hc, cc, kshape, dtype, device=device, lead=(n,),
+                          v_shape=vshape)
+
+
+def batch_axis(cname: str) -> int:
+    """The batch axis of every tensor of the cache stack ``cname``: after
+    its leading layer axes, two for the hybrid family's grouped Mamba2
+    state, one elsewhere."""
+    return 2 if cname == "mamba" else 1
 
 
 def _attn_block_prefill(bp: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -197,23 +275,78 @@ def _attn_block_decode(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + apply_mlp(bp["mlp"], x[:, None, :], cfg)[:, 0]
 
 
+def _shared_block(params: dict, gi: int) -> dict:
+    """The hybrid family's shared block as group ``gi`` invokes it: with
+    that group's v adapter in place of its own ``lora_v``."""
+    sp = params["shared"]
+    if "shared_lora_v" in params:
+        sp = {"attn": {**sp["attn"], "lora_v": params["shared_lora_v"][gi]}, "mlp": sp["mlp"]}
+    return sp
+
+
+def _stack_states(states) -> ssm_lib.SSMState:
+    return ssm_lib.SSMState(*(torch.stack(f) for f in zip(*states)))
+
+
+def _recurrent_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, max_len: int,
+                       hot_cap: int):
+    """The ssm / hybrid prefill (reference: ``forward(collect_kv=True)``,
+    ``_hybrid_forward``, then ``prefill``'s fills): every Mamba2 block's
+    full-sequence scan with its final state; the hybrid's shared block
+    after each group through ``attention_full``, its rotated k / v placed
+    into the invocation's fresh cache. Returns (hidden, cache); the
+    states are the blocks' own (a prompt shorter than d_conv - 1 gives a
+    shorter conv state, as in the reference)."""
+
+    def blocks(x, stack):
+        states = []
+        for bp in stack:
+            x, st = ssm_lib.apply_mamba_full(bp, x, cfg, return_state=True)
+            states.append(st)
+        return x, _stack_states(states)
+
+    if cfg.family == "ssm":
+        x, st = blocks(x, params["blocks"])
+        return x, {"ssm": st}
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    cache = {"attn": _attn_cache(cfg, b, max_len, hot_cap, x.dtype, x.device,
+                                 len(params["mamba_groups"]))}
+    groups = []
+    for gi, group in enumerate(params["mamba_groups"]):
+        x, st = blocks(x, group)
+        groups.append(st)
+        sp = _shared_block(params, gi)
+        y, (k, v) = attn.attention_full(sp["attn"], x, cfg, positions, return_kv=True)
+        kvc.fill_fresh(kvc.layer(cache["attn"], gi), k, v)
+        x = _ffn(sp, x + y, cfg)
+    cache = {"mamba": _stack_states(groups), **cache}
+    if "mamba_tail" in params:
+        x, cache["tail"] = blocks(x, params["mamba_tail"])
+    return x, cache
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             hot_cap: int = DEFAULT_HOT_CAP, max_len: Optional[int] = None,
             logit_rows: Optional[int] = None):
     """Prompt (b, s) -> (last-token logits (b, V) f32, filled cache).
 
     The per-layer flash-prefill loop of the reference's ``_prefill_flash``:
-    each layer's attention fills its cache rows, then its MLP or MoE runs.
-    ``logit_rows``: the lm_head's row count (``_lm_logits``)."""
+    each layer's attention fills its cache rows, then its MLP or MoE runs;
+    the ssm and hybrid families run ``_recurrent_prefill``. ``logit_rows``:
+    the lm_head's row count (``_lm_logits``)."""
     b, s = tokens.shape
     if max_len is None:
         max_len = s + cfg.decode_headroom
     dtype = params["final_ln"].dtype
     x = _embed_tokens(params, cfg, tokens, dtype)
-    cache = init_decode_cache(cfg, b, max_len, hot_cap, dtype=dtype, device=x.device)
-    for pname, cname, _ in layer_stacks(cfg):
-        for i, bp in enumerate(params[pname]):
-            x = _attn_block_prefill(bp, x, cfg, kvc.layer(cache[cname], i))
+    if cfg.family in ("ssm", "hybrid"):
+        x, cache = _recurrent_prefill(params, cfg, x, max_len, hot_cap)
+    else:
+        cache = init_decode_cache(cfg, b, max_len, hot_cap, dtype=dtype, device=x.device)
+        for pname, cname, _ in layer_stacks(cfg):
+            for i, bp in enumerate(params[pname]):
+                x = _attn_block_prefill(bp, x, cfg, kvc.layer(cache[cname], i))
     x_last = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     return _lm_logits(params, cfg, x_last, logit_rows), cache
 
@@ -281,13 +414,39 @@ def spec_commit_chunk(cfg: ModelConfig, cache: dict, kvs: dict, n_commit: torch.
     return cache
 
 
+def _mamba_decode(params_stack, cfg: ModelConfig, x: torch.Tensor,
+                  state: ssm_lib.SSMState, active) -> torch.Tensor:
+    """One decode step through a stack of Mamba2 blocks; each block's new
+    state is written in place, where ``active`` (the state of an inactive
+    slot stays as it was: reference ``_mask_state``)."""
+    for i, bp in enumerate(params_stack):
+        old = kvc.layer(state, i)
+        x, new = ssm_lib.apply_mamba_decode(bp, x, cfg, old)
+        for o, n in zip(old, new):
+            if active is not None:
+                n = torch.where(active.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+            o.copy_(n)
+    return x
+
+
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
                 active: Optional[torch.Tensor] = None):
     """One token for every slot: tokens (b,) -> (logits (b, V) f32, cache).
-    ``active`` (b,) bool gates the KV appends per slot (in place)."""
+    ``active`` (b,) bool gates the KV appends and the recurrent state
+    updates per slot (in place)."""
     x = _embed_tokens(params, cfg, tokens, params["final_ln"].dtype)  # (b, d)
-    for pname, cname, _ in layer_stacks(cfg):
-        for i, bp in enumerate(params[pname]):
-            x = _attn_block_decode(bp, x, cfg, kvc.layer(cache[cname], i), active)
+    if cfg.family == "ssm":
+        x = _mamba_decode(params["blocks"], cfg, x, cache["ssm"], active)
+    elif cfg.family == "hybrid":
+        for gi, group in enumerate(params["mamba_groups"]):
+            x = _mamba_decode(group, cfg, x, kvc.layer(cache["mamba"], gi), active)
+            x = _attn_block_decode(_shared_block(params, gi), x, cfg,
+                                   kvc.layer(cache["attn"], gi), active)
+        if "tail" in cache:
+            x = _mamba_decode(params["mamba_tail"], cfg, x, cache["tail"], active)
+    else:
+        for pname, cname, _ in layer_stacks(cfg):
+            for i, bp in enumerate(params[pname]):
+                x = _attn_block_decode(bp, x, cfg, kvc.layer(cache[cname], i), active)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
     return _lm_logits(params, cfg, x), cache

@@ -31,6 +31,15 @@ ledger still charges the engine's ``hot_cap`` (``step_traffic_tokens``,
 reference's does, although the cache has no hot tier and the ring caps
 the reads at the window.
 
+The SSM family (mamba2-130m) and the hybrid family (zamba2-7b) keep
+recurrent state in their cache stacks (``models/transformer.py``):
+admission scatters a fresh SSM and conv state into the slot along each
+stack's batch axis (``T.batch_axis``), and a decode step leaves an
+inactive slot's state as it was. They admit grouped only, as in the
+reference: ``prefill_chunk > 0`` keeps grouped admission, ``paged=True``
+raises and speculation falls back with a ``RuntimeWarning``. An
+attention-free model keeps a token ledger at 0 bytes a token.
+
 With ``paged=True`` (chunked admission only) the cold tier is a pool of
 pages shared by the slots (``kv_cache.PagedKVCache``), accounted on the
 host by ``serving/paging.py``: each admission round matches every new
@@ -156,9 +165,12 @@ DEFAULT_PAGE_SIZE = TILE
 
 def _n_attn_layers(cfg: ModelConfig) -> int:
     """Layers that hold a KV cache (reference: ``analysis/roofline.py::
-    _n_attn_layers``). Every layer of the ported families (dense, MoE) has
-    attention; the reference's hybrid and attention-free branches have no
-    ported family yet."""
+    _n_attn_layers``): the shared block's invocations of a hybrid model,
+    none without attention, else every layer."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    if cfg.attn_type == "none":
+        return 0
     return cfg.n_layers
 # `generate` pads rows that stopped early with this sentinel (outside every
 # vocabulary, so a sampled stop token stays distinguishable from padding)
@@ -407,22 +419,25 @@ class Engine:
 
     def _chunked_capable(self) -> bool:
         """Chunked prefill needs a pure attention-token path: a dense / MoE
-        family with full or sliding-window GQA attention and no frontend
-        (reference: ``_chunked_capable``). The port builds only dense and
-        MoE models and no frontend, so of those clauses only the attention
-        type can fail here (MLA)."""
-        return self.cfg.attn_type in ("full", "swa")
+        family (no recurrent SSM state to stream) with full or
+        sliding-window GQA attention and no frontend (reference:
+        ``_chunked_capable``; the port has no frontend). Elsewhere
+        ``prefill_chunk > 0`` admits grouped."""
+        return self.cfg.family in ("dense", "moe") and self.cfg.attn_type in ("full", "swa")
 
     # ------------------------------------------------------------------
     def _kv_token_bytes(self) -> int:
         """Ledger bytes per token, at 2 bytes a value, over the attention
         layers: GQA caches k and v of every kv head; MLA one latent row
-        (kv_lora_rank + rope dims). The reference's rule charges 2 bytes a
-        value whatever ``kv_fp8`` says (``Engine._kv_token_bytes``), so
-        fp8 tiers leave the ledger as it is."""
+        (kv_lora_rank + rope dims); an attention-free model nothing. The
+        reference's rule charges 2 bytes a value whatever ``kv_fp8`` says
+        (``Engine._kv_token_bytes``), so fp8 tiers leave the ledger as it
+        is."""
         cfg = self.cfg
         if cfg.attn_type == "mla":
             per_layer = cfg.mla.kv_cache_dim * 2
+        elif cfg.attn_type == "none":
+            per_layer = 0
         else:
             per_layer = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
         return per_layer * _n_attn_layers(cfg)
@@ -499,7 +514,10 @@ class Engine:
 
     def _admit(self, state: DecodeState, slots_idx: List[int], group: List[Request]) -> None:
         """Prefill ``group`` (equal prompt lengths), scatter the fresh cache
-        rows into ``slots_idx`` and sample the first tokens."""
+        rows into ``slots_idx`` along every tensor's batch axis (reference:
+        ``_scatter_cache``; a recurrent family's SSM and conv states too, so
+        a slot's next tenant starts from its own prompt's state) and sample
+        the first tokens."""
         toks = torch.as_tensor(np.stack([np.asarray(r.tokens, np.int32) for r in group]),
                                device=self.device)
         # the lm_head at the slot count, as in the chunk and decode steps
@@ -507,8 +525,12 @@ class Engine:
                                   max_len=self.max_len, logit_rows=state.tok.shape[0])
         idx = torch.as_tensor(slots_idx, dtype=torch.long, device=self.device)
         for name, stack in state.cache.items():
+            ax = T.batch_axis(name)
             for live, new in zip(stack, fresh[name]):
-                kv_cache.raw(live)[:, idx] = kv_cache.raw(new)  # one tier dtype
+                # one tier dtype; a conv state shorter than the slot's (a
+                # prompt under d_conv - 1 tokens) broadcasts over its rows,
+                # as the reference's scatter does
+                kv_cache.raw(live).movedim(ax, 0)[idx] = kv_cache.raw(new).movedim(ax, 0)
         max_new = torch.as_tensor([r.max_new_tokens for r in group], dtype=torch.int32,
                                   device=self.device)
         state.tok[idx] = self._sample_fn(logits)

@@ -373,6 +373,47 @@ def test_mla_prefill_and_decode_match_reference(jref, impl):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def test_mla_prefill_and_decode_with_lora_match_reference(jref):
+    """MLA with adapters (lora_rank 4 on both sides): ``lora_v`` on the
+    w_uv values, ``lora_o`` on wo, both with seeded non-zero B factors (the
+    init's zeros would leave them untested); a layer's prefill and two
+    decode steps with an inactive slot, against the reference's XLA path."""
+    jcfg = jref.configs.get_smoke_config(NAME)
+    jcfg = dataclasses.replace(jcfg, bitnet=dataclasses.replace(jcfg.bitnet, lora_rank=4))
+    cfg = get_smoke_config(NAME)
+    cfg = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, lora_rank=4))
+    jp = jref.attn.init_mla(jref.jax.random.PRNGKey(2), jcfg)
+    rng = np.random.default_rng(4)
+    for key in ("lora_v", "lora_o"):
+        b = rng.normal(0.0, 0.05, jp[key]["b"].shape).astype(np.float32)
+        jp[key] = {"a": jp[key]["a"], "b": jref.jnp.asarray(b)}
+    jp = jref.pack.pack_params({"attn": jp}, jcfg)["attn"]
+    tp = interop.from_reference(numpy_tree(jref, jp))
+    assert tp["lora_v"]["b"].abs().sum() > 0 and tp["lora_o"]["b"].abs().sum() > 0
+    b, s, hot, cold = 3, 6, 4, 12
+    x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    jc = jref.kvc.init_cache(b, hot, cold, (cfg.mla.kv_cache_dim,), jref.jnp.float32)
+    jc = jc._replace(hot_v=jref.jnp.zeros((b, hot, 0)), cold_v=jref.jnp.zeros((b, cold, 0)))
+    jy, jc = jref.attn.mla_prefill(jp, jref.jnp.asarray(x), jcfg, "packed", jc)
+    cache = kvc.init_cache(b, hot, cold, (cfg.mla.kv_cache_dim,), v_shape=(0,))
+    ty, _ = attn.mla_prefill(tp, torch.from_numpy(x), cfg, cache)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **LAYER_TOL)
+    no_lora = attn.mla_prefill(tp, torch.from_numpy(x), dataclasses.replace(
+        cfg, bitnet=dataclasses.replace(cfg.bitnet, lora_rank=0)),
+        kvc.init_cache(b, hot, cold, (cfg.mla.kv_cache_dim,), v_shape=(0,)))[0]
+    assert not np.allclose(no_lora.numpy(), np.asarray(jy), rtol=1e-3, atol=1e-3)
+    active = np.asarray([True, False, True])
+    for _ in range(2):
+        xd = rng.standard_normal((b, cfg.d_model)).astype(np.float32)
+        jy, jc = jref.attn.mla_decode(jp, jref.jnp.asarray(xd), jcfg, "packed", jc,
+                                      active=jref.jnp.asarray(active))
+        ty, _ = attn.mla_decode(tp, torch.from_numpy(xd), cfg, cache,
+                                active=torch.from_numpy(active))
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **LAYER_TOL)
+        for got, want in zip(cache, jc):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_a4_latent_factors_bit_identical_on_reference_c_kv(jref, seed):
     """At act_bits=4 the reference's own latent ``c_kv`` (its rms_norm,

@@ -5,7 +5,9 @@ Prints one line ``RESULT <tag> {form: device ms}`` for the fused and
 post-append GQA decode forms (contiguous and paged, f32 and fp8 tiers) at
 ``chip_smoke.py``'s timed case (falcon3-1b's heads, b 6, length 80) and
 the ring form of the fused decode (A1d, f32 and fp8 tiers) at its ring
-case (mixtral-8x22b's heads, b 4, a wrapped 4096-row ring), after building
+case (mixtral-8x22b's heads, b 4, a wrapped 4096-row ring) and, in a
+checkout that has it, the fused form at d 112 (zamba2-7b's heads, b 6,
+length 111), after building
 the kernels from this checkout and checking each form against its plain
 version (``chip_smoke.py``'s phases of the checkout it runs in). Before
 that it prints ``SASS <tag> {kernel: digest}``, a digest of each decode
@@ -76,6 +78,9 @@ def main() -> int:
     swa_theta = get_config("mixtral-8x22b").rope_theta
     out["ring"] = cs.ring_decode_phase(torch, gen, swa_theta, smi)["ms"]
     out["fp8 ring"] = cs.fp8_decode_phase(torch, gen, swa_theta, smi, "ring")["ms"]
+    if hasattr(cs, "d112_timing"):  # the fused form at zamba2-7b's heads, where it has one
+        out["fused d112"] = cs.d112_timing(torch, gen, get_config("zamba2-7b").rope_theta, 111,
+                                           smi)["ms"]
     print("RESULT", tag, {k: round(v, 5) for k, v in out.items()}, "on", smi, flush=True)
     return 0
 
