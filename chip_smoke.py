@@ -128,7 +128,7 @@
    eight requests of 40-104 prompt tokens + 64): the default pool, then a
    6-page pool with the invariant checker after every iteration (19
    preemptions with recompute-from-prefix): tokens equal on 8/8 requests,
-   the counters the reference engine gives the same geometry; at 2 layers
+   the counters the reference engine gives the same geometry; at 1 layer
    the pressured serve against its plain run, a priority request
    preempting a weaker one, deadlines expiring a queued and an active
    request, cancels mid-decode and mid-prefill, a bounded queue shedding,
@@ -140,7 +140,7 @@
    with spec_force="reject", each equal to the non-speculative serve on
    6/6, 18 chunk launches per round and 4 x K draft decodes; the paged
    requests with the invariant checker (check 7) every iteration, 8/8;
-   at 2 layers the overload requests on 6 pages, 8/8 against the
+   at 1 layer the overload requests on 6 pages, 8/8 against the
    unpressured speculative and the non-speculative serves, and over fp8
    tiers the speculative serve equal to its plain run; acceptance rates, tokens/s against the
    non-speculative serve and a verify's device ms against K decode
@@ -176,7 +176,7 @@
    generate.
 5. The dense families at full width, from seed 0, packed layer by layer,
    each serving 6 prompts x (32 + 32) tokens (hot_cap=32, max_len=128, 6
-   slots) after a warm-up: qwen3-32b at full depth (64 layers, qk-norm,
+   slots) after a warm-up: qwen3-32b cut to 16 of its 64 layers (qk-norm,
    64 / 8 heads of 128: rep 8, h * hd = 8192 against d_model 5120, d_ff
    25600), gemma-7b at full depth (28 layers, GeGLU, MHA 16 x 256, tied
    embeddings scaled by sqrt(3072), vocab 256000) and deepseek-coder-33b
@@ -204,7 +204,26 @@
    of prompts 96 / 64 / 33 / 17 / 5 / 3 equal to its plain run, and each
    request served alone against the batched serve, printed. zamba2-7b: a
    traced 6 x (96 + 8) generate.
-7. mixtral-8x22b at full width and depth (56 layers, 8 experts top-2,
+7. The frontend families at full width and depth, from seed 0, packed
+   layer by layer: llava-next-34b (60 layers, GQA rep 7 behind a
+   two-layer projector of 1024-wide image-patch features) serving 6
+   requests of 576 seeded patch rows + 32 text tokens + 32 new (hot_cap
+   32, max_len 640: S = 640) after a warm-up: memory and tokens/s,
+   launches per decode step and admission exactly (ternary 240, kernel 2
+   60 / 0, kernel 3 0 / 60 at s 608, rms_norm 121, no LoRA), the ledger
+   at the closed form, no weight reloaded; at 2 layers the kernel run's
+   tokens equal to the plain run's and each request served alone against
+   the batched serve, printed; a traced 6 x (576 + 32 + 8) generate.
+   hubert-xlarge (48 layers, encoder-only, bidirectional MHA 16 x 80, the
+   non-gated GELU MLP): the packed forward over 6 x 512 seeded frames of
+   512, its launches (ternary 192, rms_norm 97, no attention kernel), its
+   logits' argmax equal to the plain run's on every frame at full depth
+   (the largest difference printed), and Engine.generate refused with a
+   ValueError naming the audio family. The kernel phases hold kernel 1 at
+   llava's admission (M 3648: wqkv, wo, gate‖up, down at K 20480) and
+   kernel 3's fresh form at s 608, h 56, g 8 bit for bit, timed beside
+   torch._int_mm and causal SDPA.
+8. mixtral-8x22b at full width and depth (56 layers, 8 experts top-2,
    sliding window 4096 over a ring cold tier, the published capacity
    1.25), drawn from seed 0 and packed layer by layer, served over 4 slots
    (max_len 4352): prompts of 1000 and 3000 tokens inside the window,
@@ -212,7 +231,7 @@
    by grouped admission (window prefill, ring realign): 56 ring decode
    launches per step, one window prefill per layer per admission, ledgers
    at the reference's rule, no weight reloaded; a traced decode; dropless
-   (capacity E / k) at the depth cut to 16 layers, grouped and by chunk
+   (capacity E / k) at the depth cut to 8 layers, grouped and by chunk
    waves of 256 (the ring continuation, one ring-chunk prefill per layer
    per wave): tokens equal on every request; at that cut, speculative
    decoding over the ring (K 4, the derived draft make_draft_config from
@@ -228,7 +247,7 @@
    request served alone equals the batched serve and the kernel run
    equals its plain run, and over fp8 tiers grouped and chunked admission
    each equal their plain runs.
-8. Prints {"kernels": [...]} (each form's launches on its own path and on
+9. Prints {"kernels": [...]} (each form's launches on its own path and on
    every path that counted it) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero. Run from the
@@ -508,10 +527,49 @@ def kernel1_phase(torch, gen):
               f"{fmt(int_mm_ms(torch, act_quant(x).xq, p, k))}, bound "
               f"{bound_ms(nb, 2 * 192 * k * n, INT8_OPS)[0]:.5f} ms")
     worst = max(worst, mixtral_2d(torch, gen))
+    llava, worst_llava = kernel1_llava(torch, gen)
     return dict(name="ternary_matmul_actq", route="cuda",
                 source="src/repro_torch/csrc/ternary_matmul.cu",
-                replaces="src/repro/kernels/ternary_matmul.py:381", max_abs_err=worst,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                replaces="src/repro/kernels/ternary_matmul.py:381",
+                max_abs_err=max(worst, worst_llava), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, llava_admission=llava)
+
+
+# llava-next-34b's packed projections (K, N): wqkv, wo, gate‖up, down; its
+# admission runs them at M = 6 x (576 + 32) = 3648
+LLAVA_SHAPES = ((7168, 9216), (7168, 7168), (7168, 40960), (20480, 7168))
+LLAVA_M = 3648
+
+
+def kernel1_llava(torch, gen):
+    """Kernel 1 at llava-next-34b's admission (M 3648, f32, pack2): each
+    projection bit-identical to plain (down at K 20480, where the plain
+    float32 product is still exact), timed beside ``torch._int_mm`` and its
+    bound (operations)."""
+    from repro_torch.core.ternary import act_quant
+    from repro_torch.kernels import ternary_matmul as tm
+
+    worst, rows = 0.0, {}
+    for k, n in LLAVA_SHAPES:
+        x, (p,), col = projection_operands(torch, gen, LLAVA_M, k, n)
+        got = tm.ternary_matmul_actq(x, p, col, k=k)
+        ref = tm.ternary_matmul_actq_plain(x, p, col, k)
+        torch.cuda.synchronize()
+        worst = max(worst, max_err(got, ref))
+        check(torch.equal(got, ref), f"ternary_matmul_actq not bit-identical at llava's "
+                                     f"admission: M={LLAVA_M} K={k} N={n}")
+        del got, ref
+        t = device_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k), only=TERNARY, iters=5)
+        t = time_ms(lambda: tm.ternary_matmul_actq(x, p, col, k=k), iters=5) if t is None else t
+        lib = int_mm_ms(torch, act_quant(x).xq, p, k)
+        nb = LLAVA_M * k * 4 + k // 4 * n + n * 4 + LLAVA_M * n * 4
+        b_ms, b_by = bound_ms(nb, 2 * LLAVA_M * k * n, INT8_OPS)
+        print(f"ternary_matmul_actq at llava's admission M={LLAVA_M} K={k} N={n}: bit-identical "
+              f"to plain; kernel {t:.5f} ms, torch._int_mm {fmt(lib)}, bound {b_ms:.5f} ms "
+              f"({b_by})")
+        rows[f"{k}x{n}"] = dict(ms=t, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        del x, p
+    return rows, worst
 
 
 def mixtral_2d(torch, gen):
@@ -759,13 +817,60 @@ def kernel3_phase(torch, gen, theta):
               f"{plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms "
               f"({n_bytes} B / 3.35 TB/s; {b_by})")
         out[s] = (ms, plain_ms, library_ms, b_ms, b_by)
+    llava, worst_llava = kernel3_llava(torch, gen)
     ms, plain_ms, library_ms, b_ms, b_by = out[32]
     return dict(name="flash_prefill_fresh", route="cuda",
                 source="src/repro_torch/csrc/flash_prefill.cuh",
-                replaces="src/repro/kernels/flash_prefill.py:258", max_abs_err=worst,
+                replaces="src/repro/kernels/flash_prefill.py:258",
+                max_abs_err=max(worst, worst_llava),
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 s128={"ms": out[128][0], "plain_ms": out[128][1], "library_ms": out[128][2],
-                      "bound_ms": out[128][3]})
+                      "bound_ms": out[128][3]}, llava=llava)
+
+
+VLM_PREFILL = (6, 608, 56, 8, 128)  # llava-next-34b's admission: (b, s = 576 + 32, h, g, d)
+
+
+def kernel3_llava(torch, gen):
+    """Kernel 3's fresh form at llava-next-34b's admission (b 6, s 608, h
+    56, g 8: rep 7, d 128, f32, its theta): o and the emitted k / v
+    bit-identical to plain (valid s, s - 5, 1 and 0 too), timed beside
+    causal SDPA and its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_prefill as fp
+
+    theta = get_config("llava-next-34b").rope_theta
+    b, s, h, g, d = VLM_PREFILL
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda")
+    k = torch.randn((b, s, g, d), generator=gen, device="cuda")
+    v = torch.randn((b, s, g, d), generator=gen, device="cuda")
+    valid = torch.tensor([s, s - 5, 0, s, 1, s], dtype=torch.int32, device="cuda")
+    got = fp.flash_prefill_attention(q, k, v, valid=valid, rope_theta=theta)
+    ref = fp.flash_prefill_attention(q, k, v, valid=valid, rope_theta=theta, impl="plain")
+    torch.cuda.synchronize()
+    worst = max_err(got[0], ref[0])
+    for name, a, b_ in zip(("o", "k_cast", "v_cast"), got, ref):
+        check(torch.equal(a, b_), f"flash_prefill {name} not bit-identical to plain at "
+                                  f"llava's admission: {max_err(a, b_)}")
+    ms, _ = timed("kernel, llava admission", lambda: fp.flash_prefill_attention(
+        q, k, v, rope_theta=theta), only="prefill_kernel")
+    plain_ms, _ = timed("plain, llava admission", lambda: fp.flash_prefill_attention(
+        q, k, v, rope_theta=theta, impl="plain"), iters=3)
+    qh = q.permute(0, 2, 1, 3).contiguous()
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(h // g, dim=1).contiguous()
+    library_ms, _ = timed("causal SDPA, llava admission",
+                          lambda: torch.nn.functional.scaled_dot_product_attention(
+                              qh, kh, vh, is_causal=True))
+    n_bytes = 4 * (2 * b * s * h * d + 4 * b * s * g * d) + 4 * b
+    ops = 4 * b * h * d * s * (s + 1) // 2
+    b_ms, b_by = bound_ms(n_bytes, ops, F32_FLOPS)
+    print(f"flash_prefill at llava-next-34b's admission (b=6, s=608, h=56, g=8, d=128, f32): "
+          f"bit-identical to plain (valid s / s-5 / 0 / 1); kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, causal SDPA {library_ms:.5f} ms, bound {b_ms:.6f} ms ({ops} FLOP "
+          f"/ 67 TFLOP/s, {n_bytes} B / 3.35 TB/s; {b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by), worst
 
 
 # ---------------------------------------------------------------------------
@@ -3859,7 +3964,9 @@ OVERLOAD_LENGTHS = (40, 56, 72, 88, 104, 64, 48, 96)
 # they hold for any weights and prompts; tests/test_torch_overload.py
 # holds the port's control plane against the reference engine's.
 OVERLOAD_WANT = {None: (0, 0, 16, 16, [0] * 8), 6: (19, 1256, 16, 38, [0, 0, 3, 2, 1, 7, 4, 2])}
-OVERLOAD_CUT = 2  # the depth of the overload phase's checks past (a) and (b)
+# the depth of the overload phase's checks past (a) and (b): 1 since the
+# frontend families phase (2 before; the run's time)
+OVERLOAD_CUT = 1
 
 
 def overload_requests(vocab):
@@ -4834,6 +4941,9 @@ DENSE_KW = dict(hot_cap=32, max_len=128, slots=6)
 DENSE_NEW = 32  # 6 x (32 + 32): rows 33-64 come from the cold tier
 DENSE_PLAIN_CUT = 2  # the depth of each model's plain comparison
 QWEN_CHUNK_CUT = 4  # the depth of qwen3-32b's chunked-against-grouped check
+# qwen3-32b's served depth: 64 -> 16 since the frontend families phase (the
+# run's time; llava-next-34b serves a full-depth dense GQA model of its size)
+QWEN_DEPTH = 16
 CODER_DEPTH = 8  # deepseek-coder-33b served at full width, depth 62 -> 8
 
 
@@ -4910,8 +5020,8 @@ def dense_model_run(torch, cfg, label, smi):
 
 
 def dense_families_phase(torch, smi):
-    """The dense families at full width on the card: qwen3-32b at full
-    depth (64 layers; chunked admission at QWEN_CHUNK_CUT layers against
+    """The dense families at full width on the card: qwen3-32b at
+    QWEN_DEPTH layers (chunked admission at QWEN_CHUNK_CUT layers against
     grouped; a traced generate), gemma-7b at full depth (28 layers),
     deepseek-coder-33b at CODER_DEPTH layers (a paged serve, page size 32,
     against the contiguous one: kernel 2's paged form at rep 7). Returns
@@ -4929,10 +5039,10 @@ def dense_families_phase(torch, smi):
     paths, tok_s = {}, {}
 
     t0 = time.perf_counter()
-    cfg = get_config("qwen3-32b")
-    eng, params, prompts, tokens, launches, tok_s["qwen3-32b"] = dense_model_run(
-        torch, cfg, "qwen3-32b", smi)
-    paths["qwen3-32b"] = launches
+    qwen = f"qwen3-32b-l{QWEN_DEPTH}"
+    cfg = dataclasses.replace(get_config("qwen3-32b"), name=qwen, n_layers=QWEN_DEPTH)
+    eng, params, prompts, tokens, launches, tok_s[qwen] = dense_model_run(torch, cfg, qwen, smi)
+    paths[qwen] = launches
     c4, p4 = dense_depth_cut(cfg, params, QWEN_CHUNK_CUT)
     chunk_kernels = [tm.KERNEL, fd.KERNEL, fp.KERNEL, fp.CHUNK_KERNEL, krms.KERNEL]
     grouped = Engine(c4, p4, **DENSE_KW).generate(prompts, max_new_tokens=DENSE_NEW)
@@ -5200,6 +5310,185 @@ def ssm_families_phase(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# the frontend families: llava-next-34b (vision), hubert-xlarge (audio)
+# ---------------------------------------------------------------------------
+
+VLM_KW = dict(hot_cap=32, max_len=640, slots=6)
+VLM_TEXT, VLM_NEW = 32, 32  # 6 x (576 patches + 32 text + 32 new): S = 640
+VLM_PLAIN_CUT = 2  # the depth of llava-next-34b's plain and alone-vs-batched checks
+AUDIO_FRAMES = 512  # hubert-xlarge: 6 utterances of 512 frames (about 10 s of 16 kHz audio)
+
+
+def vlm_model_run(torch, smi):
+    """llava-next-34b at full width and depth (60 layers) from seed-0
+    weights packed layer by layer: 6 requests of 576 seeded patch rows of
+    1024 ahead of 32 text tokens, then VLM_NEW new tokens, after a
+    warm-up; memory, launches per decode step and admission, the ledger at
+    S = 640, ``weight_loads``; at VLM_PLAIN_CUT layers the kernel run
+    against the plain run and each request served alone against the
+    batched serve (printed); a traced generate. Returns (launches, tokens/s)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine
+
+    label = "llava-next-34b"
+    cfg = get_config(label)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda", pack=True)
+    torch.cuda.synchronize()
+    print(f"{label}: init + pack {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, init peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, frontend "
+          f"{cfg.frontend} {cfg.n_patches} x {cfg.frontend_dim}) on {smi}")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (6, VLM_TEXT)).astype(np.int32)
+    patches = rng.standard_normal((6, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+    kernels = [tm.KERNEL, fd.KERNEL, fp.KERNEL, kl.KERNEL, krms.KERNEL]
+    eng = Engine(cfg, params, **VLM_KW)
+    t0 = time.perf_counter()
+    eng.generate(prompts[:, :8], max_new_tokens=2, patches=patches)  # warm-up
+    torch.cuda.synchronize()
+    print(f"{label} warm-up generate 6 x ({cfg.n_patches} + 8 + 2): "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted(kernels, lambda: eng.generate(
+        prompts, max_new_tokens=VLM_NEW, patches=patches))
+    tok_s = 6 * VLM_NEW / wall
+    p_len = cfg.n_patches + VLM_TEXT
+    print(f"{label} generate 6 x ({cfg.n_patches} + {VLM_TEXT} + {VLM_NEW}): {wall:.3f} s, "
+          f"{tok_s:.1f} tokens/s, launches {launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_served(res, cfg, eng, p_len + VLM_NEW, label, prompt_len=p_len)
+    n, steps = cfg.n_layers, VLM_NEW
+    want = {tm.KERNEL.symbol: 4 * n * (steps + 1), fd.KERNEL.symbol: n * steps,
+            fp.KERNEL.symbol: n, kl.KERNEL.symbol: 0,
+            krms.KERNEL.symbol: (2 * n + 1) * (steps + 1)}
+    check(launches == want, f"{label}: launches {launches} != {want}")
+    print(f"{label} launches per decode step / admission: ternary {4 * n} / {4 * n}, "
+          f"flash_decode_gqa_fused {n} / 0, flash_prefill_fresh 0 / {n} (s {p_len}), rms_norm "
+          f"{2 * n + 1} / {2 * n + 1}, lora_delta 0 / 0 (as checked)")
+    cut = VLM_PLAIN_CUT
+    c_cut, p_cut = dense_depth_cut(cfg, params, cut)
+    plain = dataclasses.replace(c_cut, bitnet=dataclasses.replace(c_cut.bitnet, impl="plain"))
+    t0 = time.perf_counter()
+    tok_k, tok_p = (Engine(c, p_cut, **VLM_KW).generate(
+        prompts, max_new_tokens=VLM_NEW, patches=patches).tokens.numpy() for c in (c_cut, plain))
+    same = int((tok_k == tok_p).all(axis=1).sum())
+    print(f"{label} kernel and plain runs at {cut} layers: {time.perf_counter() - t0:.2f} s; "
+          f"greedy tokens equal on {same}/6 rows")
+    check(same == 6, f"{label}: greedy tokens at {cut} layers differ from the plain run "
+                     f"({same}/6 rows equal)")
+    # the frontend's float products are cuBLAS GEMMs at M = rows x 576, whose
+    # row values may change with M (ROADMAP fault 3): printed, no limit
+    alone_eng = Engine(c_cut, p_cut, **VLM_KW)
+    alone = [bool((alone_eng.generate(prompts[i:i + 1], max_new_tokens=VLM_NEW,
+                                      patches=patches[i:i + 1]).tokens.numpy()[0]
+                   == tok_k[i]).all()) for i in range(6)]
+    print(f"{label} at {cut} layers, each request served alone against the batched serve: "
+          f"equal {alone} ({sum(alone)}/6)")
+    breakdown(torch, eng, prompts, label=label, new=8, patches=patches)
+    del eng, alone_eng, params, p_cut
+    return launches, tok_s
+
+
+def audio_model_run(torch, smi):
+    """hubert-xlarge at full width and depth (48 layers): the packed
+    ``forward`` over 6 x AUDIO_FRAMES seeded frames of 512, its launches,
+    its logits against the plain run's at full depth (argmax equal on every
+    frame, the largest difference printed), and the engine's refusal.
+    Returns the forward's launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lora as kl
+    from repro_torch.kernels import rms_norm as krms
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine
+
+    label = "hubert-xlarge"
+    cfg = get_config(label)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda", pack=True)
+    torch.cuda.synchronize()
+    print(f"{label}: init + pack {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff} {cfg.activation}, encoder {cfg.is_encoder}, frontend "
+          f"{cfg.frontend} {cfg.frontend_dim}) on {smi}")
+    frames = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (6, AUDIO_FRAMES, cfg.frontend_dim)).astype(np.float32),
+        device=params["final_ln"].device)
+    kernels = [tm.KERNEL, fd.KERNEL, fp.KERNEL, kl.KERNEL, krms.KERNEL]
+    with torch.inference_mode():
+        T.forward(params, cfg, {"frames": frames})  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        logits, launches, wall = counted(kernels, lambda: T.forward(params, cfg,
+                                                                    {"frames": frames}))
+        plain = dataclasses.replace(cfg, bitnet=dataclasses.replace(cfg.bitnet, impl="plain"))
+        t0 = time.perf_counter()
+        ref = T.forward(params, plain, {"frames": frames})
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    n = cfg.n_layers
+    print(f"{label} forward 6 x {AUDIO_FRAMES} frames: {wall:.3f} s "
+          f"({6 * AUDIO_FRAMES / wall:.0f} frames/s), plain run {plain_wall:.3f} s, launches "
+          f"{launches}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = {tm.KERNEL.symbol: 4 * n, fd.KERNEL.symbol: 0, fp.KERNEL.symbol: 0,
+            kl.KERNEL.symbol: 0, krms.KERNEL.symbol: 2 * n + 1}
+    check(launches == want, f"{label}: launches {launches} != {want}")
+    check(tuple(logits.shape) == (6, AUDIO_FRAMES, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{label}: logits {tuple(logits.shape)}")
+    same = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+    print(f"{label} logits against the plain run at full depth: argmax equal on {same} / "
+          f"{6 * AUDIO_FRAMES} frames, largest absolute difference {max_err(logits, ref)!r}")
+    check(same == 6 * AUDIO_FRAMES, f"{label}: argmax differs from the plain run on "
+                                    f"{6 * AUDIO_FRAMES - same} frames")
+    eng = Engine(cfg, params, **VLM_KW)
+    try:
+        eng.generate(np.zeros((6, 8), np.int32), max_new_tokens=4)
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    check(refused is not None and "audio" in refused,
+          f"{label}: the engine did not refuse the encoder ({refused!r})")
+    print(f"{label}: Engine.generate refused with ValueError({refused!r})")
+    del eng, params, logits, ref
+    return launches
+
+
+def frontend_families_phase(torch, smi):
+    """llava-next-34b and hubert-xlarge at full width and depth on the card
+    (the module docstring, item 7). Returns (launches by path, tokens/s by
+    path)."""
+    paths, tok_s = {}, {}
+    t0 = time.perf_counter()
+    paths["llava-next-34b"], tok_s["llava-next-34b"] = vlm_model_run(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[llava-next-34b: {time.perf_counter() - t0:.2f} s]")
+    t0 = time.perf_counter()
+    paths["hubert-xlarge forward"] = audio_model_run(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[hubert-xlarge: {time.perf_counter() - t0:.2f} s]")
+    return paths, tok_s
+
+
+# ---------------------------------------------------------------------------
 # mixtral-8x22b: sliding-window attention over the ring, MoE top-2 of 8
 # ---------------------------------------------------------------------------
 
@@ -5207,6 +5496,9 @@ def ssm_families_phase(torch, smi):
 # during decode (at its 47th token), one longer than it at admission
 MIXTRAL_SPECS = ((1000, 48), (3000, 64), (4050, 64), (4200, 32))
 MIXTRAL_KW = dict(hot_cap=32, max_len=4352, slots=4)
+# the depth of mixtral-8x22b's dropless, chunked and speculative serves: 8
+# since the frontend families phase (16 before; the run's time)
+MIXTRAL_CUT = 8
 MIXTRAL_SHAPES = {2: set(MIXTRAL_2D), 3: set(MIXTRAL_EXPERT)}
 
 
@@ -5398,7 +5690,7 @@ def check_spec_requests(fin, eng, rounds, specs, label):
 
 def mixtral_speculative(torch, cfg, packed, reqs, base, kernels, smi):
     """Speculative decoding over the sliding-window ring, at the dropless
-    cut ``cfg`` (16 layers, capacity E / k) of mixtral-8x22b: the draft is
+    cut ``cfg`` (MIXTRAL_CUT layers, capacity E / k) of mixtral-8x22b: the draft is
     ``make_draft_config(cfg)`` (2 dense layers, d_model 64, 4 / 4 heads of
     16, the 32768 vocabulary, tied) from seed 7; K = SPEC_K, chunked
     admission (``prefill_chunk`` 256). Three mixes over MIXTRAL_SPECS, each
@@ -5543,7 +5835,7 @@ def mixtral_phase(torch, smi):
     the path, one ring decode and one router launch per layer per step,
     ledgers, a traced decode. Dropless (capacity factor E / k, every expert
     takes every token, so a token's output does not depend on the tokens
-    batched with it), at the depth cut to 16 layers: grouped and chunked
+    batched with it), at the depth cut to MIXTRAL_CUT layers: grouped and chunked
     admission (prefill_chunk 256: the chunked ring form), tokens equal on
     every request, and served speculatively (``mixtral_speculative``). At
     the depth cut to 2 layers: the published run equal to its plain run
@@ -5646,10 +5938,10 @@ def mixtral_phase(torch, smi):
           f"{same8}/{len(fin8)} requests (printed, not checked) on {smi}")
     del eng8
 
-    # dropless: grouped against chunked admission, at the depth cut to 16
-    # layers (the run's time; the first 16 layers' weights, full width)
-    L16 = 16
-    cfg_d = dataclasses.replace(cfg_d, name="mixtral-8x22b-l16", n_layers=L16)
+    # dropless: grouped against chunked admission, at the depth cut to
+    # MIXTRAL_CUT layers (the run's time; the first layers' weights, full width)
+    L16 = MIXTRAL_CUT
+    cfg_d = dataclasses.replace(cfg_d, name=f"mixtral-8x22b-l{L16}", n_layers=L16)
     packed16 = dict(packed, moe_blocks=packed["moe_blocks"][:L16])
     torch.cuda.reset_peak_memory_stats()
     eng_d = Engine(cfg_d, packed16, **MIXTRAL_KW)
@@ -5735,11 +6027,12 @@ def mixtral_phase(torch, smi):
           f"on {smi}")
     del eng, eng2, eng_8, packed, packed2
     torch.cuda.empty_cache()
-    return {label: launches, f"{label} chunked (16 layers)": launches_c, f"{label} fp8": launches8,
+    cut = f"({L16} layers)"
+    return {label: launches, f"{label} chunked {cut}": launches_c, f"{label} fp8": launches8,
             f"{label} fp8 chunked (2 layers)": launches8_c,
-            f"{label} speculative (16 layers)": launches_s}, {
-        label: tok_s, f"{label} dropless (16 layers)": n_new / wall_d,
-        f"{label} chunked (16 layers)": n_new / wall_c, f"{label} fp8": n_new / wall8}
+            f"{label} speculative {cut}": launches_s}, {
+        label: tok_s, f"{label} dropless {cut}": n_new / wall_d,
+        f"{label} chunked {cut}": n_new / wall_c, f"{label} fp8": n_new / wall8}
 
 
 def decode_glue_per_step(torch, cfg, kw, theta):
@@ -5844,17 +6137,17 @@ def pack243_run(torch, cfg, prompts, kw, kernels, want):
     return launches, 6 * 32 / wall
 
 
-def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None):
+def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None, patches=None):
     """Where a generate's time goes: device busy share, the kernels that
     take the most device time and the ternary matmul kernels' sum (beside
     ``before``, an earlier run's figure, when given), from a torch.profiler
     trace of one 6 x (prompt + new) generate (admission plus ``new``
-    decode steps)."""
+    decode steps; a vision model's ``patches`` ahead of each prompt)."""
     timing = {}
 
     def run():
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=new)
+        eng.generate(prompts, max_new_tokens=new, patches=patches)
         torch.cuda.synchronize()
         timing["wall"] = (time.perf_counter() - t0) * 1e3
 
@@ -5864,7 +6157,8 @@ def breakdown(torch, eng, prompts, label="falcon3-1b", new=16, before=None):
     if busy <= 0:
         print("breakdown: device time not measured (the trace holds none)")
         return
-    print(f"breakdown of one {label} 6 x ({prompts.shape[1]} + {new}) generate: wall {wall:.2f} "
+    rows = f"{prompts.shape[1]}" if patches is None else f"{patches.shape[1]} + {prompts.shape[1]}"
+    print(f"breakdown of one {label} 6 x ({rows} + {new}) generate: wall {wall:.2f} "
           f"ms, device busy "
           f"{busy:.2f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
     for e in events[:8]:
@@ -5963,7 +6257,7 @@ def main() -> int:
               ("kernel 3 window form", lambda: window_prefill_phase(torch, gen, swa_theta, smi),
                fp.WINDOW_KERNEL, "mixtral-8x22b"),
               ("kernel 3 ring chunked form", lambda: ring_chunk_phase(torch, gen, swa_theta, smi),
-               fp.CHUNK_RING_KERNEL, "mixtral-8x22b chunked (16 layers)")]
+               fp.CHUNK_RING_KERNEL, f"mixtral-8x22b chunked ({MIXTRAL_CUT} layers)")]
     # the fp8-tier forms (A1c, A3d, A4a): (label, form, theta, kernel, path)
     fp8_decode = [("kernel 2 fp8 form", "fused", theta, fd.FP8_KERNEL, "falcon3-1b fp8"),
                   ("kernel 6 fp8 form", "post", theta, fd.FP8_GQA_KERNEL,
@@ -6031,6 +6325,14 @@ def main() -> int:
     print(f"ssm families phase's profiler traces: {trace_line(before)}")
     paths.update(ssm_paths)
     tok_s.update(ssm_tok_s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0, before = time.perf_counter(), dict(TRACE_SECONDS)
+    fe_paths, fe_tok_s = frontend_families_phase(torch, smi)
+    print(f"[frontend families phase: {time.perf_counter() - t0:.2f} s]")
+    print(f"frontend families phase's profiler traces: {trace_line(before)}")
+    paths.update(fe_paths)
+    tok_s.update(fe_tok_s)
     gc.collect()
     torch.cuda.empty_cache()
     t0, before = time.perf_counter(), dict(TRACE_SECONDS)

@@ -1,7 +1,8 @@
 """Model configs of the port (reference: ``repro/configs/base.py``,
 ``repro/configs/falcon3_1b.py``, ``qwen3_8b.py``, ``qwen3_32b.py``,
 ``gemma_7b.py``, ``deepseek_coder_33b.py``, ``deepseek_v3_671b.py`` and
-``mixtral_8x22b.py``, ``mamba2_130m.py`` and ``zamba2_7b.py``).
+``mixtral_8x22b.py``, ``mamba2_130m.py``, ``zamba2_7b.py``,
+``llava_next_34b.py`` and ``hubert_xlarge.py``).
 
 A copy of the fields the ported paths read — the dense family (falcon3-1b:
 untied, SwiGLU, full GQA attention; its speculative draft falcon3-draft,
@@ -14,12 +15,16 @@ family with sliding-window GQA attention (mixtral-8x22b: a ring-buffer
 cold tier of ``swa_window`` rows, no hot tier), the attention-free SSM
 family (mamba2-130m: a stack of Mamba2 blocks, ``attn_type="none"``) and
 the hybrid family (zamba2-7b: groups of ``hybrid_attn_every`` Mamba2
-blocks, each followed by one shared attention + MLP block) — so the port
-imports nothing of the JAX package. ``BitNetConfig.impl`` mirrors the
-reference's dispatch switch: ``"auto"`` runs the CUDA kernels on CUDA
-tensors and the plain PyTorch versions on CPU tensors; ``"plain"`` forces
-the plain versions everywhere (used to run the same path twice for
-comparison).
+blocks, each followed by one shared attention + MLP block), the vision
+family (llava-next-34b: ``n_patches`` image-patch features of
+``frontend_dim`` projected ahead of the text, then a dense decoder) and the
+audio family (hubert-xlarge: an encoder-only stack over projected frame
+features, bidirectional attention and the non-gated ``"gelu"`` MLP, no
+decode) — so the port imports nothing of the JAX package.
+``BitNetConfig.impl`` mirrors the reference's dispatch switch: ``"auto"``
+runs the CUDA kernels on CUDA tensors and the plain PyTorch versions on
+CPU tensors; ``"plain"`` forces the plain versions everywhere (used to run
+the same path twice for comparison).
 """
 
 from __future__ import annotations
@@ -92,7 +97,7 @@ class BitNetConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" | "moe" | "ssm" | "hybrid"
+    family: str  # "dense" | "moe" | "ssm" | "hybrid" | "vlm" | "audio"
     n_layers: int
     d_model: int
     n_heads: int
@@ -100,7 +105,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // n_heads
-    activation: str = "swiglu"  # "swiglu" | "geglu" (gated); "gelu" (non-gated) is not ported
+    activation: str = "swiglu"  # "swiglu" | "geglu" (gated) | "gelu" (non-gated)
     qk_norm: bool = False  # RMSNorm over each q and k head before RoPE (qwen3)
     attn_type: str = "full"  # "full" (GQA) | "swa" (GQA, sliding window) | "mla" | "none"
     swa_window: int = 4096
@@ -109,7 +114,11 @@ class ModelConfig:
     decode_headroom: int = 128
     tie_embeddings: bool = False  # the lm_head is embed.T (no lm_head leaf)
     scale_embed: bool = False  # embeddings scaled by sqrt(d_model) (gemma)
+    is_encoder: bool = False  # bidirectional attention, no decode (hubert)
     hybrid_attn_every: int = 0  # zamba2: the shared attention block every k layers
+    frontend: str = "none"  # "none" | "audio" | "vision"
+    frontend_dim: int = 0  # width of the frame / patch features
+    n_patches: int = 0  # vision: image patches per request, ahead of its text
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
@@ -154,6 +163,11 @@ def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.family == "hybrid":
         kw["hybrid_attn_every"] = 2
         kw["n_layers"] = 5  # 2 groups of 2 + a tail of 1
+    if cfg.frontend == "audio":
+        kw["frontend_dim"] = 32
+    if cfg.frontend == "vision":
+        kw["frontend_dim"] = 32
+        kw["n_patches"] = 8
     if cfg.bitnet.lora_rank:
         kw["bitnet"] = dataclasses.replace(cfg.bitnet, lora_rank=4)
     kw.update(overrides)
@@ -347,14 +361,57 @@ ZAMBA2_7B = ModelConfig(
     source="arXiv:2411.15242; unverified",
 )
 
+# llava-next-34b — a Yi-34B-like dense decoder (GQA rep 7) behind a
+# two-layer projector of 576 precomputed CLIP patch features of 1024 (one
+# 336 px tile): the patches are the sequence's early tokens, read at every
+# decode step [hf:llava-hf/llava-v1.6; unverified]
+LLAVA_NEXT_34B = ModelConfig(
+    name="llava-next-34b",
+    family="vlm",
+    n_layers=60,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=20480,
+    vocab_size=64000,
+    frontend="vision",
+    frontend_dim=1024,
+    n_patches=576,
+    rope_theta=5_000_000.0,
+    source="hf:llava-hf/llava-v1.6-mistral-7b-hf; unverified",
+)
+
+# hubert-xlarge — encoder-only (bidirectional MHA 16 x 80, the non-gated
+# gelu MLP) over precomputed frame features of 512 (the conv feature
+# extractor is a projection); no decode [arXiv:2106.07447; unverified]
+HUBERT_XLARGE = ModelConfig(
+    name="hubert-xlarge",
+    family="audio",
+    n_layers=48,
+    d_model=1280,
+    n_heads=16,
+    n_kv_heads=16,
+    head_dim=80,
+    d_ff=5120,
+    vocab_size=504,
+    activation="gelu",
+    is_encoder=True,
+    frontend="audio",
+    frontend_dim=512,
+    rope_theta=10_000.0,
+    source="arXiv:2106.07447; unverified",
+)
+
 _DENSE_FAMILIES = (QWEN3_8B, QWEN3_32B, GEMMA_7B, DEEPSEEK_CODER_33B)
 _SSM_FAMILIES = (MAMBA2_130M, ZAMBA2_7B)
-_REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, DEEPSEEK_V3_671B_L5,
-                        MIXTRAL_8X22B, *_DENSE_FAMILIES, *_SSM_FAMILIES)}
-_SMOKE: Dict[str, ModelConfig] = {
-    c.name: shrink(c) for c in (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, MIXTRAL_8X22B,
-                                *_DENSE_FAMILIES, *_SSM_FAMILIES)}
+_FRONTEND_FAMILIES = (LLAVA_NEXT_34B, HUBERT_XLARGE)
+_ARCHS = (FALCON3_1B, FALCON3_DRAFT, DEEPSEEK_V3_671B, MIXTRAL_8X22B, *_DENSE_FAMILIES,
+          *_SSM_FAMILIES, *_FRONTEND_FAMILIES)
+# deepseek-v3-671b-l5 is a depth cut for one card, not an architecture of
+# the registry: it has no smoke config and list_configs() leaves it out
+_REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in (*_ARCHS, DEEPSEEK_V3_671B_L5)}
+_SMOKE: Dict[str, ModelConfig] = {c.name: shrink(c) for c in _ARCHS}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -363,3 +420,9 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _SMOKE[name]
+
+
+def list_configs() -> Tuple[str, ...]:
+    """The registered architectures, sorted: the reference's
+    ``list_configs()``."""
+    return tuple(sorted(_SMOKE))

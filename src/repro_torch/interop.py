@@ -21,8 +21,12 @@ leaves keep their expert dimension (packed (E, K/g, N), scale (E,) or
 per-column (E, N) for a fused w_gu). LoRA
 factors, norms, the embedding, the lm_head (none in a model that ties
 its embeddings, such as a speculative draft) and the float dict leaves
-(``router``; MLA's ``w_uk`` / ``w_uv``, as ``{"w"}`` or already
-fake-quantized ``{"fq"}``) come across unchanged.
+(``router``; MLA's ``w_uk`` / ``w_uv`` and the ``frontend``'s
+projections, as ``{"w"}`` or already fake-quantized ``{"fq"}``) come
+across unchanged. The reference keeps the last two float and ternarizes
+them at each use, so a caller carries them as the reference's own
+``weight_quant_ste`` values (``{"fq"}``): the port's ``pack_params``
+would otherwise quantize the floats with its own absmean.
 
 Integrity stamps come across too: ``wsum`` sliced per layer like the
 scale, and ``crc``, which the reference stamps over a whole stacked leaf,

@@ -1,1 +1,1 @@
-"""The dense model family on packed ternary weights (reference: ``repro/models``)."""
+"""The model families on packed ternary weights (reference: ``repro/models``)."""

@@ -14,7 +14,8 @@ well: the kernels' paged forms read its cold tier through the page
 table, and the appends write through it.
 ``blockwise_attention`` is the plain full-sequence reference the tests
 hold both against, and ``attention_full`` runs it for the hybrid family's
-prefill, as the reference does.
+prefill and the full-sequence ``transformer.forward`` (bidirectional for
+an encoder), as the reference does.
 
 Sliding-window attention (``cfg.attn_type == "swa"``, mixtral-8x22b) runs
 the same paths with ``window = cfg.swa_window`` over a ring cold tier (no
@@ -136,13 +137,14 @@ def _window(cfg: ModelConfig):
 
 def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                    return_kv: bool = False):
-    """Full-sequence causal attention in plain PyTorch (reference:
-    ``attention_full``): the projections, ``apply_rope`` on q and k at
-    ``positions`` (s,), ``blockwise_attention``, then ``wo``. The hybrid
-    family's prefill runs here, as the reference's does (its flash-prefill
-    path admits only the attention-cache families). x (b, s, d_model) ->
-    y, and with ``return_kv`` also the rotated k and the v (b, s, g, hd)
-    for the cache fill."""
+    """Full-sequence attention in plain PyTorch (reference:
+    ``attention_full``), causal unless ``cfg.is_encoder``: the
+    projections, ``apply_rope`` on q and k at ``positions`` (s,),
+    ``blockwise_attention``, then ``wo``. The hybrid family's prefill and
+    ``transformer.forward`` run here, as the reference's do (its
+    flash-prefill path admits only the attention-cache families). x (b, s,
+    d_model) -> y, and with ``return_kv`` also the rotated k and the v (b,
+    s, g, hd) for the cache fill."""
     b, s, _ = x.shape
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(p, x, cfg)
@@ -150,6 +152,7 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.
     k = apply_rope(k, positions[None], cfg.rope_theta)
     qg = q.reshape(b, s, g, h // g, hd).permute(0, 2, 3, 1, 4)  # (b, g, rep, s, hd)
     o = blockwise_attention(qg, k.transpose(1, 2), v.transpose(1, 2),
+                            causal=not cfg.is_encoder,
                             window=_window(cfg)[0])  # (b, g, rep, s, hd)
     o = o.permute(0, 3, 1, 2, 4).reshape(b, s, h * hd)
     y = qops.linear(p["wo"], o, cfg, lora_leaf=p.get("lora_o"))

@@ -1,5 +1,5 @@
-"""Shared layers: RMSNorm, RoPE, the gated MLP, SwiGLU or GeGLU
-(reference: ``repro/models/layers.py``)."""
+"""Shared layers: RMSNorm, RoPE, the MLP: gated (SwiGLU or GeGLU) or the
+non-gated GELU one of an encoder (reference: ``repro/models/layers.py``)."""
 
 from __future__ import annotations
 
@@ -48,27 +48,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def _check_gated(cfg: ModelConfig):
-    if cfg.activation not in ("swiglu", "geglu"):
-        raise NotImplementedError(f"activation {cfg.activation!r} (the non-gated MLP) is not "
-                                  "ported")
+ACTIVATIONS = ("swiglu", "geglu", "gelu")
+
+
+def _check_activation(cfg: ModelConfig):
+    if cfg.activation not in ACTIVATIONS:
+        raise NotImplementedError(f"activation {cfg.activation!r}: the MLP is one of "
+                                  f"{ACTIVATIONS}")
 
 
 def init_mlp(cfg: ModelConfig, d_ff: int | None = None, *, generator, device,
              dtype=torch.float32) -> dict:
-    _check_gated(cfg)
+    """``ln``, then ``gate`` and ``up`` (gated) or ``up`` alone (the
+    non-gated ``"gelu"`` MLP), then ``down``."""
+    _check_activation(cfg)
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    p = {
-        "ln": torch.ones((d,), dtype=dtype, device=device),
-        "gate": qops.init_linear(d, f, generator=generator, device=device, dtype=dtype),
-        "up": qops.init_linear(d, f, generator=generator, device=device, dtype=dtype),
-        "down": qops.init_linear(f, d, generator=generator, device=device, dtype=dtype),
-    }
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    p = {"ln": torch.ones((d,), dtype=dtype, device=device)}
+    if cfg.activation != "gelu":
+        p["gate"] = qops.init_linear(d, f, **kw)
+    p["up"] = qops.init_linear(d, f, **kw)
+    p["down"] = qops.init_linear(f, d, **kw)
     if cfg.bitnet.lora_rank and "down" in cfg.bitnet.lora_targets:
         from repro_torch.core import lora as lora_lib
 
-        p["lora_down"] = lora_lib.init(f, d, cfg.bitnet.lora_rank, generator=generator,
-                                       device=device, dtype=dtype)
+        p["lora_down"] = lora_lib.init(f, d, cfg.bitnet.lora_rank, **kw)
     return p
 
 
@@ -92,9 +96,13 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    _check_gated(cfg)
+    _check_activation(cfg)
     h = rms_norm(x, p["ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
-    # fused packed gate‖up: one act-quant + one kernel launch for both halves
-    g, u = qops.fused_linear(p["wgu"], h, cfg)
-    act = gelu_tanh(g) if cfg.activation == "geglu" else F.silu(g)
-    return qops.linear(p["down"], act * u, cfg, lora_leaf=p.get("lora_down"))
+    if cfg.activation == "gelu":
+        # the non-gated MLP: its ``up`` leaf has no gate sibling to fuse with
+        act = gelu_tanh(qops.linear(p["up"], h, cfg))
+    else:
+        # fused packed gate‖up: one act-quant + one kernel launch for both halves
+        g, u = qops.fused_linear(p["wgu"], h, cfg)
+        act = (gelu_tanh(g) if cfg.activation == "geglu" else F.silu(g)) * u
+    return qops.linear(p["down"], act, cfg, lora_leaf=p.get("lora_down"))

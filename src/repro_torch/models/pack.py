@@ -8,8 +8,11 @@ by expert, one absmean each), then merges the same-input groups of
 ``FUSE_GROUPS`` — wq‖wk‖wv, gate‖up, shared_gate‖shared_up, MLA's
 w_dq‖w_dkv and the experts' w_gate‖w_up — into ``FusedPackedLinear``s
 with per-column scales: one act-quant and one kernel launch per group.
-MLA's float-kept factors ``w_uk`` / ``w_uv`` become ``{"fq":
-weight_quant_ste(w)}``, the value the reference computes at every use;
+MLA's float-kept factors ``w_uk`` / ``w_uv`` and every projection of
+the ``frontend`` (an audio model's one, a vision model's ``proj1`` and
+``proj2``) become ``{"fq": weight_quant_ste(w)}``, the value the reference
+computes at every use (it keeps them unpacked and ternarizes them in
+``qops.linear``);
 the router, embedding and lm_head stay float (``SKIP_KEYS``), and so do a
 Mamba2 block's norms, conv, ``a_log``, ``d_skip``, ``dt_bias`` and LoRA
 factors (only its ``in_proj`` and ``out_proj`` pack). Leaves that
@@ -59,7 +62,9 @@ PACK_KEYS = {
     "in_proj", "out_proj",  # Mamba2 blocks (unfused: they take different inputs)
     "w_dq", "w_uq", "w_dkv",  # MLA projections
 }
-FQ_KEYS = {"w_uk", "w_uv"}  # MLA factors: float-kept, ternarized at use
+# float-kept, ternarized at use: MLA's factors, and the frontend's
+# projections (every {"w"} leaf of its subtree)
+FQ_KEYS = {"w_uk", "w_uv", "frontend"}
 SKIP_KEYS = {"embed", "lm_head", "router"} | FQ_KEYS
 
 # Same-input sibling projections merged by the fusion pass (the order fixes
@@ -122,6 +127,16 @@ def _fuse_tree(tree):
     return out
 
 
+def _fake_quant(tree):
+    """Every float ``{"w"}`` leaf of a subtree as ``{"fq":
+    weight_quant_ste(w)}``; ``{"fq"}`` leaves pass through."""
+    if set(tree) == {"w"}:
+        return {"fq": weight_quant_ste(tree["w"])}
+    if set(tree) == {"fq"}:
+        return tree
+    return {k: _fake_quant(v) for k, v in tree.items()}
+
+
 def pack_params(params, cfg: ModelConfig, codec: str | None = None,
                 integrity: bool = False):
     """Convert a float parameter tree to the packed-inference tree, on the
@@ -137,8 +152,8 @@ def pack_params(params, cfg: ModelConfig, codec: str | None = None,
         if isinstance(tree, dict):
             if set(tree) == {"w"} and name in PACK_KEYS:
                 return pack_weight(tree["w"], codec)
-            if set(tree) == {"w"} and name in FQ_KEYS:
-                return {"fq": weight_quant_ste(tree["w"])}
+            if name in FQ_KEYS:
+                return _fake_quant(tree)
             if name in SKIP_KEYS:
                 return tree
             return {k: walk(v, k) for k, v in tree.items()}

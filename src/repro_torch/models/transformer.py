@@ -1,12 +1,17 @@
-"""Decoder LM: init / prefill / decode with the tiered DR cache
-(reference: ``repro/models/transformer.py``, the dense, moe, ssm and
-hybrid families).
+"""Decoder LM: init / prefill / decode with the tiered DR cache, and the
+full-sequence forward (reference: ``repro/models/transformer.py``, the
+dense, moe, ssm, hybrid, vlm and audio families).
 
 Parameters are a plain dict: ``embed``, ``final_ln``, ``lm_head`` (absent
 under ``cfg.tie_embeddings``, where the lm_head is ``embed.T``) and the
 layer stacks, lists with one dict per layer (the reference stacks layers
 and scans them; here a Python loop walks the list):
-  * dense: ``blocks``, each ``{"attn": ..., "mlp": ...}``;
+  * dense, vlm and audio: ``blocks``, each ``{"attn": ..., "mlp": ...}``;
+    vlm and audio also hold ``frontend``, the projection of the patch or
+    frame features into d_model (audio: one ``{"w"}`` leaf; vision:
+    ``proj1``, gelu, ``proj2``), fake-quantized at pack time (``{"fq"}``)
+    and run as float products, as the reference's unpacked leaves are. An
+    audio model keeps the reference's unused ``embed``;
   * moe: ``dense_blocks`` (the leading dense-FFN layers, ``{"attn",
     "mlp"}``; absent without any, as in mixtral) then ``moe_blocks``
     (``{"attn", "moe"}``); attention is MLA when ``cfg.attn_type ==
@@ -37,6 +42,15 @@ the state of an inactive slot kept as it was, and kernel 2 for the shared
 block. As in the reference, a Mamba2 block's output REPLACES the hidden
 state: there is no residual around it.
 
+The vlm family is the dense decoder behind its frontend: its prefill
+concatenates the ``n_patches`` projected patch rows ahead of the text
+embeddings (s = n_patches + text) and runs the dense prefill over them; its
+cache and decode step are the dense ones. The audio family is encoder-only:
+``forward`` (bidirectional ``attention_full`` over the projected frames)
+is its one path, and ``init_decode_cache`` / ``prefill`` refuse it with
+the reference's ``ValueError``. ``forward`` runs the attention-stack
+families (dense, vlm, audio) in packed mode.
+
 Speculative decoding (``serving/engine.py``) verifies a K-token chunk with
 ``spec_verify_chunk`` (the chunk step's layers over the no-append form of
 attention, the lm_head once per chunk position) and appends what it keeps
@@ -56,7 +70,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import qops
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import apply_mlp, dtype_const, init_mlp, rms_norm
+from repro_torch.models.layers import apply_mlp, dtype_const, gelu_tanh, init_mlp, rms_norm
 from repro_torch.models.pack import pack_params
 
 DEFAULT_HOT_CAP = 32  # paper: 32 buffered early tokens (S = 128)
@@ -72,7 +86,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     drawn, so no float copy of the stack exists (mixtral-8x22b's float
     attention projections alone take 20 GB); the result equals
     ``pack_params(init_params(...))``, draw for draw."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -89,10 +103,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     def done(block: dict) -> dict:
         return pack_params(block, cfg) if pack else block
 
+    if cfg.frontend == "audio":
+        params.update(done({"frontend": qops.init_linear(cfg.frontend_dim, d, **kw)}))
+    elif cfg.frontend == "vision":
+        params.update(done({"frontend": {"proj1": qops.init_linear(cfg.frontend_dim, d, **kw),
+                                         "proj2": qops.init_linear(d, d, **kw)}}))
+
     def mamba(n):
         return [done(ssm_lib.init_mamba_block(cfg, **kw)) for _ in range(n)]
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "audio"):
         params["blocks"] = [
             done({"attn": init_attn(cfg, **kw), "mlp": init_mlp(cfg, **kw)})
             for _ in range(cfg.n_layers)
@@ -138,9 +158,9 @@ def layer_stacks(cfg: ModelConfig):
     """(parameter stack, cache stack, layers) of the attention-cache
     families, in the order the layers run; a MoE model without dense
     layers has no dense stack."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise ValueError(f"the {cfg.family} family has no attention layer stack")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return (("blocks", "attn", cfg.n_layers),)
     nd = cfg.moe.n_dense_layers
     moe = ("moe_blocks", "attn_moe", cfg.n_layers - nd)
@@ -163,6 +183,32 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, dtype) -> torc
     x = params["embed"]["w"][tokens.long()].to(dtype)
     if cfg.scale_embed:
         x = x * dtype_const(cfg.d_model ** 0.5, dtype)
+    return x
+
+
+def _frontend_embed(params, cfg: ModelConfig, feats: torch.Tensor) -> torch.Tensor:
+    """Frame or patch features (b, n, frontend_dim) -> (b, n, d_model)
+    (reference: ``_frontend_embed``): audio one projection, vision
+    ``proj1``, gelu (tanh form), ``proj2``; each a fake-quantized float
+    product (``qops.linear``'s ``{"fq"}`` leaf)."""
+    fe = params["frontend"]
+    if cfg.frontend == "audio":
+        return qops.linear(fe, feats, cfg)
+    return qops.linear(fe["proj2"], gelu_tanh(qops.linear(fe["proj1"], feats, cfg)), cfg)
+
+
+def _input_embed(params, cfg: ModelConfig, tokens, feats, dtype) -> torch.Tensor:
+    """The sequence a model's stack reads: the text embeddings; a vlm's
+    projected patches ahead of them; an audio model's projected frames.
+    Missing features raise the reference's ``KeyError`` ('frames' /
+    'patches')."""
+    if cfg.frontend != "none" and feats is None:
+        raise KeyError("frames" if cfg.family == "audio" else "patches")
+    if cfg.family == "audio":
+        return _frontend_embed(params, cfg, feats.to(dtype))
+    x = _embed_tokens(params, cfg, tokens, dtype)
+    if cfg.family == "vlm":
+        x = torch.cat([_frontend_embed(params, cfg, feats.to(dtype)), x], dim=1)
     return x
 
 
@@ -194,8 +240,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     every layer, so the engine keeps one host-side page account. The
     tiers are in ``dtype``, or fp8 (e4m3) under ``cfg.bitnet.kv_fp8``
     whatever the layout; the recurrent families' zero states
-    (``ssm.init_mamba_state``) keep ``dtype`` (reference:
-    ``init_decode_cache``)."""
+    (``ssm.init_mamba_state``) keep ``dtype``. The encoder-only audio
+    family has none: ``ValueError(family)``, as in the reference
+    (``init_decode_cache``)."""
+
+    if cfg.family == "audio":
+        raise ValueError(cfg.family)  # encoder-only: no decode cache
 
     def attn(n):
         return _attn_cache(cfg, batch, max_len, hot_cap, dtype, device, n, paged, page_size,
@@ -326,20 +376,48 @@ def _recurrent_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, max_len:
     return x, cache
 
 
+def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Full-sequence forward in packed mode (reference: ``forward(mode=
+    "packed")`` with ``_attn_block_fwd``) of the attention-stack families:
+    ``batch`` holds ``"tokens"`` (b, s) and / or the features
+    ``"frames"`` (audio) or ``"patches"`` (vlm, ahead of the tokens); the
+    blocks run ``attention_full`` (bidirectional for an encoder) and the
+    MLP, then ``final_ln`` and the lm_head. Returns (b, s, vocab) f32
+    logits."""
+    if cfg.family not in ("dense", "vlm", "audio") or cfg.attn_type != "full":
+        raise NotImplementedError(
+            f"forward of {cfg.name} (family {cfg.family}, attention {cfg.attn_type}): the "
+            "full-sequence MoE, MLA (mla_full), SWA and Mamba2 stacks are not ported")
+    feats = batch.get("frames" if cfg.family == "audio" else "patches")
+    x = _input_embed(params, cfg, batch.get("tokens"), feats, params["final_ln"].dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for bp in params["blocks"]:
+        x = _ffn(bp, x + attn.attention_full(bp["attn"], x, cfg, positions), cfg)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps, impl=cfg.bitnet.impl)
+    return _lm_logits(params, cfg, x)
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             hot_cap: int = DEFAULT_HOT_CAP, max_len: Optional[int] = None,
-            logit_rows: Optional[int] = None):
+            logit_rows: Optional[int] = None, patches: Optional[torch.Tensor] = None):
     """Prompt (b, s) -> (last-token logits (b, V) f32, filled cache).
 
     The per-layer flash-prefill loop of the reference's ``_prefill_flash``:
     each layer's attention fills its cache rows, then its MLP or MoE runs;
-    the ssm and hybrid families run ``_recurrent_prefill``. ``logit_rows``:
-    the lm_head's row count (``_lm_logits``)."""
+    the ssm and hybrid families run ``_recurrent_prefill``. A vlm's
+    ``patches`` (b, n_patches, frontend_dim) are projected and
+    concatenated ahead of the text, so the sequence is n_patches + s long;
+    the audio family has no prefill (the reference's ``ValueError``).
+    ``logit_rows``: the lm_head's row count (``_lm_logits``)."""
+    if cfg.family == "audio":
+        raise ValueError("encoder-only arch has no decode/prefill phase")
     b, s = tokens.shape
+    if cfg.family == "vlm":
+        s += cfg.n_patches
     if max_len is None:
         max_len = s + cfg.decode_headroom
     dtype = params["final_ln"].dtype
-    x = _embed_tokens(params, cfg, tokens, dtype)
+    x = _input_embed(params, cfg, tokens, patches, dtype)
     if cfg.family in ("ssm", "hybrid"):
         x, cache = _recurrent_prefill(params, cfg, x, max_len, hot_cap)
     else:

@@ -40,6 +40,16 @@ reference: ``prefill_chunk > 0`` keeps grouped admission, ``paged=True``
 raises and speculation falls back with a ``RuntimeWarning``. An
 attention-free model keeps a token ledger at 0 bytes a token.
 
+A vision model (llava-next-34b) serves like a dense one, grouped: a
+request's ``patches`` are projected and concatenated ahead of its text at
+admission (requests group by prompt length and patch shape), so its
+cache, ``seq_len`` and prompt ledger count ``n_patches`` + text tokens.
+A frontend rules out chunked admission, as in the reference, so paged
+serving raises and speculation falls back. The encoder-only audio
+family (hubert-xlarge) has no decode: ``start_session`` refuses it with
+the reference's ``ValueError`` naming the family (from
+``init_decode_cache``).
+
 With ``paged=True`` (chunked admission only) the cold tier is a pool of
 pages shared by the slots (``kv_cache.PagedKVCache``), accounted on the
 host by ``serving/paging.py``: each admission round matches every new
@@ -394,7 +404,8 @@ class Engine:
             if not (prefill_chunk > 0 and self._chunked_capable()):
                 warnings.warn(
                     f"speculative decoding needs chunked prefill on an attention-cache "
-                    f"family; {cfg.name} (family={cfg.family}, attn={cfg.attn_type}, "
+                    f"family without a frontend; {cfg.name} (family={cfg.family}, "
+                    f"attn={cfg.attn_type}, frontend={cfg.frontend}, "
                     f"prefill_chunk={prefill_chunk}) falls back to non-speculative decode",
                     RuntimeWarning, stacklevel=2)
                 spec = False
@@ -420,10 +431,11 @@ class Engine:
     def _chunked_capable(self) -> bool:
         """Chunked prefill needs a pure attention-token path: a dense / MoE
         family (no recurrent SSM state to stream) with full or
-        sliding-window GQA attention and no frontend (reference:
-        ``_chunked_capable``; the port has no frontend). Elsewhere
+        sliding-window GQA attention and no frontend features spliced
+        ahead of the text (reference: ``_chunked_capable``). Elsewhere
         ``prefill_chunk > 0`` admits grouped."""
-        return self.cfg.family in ("dense", "moe") and self.cfg.attn_type in ("full", "swa")
+        return (self.cfg.family in ("dense", "moe") and self.cfg.attn_type in ("full", "swa")
+                and self.cfg.frontend == "none")
 
     # ------------------------------------------------------------------
     def _kv_token_bytes(self) -> int:
@@ -513,16 +525,22 @@ class Engine:
             state.numerics_bad |= active & ~torch.isfinite(logits).all(dim=-1)
 
     def _admit(self, state: DecodeState, slots_idx: List[int], group: List[Request]) -> None:
-        """Prefill ``group`` (equal prompt lengths), scatter the fresh cache
+        """Prefill ``group`` (equal prompt lengths and patch shapes; a vision
+        model's patches stacked ahead of the text), scatter the fresh cache
         rows into ``slots_idx`` along every tensor's batch axis (reference:
         ``_scatter_cache``; a recurrent family's SSM and conv states too, so
         a slot's next tenant starts from its own prompt's state) and sample
         the first tokens."""
         toks = torch.as_tensor(np.stack([np.asarray(r.tokens, np.int32) for r in group]),
                                device=self.device)
+        patches = None
+        if group[0].patches is not None:
+            patches = torch.as_tensor(np.stack([np.asarray(r.patches) for r in group]),
+                                      device=self.device)
         # the lm_head at the slot count, as in the chunk and decode steps
         logits, fresh = T.prefill(self.params, self.cfg, toks, hot_cap=self.hot_cap,
-                                  max_len=self.max_len, logit_rows=state.tok.shape[0])
+                                  max_len=self.max_len, logit_rows=state.tok.shape[0],
+                                  patches=patches)
         idx = torch.as_tensor(slots_idx, dtype=torch.long, device=self.device)
         for name, stack in state.cache.items():
             ax = T.batch_axis(name)
@@ -536,7 +554,7 @@ class Engine:
         state.tok[idx] = self._sample_fn(logits)
         state.allocated[idx] = True
         state.done[idx] = max_new <= 0
-        state.seq_len[idx] = toks.shape[1]
+        state.seq_len[idx] = self._attempt_prompt_len(group[0])
         state.n_gen[idx] = 0
         state.max_new[idx] = max_new
         state.out[idx] = 0
@@ -1028,9 +1046,9 @@ class Engine:
             n_gen = int(st.n_gen[s])
             fin = self._build_finished(
                 req, st.out[s, :n_gen].cpu().numpy().astype(np.int32), int(st.seq_len[s]),
-                {k: int(st.ledger[k][s]) for k in TRAFFIC_KEYS}, req.prompt_len,
-                ctx.prefix_used[s], outcome, ctx.token_bytes, drafted=int(st.drafted[s]),
-                accepted=int(st.accepted[s]))
+                {k: int(st.ledger[k][s]) for k in TRAFFIC_KEYS},
+                self._attempt_prompt_len(req), ctx.prefix_used[s], outcome, ctx.token_bytes,
+                drafted=int(st.drafted[s]), accepted=int(st.accepted[s]))
         ctx.finished.append(fin)
         ctx.stats.record_spec(fin)
         if ctx.slot_pages[s]:
@@ -1066,18 +1084,25 @@ class Engine:
                 events += 1
         return events
 
+    def _attempt_prompt_len(self, req: Request) -> int:
+        """The rows an admission of ``req`` prefills: its prompt, and a
+        vision model's patches ahead of it (reference:
+        ``_attempt_prompt_len``)."""
+        return req.prompt_len + (self.cfg.n_patches if req.patches is not None else 0)
+
     def _validate_request(self, r: Request, n_slots: int) -> None:
-        if r.prompt_len == 0:
+        need = self._attempt_prompt_len(r)
+        if need == 0:
             raise ValueError(f"request {r.rid}: empty prompt")
-        if r.prompt_len + r.max_new_tokens > self.max_len:
-            raise ValueError(f"request {r.rid}: prompt {r.prompt_len} + max_new "
+        if need + r.max_new_tokens > self.max_len:
+            raise ValueError(f"request {r.rid}: prompt {need} + max_new "
                              f"{r.max_new_tokens} exceeds max_len {self.max_len}")
         if self.paged:
             # feasibility, not headroom: with lazy growth and preemption a
             # request whose peak page set fits the pool completes (the
             # strongest claim can reclaim every other page); one that
             # cannot fit alone never can
-            peak = pages_needed(min(r.prompt_len + r.max_new_tokens, self.max_len),
+            peak = pages_needed(min(need + r.max_new_tokens, self.max_len),
                                 self.hot_cap, self._page_size)
             if peak > self._pool_pages(n_slots):
                 raise ValueError(f"request {r.rid}: needs {peak} cold pages at its peak but "
@@ -1175,7 +1200,7 @@ class Engine:
                 self._admit(state, slots_idx, group)
                 for s, req in zip(slots_idx, group):
                     ctx.remaining[s] = req.max_new_tokens
-                    ctx.seq_mirror[s] = req.prompt_len
+                    ctx.seq_mirror[s] = self._attempt_prompt_len(req)
                 progress = True
         if self.paged:
             # a speculative round appends up to K rows before its rollback:
@@ -1215,7 +1240,8 @@ class Engine:
                 req = sched.retire(s)
                 fin = self._build_finished(
                     req, out[s, : n_gen[s]].copy(), int(seq_len[s]),
-                    {k: ledger[k][s] for k in TRAFFIC_KEYS}, req.prompt_len,
+                    {k: ledger[k][s] for k in TRAFFIC_KEYS},
+                    self._attempt_prompt_len(req),
                     ctx.prefix_used[s], "finished", ctx.token_bytes,
                     drafted=int(drafted[s]), accepted=int(accepted[s]))
                 ctx.finished.append(fin)
@@ -1559,13 +1585,17 @@ class Engine:
             ctx.pool.decref(pages)
         return hc + kf * ps if ok else 0
 
-    def generate(self, prompts, max_new_tokens: int = 32,
+    def generate(self, prompts, max_new_tokens: int = 32, patches=None,
                  stop_token: Optional[int] = None) -> GenerationResult:
         """Aligned-batch generation: one slot per prompt row, admitted by one
-        prefill (or, with ``prefill_chunk``, by chunk waves)."""
+        prefill (or, with ``prefill_chunk``, by chunk waves); ``patches``
+        (b, n_patches, frontend_dim): each row's image features, for a
+        vision model."""
         t0 = time.perf_counter()
         prompts_np = np.asarray(torch.as_tensor(prompts).cpu(), np.int32)
-        reqs = [Request(rid=i, tokens=prompts_np[i], max_new_tokens=max_new_tokens)
+        patches_np = None if patches is None else np.asarray(torch.as_tensor(patches).cpu())
+        reqs = [Request(rid=i, tokens=prompts_np[i], max_new_tokens=max_new_tokens,
+                        patches=None if patches_np is None else patches_np[i])
                 for i in range(prompts_np.shape[0])]
         finished = sorted(self.serve(reqs, slots=len(reqs), stop_token=stop_token),
                           key=lambda f: f.rid)

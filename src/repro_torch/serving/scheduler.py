@@ -8,8 +8,9 @@ tiered KV cache). This module owns:
   full: the request is shed, never queued without bound);
 - the slot table (which request occupies which slot);
 - admission pairing: ``next_group`` pairs the strongest-claim queued
-  request with every queued request of the same prompt length, up to the
-  number of free slots, so one prefill dispatch serves the group;
+  request with every queued request of the same prompt length and the
+  same patch shape (or none), up to the number of free slots, so one
+  prefill dispatch serves the group;
   ``next_fills`` (chunked admission) gives each free slot the
   strongest-claim queued request, whatever its length;
 - retirement, and preemption support: ``requeue`` puts a victim's request
@@ -46,6 +47,8 @@ class SchedulerError(RuntimeError):
 class Request:
     """One generation request (identity equality: the queue removes by object).
 
+    ``patches`` carries a vision model's image features (n_patches,
+    frontend_dim), projected ahead of the prompt at admission.
     ``deadline`` is an absolute time on the engine's clock
     (``Engine(clock=...)``) after which the request expires; ``priority``
     orders admission and bounds preemption (a request preempts only
@@ -57,6 +60,7 @@ class Request:
     rid: int
     tokens: np.ndarray  # (prompt_len,) int32
     max_new_tokens: int
+    patches: Optional[np.ndarray] = None
     deadline: Optional[float] = None
     priority: int = 0
     # -- engine-managed (preemption / accounting) --
@@ -184,19 +188,28 @@ class SlotScheduler:
         self.queue.remove(best)
         return best
 
+    @staticmethod
+    def _group_key(req: Request):
+        """Requests share a prefill dispatch iff their stacked batch is
+        homogeneous: the same prompt length and the same patch shape
+        (present with one shape, or absent)."""
+        patches = None if req.patches is None else np.asarray(req.patches).shape
+        return (req.prompt_len, patches)
+
     def next_group(self) -> Tuple[List[int], List[Request]]:
         """Pop the strongest-claim queued request plus queued requests of
-        the same prompt length, in claim order, up to the number of free
-        slots. ([], []) when nothing can be admitted."""
+        the same group key (prompt length, patch shape), in claim order, up
+        to the number of free slots. ([], []) when nothing can be
+        admitted."""
         free = self.free_slots()
         if not free or not self.queue:
             return [], []
-        key = min(self.queue, key=lambda r: r.claim).prompt_len
+        key = self._group_key(min(self.queue, key=lambda r: r.claim))
         group: List[Request] = []
         for req in sorted(self.queue, key=lambda r: r.claim):
             if len(group) >= len(free):
                 break
-            if req.prompt_len == key:
+            if self._group_key(req) == key:
                 group.append(req)
         for req in group:
             self.queue.remove(req)

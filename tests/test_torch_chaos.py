@@ -294,25 +294,46 @@ def test_chaos_is_deterministic_per_seed(sides):
             == sorted((f.rid, f.outcome, len(f.tokens)) for f in fb))
 
 
-def test_chaos_straggler_injection_flags(sides):
+class _FakeClock:
+    """One clock for the engine and the chaos injector. Each of the
+    engine's ``perf_counter`` reads costs one tick (its iteration's work);
+    the injector reads it for free, and its ``sleep`` advances it. So every
+    iteration time is a count of ticks, whatever the machine's load."""
+
+    TICK = 1e-3
+
+    def __init__(self):
+        self.t = 0.0
+        self.engine = types.SimpleNamespace(perf_counter=self._work)
+        self.chaos = types.SimpleNamespace(perf_counter=lambda: self.t, sleep=self._sleep)
+
+    def _work(self):
+        self.t += self.TICK
+        return self.t
+
+    def _sleep(self, seconds):
+        self.t += seconds
+
+
+def test_chaos_straggler_injection_flags(sides, monkeypatch):
     """A slow decode chunk (a sleep inside the loop, 6x the median
-    iteration of a warm-up serve just before, since the plain versions on
-    the CPU set the iteration time) is flagged by the injector's
-    StragglerMonitor and shows in the session's iteration stats. A loaded
-    machine can slow down between the two serves; a pair whose stalled
-    serve ran at more than twice the warm-up's median is measured again."""
+    iteration of a warm-up serve just before) is flagged by the injector's
+    StragglerMonitor and shows in the session's iteration stats. The
+    engine's iteration timer and the injector's clock and sleep run on one
+    fake clock, so no wall clock decides the test."""
+    from repro_torch.serving import chaos as chaos_mod
+    from repro_torch.serving import engine as engine_mod
+
     port, _ = sides
     reqs = lambda: [Request(0, _prompt(300, 8, port.vocab), 40)]  # noqa: E731
     eng = port.engine(slots=1)
-    for _ in range(3):
-        eng.serve(reqs(), slots=1, sync_every=2)
-        p50 = eng.last_stats.iter_p50
-        nap = 6 * p50
-        chaos = ChaosInjector(eng, ChaosConfig(seed=3, straggle_rate=0.15,
-                                               straggle_seconds=nap))
-        fin = eng.serve(reqs(), slots=1, sync_every=2, on_iteration=chaos.on_iteration)
-        if eng.last_stats.iter_p50 < 2 * p50:
-            break
+    clock = _FakeClock()
+    monkeypatch.setattr(engine_mod, "time", clock.engine)
+    monkeypatch.setattr(chaos_mod, "time", clock.chaos)
+    eng.serve(reqs(), slots=1, sync_every=2)
+    nap = 6 * eng.last_stats.iter_p50
+    chaos = ChaosInjector(eng, ChaosConfig(seed=3, straggle_rate=0.15, straggle_seconds=nap))
+    fin = eng.serve(reqs(), slots=1, sync_every=2, on_iteration=chaos.on_iteration)
     assert fin[0].outcome == "finished"
     assert chaos._straggle.fired_at and chaos.monitor.flagged
     assert eng.last_stats.iter_max >= nap > eng.last_stats.iter_p50

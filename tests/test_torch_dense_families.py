@@ -286,12 +286,18 @@ def test_heads_wider_than_d_model_match_reference(jref):
 
 
 def test_non_gated_gelu_is_refused():
+    """The non-gated ``"gelu"`` MLP is ported (hubert-xlarge,
+    ``tests/test_torch_frontends.py``); it is refused on a gated tree (a
+    fused ``wgu`` and no ``up`` leaf), and an activation outside the three
+    is refused at init."""
     cfg = dataclasses.replace(get_smoke_config("gemma-7b"), activation="gelu")
-    with pytest.raises(NotImplementedError, match="gelu"):
-        T.init_params(cfg, seed=0, device="cpu")
+    own = T.init_params(cfg, seed=0, device="cpu", pack=True)
+    assert set(own["blocks"][0]["mlp"]) == {"ln", "up", "down"}
     params = T.init_params(get_smoke_config("gemma-7b"), seed=0, device="cpu", pack=True)
-    with pytest.raises(NotImplementedError, match="gelu"):
+    with pytest.raises(KeyError, match="up"):
         layers.apply_mlp(params["blocks"][0]["mlp"], torch.zeros((1, 2, cfg.d_model)), cfg)
+    with pytest.raises(NotImplementedError, match="relu"):
+        T.init_params(dataclasses.replace(cfg, activation="relu"), seed=0, device="cpu")
 
 
 # ---------------------------------------------------------------------------
